@@ -1,0 +1,20 @@
+"""PyTorch + CUDA port of ``physicsbasedfwi2_tpu``.
+
+The JAX package beside this one is the reference; each module here
+keeps the file name and public names of its counterpart.  The two
+Pallas kernels on the ``marmousi_acoustic`` path are hand-written CUDA
+C++ for Hopper (``csrc/scalar2.cu``), built with ``nvcc`` at first use;
+on CPU tensors their plain PyTorch versions run instead.
+
+This package imports neither JAX nor the JAX package.
+
+Importing it turns TF32 off for matmuls and cuDNN convolutions, so the
+generator runs in full float32 as the reference does.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,131 @@
+"""Synthetic acoustic workload (port of
+``physicsbasedfwi2_tpu/data/synthetic.py``, the acoustic slice).
+
+The velocity models are numpy (copied as they are, so both packages
+make the same model from a seed); the observed gathers come from the
+plain :func:`simulate_acoustic` on the requested device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from physicsbasedfwi2_tpu_torch.geo import (
+    Grid2D, check_cfl, ricker, surface_line,
+)
+from physicsbasedfwi2_tpu_torch.geo.acquisition import Acquisition
+from physicsbasedfwi2_tpu_torch.ops import (
+    AcousticConfig, simulate_acoustic, trace_normalize,
+)
+
+
+def make_layered_model(nz: int, nx: int, *, v_top=1500.0, v_bottom=4000.0,
+                       water_rows: int = 0, seed: int = 0,
+                       n_layers: int = 8) -> np.ndarray:
+    """Random layered velocity model with lateral undulation."""
+    rng = np.random.default_rng(seed)
+    depths = np.sort(rng.uniform(water_rows, nz, n_layers))
+    vels = np.linspace(v_top if water_rows == 0 else 1600.0, v_bottom,
+                       n_layers + 1)
+    x = np.arange(nx)
+    model = np.full((nz, nx), vels[0], np.float32)
+    for i, d in enumerate(depths):
+        und = d + 5.0 * np.sin(2 * np.pi * x / nx * rng.integers(1, 4)
+                               + rng.uniform(0, 2 * np.pi))
+        mask = np.arange(nz)[:, None] >= und[None, :]
+        model[mask] = vels[i + 1]
+    if water_rows > 0:
+        model[:water_rows] = 1500.0
+    return model
+
+
+def make_marmousi_like(nz: int = 151, nx: int = 200, *, seed: int = 0,
+                       water_rows: int = 26) -> np.ndarray:
+    """Marmousi-flavoured model: water, dipping layers, a fault and a
+    high-velocity wedge."""
+    m = make_layered_model(nz, nx, water_rows=water_rows, seed=seed)
+    # dipping fault: shift columns progressively
+    f0 = int(nx * 0.45)
+    shift = ((np.arange(nx) - f0) * 0.15).astype(int)
+    for j in range(nx):
+        if shift[j] > 0:
+            m[:, j] = np.roll(m[:, j], min(shift[j], 10))
+    m[:water_rows] = 1500.0
+    # wedge anomaly
+    zc, xc = int(nz * 0.6), int(nx * 0.55)
+    z, x = np.mgrid[0:nz, 0:nx]
+    wedge = (np.abs(z - zc) < 12) & (np.abs(x - xc) < 30)
+    m[wedge] += 250.0
+    return np.clip(m, 1500.0, 4700.0).astype(np.float32)
+
+
+def smooth_model(m: np.ndarray, iters: int = 40,
+                 preserve_rows: int = 0) -> np.ndarray:
+    """Heavy smoothing -> the low-frequency starting model."""
+    s = m.astype(np.float32).copy()
+    for _ in range(iters):
+        s[1:-1, :] = 0.25 * s[2:, :] + 0.5 * s[1:-1, :] + 0.25 * s[:-2, :]
+        s[:, 1:-1] = 0.25 * s[:, 2:] + 0.5 * s[:, 1:-1] + 0.25 * s[:, :-2]
+    if preserve_rows > 0:
+        s[:preserve_rows] = m[:preserve_rows]
+    return s
+
+
+@dataclasses.dataclass
+class SyntheticAcousticWorkload:
+    """In-memory equivalent of the unalignedVelABCD2 npy tree:
+    A = observed gathers, B = true model, C = smooth start model.
+    Tensors live on one device; ``acq`` stays numpy."""
+
+    grid: Grid2D
+    cfg: AcousticConfig
+    acq: Acquisition
+    wavelet: torch.Tensor
+    vp_true: torch.Tensor     # B
+    vp_start: torch.Tensor    # C
+    obs: torch.Tensor         # A  [ns, nt, nr]
+    obs_norm: torch.Tensor
+    from_disk: bool = False   # True: obs is real stored data, not
+                              # regenerable by our operators
+
+    @classmethod
+    def build(cls, *, nz=151, nx=200, dx=10.0, nt=4001, dt=0.001,
+              pml_width=20, freq=8.0, num_shots=18, num_receivers=200,
+              seed=0, water_rows=26, chunk=64, backend="xla",
+              device: torch.device | str = "cpu"):
+        if backend != "xla":
+            raise NotImplementedError(
+                f"backend={backend!r} (kernel B5) is not ported yet "
+                "(ROADMAP Queue B)")
+        grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
+                      pml_width=pml_width)
+        cfg = AcousticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
+        wav = ricker(freq, nt, dt, device=device)
+        acq = surface_line(num_shots, num_receivers, nx,
+                           src_depth=0, rcv_depth=0)
+        vp_np = make_marmousi_like(nz, nx, seed=seed, water_rows=water_rows)
+        check_cfl(float(vp_np.max()), grid)
+        vp_true = torch.as_tensor(vp_np, device=device)
+        vp_start = torch.as_tensor(
+            smooth_model(vp_np, preserve_rows=water_rows), device=device)
+        wl = cls(grid=grid, cfg=cfg, acq=acq, wavelet=wav, vp_true=vp_true,
+                 vp_start=vp_start, obs=None, obs_norm=None)
+        wl.obs = simulate_acoustic(vp_true, wav, *wl.geom, cfg)
+        wl.obs_norm = trace_normalize(wl.obs)
+        return wl
+
+    @property
+    def device(self) -> torch.device:
+        return self.vp_true.device
+
+    @property
+    def geom(self):
+        """(src_z, src_x, rcv_z, rcv_x) as int32 tensors on the
+        workload's device."""
+        return tuple(torch.as_tensor(a, dtype=torch.int32,
+                                     device=self.device)
+                     for a in (self.acq.src_z, self.acq.src_x,
+                               self.acq.rcv_z, self.acq.rcv_x))

@@ -1,0 +1,191 @@
+"""Training loop (port of ``physicsbasedfwi2_tpu/engine/train.py``).
+
+Epoch loop with validation at the top of each epoch, per-epoch
+aggregated losses, periodic checkpointing and wall-clock metrics.
+Run it as ``python -m physicsbasedfwi2_tpu_torch.engine.train
+--workload marmousi_acoustic``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import time
+
+from physicsbasedfwi2_tpu_torch.engine.config import (
+    ExperimentConfig, get_workload, list_workloads,
+)
+from physicsbasedfwi2_tpu_torch.engine.engines import (
+    create_engine, default_device,
+)
+from physicsbasedfwi2_tpu_torch.engine.visualizer import Visualizer
+
+
+class PlateauDetector:
+    """Frequency-continuation plateau detector.
+
+    mode="range": advance when the relative spread of the last N
+    losses drops below eps.  mode="improve": advance when the median of
+    the current window improves on the previous window's by less than
+    eps (relative).  stage_max_epochs > 0 force-advances after that
+    many epochs in the stage."""
+
+    def __init__(self, history: int = 5, eps: float = 5e-10,
+                 mode: str = "range", stage_max_epochs: int = 0):
+        self.hist = collections.deque(maxlen=2 * history
+                                      if mode == "improve" else history)
+        self.window = history
+        self.eps = eps
+        self.mode = mode
+        self.stage_max_epochs = stage_max_epochs
+        self.epochs_in_stage = 0
+
+    def _advance(self) -> bool:
+        self.hist.clear()
+        self.epochs_in_stage = 0
+        return True
+
+    def update(self, loss: float) -> bool:
+        self.hist.append(loss)
+        self.epochs_in_stage += 1
+        if (self.stage_max_epochs
+                and self.epochs_in_stage >= self.stage_max_epochs):
+            return self._advance()
+        if len(self.hist) < self.hist.maxlen:
+            return False
+        h = list(self.hist)
+        if self.mode == "improve":
+            def median(xs):
+                xs = sorted(xs)
+                n = len(xs)
+                return (xs[n // 2] if n % 2 else
+                        0.5 * (xs[n // 2 - 1] + xs[n // 2]))
+            prev, cur = median(h[: self.window]), median(h[self.window:])
+            rel = (prev - cur) / (abs(prev) + 1e-30)
+            if rel <= self.eps:
+                return self._advance()
+            return False
+        lo, hi = min(h), max(h)
+        rel = (hi - lo) / (abs(hi) + 1e-30)
+        if rel <= self.eps:
+            return self._advance()
+        return False
+
+
+def train(cfg: ExperimentConfig, *, epochs: int | None = None,
+          iters_per_epoch: int = 1, workload=None, quiet: bool = False,
+          continue_from: str | int | None = None, start_epoch: int = 1,
+          profile_dir: str | None = None, engine=None, device=None):
+    """Run the training loop; returns (engine, history).
+
+    continue_from: checkpoint tag to resume weights from.
+    engine: drive a pre-built engine instead of create_engine(cfg).
+    device: where a new engine runs (default: the first CUDA card,
+        else the CPU).
+
+    Frequency continuation, profiling and the supervised loop are not
+    ported yet and raise.
+    """
+    if cfg.engine == "supervised":
+        raise NotImplementedError(
+            "the supervised loop is not ported yet (ROADMAP Queue A, "
+            "item 11)")
+    if cfg.freq_stages:
+        raise NotImplementedError(
+            "frequency continuation is not ported yet (ROADMAP Queue A, "
+            "slice-1 leftovers)")
+    if profile_dir:
+        raise NotImplementedError(
+            "profile_dir is not ported yet (ROADMAP Queue A, slice-1 "
+            "leftovers)")
+    if engine is None:
+        kw = {"device": device if device is not None else default_device()}
+        if workload is not None:
+            kw["workload"] = workload
+        engine = create_engine(cfg, **kw)
+    if continue_from is not None:
+        engine.load_networks(continue_from)
+        if not quiet:
+            print(f"resumed weights from checkpoint {continue_from!r}")
+    viz = Visualizer(cfg)
+    viz.dump_config(cfg)
+    epochs = epochs if epochs is not None else cfg.n_epochs
+    history = []
+    for epoch in range(start_epoch, epochs + 1):
+        t0 = time.time()
+        # ---- validation first (the reference validates at epoch top) ----
+        val_losses, model_img = engine.test()
+        # ---- training iterations ----
+        agg = collections.defaultdict(float)
+        for _ in range(iters_per_epoch):
+            losses = engine.optimize_parameters(epoch)
+            for k, v in losses.items():
+                agg[k] += v / iters_per_epoch
+        rec = {"epoch": epoch, **agg, **val_losses,
+               "freq_stage": None,
+               "epoch_time": time.time() - t0}
+        history.append(rec)
+        viz.log_epoch(rec, model_img=model_img)
+        if epoch % cfg.save_epoch_freq == 0 or epoch == epochs:
+            engine.save_networks(epoch)
+            engine.save_networks("latest")
+    return engine, history
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="FWI training (PyTorch port)")
+    p.add_argument("--workload", default="marmousi_acoustic",
+                   choices=list_workloads())
+    p.add_argument("--name", default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--iters-per-epoch", type=int, default=1)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--optimizer", default=None)
+    p.add_argument("--netG", default=None)
+    p.add_argument("--lstart", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--save-dir", default=None)
+    p.add_argument("--small", action="store_true",
+                   help="shrink the workload for smoke testing")
+    p.add_argument("--continue-train", action="store_true",
+                   help="resume from --epoch-tag (default latest)")
+    p.add_argument("--epoch-tag", default="latest")
+    p.add_argument("--start-epoch", type=int, default=1)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda:0 if present, "
+                        "else cpu)")
+    p.add_argument("--set", action="append", default=[],
+                   metavar="FIELD=VALUE", dest="set_fields",
+                   help="override any ExperimentConfig field; values "
+                        "parse as python literals")
+    args = p.parse_args(argv)
+
+    overrides = {}
+    for k in ("lr", "optimizer", "netG", "lstart", "seed"):
+        v = getattr(args, k)
+        if v is not None:
+            overrides[k] = v
+    if args.save_dir:
+        overrides["save_dir"] = args.save_dir
+    from physicsbasedfwi2_tpu_torch.engine.config import parse_set_overrides
+    try:
+        overrides.update(parse_set_overrides(args.set_fields))
+    except ValueError as e:
+        p.error(str(e))
+    cfg = get_workload(args.workload, **overrides)
+    if args.name:
+        cfg = cfg.replace(name=args.name)
+    if args.small:
+        cfg = cfg.replace(nz=48, nx=64, nt=300, num_shots=4,
+                          num_receivers=32, filters=(4, 8, 16),
+                          chunk=25, water_rows=6)
+    _, history = train(
+        cfg, epochs=args.epochs, iters_per_epoch=args.iters_per_epoch,
+        continue_from=args.epoch_tag if args.continue_train else None,
+        start_epoch=args.start_epoch, device=args.device)
+    print(json.dumps(history[-1]))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,94 @@
+"""Generator registry (port of ``physicsbasedfwi2_tpu/models/__init__.py``,
+the AutoEncoderNet names).
+
+``define_generator`` maps a reference generator name to a configured
+module; keyword arguments the module does not take are dropped, as
+the JAX registry drops fields its Flax module lacks.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Any, NamedTuple
+
+from physicsbasedfwi2_tpu_torch.models.autoencoders import (
+    AutoEncoderNet,
+    apply_velocity_output,
+)
+
+# name -> (factory, default kwargs)
+_GENERATORS: dict[str, tuple[Any, dict[str, Any]]] = {}
+
+
+def register_generator(name: str, factory, **defaults):
+    _GENERATORS[name.lower()] = (factory, defaults)
+
+
+def define_generator(name: str, out_shape: tuple[int, int] | None = None,
+                     **overrides):
+    """Instantiate a generator by reference-compatible name."""
+    key = name.lower()
+    if key not in _GENERATORS:
+        raise KeyError(
+            f"unknown generator {name!r}; ported: {sorted(_GENERATORS)} "
+            f"(the other families wait in ROADMAP Queue A, item 11)")
+    factory, defaults = _GENERATORS[key]
+    kwargs = dict(defaults)
+    kwargs.update(overrides)
+    if out_shape is not None:
+        kwargs["out_shape"] = out_shape
+    accepted = set(inspect.signature(factory).parameters)
+    kwargs = {k: v for k, v in kwargs.items() if k in accepted}
+    return factory(**kwargs)
+
+
+# --- deep-image-prior autoencoders (the reference's Auto* names) ---
+for _n in ["Auto", "Auto21", "Auto22", "Auto23", "Auto24", "Auto25",
+           "Auto26", "AutoWav", "Simple24", "AutoN"]:
+    register_generator(_n, AutoEncoderNet)
+register_generator("Auto22CBAM", AutoEncoderNet, use_cbam=True)
+
+
+class GenOut(NamedTuple):
+    """Standard generator output (field [B, H, W, C], latent, VAE
+    posterior stats, flow log|det J|)."""
+
+    field: Any
+    latent: Any = None
+    mu: Any = None
+    logvar: Any = None
+    logdet: Any = None
+
+
+def pack_output(out) -> GenOut:
+    """Map a generator's raw return to GenOut by arity:
+    (field, latent) | (field, latent, logdet) |
+    (field, mu, logvar, z) | (field, mu, logvar, z, logdet)."""
+    if not isinstance(out, tuple):
+        return GenOut(out)
+    if len(out) == 2:
+        return GenOut(out[0], out[1])
+    if len(out) == 3:
+        return GenOut(out[0], out[1], logdet=out[2])
+    if len(out) == 4:
+        return GenOut(out[0], out[3], mu=out[1], logvar=out[2])
+    if len(out) == 5:
+        return GenOut(out[0], out[3], mu=out[1], logvar=out[2],
+                      logdet=out[4])
+    raise TypeError(f"unrecognized generator output arity {len(out)}")
+
+
+def apply_generator(net, *inputs) -> GenOut:
+    """Apply any registry generator and get a GenOut."""
+    return pack_output(net(*inputs))
+
+
+__all__ = [
+    "define_generator",
+    "register_generator",
+    "GenOut",
+    "pack_output",
+    "apply_generator",
+    "AutoEncoderNet",
+    "apply_velocity_output",
+]

@@ -1,0 +1,115 @@
+"""2D scalar acoustic propagator, forward only (port of
+``physicsbasedfwi2_tpu/ops/acoustic.py``).
+
+First-order velocity-pressure staggered-grid finite differences
+(4th-order space, leapfrog time) with split-field PML, batched over
+shots.  The JAX package differentiates this scheme with autodiff; on
+the ported path it only makes observed data (the synthetic workload
+and the validation twin), so the port runs it under ``no_grad`` in
+plain PyTorch.  It is not a Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from physicsbasedfwi2_tpu_torch.geo.grid import Grid2D
+from physicsbasedfwi2_tpu_torch.ops import pml, stencil
+
+
+@dataclasses.dataclass(frozen=True)
+class AcousticConfig:
+    """Static propagator configuration."""
+
+    grid: Grid2D
+    order: int = 4
+    chunk: int = 32
+    vmax_pml: float = 5000.0  # velocity used to scale PML profiles
+
+
+def edge_pad(x: torch.Tensor, top: int, bottom: int, left: int,
+             right: int) -> torch.Tensor:
+    """Replicate-pad the last two axes (``jnp.pad(mode="edge")``)."""
+    nz, nx = x.shape[-2:]
+    rows = torch.arange(-top, nz + bottom, device=x.device).clamp(0, nz - 1)
+    cols = torch.arange(-left, nx + right, device=x.device).clamp(0, nx - 1)
+    return x[..., rows, :][..., cols]
+
+
+def _pad_model(vp: torch.Tensor, grid: Grid2D) -> torch.Tensor:
+    w = grid.pml_width
+    return edge_pad(vp, grid.top_pad, w, w, w)
+
+
+def _damping(cfg: AcousticConfig, device):
+    """Split-PML decay factors on full- and half-cell positions."""
+    g = cfg.grid
+    nz, nx = g.padded_shape
+    top = 0 if g.free_surface else g.pml_width
+    w = g.pml_width
+    dt, dx, v = g.dt, g.dx, cfg.vmax_pml
+
+    def prof(n, lo, half):
+        return pml.sigma_profile(n, lo, w, dx, v, half_cell=half,
+                                 device=device)
+
+    return (
+        pml.damping_factors(prof(nx, w, True), dt)[None, :],     # vx
+        pml.damping_factors(prof(nz, top, True), dt)[:, None],   # vz
+        pml.damping_factors(prof(nx, w, False), dt)[None, :],    # px
+        pml.damping_factors(prof(nz, top, False), dt)[:, None],  # pz
+    )
+
+
+@torch.no_grad()
+def simulate_acoustic(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                      cfg: AcousticConfig) -> torch.Tensor:
+    """Simulate a shot gather.
+
+    Args:
+        vp: [nz, nx] velocity in m/s (interior grid, row 0 = surface).
+        wavelet: [nt] source time function shared by all shots, or
+            [num_shots, nt] per-shot wavelets.
+        src_z, src_x: [num_shots] integer source cell indices.
+        rcv_z, rcv_x: [num_shots, nr] integer receiver cell indices.
+        cfg: static AcousticConfig.
+
+    All tensors on one device.  Returns receivers [num_shots, nt, nr],
+    float32.
+    """
+    g = cfg.grid
+    dev = vp.device
+    vp = vp.to(torch.float32)
+    vp_pad = _pad_model(vp, g)
+    kappa_dt = (vp_pad * vp_pad) * g.dt  # rho == 1 (scalar medium)
+    ax_v, az_v, ax_p, az_p = _damping(cfg, dev)
+    top, w = g.top_pad, g.pml_width
+    src_z = src_z.long() + top
+    src_x = src_x.long() + w
+    rcv_z = rcv_z.long() + top
+    rcv_x = rcv_x.long() + w
+    ns = src_z.shape[0]
+    if wavelet.ndim == 1:
+        wavelet = wavelet[None, :].expand(ns, -1)
+    wavelet = wavelet.to(torch.float32)
+
+    inv_dx = 1.0 / g.dx
+    dt = g.dt
+    shot = torch.arange(ns, device=dev)
+    # moment-source injection: amp * dt * kappa / cell-area
+    src_gain = kappa_dt[src_z, src_x] * (inv_dx * inv_dx)
+    vx = torch.zeros((ns,) + vp_pad.shape, dtype=torch.float32, device=dev)
+    vz, px, pz = (torch.zeros_like(vx) for _ in range(3))
+    recs = torch.empty((ns, g.nt, rcv_x.shape[1]), dtype=torch.float32,
+                       device=dev)
+    for t in range(g.nt):
+        p = px + pz
+        vx = ax_v * (vx + dt * stencil.dx_fwd(p, inv_dx, cfg.order))
+        vz = az_v * (vz + dt * stencil.dz_fwd(p, inv_dx, cfg.order))
+        px = ax_p * (px + kappa_dt * stencil.dx_bwd(vx, inv_dx, cfg.order))
+        pz = az_p * (pz + kappa_dt * stencil.dz_bwd(vz, inv_dx, cfg.order))
+        pz[shot, src_z, src_x] += wavelet[:, t] * src_gain
+        recs[:, t] = (px + pz)[shot[:, None], rcv_z, rcv_x]
+    return recs

@@ -1,0 +1,87 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions,
+at small shapes, on a CUDA card.
+
+These need the card and ``nvcc`` (a CUDA kernel has no CPU or interpret
+mode), so they skip elsewhere.  On a machine with a card and without
+JAX, run them without the JAX-side conftest:
+``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from physicsbasedfwi2_tpu_torch.geo import ricker
+from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
+    fwi_l1_loss_grad, fwi_l1_loss_grad_plain,
+)
+from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
+    _prepare2, _rows_cuda, forward2, forward2_plain,
+)
+
+from torch_parity import acoustic_case, rel_l2, rel_max, torch_acoustic
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda:0")
+
+
+@pytest.fixture(scope="module")
+def case(dev):
+    grid, cfg, wargs, vp, geom = acoustic_case()
+    vp = vp + np.random.default_rng(9).uniform(-50, 50, vp.shape).astype(
+        np.float32)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in geom)
+    return (torch_acoustic(grid, cfg), ricker(*wargs, device=dev),
+            torch.as_tensor(vp, device=dev), geom)
+
+
+@pytest.mark.parametrize("return_rows", [False, True])
+def test_forward2_kernel_matches_plain(case, return_rows):
+    cfg, wav, vp, geom = case
+    before = forward2.launches
+    got = forward2(vp, wav, *geom, cfg, return_rows=return_rows)
+    torch.cuda.synchronize()
+    assert forward2.launches == before + 1
+    ref = forward2_plain(vp, wav, *geom, cfg, return_rows=return_rows)
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dir_scale", [0.0, 0.5])
+def test_fused_kernel_matches_plain(case, dir_scale):
+    cfg, wav, vp, geom = case
+    g = cfg.grid
+    gen = torch.Generator(device=vp.device).manual_seed(0)
+    obs_rows = torch.zeros((2, 192, 128), device=vp.device)
+    obs_rows[:, :g.nt] = torch.rand((2, g.nt, 128), generator=gen,
+                                    device=vp.device) - 0.5
+    direct = forward2_plain(torch.full_like(vp, 1700.0), wav, *geom, cfg,
+                            return_rows=True)
+    dir_rows = torch.nn.functional.pad(dir_scale * direct,
+                                       (0, 0, 0, 192 - g.nt)).contiguous()
+    before = fwi_l1_loss_grad.launches
+    lk, gk = fwi_l1_loss_grad(vp, wav, *geom, cfg, obs_rows, dir_rows)
+    torch.cuda.synchronize()
+    assert fwi_l1_loss_grad.launches == before + 1
+    lp, gp = fwi_l1_loss_grad_plain(vp, wav, *geom, cfg, obs_rows, dir_rows)
+    # float32 rounding in another order: loss 1e-5, gradient 1e-4 rel L2
+    np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
+    assert rel_l2(gk, gp) <= 1e-4
+
+
+def test_kernel_wrapper_rejects_bad_inputs(case):
+    cfg, wav, vp, geom = case
+    K, dp, dm, _ = _prepare2(vp, cfg)
+    sz = (geom[0] + 12).int()
+    with pytest.raises(ValueError, match="contiguous"):
+        _rows_cuda(K.double(), dp, dm, wav[None].expand(2, -1).contiguous(),
+                   sz, sz, sz, cfg.grid.nt)
+    with pytest.raises(ValueError, match="contiguous"):
+        _rows_cuda(K, dp.t(), dm, wav[None].expand(2, -1).contiguous(),
+                   sz, sz, sz, cfg.grid.nt)

@@ -1,0 +1,85 @@
+"""Shared helpers for the PyTorch-port parity tests (not collected).
+
+Every parity test feeds the same numpy inputs, made from a seed, to a
+JAX function and to its port, and compares the outputs as numpy.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+
+
+def t(a, dtype=None) -> torch.Tensor:
+    """numpy / JAX array -> CPU tensor (a copy)."""
+    out = torch.tensor(np.asarray(a))
+    return out if dtype is None else out.to(dtype)
+
+
+def n(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def rel_max(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    got, ref = n(got), n(ref)
+    return float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30))
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = n(got), n(ref)
+    return float(np.linalg.norm(got - ref) / (np.linalg.norm(ref) + 1e-30))
+
+
+def golden(name: str):
+    return np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
+
+
+def acoustic_case():
+    """test_golden's ``_acoustic_case`` as numpy: (grid kwargs, cfg
+    kwargs, wavelet args, vp, geometry)."""
+    grid = dict(nz=36, nx=44, dx=10.0, nt=180, dt=0.002, pml_width=12)
+    cfg = dict(chunk=20, vmax_pml=2500.0)
+    geom = (np.array([3, 3], np.int32), np.array([10, 30], np.int32),
+            np.full((2, 8), 3, np.int32),
+            np.tile(np.arange(8, dtype=np.int32) * 5 + 2, (2, 1)))
+    vp = np.full((36, 44), 1700.0, np.float32)
+    vp[18:, :] = 2100.0
+    return grid, cfg, (10.0, grid["nt"], grid["dt"]), vp, geom
+
+
+def jax_acoustic(grid, cfg):
+    from physicsbasedfwi2_tpu.geo import Grid2D
+    from physicsbasedfwi2_tpu.ops import AcousticConfig
+    return AcousticConfig(grid=Grid2D(**grid), **cfg)
+
+
+def torch_acoustic(grid, cfg):
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D
+    from physicsbasedfwi2_tpu_torch.ops import AcousticConfig
+    return AcousticConfig(grid=Grid2D(**grid), **cfg)
+
+
+def port_workload(jwl):
+    """The port's SyntheticAcousticWorkload holding the same arrays as
+    a JAX one (CPU tensors)."""
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticAcousticWorkload)
+    from physicsbasedfwi2_tpu_torch.geo.acquisition import Acquisition
+    g = jwl.grid
+    grid = dict(nz=g.nz, nx=g.nx, dx=g.dx, nt=g.nt, dt=g.dt,
+                pml_width=g.pml_width, free_surface=g.free_surface)
+    cfg = torch_acoustic(grid, dict(chunk=jwl.cfg.chunk,
+                                    vmax_pml=jwl.cfg.vmax_pml))
+    acq = Acquisition(*(np.asarray(a) for a in (
+        jwl.acq.src_z, jwl.acq.src_x, jwl.acq.rcv_z, jwl.acq.rcv_x)))
+    return SyntheticAcousticWorkload(
+        grid=cfg.grid, cfg=cfg, acq=acq, wavelet=t(jwl.wavelet),
+        vp_true=t(jwl.vp_true), vp_start=t(jwl.vp_start), obs=t(jwl.obs),
+        obs_norm=t(jwl.obs_norm))

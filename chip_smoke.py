@@ -8,20 +8,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card (``nvidia-smi`` name and power limit), versions, TF32
    settings, and the build of ``physicsbasedfwi2_tpu_torch/csrc`` with
-   ``nvcc`` into ``build/torch_kernels/``;
+   ``nvcc`` into ``build/torch_kernels/`` (registers and spills);
 2. kernel B1 (``forward2``) against its plain PyTorch version at the
-   main path's shapes (151 x 200, PML 20, 18 shots x 200 receivers,
-   nt 4001);
+   acoustic path's shapes (151 x 200, PML 20, 18 shots x 200
+   receivers, nt 4001);
 3. kernel B2 (``fwi_l1_loss_grad``) against its plain version at the
    same shape (on a misfit whose residuals keep their signs, and on
    the real one), and the loss at the true model;
-4. the main path: ``train(get_workload("marmousi_acoustic"), epochs=3)``
-   at full width on ``cuda:0``, with each kernel's launch count over
-   that run.
+4. kernel B3 (``fused_elastic_loss_grad_meds``) and the ring forward
+   (``simulate_elastic_ring``) against their plain versions at the
+   elastic path's shapes (100 x 300, free surface, nt 3334; the ring
+   forward on all 35 shots, B3 on 5 shots x 298 receivers): the ring
+   forward, the ``l2`` misfit, ``tnl1`` with residual signs fixed and
+   on the real misfit, and the loss at the true model;
+5. the acoustic path: ``train(get_workload("marmousi_acoustic"),
+   epochs=3)`` at full width on ``cuda:0``;
+6. the elastic path: ``train(get_workload("marmousi_elastic"),
+   epochs=lstart + 3)`` at full width: the 30 warmup epochs, then 3
+   physics epochs on the 4 Hz continuation stage.
 
+Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is the result object.  The script never
-falls back to the CPU or to the plain versions.
+error, times and bound; the last line is the result object.  The
+script never falls back to the CPU or to the plain versions.
 """
 
 from __future__ import annotations
@@ -35,7 +44,21 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/scalar2.cu"
+EL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/elastic.cu"
 NT = 4001  # marmousi_acoustic's time steps
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# HBM bandwidth
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# flops per cell per time step, counted from the schemes (PERF.md):
+# B1/B2's forward (4th-order Laplacian 11 + update 6) and adjoint; B3's
+# forward (6 staggered derivatives, 2 velocity and 3 stress updates)
+# and its exact transpose.  The recompute that checkpointing adds is
+# not counted: the card could keep every state instead.
+FLOPS_B1 = 17
+FLOPS_B2_ADJ = 20
+FLOPS_B3 = 68
+FLOPS_B3_ADJ = 99
 
 
 class SmokeFailure(RuntimeError):
@@ -63,6 +86,18 @@ def timed_ms(fn, repeats: int = 3) -> tuple[object, float]:
     return out, start.elapsed_time(stop) / repeats
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of flops over the
+    float32 peak and bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def phase_card():
     import torch
 
@@ -84,7 +119,8 @@ def phase_card():
     path, secs, log = cuda_build.build()
     print(f"kernel build: {secs:.1f} s -> {path.relative_to(ROOT)}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(k in line for k in ("entry function", "registers", "spill",
+                                   "error", ".cu:")):
             print(f"  ptxas: {line.strip()}")
     cuda_build.load_library()
 
@@ -123,7 +159,13 @@ def phase_b1(dev):
           f"kernel {ms_k:.2f} ms, plain {ms_p:.2f} ms")
     check(bool(torch.isfinite(rows_k).all()), "B1 rows not finite")
     check(err <= 1e-4 * scale, "B1 disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    g = cfg.grid
+    cells = len(geom[0]) * (g.nz + g.top_pad + g.pml_width) * (
+        g.nx + 2 * g.pml_width)
+    nz8, nx128 = 192, 256
+    io = 3 * nz8 * nx128 * 4 + nbytes(wav, *geom[:3], rows_k)
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+            **bound(FLOPS_B1 * cells * g.nt, io), "library_ms": None}
 
 
 def _rel_l2(a, b) -> float:
@@ -224,7 +266,184 @@ def phase_b2(dev):
     l_true, _ = kernel(obs_rows, v=vp)
     print(f"B2 loss at the true model: {float(l_true):.3e} (tol 1e-6)")
     check(float(l_true) <= 1e-6, "B2 loss at the true model is not ~0")
-    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    ns = len(geom[0])
+    cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
+    flops = (FLOPS_B1 + FLOPS_B2_ADJ) * cells * g.nt
+    # K, d+, d- on [192, 256], the wavelet, the source cells and rows,
+    # obs and direct rows and the receiver mask in; dJ/dK and the loss out
+    io = (3 * 192 * 256 * 4 + nbytes(wav, *geom) + 2 * nbytes(obs_rows)
+          + ns * 256 * 4 + 192 * 256 * 4 + 4)
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+            **bound(flops, io), "library_ms": None}
+
+
+def elastic_case(dev):
+    """marmousi_elastic's grid, its 35 shots, true and starting media,
+    without the workload's simulation."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        make_elastic_model, make_marmousi_like, smooth_model)
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D, elastic_line, ricker
+    from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
+    c = get_workload("marmousi_elastic")
+    grid = Grid2D(nz=c.nz, nx=c.nx, dx=c.dx, nt=c.nt, dt=c.dt,
+                  pml_width=c.pml_width, free_surface=c.free_surface)
+    cfg = ElasticConfig(grid=grid, chunk=c.chunk, vmax_pml=5000.0)
+    vp = make_marmousi_like(c.nz, c.nx, seed=c.seed, water_rows=c.water_rows)
+    true = make_elastic_model(vp, water_rows=c.water_rows)
+    start = [smooth_model(a, preserve_rows=c.water_rows) for a in true]
+    acq = elastic_line(c.num_shots, c.num_receivers, c.nx, c.nz,
+                       src_row=c.water_rows + 1, rcv_row=c.water_rows + 1)
+    geom = tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                 for a in (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x))
+
+    def dev_(arrays):
+        return tuple(torch.as_tensor(a, device=dev) for a in arrays)
+
+    return (cfg, ricker(c.freq, c.nt, c.dt, device=dev), geom, dev_(true),
+            dev_(start))
+
+
+def _rel_meds(got, ref) -> float:
+    """The largest relative L2 error over the five medium gradients."""
+    return max(_rel_l2(a.double(), b.double()) for a, b in zip(got, ref))
+
+
+def phase_b3(dev):
+    """B3 and the ring forward against their plain versions at the
+    elastic path's shapes: (1) the ring forward of all 35 shots, as the
+    engine's setup runs it; then B3 on 5 of them (every 7th), as a
+    physics epoch draws them: (2) the ``l2`` misfit
+    and (3) ``tnl1`` with residual signs fixed (observed rows + 3),
+    each held to the plain version's own float32 error against a
+    float64 run of the same algorithm; (4) ``tnl1`` on the real misfit,
+    held to the plain gradient's move under a 1e-7 relative change of
+    its observed rows; (5) the loss at the true model."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import trace_normalize
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+        fused_elastic_loss_grad_meds, fused_elastic_loss_grad_meds_plain,
+        prep_damp, prep_medium, scatter_rows_el, simulate_elastic_ring,
+        simulate_elastic_ring_plain)
+    cfg, wav, geom_all, true, start = elastic_case(dev)
+    g = cfg.grid
+
+    # (1) the ring forward
+    (ovx, ovz), ms_rk = timed_ms(lambda: simulate_elastic_ring(
+        *true, wav, *geom_all, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom_all, cfg)
+    torch.cuda.synchronize()
+    ms_rp = (time.perf_counter() - t0) * 1e3
+    scale = max(float(pvx.abs().max()), float(pvz.abs().max()))
+    err_r = max(float((ovx - pvx).abs().max()), float((ovz - pvz).abs().max()))
+    print(f"ring forward [{len(geom_all[0])} shots, nt {g.nt}]: max|err| "
+          f"{err_r:.3e} of max {scale:.3e} (tol 1e-4 of max); kernel "
+          f"{ms_rk:.2f} ms, plain {ms_rp:.2f} ms")
+    check(bool(torch.isfinite(ovx).all() and torch.isfinite(ovz).all()),
+          "ring forward not finite")
+    check(err_r <= 1e-4 * scale, "ring forward disagrees with its plain "
+          "version")
+    ring_cells = len(geom_all[0]) * (g.nz + 2 + g.pml_width) * (
+        g.nx + 2 * g.pml_width)
+    ring_io = 6 * 128 * 384 * 4 + nbytes(wav, *geom_all, ovx, ovz)
+    pick = torch.arange(0, len(geom_all[0]), 7, device=dev)
+    geom = tuple(a[pick].contiguous() for a in geom_all)
+    ovx, ovz = ovx[pick], ovz[pick]
+    ns, nr = geom[3].shape
+    shape = f"[{ns} shots x {nr} receivers, nt {g.nt}]"
+
+    damp = prep_damp(cfg, dev)
+    meds = prep_medium(*start, cfg)
+    rows = {"l2": tuple(scatter_rows_el(o, geom[3], cfg, KC=8)
+                        for o in (ovx, ovz)),
+            "tnl1": tuple(scatter_rows_el(trace_normalize(o), geom[3], cfg,
+                                          KC=8) for o in (ovx, ovz))}
+
+    def kernel(misfit, obs, m=meds):
+        return fused_elastic_loss_grad_meds(m, damp, wav, *geom, cfg, *obs,
+                                            KC=8, misfit=misfit)
+
+    def plain(misfit, obs, dtype=torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused_elastic_loss_grad_meds_plain(
+            meds, damp, wav, *geom, cfg, *obs, KC=8, misfit=misfit,
+            dtype=dtype)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # (2), (3): the kernel as accurate as the plain version
+    fixed = tuple((r + 3.0).contiguous() for r in rows["tnl1"])
+    err = 0.0
+    for name, misfit, obs in (("l2", "l2", rows["l2"]),
+                              ("tnl1, residual signs fixed", "tnl1", fixed)):
+        lk, gk = kernel(misfit, obs)
+        (lp, gp), ms_p = plain(misfit, obs)
+        (lr, gr), _ = plain(misfit, obs, torch.float64)
+        lk, lp, lr = float(lk), float(lp), float(lr)
+        rel_loss = abs(lk - lp) / abs(lp)
+        err_k, err_p = _rel_meds(gk, gr), _rel_meds(gp, gr)
+        err = max(err, max(float((a - b).abs().max()) for a, b in zip(gk, gp)))
+        print(f"B3 {name} {shape}: loss {lk:.9g} vs plain {lp:.9g} (rel "
+              f"{rel_loss:.2e}, tol 1e-5); largest gradient rel L2 vs plain "
+              f"{_rel_meds(gk, gp):.2e}; against the plain version in "
+              f"float64: kernel {err_k:.2e}, plain float32 {err_p:.2e} (tol "
+              f"max(1e-4, 2x plain)); plain {ms_p:.2f} ms")
+        check(math.isfinite(lk) and all(bool(torch.isfinite(a).all())
+                                        for a in gk), f"B3 {name}: not finite")
+        check(rel_loss <= 1e-5, f"B3 {name}: loss disagrees")
+        check(abs(lk - lr) <= 1e-5 * abs(lr), f"B3 {name}: loss vs float64")
+        check(err_k <= max(1e-4, 2.0 * err_p),
+              f"B3 {name}: gradient less accurate than the plain version")
+
+    # (4) the real tnl1 misfit (the main path's), timed
+    (lk, gk), ms_k = timed_ms(lambda: kernel("tnl1", rows["tnl1"]))
+    (lp, gp), ms_p = plain("tnl1", rows["tnl1"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pert = tuple((r * (1.0 + 1e-7 * torch.randn(r.shape, generator=gen,
+                                                 device=dev))).contiguous()
+                 for r in rows["tnl1"])
+    (lq, gq), _ = plain("tnl1", pert)
+    rel_self = _rel_meds(gq, gp)
+    rel_loss_self = abs(float(lq) - float(lp)) / abs(float(lp))
+    rel_g = _rel_meds(gk, gp)
+    rel_loss = abs(float(lk) - float(lp)) / abs(float(lp))
+    print(f"B3 tnl1 on the real misfit: loss {float(lk):.9g} vs plain "
+          f"{float(lp):.9g} (rel {rel_loss:.2e}), largest gradient rel L2 "
+          f"{rel_g:.2e}; under a 1e-7 change of its observed rows the plain "
+          f"loss moves {rel_loss_self:.2e} and its gradient {rel_self:.2e} "
+          f"(tol max(1e-5, 10x) and max(1e-4, 10x)); kernel {ms_k:.2f} ms, "
+          f"plain {ms_p:.2f} ms")
+    check(rel_loss <= max(1e-5, 10.0 * rel_loss_self),
+          "B3 loss (real misfit) disagrees")
+    check(rel_g <= max(1e-4, 10.0 * rel_self),
+          "B3 gradient (real misfit) disagrees beyond the misfit's own "
+          "sensitivity")
+
+    # (5) obs from the ring-forward kernel, the misfit from B3
+    meds_true = prep_medium(*true, cfg)
+    for misfit in ("l2", "tnl1"):
+        l_true, _ = kernel(misfit, rows[misfit], meds_true)
+        print(f"B3 {misfit} loss at the true model: {float(l_true):.3e} "
+              f"(tol 1e-9)")
+        check(float(l_true) <= 1e-9, f"B3 {misfit} loss at the true model")
+
+    # free surface: 2 ring rows on top
+    cells = ns * (g.nz + 2 + g.pml_width) * (g.nx + 2 * g.pml_width)
+    field = damp.numel() * 4
+    # media and damp in, five gradients out (kernel layout), the wavelet,
+    # geometry, obs rows and the receiver mask in, the loss out
+    b3_io = (11 * field + nbytes(wav, *geom) + 2 * nbytes(rows["tnl1"][0])
+             + ns * damp.shape[1] * 4 + 4)
+    return (
+        {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+         **bound((FLOPS_B3 + FLOPS_B3_ADJ) * cells * g.nt, b3_io),
+         "library_ms": None},
+        {"max_abs_err": err_r, "ms": ms_rk, "plain_ms": ms_rp,
+         **bound(FLOPS_B3 * ring_cells * g.nt, ring_io), "library_ms": None})
 
 
 def phase_slice(dev):
@@ -271,6 +490,72 @@ def phase_slice(dev):
     return launches
 
 
+def phase_slice2(dev):
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import ElasticDIPEngine
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused
+    cfg = get_workload("marmousi_elastic",
+                       save_dir=str(ROOT / "build" / "chip_smoke"))
+    print(f"slice 2: marmousi_elastic {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
+          f"{cfg.num_shots} shots x {cfg.num_receivers} receivers "
+          f"({cfg.shots_per_iter} per iteration), {cfg.netG} filters "
+          f"{cfg.filters}, misfit {cfg.misfit}, stages {cfg.freq_stages}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    elastic_fused.fused_elastic_loss_grad_meds.launches = 0
+    elastic_fused.simulate_elastic_ring.launches = 0
+    t0 = time.perf_counter()
+    engine = ElasticDIPEngine(cfg, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    epochs = cfg.lstart + 3
+    t0 = time.perf_counter()
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {
+        "fused_elastic_loss_grad":
+            elastic_fused.fused_elastic_loss_grad_meds.launches,
+        "simulate_elastic_ring": elastic_fused.simulate_elastic_ring.launches}
+    for rec in history[:2] + history[cfg.lstart - 1:]:
+        print("epoch", json.dumps(rec))
+    warm = [r["epoch_time"] for r in history[:cfg.lstart]]
+    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    print(f"slice 2: engine setup {setup:.2f} s; {epochs} epochs in "
+          f"{total:.2f} s; warmup epochs: first {warm[0]:.4f} s, median of "
+          f"the rest {sorted(warm[1:])[len(warm[1:]) // 2]:.4f} s; physics "
+          f"epochs {', '.join(f'{x:.4f}' for x in phys)} s; launches "
+          f"{launches}; physics path {engine.physics_path}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(engine.physics_path == "fused-cuda",
+          f"physics path {engine.physics_path}")
+    check(launches["fused_elastic_loss_grad"] == 3,
+          "B3 not launched once per physics epoch")
+    check(launches["simulate_elastic_ring"] >= 1,
+          "the ring forward did not make the observed data")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
+    check(all(r["loss_D_MSE"] == 0.0 for r in history[:cfg.lstart]),
+          "a warmup epoch ran physics")
+    phys_loss = [r["loss_D_MSE"] for r in history[cfg.lstart:]]
+    check(len(set(phys_loss)) > 1, f"loss_D_MSE does not move: {phys_loss}")
+    check(all(r["freq_stage"] == 4.0 for r in history),
+          "not on the 4 Hz stage")
+    # the engine's own data must fit at the true model, true density
+    # included (all 35 shots)
+    loss_true, grad = engine.physics_value_and_grad(
+        engine.true_m, fc=0.0, rho=engine.wl.true["rho"])
+    print(f"slice 2: misfit at the true model {float(loss_true):.3e} (tol "
+          f"1e-9), gradient {tuple(grad.shape)}")
+    check(float(loss_true) <= 1e-9, "engine misfit at the true model")
+    check(tuple(grad.shape) == (cfg.nz, cfg.nx, 2)
+          and bool(torch.isfinite(grad).all()), "engine gradient")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -289,7 +574,9 @@ def main() -> int:
     phase_card()
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
+    b3, ring = phase_b3(dev)
     launches = phase_slice(dev)
+    launches.update(phase_slice2(dev))
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",
@@ -298,6 +585,15 @@ def main() -> int:
          "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_fwi_fused.py:50",
          "launches": launches["fwi_l1_loss_grad"], **b2},
+        {"name": "fused_elastic_loss_grad", "route": "cuda",
+         "source": EL_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic_fused.py:152",
+         "launches": launches["fused_elastic_loss_grad"], **b3},
+        # B3's forward phases alone (the Pallas kernel's fwd_update)
+        {"name": "simulate_elastic_ring", "route": "cuda",
+         "source": EL_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic_fused.py:208",
+         "launches": launches["simulate_elastic_ring"], **ring},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of ``physicsbasedfwi2_tpu``.
 
 The JAX package beside this one is the reference; each module here
-keeps the file name and public names of its counterpart.  The two
-Pallas kernels on the ``marmousi_acoustic`` path are hand-written CUDA
-C++ for Hopper (``csrc/scalar2.cu``), built with ``nvcc`` at first use;
-on CPU tensors their plain PyTorch versions run instead.
+keeps the file name and public names of its counterpart.  The Pallas
+kernels on the ``marmousi_acoustic`` and ``marmousi_elastic`` paths are
+hand-written CUDA C++ for Hopper (``csrc/scalar2.cu``,
+``csrc/elastic.cu``), built with ``nvcc`` at first use; on CPU tensors
+their plain PyTorch versions run instead.  The entry points run on the
+first CUDA card unless the caller asks for the CPU.
 
 This package imports neither JAX nor the JAX package.
 

@@ -1,9 +1,10 @@
-"""Synthetic acoustic workload (port of
-``physicsbasedfwi2_tpu/data/synthetic.py``, the acoustic slice).
+"""Synthetic acoustic and elastic workloads (port of
+``physicsbasedfwi2_tpu/data/synthetic.py``).
 
 The velocity models are numpy (copied as they are, so both packages
 make the same model from a seed); the observed gathers come from the
-plain :func:`simulate_acoustic` on the requested device.
+plain :func:`simulate_acoustic` / :func:`simulate_elastic` on the
+requested device.
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ import numpy as np
 import torch
 
 from physicsbasedfwi2_tpu_torch.geo import (
-    Grid2D, check_cfl, ricker, surface_line,
+    Grid2D, check_cfl, elastic_line, ricker, seabed_rows, surface_line,
 )
 from physicsbasedfwi2_tpu_torch.geo.acquisition import Acquisition
 from physicsbasedfwi2_tpu_torch.ops import (
     AcousticConfig, simulate_acoustic, trace_normalize,
+)
+from physicsbasedfwi2_tpu_torch.ops.elastic import (
+    ElasticConfig, simulate_elastic,
 )
 
 
@@ -74,6 +78,17 @@ def smooth_model(m: np.ndarray, iters: int = 40,
     return s
 
 
+def make_elastic_model(vp: np.ndarray, *, vpvs: float = 1.8,
+                       water_rows: int = 0):
+    """(vp, vs, rho) from vp via vp/vs ratio and Gardner density."""
+    vs = (vp / vpvs).astype(np.float32)
+    rho = (310.0 * vp ** 0.25).astype(np.float32)  # Gardner
+    if water_rows > 0:
+        vs[:water_rows] = 0.0
+        rho[:water_rows] = 1000.0
+    return vp.astype(np.float32), vs, rho
+
+
 @dataclasses.dataclass
 class SyntheticAcousticWorkload:
     """In-memory equivalent of the unalignedVelABCD2 npy tree:
@@ -120,6 +135,79 @@ class SyntheticAcousticWorkload:
     @property
     def device(self) -> torch.device:
         return self.vp_true.device
+
+    @property
+    def geom(self):
+        """(src_z, src_x, rcv_z, rcv_x) as int32 tensors on the
+        workload's device."""
+        return tuple(torch.as_tensor(a, dtype=torch.int32,
+                                     device=self.device)
+                     for a in (self.acq.src_z, self.acq.src_x,
+                               self.acq.rcv_z, self.acq.rcv_x))
+
+
+@dataclasses.dataclass
+class SyntheticElasticWorkload:
+    """In-memory equivalent of unalignedVelABCDEl: A/D = vx/vz
+    gathers, B = (vp, vs, rho) true, C = smooth low-frequency start.
+    Tensors live on one device; ``acq`` stays numpy."""
+
+    grid: Grid2D
+    cfg: ElasticConfig
+    acq: Acquisition
+    wavelet: torch.Tensor
+    true: dict               # {"vp","vs","rho"}
+    start: dict
+    obs_vx: torch.Tensor
+    obs_vz: torch.Tensor
+    from_disk: bool = False
+
+    @classmethod
+    def build(cls, *, nz=100, nx=300, dx=20.0, nt=1667, dt=0.0015,
+              pml_width=20, freq=10.0, num_shots=35, num_receivers=298,
+              seed=0, water_rows=26, chunk=64, free_surface=True,
+              src_depth_row=None, rcv_depth_row=None,
+              rcv_follow_seabed=False,
+              device: torch.device | str = "cpu"):
+        """src_depth_row / rcv_depth_row: explicit acquisition rows
+        (default water_rows + 1, the just-below-seabed line);
+        rcv_follow_seabed: per-column receiver depths from the water
+        bottom."""
+        grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
+                      pml_width=pml_width, free_surface=free_surface)
+        cfg = ElasticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
+        wav = ricker(freq, nt, dt, device=device)
+        vp = make_marmousi_like(nz, nx, seed=seed, water_rows=water_rows)
+        check_cfl(float(vp.max()), grid)
+        vp_t, vs_t, rho_t = make_elastic_model(vp, water_rows=water_rows)
+        vp_s = smooth_model(vp_t, preserve_rows=water_rows)
+        vs_s = smooth_model(vs_t, preserve_rows=water_rows)
+        rho_s = smooth_model(rho_t, preserve_rows=water_rows)
+        src_row = (src_depth_row if src_depth_row is not None
+                   else water_rows + 1)
+        rcv_row = (rcv_depth_row if rcv_depth_row is not None
+                   else water_rows + 1)
+        acq = elastic_line(
+            num_shots, num_receivers, nx, nz, src_row=src_row,
+            rcv_row=rcv_row,
+            rcv_rows_per_col=(seabed_rows(vp_t)
+                              if rcv_follow_seabed else None))
+
+        def dev(a):
+            return torch.as_tensor(a, device=device)
+
+        wl = cls(grid=grid, cfg=cfg, acq=acq, wavelet=wav,
+                 true={"vp": dev(vp_t), "vs": dev(vs_t), "rho": dev(rho_t)},
+                 start={"vp": dev(vp_s), "vs": dev(vs_s),
+                        "rho": dev(rho_s)},
+                 obs_vx=None, obs_vz=None)
+        wl.obs_vx, wl.obs_vz = simulate_elastic(
+            wl.true["vp"], wl.true["vs"], wl.true["rho"], wav, *wl.geom, cfg)
+        return wl
+
+    @property
+    def device(self) -> torch.device:
+        return self.true["vp"].device
 
     @property
     def geom(self):

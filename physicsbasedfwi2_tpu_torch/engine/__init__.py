@@ -4,7 +4,7 @@ from physicsbasedfwi2_tpu_torch.engine.config import (
     ExperimentConfig, get_workload, list_workloads, register_workload,
 )
 from physicsbasedfwi2_tpu_torch.engine.engines import (
-    AcousticDIPEngine, create_engine, default_device,
+    AcousticDIPEngine, ElasticDIPEngine, create_engine, default_device,
 )
 
 __all__ = [
@@ -13,6 +13,7 @@ __all__ = [
     "list_workloads",
     "register_workload",
     "AcousticDIPEngine",
+    "ElasticDIPEngine",
     "create_engine",
     "default_device",
 ]

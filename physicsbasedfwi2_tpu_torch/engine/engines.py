@@ -1,13 +1,14 @@
 """Inversion engines (port of ``physicsbasedfwi2_tpu/engine/engines.py``:
-``EngineBase``, ``AcousticDIPEngine`` on its fused path, ``LrPolicy``,
-``_make_optimizer`` and ``create_engine``).
+``EngineBase``, ``AcousticDIPEngine`` and ``ElasticDIPEngine`` on their
+fused paths, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages``
+and ``create_engine``).
 
-The JAX engine injects the processed physics gradient into the
+The JAX engines inject the processed physics gradient into the
 generator's autodiff with a ``jax.custom_vjp``; here that is
 :class:`_PhysicsLoss`, a ``torch.autograd.Function`` whose forward runs
-the fused loss+gradient (kernel B2 on CUDA, its plain version on CPU)
-and whose backward returns the depth^2-weighted, water-masked,
-``grad_scale``-scaled dJ/dvp.
+the fused loss+gradient (kernel B2 or B3 on CUDA, their plain versions
+on CPU) and the engine's gradient processing, and whose backward
+returns the processed gradient.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ import numpy as np
 import torch
 
 from physicsbasedfwi2_tpu_torch.data.synthetic import (
-    SyntheticAcousticWorkload,
+    SyntheticAcousticWorkload, SyntheticElasticWorkload,
 )
 from physicsbasedfwi2_tpu_torch.engine.config import ExperimentConfig
+from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
 from physicsbasedfwi2_tpu_torch.models import (
-    apply_generator, apply_velocity_output, define_generator,
+    apply_elastic_output, apply_generator, apply_velocity_output,
+    define_generator,
 )
 from physicsbasedfwi2_tpu_torch.models.convert import (
     npz_from_state_dict, state_dict_from_npz,
@@ -32,8 +35,11 @@ from physicsbasedfwi2_tpu_torch.ops import trace_normalize
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
     fwi_l1_loss_grad, scatter_rows,
 )
+from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+    fused_elastic_loss_grad, scatter_rows_el, simulate_elastic_ring,
+)
 from physicsbasedfwi2_tpu_torch.ops.gradproc import (
-    depth_weighting, water_mask,
+    depth_weighting, rescale_to_model, taper_top, water_mask,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
 from physicsbasedfwi2_tpu_torch.optim.schedules import (
@@ -42,8 +48,31 @@ from physicsbasedfwi2_tpu_torch.optim.schedules import (
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card.  Raises when no card is visible: the
+    entry points run on the card unless the caller asks for the CPU
+    (``device="cpu"``, ``--device cpu``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is visible (torch.cuda.is_available() is "
+            "False); pass device=\"cpu\" (--device cpu) to run the plain "
+            "PyTorch versions of the kernels on the CPU")
+    return torch.device("cuda:0")
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _evict_stale_stages(cache: dict, fc: float) -> None:
+    """Drop cached stage data for every stage but ``fc`` (stages
+    advance monotonically and are never revisited).  Keys are either
+    the stage float or ("pack", float)."""
+    for k in [k for k in cache
+              if (k[1] if isinstance(k, tuple) else k) != fc]:
+        del cache[k]
 
 
 def _make_optimizer(cfg: ExperimentConfig, params):
@@ -163,9 +192,7 @@ class AcousticDIPEngine(EngineBase):
         if device is None:
             device = (workload.device if workload is not None
                       else default_device())
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = _resolve_device(device)
         # (water_rows is not passed, as in the JAX engine: ROADMAP Queue C)
         self.wl = workload or SyntheticAcousticWorkload.build(
             nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
@@ -323,8 +350,354 @@ class AcousticDIPEngine(EngineBase):
         return {"loss_V_MSE": float(mse)}, vp.cpu().numpy()
 
 
+def elastic_workload(cfg: ExperimentConfig, device):
+    """The synthetic workload an :class:`ElasticDIPEngine` builds from
+    ``cfg`` when it is given none."""
+    return SyntheticElasticWorkload.build(
+        nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+        pml_width=cfg.pml_width, freq=cfg.freq, num_shots=cfg.num_shots,
+        num_receivers=cfg.num_receivers, seed=cfg.seed, chunk=cfg.chunk,
+        free_surface=cfg.free_surface, water_rows=cfg.water_rows,
+        src_depth_row=cfg.extras.get("src_depth_row"),
+        rcv_depth_row=cfg.extras.get("rcv_depth_row"),
+        rcv_follow_seabed=cfg.extras.get("rcv_follow_seabed", False),
+        device=device)
+
+
+class ElasticDIPEngine(EngineBase):
+    """Two-branch elastic FWI with frequency continuation, on the fused
+    path: kernel B3 (``ops/elastic_fused.py``) on CUDA, its plain
+    version on CPU.
+
+    Each physics epoch draws a random subset of ``shots_per_iter``
+    shots from an explicit ``torch.Generator`` seeded from
+    ``cfg.seed + 7``; it is not the JAX engine's ``jax.random`` draw, so
+    the two packages pick different shots from the same seed.
+    """
+
+    def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None, *,
+                 device=None):
+        why = [w for cond, w in (
+            (mesh is not None,
+             "mesh (shot sharding): ROADMAP Queue A, item 14"),
+            (bool(cfg.dataroot), "dataroot: ROADMAP Queue A, item 12"),
+            (cfg.grad_illum_eps > 0,
+             "grad_illum_eps > 0 (EPRECOND): ROADMAP Queue A"),
+            (cfg.grad_smooth > 0, "grad_smooth > 0: ROADMAP Queue A"),
+            (cfg.holdout_shots > 0 or cfg.guard_patience > 0
+             or cfg.guard_lr_ramp > 0 or cfg.step_cap > 0
+             or cfg.phase_reset_opt,
+             "holdout_shots/guard_*/step_cap/phase_reset_opt "
+             "(marmousi_elastic_robust, the next elastic slice): ROADMAP "
+             "Queue A")) if cond]
+        if why:
+            raise NotImplementedError("not ported yet: " + "; ".join(why))
+        self.cfg = cfg
+        if device is None:
+            device = (workload.device if workload is not None
+                      else default_device())
+        self.device = _resolve_device(device)
+        self.wl = workload or elastic_workload(cfg, self.device)
+        if self.wl.device != self.device:
+            raise ValueError(f"workload lives on {self.wl.device}, engine "
+                             f"on {self.device}")
+        self.n_shots = int(self.wl.acq.num_shots)
+        if self.n_shots != cfg.num_shots:
+            print(f"[{cfg.name}] workload has {self.n_shots} shots; "
+                  f"config num_shots={cfg.num_shots} -- using the "
+                  f"workload's count")
+        self._train_pool = torch.arange(self.n_shots, device=self.device)
+        acq = self.wl.acq
+        single_row = bool((acq.rcv_z == acq.rcv_z[:, :1]).all())
+        # the fused tnl1 misfit identifies traces with receiver-row
+        # columns, so they must be distinct within each shot
+        distinct_cols = all(len(set(row.tolist())) == len(row)
+                            for row in acq.rcv_x)
+        why = [w for cond, w in (
+            (cfg.backend not in ("auto", "pallas"),
+             f"backend={cfg.backend}"),
+            (not single_row, "multi-row receivers"),
+            (cfg.misfit not in ("l2", "snl2", "tnl1"),
+             f"misfit={cfg.misfit}"),
+            (cfg.misfit == "tnl1" and not distinct_cols,
+             "duplicate receiver columns")) if cond]
+        if why:
+            raise NotImplementedError(
+                "only the fused elastic path is ported (" + ", ".join(why)
+                + "); the fast/xla elastic paths wait in ROADMAP Queue A, "
+                "slice-2 leftovers")
+        self.physics_path = ("fused-cuda" if self.device.type == "cuda"
+                             else "fused-plain")
+        _log_path(cfg.name, "elastic", self.physics_path)
+        if not self.wl.from_disk:
+            # regenerate obs with the fused path's operator so the
+            # misfit is zero at the true model
+            wl = self.wl
+            wl.obs_vx, wl.obs_vz = simulate_elastic_ring(
+                wl.true["vp"], wl.true["vs"], wl.true["rho"], wl.wavelet,
+                *wl.geom, wl.cfg)
+        ns, nt, nr = self.wl.obs_vx.shape
+        self.net = define_generator(
+            cfg.netG, out_shape=(cfg.nz, cfg.nx), in_shape=(nt, nr, ns),
+            latent_dim=cfg.latent_dim, filters=cfg.filters,
+            time_decimation=cfg.time_decimation, dropout=cfg.dropout,
+            head=cfg.elastic_head,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        ).to(self.device)
+        # net inputs: [1, nt, nr, ns] (NHWC, as the JAX engine feeds them)
+        self.in_vx = self.wl.obs_vx.permute(1, 2, 0)[None].contiguous()
+        self.in_vz = self.wl.obs_vz.permute(1, 2, 0)[None].contiguous()
+        # 2 fields = vp/vs with rho from the low-frequency model, 3 = rho
+        # inverted too
+        self.n_fields = int(getattr(self.net, "n_fields", 2))
+        names = ("vp", "vs", "rho")[: self.n_fields]
+        self.field_names = names
+        self.lowf = torch.stack([self.wl.start[k] for k in names], -1)[None]
+        self.true_m = torch.stack([self.wl.true[k] for k in names], -1)[None]
+        self.opt = _make_optimizer(cfg, self.net.parameters())
+        # per-field box constraints; the delta scale is a hard bound for
+        # the tanh head, a unit-conditioning gain for the linear head
+        default_scale = ((300.0, 200.0, 150.0)
+                         if cfg.elastic_head == "tanh"
+                         else (100.0, 100.0, 100.0))
+        self.delta_scale = tuple(
+            cfg.delta_scale or default_scale)[: self.n_fields]
+        self.clip_min = tuple(
+            cfg.clip_min or (1500.0, 0.0, 900.0))[: self.n_fields]
+        self.clip_max = tuple(
+            cfg.clip_max or (4700.0, 2700.0, 3000.0))[: self.n_fields]
+        self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
+        self._shot_gen = torch.Generator().manual_seed(cfg.seed + 7)
+        self._stage_cache = {}
+        # trailing-tether state (cfg.tether_mode="stage")
+        self._tether_ref = None
+        self._tether_stage_i = -1
+        self._tether_epoch = 0
+
+    def _stage_data(self, fc):
+        """Per-stage (wavelet_fc, obs_vx_fc, obs_vz_fc), cached.
+        Frequency continuation low-passes the wavelet (by linearity the
+        same as filtering the prediction) and the observed data once per
+        stage."""
+        key = float(fc or 0.0)
+        if key not in self._stage_cache:
+            wl, cfg = self.wl, self.cfg
+            if key > 0:
+                wav = lowpass_filter_time(wl.wavelet, key, cfg.dt, axis=-1)
+                ovx = lowpass_filter_time(wl.obs_vx, key, cfg.dt, axis=1)
+                ovz = lowpass_filter_time(wl.obs_vz, key, cfg.dt, axis=1)
+            else:
+                wav, ovx, ovz = wl.wavelet, wl.obs_vx, wl.obs_vz
+            if cfg.misfit == "snl2":
+                # shot-normalized raw L2: each shot's gathers and wavelet
+                # divided by the shot's observed RMS
+                s = torch.sqrt(torch.mean(ovx ** 2 + ovz ** 2, dim=(1, 2),
+                                          keepdim=True))
+                s = torch.clamp(s, min=1e-30)
+                if wav.ndim == 1:
+                    wav = wav[None].expand(ovx.shape[0], wav.shape[-1])
+                wav = wav / s[:, :, 0]
+                ovx, ovz = ovx / s, ovz / s
+            _evict_stale_stages(self._stage_cache, key)
+            self._stage_cache[key] = (wav, ovx, ovz)
+        return self._stage_cache[key]
+
+    def _stage_pack(self, fc):
+        """Per-stage wavelet, observed gathers and their fused-kernel
+        row layouts (``tnl1`` obs rows are pre-normalized: the kernel
+        normalizes only the predicted side), cached."""
+        key = ("pack", float(fc or 0.0))
+        if key not in self._stage_cache:
+            wav, ovx, ovz = self._stage_data(fc)
+            pd = {"wav": wav, "ovx": ovx, "ovz": ovz}
+            sx_, sz_ = ovx, ovz
+            if self.cfg.misfit == "tnl1":
+                sx_, sz_ = trace_normalize(sx_), trace_normalize(sz_)
+            rcv_x = self.wl.acq.rcv_x
+            pd["orx"] = scatter_rows_el(sx_, rcv_x, self.wl.cfg, KC=8)
+            pd["orz"] = scatter_rows_el(sz_, rcv_x, self.wl.cfg, KC=8)
+            _evict_stale_stages(self._stage_cache, key[1])
+            self._stage_cache[key] = pd
+        return self._stage_cache[key]
+
+    def _fused_value_and_grad(self, m, shot_idx, pd, rho=None):
+        """(loss, dJ/dm [nz, nx, F]) from the fused kernel on the
+        selected shot subset.  With F == 2 the density entering the
+        simulation is the low-frequency rho (or ``rho``)."""
+        wl = self.wl
+        wav = pd["wav"]
+        sz, sx, rz, rx = (a[shot_idx] for a in wl.geom)
+        if wav.ndim == 2:
+            wav = wav[shot_idx]
+        vp, vs = m[..., 0], m[..., 1]
+        if rho is None:
+            rho = m[..., 2] if self.n_fields == 3 else wl.start["rho"]
+        loss, grads = fused_elastic_loss_grad(
+            vp, vs, rho, wav, sz, sx, rz, rx, wl.cfg, pd["orx"][shot_idx],
+            pd["orz"][shot_idx], KC=8, wrt=self.field_names,
+            misfit="l2" if self.cfg.misfit == "snl2" else self.cfg.misfit)
+        return loss, torch.stack([grads[k] for k in self.field_names], -1)
+
+    def _processed_value_and_grad(self, m, shot_idx, pd, rho=None):
+        """(fused loss, processed dJ/dm [nz, nx, F]): per field the
+        top-rows taper, depth^p weighting, ``grad_scale`` or the rescale
+        to the model, and the field weight ``pd["fw"]``; then the tether
+        toward ``pd["lowf_m"]`` with weight ``pd["tw"]`` times the
+        gradient's RMS."""
+        cfg = self.cfg
+        taper_rows = (cfg.grad_taper_rows if cfg.grad_taper_rows
+                      is not None else cfg.water_rows)
+        loss, gm = self._fused_value_and_grad(m, shot_idx, pd, rho)
+        cols = []
+        for k in range(self.n_fields):
+            g = taper_top(gm[..., k], taper_rows,
+                          smooth=cfg.grad_taper_smooth)
+            if cfg.grad_depth_power > 0:
+                g = depth_weighting(g, cfg.grad_depth_power)
+            if cfg.grad_rescale == "max":
+                g = rescale_to_model(g, m[..., k])
+            else:
+                g = g * cfg.grad_scale
+            cols.append(g * pd["fw"][k])
+        gm = torch.stack(cols, -1)
+        if cfg.tether_weight > 0:
+            # Tikhonov-to-start tether in gradient units
+            d = m - pd["lowf_m"]
+            g_rms = torch.sqrt(torch.mean(gm ** 2, dim=(0, 1), keepdim=True))
+            d_rms = torch.sqrt(torch.mean(d ** 2, dim=(0, 1), keepdim=True))
+            gm = gm + pd["tw"] * g_rms * d / (d_rms + 1e-20)
+        return loss, gm
+
+    def _make_physics_loss(self):
+        """The differentiable physics loss ``physics_loss(m, shot_idx,
+        pd)`` of m [nz, nx, F]: the fused loss, with the processed
+        gradient (:meth:`_processed_value_and_grad`) as its gradient."""
+        def physics_loss(m, shot_idx, pd):
+            return _PhysicsLoss.apply(
+                m, lambda mm: self._processed_value_and_grad(mm, shot_idx,
+                                                             pd))
+
+        return physics_loss
+
+    def _decode(self):
+        deltas, _ = self.net(self.in_vx, self.in_vz)
+        return apply_elastic_output(
+            deltas, self.lowf, self.true_m, delta_scale=self.delta_scale,
+            clip_min=self.clip_min, clip_max=self.clip_max,
+            pin_rows=self.cfg.water_rows, clip_mode=self.cfg.clip_mode)
+
+    def _field_weights(self, epoch: int):
+        """Per-field gradient multipliers for this epoch:
+        grad_field_weights masked by the field_start_epochs gate."""
+        cfg = self.cfg
+        fw = [1.0] * self.n_fields
+        if cfg.grad_field_weights is not None:
+            fw = [float(w) for w in
+                  cfg.grad_field_weights[: self.n_fields]]
+        if cfg.field_start_epochs is not None:
+            for k, e0 in enumerate(cfg.field_start_epochs[: self.n_fields]):
+                if epoch < cfg.lstart + int(e0):
+                    fw[k] = 0.0
+        return fw
+
+    def _phys(self, fc, epoch: int, stage_i: int, tether_m):
+        cfg = self.cfg
+        return dict(self._stage_pack(fc), fw=self._field_weights(epoch),
+                    tw=cfg.tether_weight * cfg.tether_decay ** stage_i,
+                    lowf_m=tether_m)
+
+    def optimize_parameters(self, epoch: int, freq: float | None = None,
+                            tether_stage: int | None = None):
+        cfg = self.cfg
+        fc = freq if freq is not None else (
+            cfg.freq_stages[0] if cfg.freq_stages else 0.0)
+        pool = self._train_pool
+        nsub = min(cfg.shots_per_iter or self.n_shots, int(pool.shape[0]))
+        # random shot subset per iteration, drawn every epoch
+        perm = torch.randperm(int(pool.shape[0]), generator=self._shot_gen)
+        idx = pool[perm[:nsub].to(pool.device)]
+        use_physics = epoch > cfg.lstart
+        if self.lr_policy is not None:
+            lr = self.lr_policy.lr_for_epoch(epoch)
+            if use_physics and cfg.phase_lr_ramp > 0:
+                # linear lr ramp over the first physics epochs
+                lr *= min(1.0, (epoch - cfg.lstart) / cfg.phase_lr_ramp)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+        stage_i = (cfg.freq_stages.index(fc)
+                   if cfg.freq_stages and fc in cfg.freq_stages else 0)
+        if tether_stage is not None:
+            stage_i = tether_stage
+        tether_m = self.lowf[0]
+        if cfg.tether_weight > 0 and cfg.tether_mode == "stage" and \
+                use_physics:
+            # trailing tether: pull toward the model at the start of the
+            # current segment
+            refresh = (self._tether_ref is None
+                       or stage_i != self._tether_stage_i
+                       or (cfg.tether_refresh_epochs > 0
+                           and epoch - self._tether_epoch
+                           >= cfg.tether_refresh_epochs))
+            if refresh:
+                self._tether_ref = self._sample_model()[0]
+                self._tether_stage_i = stage_i
+                self._tether_epoch = epoch
+            tether_m = self._tether_ref
+        self.opt.zero_grad(set_to_none=True)
+        m = self._decode()
+        if use_physics:
+            phys = self._phys(fc, epoch, stage_i, tether_m)
+            loss_d = self._make_physics_loss()(m[0], idx, phys)
+            loss = loss_d
+            if cfg.anchor_weight > 0:
+                anchor = torch.mean((m - self.lowf) ** 2)
+                loss = loss + cfg.anchor_weight * anchor * 1e-6
+        else:
+            # warmup (epoch <= lstart): anchor regression to the
+            # low-frequency model, no physics
+            loss = torch.mean((m - self.lowf) ** 2)
+            loss_d = torch.zeros((), device=self.device)
+        mse = torch.mean((m - self.true_m) ** 2)
+        loss.backward()
+        self.opt.step()
+        # one device sync for both scalars
+        loss_d, mse = torch.stack([loss_d.detach(), mse.detach()]).tolist()
+        out = {"loss_D_MSE": loss_d, "loss_M_MSE": mse}
+        if self.lr_policy is not None:
+            # the warmup's constant-zero loss_D must not feed the plateau
+            # lr controller
+            out["lr"] = (self.lr_policy.after_epoch(loss_d) if use_physics
+                         else self.lr_policy.lr)
+        return out
+
+    def physics_value_and_grad(self, m: torch.Tensor, fc: float = 0.0,
+                               rho=None):
+        """(loss, processed dJ/dm [nz, nx, F]) at model ``m`` ([nz, nx,
+        F] or [1, nz, nx, F]) on all training shots at stage ``fc`` (0 =
+        unfiltered), with the first physics epoch's field weights and
+        tether.  ``rho`` replaces the density a two-field engine
+        simulates with (its low-frequency rho): at the true vp, vs and
+        rho the misfit of synthetic data is zero."""
+        if m.ndim == 4:
+            m = m[0]
+        phys = self._phys(fc, self.cfg.lstart + 1, 0, self.lowf[0])
+        return self._processed_value_and_grad(m.detach(), self._train_pool,
+                                              phys, rho)
+
+    @torch.no_grad()
+    def _sample_model(self):
+        """The decoder's model [1, nz, nx, F]."""
+        return self._decode()
+
+    def test(self):
+        m = self._sample_model()
+        mse = torch.mean((m - self.true_m) ** 2)
+        return {"loss_V_MSE": float(mse)}, m[0].cpu().numpy()
+
+
 _ENGINES: dict[str, Any] = {
     "acoustic_dip": AcousticDIPEngine,
+    "elastic_dip": ElasticDIPEngine,
 }
 
 

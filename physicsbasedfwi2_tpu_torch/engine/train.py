@@ -1,9 +1,11 @@
 """Training loop (port of ``physicsbasedfwi2_tpu/engine/train.py``).
 
 Epoch loop with validation at the top of each epoch, per-epoch
-aggregated losses, periodic checkpointing and wall-clock metrics.
-Run it as ``python -m physicsbasedfwi2_tpu_torch.engine.train
---workload marmousi_acoustic``.
+aggregated losses, frequency continuation (a plateau detector advances
+the stage), periodic checkpointing and wall-clock metrics.  Run it as
+``python -m physicsbasedfwi2_tpu_torch.engine.train --workload
+marmousi_elastic``; it runs on the first CUDA card unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -81,20 +83,24 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
 
     continue_from: checkpoint tag to resume weights from.
     engine: drive a pre-built engine instead of create_engine(cfg).
-    device: where a new engine runs (default: the first CUDA card,
-        else the CPU).
+    device: where a new engine runs (default: the first CUDA card;
+        raises when there is none).
 
-    Frequency continuation, profiling and the supervised loop are not
-    ported yet and raise.
+    With ``cfg.freq_stages`` each epoch trains at the current stage's
+    corner frequency; the stage advances when the plateau detector
+    fires on the epoch's ``loss_D_MSE``, never during the ``lstart``
+    warmup.  Profiling, the supervised loop, held-out shots and the
+    drift guard are not ported yet and raise.
     """
     if cfg.engine == "supervised":
         raise NotImplementedError(
             "the supervised loop is not ported yet (ROADMAP Queue A, "
             "item 11)")
-    if cfg.freq_stages:
+    if cfg.holdout_shots > 0 or cfg.guard_patience > 0:
         raise NotImplementedError(
-            "frequency continuation is not ported yet (ROADMAP Queue A, "
-            "slice-1 leftovers)")
+            "held-out shots (loss_H) and the drift guard are not ported "
+            "yet (marmousi_elastic_robust, the next elastic slice: "
+            "ROADMAP Queue A)")
     if profile_dir:
         raise NotImplementedError(
             "profile_dir is not ported yet (ROADMAP Queue A, slice-1 "
@@ -111,6 +117,12 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     viz = Visualizer(cfg)
     viz.dump_config(cfg)
     epochs = epochs if epochs is not None else cfg.n_epochs
+    stages = list(cfg.freq_stages) or [None]
+    stage_i = 0
+    anneal_i = 0  # extra tether-decay steps fired past the final stage
+    plateau = PlateauDetector(cfg.plateau_history, cfg.plateau_eps,
+                              mode=cfg.plateau_mode,
+                              stage_max_epochs=cfg.stage_max_epochs)
     history = []
     for epoch in range(start_epoch, epochs + 1):
         t0 = time.time()
@@ -119,11 +131,38 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
         # ---- training iterations ----
         agg = collections.defaultdict(float)
         for _ in range(iters_per_epoch):
-            losses = engine.optimize_parameters(epoch)
+            if stages[stage_i] is not None:
+                kw = ({"tether_stage": stage_i + anneal_i}
+                      if cfg.tether_anneal_plateaus > 0 else {})
+                losses = engine.optimize_parameters(
+                    epoch, freq=stages[stage_i], **kw)
+            else:
+                losses = engine.optimize_parameters(epoch)
             for k, v in losses.items():
                 agg[k] += v / iters_per_epoch
+        # ---- frequency continuation ----
+        # (suspended during the lstart warmup: its physics loss is a
+        # constant 0, a perfect "plateau" that would race the stage
+        # index to the final frequency before inversion starts)
+        key = "loss_D_MSE" if "loss_D_MSE" in agg else next(iter(agg))
+        if (epoch > cfg.lstart and stages[stage_i] is not None
+                and plateau.update(agg[key])):
+            if stage_i + 1 < len(stages):
+                stage_i += 1
+                if not quiet:
+                    print(f"[freq-continuation] advancing to stage "
+                          f"{stages[stage_i]} Hz at epoch {epoch}")
+            elif anneal_i < cfg.tether_anneal_plateaus:
+                # final stage reached: each further plateau relaxes the
+                # lowf tether one more tether_decay notch
+                anneal_i += 1
+                if not quiet:
+                    tw = (cfg.tether_weight
+                          * cfg.tether_decay ** (stage_i + anneal_i))
+                    print(f"[tether-anneal] plateau at final stage: "
+                          f"tether -> {tw:.4f} at epoch {epoch}")
         rec = {"epoch": epoch, **agg, **val_losses,
-               "freq_stage": None,
+               "freq_stage": stages[stage_i],
                "epoch_time": time.time() - t0}
         history.append(rec)
         viz.log_epoch(rec, model_img=model_img)
@@ -153,8 +192,9 @@ def main(argv=None):
     p.add_argument("--epoch-tag", default="latest")
     p.add_argument("--start-epoch", type=int, default=1)
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda:0 if present, "
-                        "else cpu)")
+                   help="torch device (default: cuda:0; fails when no "
+                        "CUDA card is visible -- pass cpu to run the "
+                        "kernels' plain versions on the CPU)")
     p.add_argument("--set", action="append", default=[],
                    metavar="FIELD=VALUE", dest="set_fields",
                    help="override any ExperimentConfig field; values "

@@ -4,8 +4,11 @@ from physicsbasedfwi2_tpu_torch.geo.grid import Grid2D, cfl_dt, check_cfl
 from physicsbasedfwi2_tpu_torch.geo.wavelets import ricker
 from physicsbasedfwi2_tpu_torch.geo.acquisition import (
     Acquisition,
+    elastic_line,
+    seabed_rows,
     surface_line,
 )
+from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
 
 __all__ = [
     "Grid2D",
@@ -13,5 +16,8 @@ __all__ = [
     "check_cfl",
     "ricker",
     "Acquisition",
+    "elastic_line",
+    "seabed_rows",
     "surface_line",
+    "lowpass_filter_time",
 ]

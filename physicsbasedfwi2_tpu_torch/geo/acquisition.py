@@ -1,7 +1,7 @@
 """Acquisition geometry as integer cell indices (numpy).
 
 The slice of ``physicsbasedfwi2_tpu/geo/acquisition.py`` that the
-acoustic workload uses, copied as it is: geometry stays host-side
+acoustic and elastic workloads use, copied as it is: geometry stays host-side
 numpy and becomes int32 device tensors only where a propagator reads
 it.
 """
@@ -59,4 +59,39 @@ def surface_line(num_shots: int, num_receivers: int, nx: int,
     rx = (np.arange(num_receivers) * (nx / num_receivers)).astype(np.int32)
     rcv_x = np.tile(rx, (num_shots, 1)).astype(np.int32)
     rcv_z = np.full_like(rcv_x, rcv_depth)
+    return Acquisition(src_z, src_x, rcv_z, rcv_x)
+
+
+def seabed_rows(model: np.ndarray, water_vel: float = 1500.0) -> np.ndarray:
+    """Per-column first non-water row (the water-bottom index), for
+    hanging receivers on the seabed.  Returns [nx] int32 row indices
+    (0 where the column has no water)."""
+    m = np.asarray(model)
+    water = m == water_vel
+    # deepest water row + 1 per column; columns with no water -> 0
+    any_w = water.any(axis=0)
+    deepest = np.where(any_w, water.shape[0] - 1 -
+                       np.argmax(water[::-1], axis=0), -1)
+    return (deepest + 1).astype(np.int32)
+
+
+def elastic_line(num_shots: int, num_receivers: int, nx: int, nz: int,
+                 *, src_row: int, rcv_row: int | None = None,
+                 rcv_rows_per_col: np.ndarray | None = None,
+                 src_x0: int = 2) -> Acquisition:
+    """Elastic acquisition with explicit depth rows: evenly spaced
+    sources at ``src_row``, a fixed receiver spread at ``rcv_row`` --
+    or, when ``rcv_rows_per_col`` is given, per-receiver depths
+    following the seabed."""
+    src_x = np.round(np.linspace(src_x0, nx - 1 - src_x0,
+                                 num_shots)).astype(np.int32)
+    src_z = np.full(num_shots, min(src_row, nz - 2), np.int32)
+    rx = np.round(np.linspace(1, nx - 2, num_receivers)).astype(np.int32)
+    if rcv_rows_per_col is not None:
+        rz_line = np.asarray(rcv_rows_per_col, np.int32)[rx]
+        rz_line = np.clip(rz_line, 0, nz - 2)
+    else:
+        rz_line = np.full(num_receivers, min(rcv_row, nz - 2), np.int32)
+    rcv_x = np.tile(rx, (num_shots, 1)).astype(np.int32)
+    rcv_z = np.tile(rz_line, (num_shots, 1)).astype(np.int32)
     return Acquisition(src_z, src_x, rcv_z, rcv_x)

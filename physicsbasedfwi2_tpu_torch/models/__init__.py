@@ -1,5 +1,5 @@
 """Generator registry (port of ``physicsbasedfwi2_tpu/models/__init__.py``,
-the AutoEncoderNet names).
+the AutoEncoderNet and ElasticAutoEncoderNet names).
 
 ``define_generator`` maps a reference generator name to a configured
 module; keyword arguments the module does not take are dropped, as
@@ -13,6 +13,8 @@ from typing import Any, NamedTuple
 
 from physicsbasedfwi2_tpu_torch.models.autoencoders import (
     AutoEncoderNet,
+    ElasticAutoEncoderNet,
+    apply_elastic_output,
     apply_velocity_output,
 )
 
@@ -47,6 +49,18 @@ for _n in ["Auto", "Auto21", "Auto22", "Auto23", "Auto24", "Auto25",
            "Auto26", "AutoWav", "Simple24", "AutoN"]:
     register_generator(_n, AutoEncoderNet)
 register_generator("Auto22CBAM", AutoEncoderNet, use_cbam=True)
+
+# --- elastic two-branch autoencoders ---
+for _n in ["AutoEl22", "AutoElMar22", "AutoElFullMar22", "AutoSEAMMar22",
+           "AutoRealData"]:
+    register_generator(_n, ElasticAutoEncoderNet, n_fields=2)
+register_generator("AutoElFullRhoMar22", ElasticAutoEncoderNet, n_fields=3)
+# the reference's AutoElMarmousiMarZp22_Net is the rho-inversion net
+# under a vestigial "Zp" label (three plain vp/vs/rho heads)
+register_generator("AutoElMarZp22", ElasticAutoEncoderNet, n_fields=3)
+# MC dropout: raises until dropout is ported (ROADMAP Queue A)
+register_generator("AutoElMarMCDIP22", ElasticAutoEncoderNet, n_fields=2,
+                   dropout=0.1)
 
 
 class GenOut(NamedTuple):
@@ -90,5 +104,7 @@ __all__ = [
     "pack_output",
     "apply_generator",
     "AutoEncoderNet",
+    "ElasticAutoEncoderNet",
+    "apply_elastic_output",
     "apply_velocity_output",
 ]

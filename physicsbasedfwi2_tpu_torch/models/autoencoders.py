@@ -1,6 +1,8 @@
-"""Deep-image-prior autoencoder generator (port of
-``physicsbasedfwi2_tpu/models/autoencoders.py``: ``AutoEncoderNet``,
-the Auto22 family, and ``apply_velocity_output``).
+"""Deep-image-prior autoencoder generators (port of
+``physicsbasedfwi2_tpu/models/autoencoders.py``: ``AutoEncoderNet``, the
+Auto22 family, ``ElasticAutoEncoderNet``, the AutoElMar22 family, and
+the output transforms ``apply_velocity_output`` and
+``apply_elastic_output``).
 
 Public interfaces are NHWC, as in the Flax nets: the encoder takes
 shot gathers [B, nt, nr, num_shots] and the net returns the field
@@ -40,13 +42,17 @@ def _encoded_hw(nt: int, nr: int, time_decimation: int,
 
 
 class Decoder2D(nn.Module):
-    """latent -> [B, nz, nx, out_channels] in [0, 1] (NHWC)."""
+    """latent -> [B, nz, nx, out_channels] (NHWC), through a final
+    ``sigmoid`` (in [0, 1]), ``tanh`` or no activation (``none``)."""
 
     def __init__(self, out_shape: tuple[int, int], out_channels: int = 1,
                  filters: Sequence[int] = (16, 32, 64, 128),
                  latent_dim: int = 8, dropout: float = 0.0,
-                 norm: str = "group"):
+                 norm: str = "group", final_activation: str = "sigmoid"):
         super().__init__()
+        if final_activation not in ("sigmoid", "tanh", "none"):
+            raise ValueError(f"final_activation {final_activation!r}")
+        self.final_activation = final_activation
         self.out_shape = tuple(out_shape)
         n_up = len(filters) - 1
         self.h0, self.w0 = _decode_start(self.out_shape, n_up)
@@ -63,7 +69,11 @@ class Decoder2D(nn.Module):
         for up in self.ups:
             x = up(x)
         nz, nx = self.out_shape
-        x = torch.sigmoid(self.head(x[:, :, :nz, :nx]))
+        x = self.head(x[:, :, :nz, :nx])
+        if self.final_activation == "sigmoid":
+            x = torch.sigmoid(x)
+        elif self.final_activation == "tanh":
+            x = torch.tanh(x)
         return x.permute(0, 2, 3, 1)
 
 
@@ -123,6 +133,99 @@ class AutoEncoderNet(nn.Module):
     def forward(self, shots):
         z = self.encoder(shots)
         return self.decoder(z), z
+
+
+def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class ElasticAutoEncoderNet(nn.Module):
+    """Two-component elastic generator (AutoElMar22): the vx and vz
+    gathers are each combined by a 1x1 conv into 4 channels, share one
+    encoder -> latent, and decode through one branch per field (vp, vs
+    [, rho]); the outputs are deltas added to the low-frequency model
+    by :func:`apply_elastic_output`.
+
+    head="linear": the decoder's raw output is the delta (no final
+    activation); head="tanh": deltas in [-1, 1].  ``in_shape`` is one
+    sample's (nt, nr, num_shots).  Returns (deltas [B, nz, nx,
+    n_fields], latent [B, latent_dim]).
+    """
+
+    def __init__(self, out_shape: tuple[int, int],
+                 in_shape: tuple[int, int, int], n_fields: int = 2,
+                 latent_dim: int = 8,
+                 filters: Sequence[int] = (16, 32, 64, 128),
+                 time_decimation: int = 4, dropout: float = 0.0,
+                 norm: str = "group", head: str = "tanh",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        nt, nr, ns = in_shape
+        self.n_fields = n_fields
+        self.combine_vx = nn.Conv2d(ns, 4, 1)
+        self.combine_vz = nn.Conv2d(ns, 4, 1)
+        self.encoder = Encoder2D((nt, nr, 8), latent_dim, filters,
+                                 time_decimation, norm)
+        act = "tanh" if head == "tanh" else "none"
+        # attribute names follow the Flax submodules (decoder_field{k})
+        self.field_names = [f"decoder_field{k}" for k in range(n_fields)]
+        for name in self.field_names:
+            setattr(self, name, Decoder2D(out_shape, 1, filters, latent_dim,
+                                          dropout, norm,
+                                          final_activation=act))
+        if generator is not None:
+            init_flax_like(self, generator)
+
+    def forward(self, shots_vx, shots_vz):
+        x = torch.cat([_conv_nhwc(self.combine_vx, shots_vx),
+                       _conv_nhwc(self.combine_vz, shots_vz)], dim=-1)
+        z = self.encoder(x)
+        return torch.cat([getattr(self, n)(z) for n in self.field_names],
+                         dim=-1), z
+
+
+class _ClipSTE(torch.autograd.Function):
+    """Hard clip forward, identity backward (straight-through)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def apply_elastic_output(deltas, lowf, true_model, *, delta_scale,
+                         clip_min, clip_max, pin_rows: int = 0,
+                         clip_mode: str = "hard"):
+    """Elastic output transform: per-field deltas scaled and added to
+    the low-frequency model, clipped to physical bounds, top (water)
+    rows pinned to the true model.
+
+    Args:
+        deltas, lowf, true_model: [B, nz, nx, F] (only the true model's
+            top rows are used).
+        delta_scale, clip_min, clip_max: [F] per-field scale and bounds.
+        pin_rows: number of top rows pinned.
+        clip_mode: "hard" zeroes the gradient of out-of-bounds cells;
+            "ste" keeps the hard clip forward but passes the gradient
+            straight through it.
+    """
+    def vec(v):
+        return torch.as_tensor(v, dtype=deltas.dtype,
+                               device=deltas.device)[None, None, None, :]
+
+    m = lowf + deltas * vec(delta_scale)
+    lo, hi = vec(clip_min), vec(clip_max)
+    if clip_mode == "ste":
+        m = _ClipSTE.apply(m, lo, hi)
+    else:
+        m = torch.minimum(torch.maximum(m, lo), hi)
+    if pin_rows > 0:
+        row = torch.arange(m.shape[1], device=m.device)[None, :, None, None]
+        m = torch.where(row < pin_rows, true_model, m)
+    return m
 
 
 def apply_velocity_output(field01, true_model, *, vmin=None, vmax=None,

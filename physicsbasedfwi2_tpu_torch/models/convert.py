@@ -1,8 +1,11 @@
 """Carry generator weights between the Flax and PyTorch packages.
 
-``params_from_flax`` maps a Flax ``AutoEncoderNet`` params tree (nested
-dicts of arrays, with or without the top ``'params'`` level) to this
-package's ``state_dict``; ``params_to_flax`` is its inverse.  Layouts:
+``params_from_flax`` maps a Flax ``AutoEncoderNet`` or
+``ElasticAutoEncoderNet`` params tree (nested dicts of arrays, with or
+without the top ``'params'`` level) to this package's ``state_dict``;
+``params_to_flax`` is its inverse.  The elastic net's named submodules
+(``combine_vx``, ``combine_vz``, ``decoder_field{k}``) keep their names
+on both sides.  Layouts:
 
 - conv kernels HWIO <-> OIHW;
 - Dense kernels [in, out] <-> Linear weights [out, in] (the port
@@ -32,11 +35,13 @@ _TO_TORCH = [
     (re.compile(r"ConvBlock_0$"), "block"),
     (re.compile(r"GroupNorm_(\d+)$"), r"norms.\1"),
     (re.compile(r"Dense_0$"), "fc"),
+    (re.compile(r"(combine_v[xz]|decoder_field\d+)$"), r"\1"),
 ]
 _TO_FLAX = {"encoder": "Encoder2D_0", "decoder": "Decoder2D_0",
             "downs": "Down", "ups": "Up", "block": "ConvBlock_0",
             "norms": "GroupNorm", "convs": "Conv", "fc": "Dense_0",
             "head": "Conv_0"}
+_NAMED = re.compile(r"combine_v[xz]|decoder_field\d+")
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
@@ -73,6 +78,10 @@ def _flax_path(name: str) -> tuple[str, ...]:
     i = 0
     while i < len(comps) - 1:
         c = comps[i]
+        if _NAMED.fullmatch(c):
+            path.append(c)
+            i += 1
+            continue
         base = _TO_FLAX[c]
         if c in ("downs", "ups", "norms", "convs"):
             path.append(f"{base}_{comps[i + 1]}")

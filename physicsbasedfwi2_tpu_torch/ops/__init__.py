@@ -1,7 +1,9 @@
-"""Wave-physics ops of the acoustic slice.
+"""Wave-physics ops of the acoustic and elastic slices.
 
-Kernel modules: :mod:`scalar2` (B1, forward) and :mod:`fwi_fused` (B2,
-fused loss+gradient); each holds its CUDA wrapper and plain version.
+Kernel modules: :mod:`scalar2` (B1, forward), :mod:`fwi_fused` (B2,
+fused loss+gradient) and :mod:`elastic_fused` (B3, fused elastic
+loss+gradient, and the ring forward); each holds its CUDA wrapper and
+plain version.
 """
 
 from physicsbasedfwi2_tpu_torch.ops.acoustic import (

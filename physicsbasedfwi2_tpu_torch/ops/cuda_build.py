@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles ``csrc/scalar2.cu`` for ``sm_90a`` into a shared
+``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1
+and B2; ``elastic.cu``: kernel B3) for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads.  The build
 runs at first use, never at import, into ``build/torch_kernels/`` at
 the root of the checkout (git-ignored; ``PBFWI_TORCH_BUILD_DIR``
-overrides it).  The library's file name carries a hash of the source,
+overrides it).  The library's file name carries a hash of the sources,
 so an edited source is rebuilt and a stale library is never loaded.
 """
 
@@ -18,15 +20,19 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCE = _CSRC / "scalar2.cu"
+SOURCES = (_CSRC / "scalar2.cu", _CSRC / "elastic.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of csrc/scalar2.cu's entry points (pointers, then ints)
+# C signatures of the entry points (pointers, then ints and floats)
 _SIGNATURES = {
+    # csrc/scalar2.cu
     "b1_forward2": [_P] * 10 + [_I] * 4 + [_P],
     "b2_fwi_l1_loss_grad": [_P] * 22 + [_I] * 6 + [_F, _P],
+    # csrc/elastic.cu
+    "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
+    "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],
 }
 
 _lib = None
@@ -40,8 +46,10 @@ def build_dir() -> Path:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    return build_dir() / f"libpbfwi_scalar2_{digest}.so"
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return build_dir() / f"libpbfwi_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -57,22 +65,38 @@ def build() -> tuple[Path, float, str]:
 
     Returns (library path, build seconds, nvcc's ptxas report); the
     seconds are 0 and the report empty when the library already
-    existed.  Writes to a temporary name and renames, so a concurrent
+    existed.  Writes to temporary names and renames, so a concurrent
     build never loads a half-written library.
     """
     out = library_path()
     if out.exists():
         return out, 0.0, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(_SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = []
+    for src, proc in zip(SOURCES, procs):
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{stdout}\n{stderr}")
+        logs.append(f"{src.name}:\n{stderr}")
+    tmp = out.with_name(f"{out.name}.{tag}")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stderr
+    return out, time.perf_counter() - t0, "\n".join(logs)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,8 +1,11 @@
 """Gradient post-processing for FWI model gradients (port of
-``physicsbasedfwi2_tpu/ops/gradproc.py``, the slice the acoustic
-engine uses): depth^2 weighting and the water mask."""
+``physicsbasedfwi2_tpu/ops/gradproc.py``, the slice the acoustic and
+elastic engines use): depth^2 weighting, the water mask, the top-rows
+taper and the per-field rescale to the model magnitude."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,3 +22,25 @@ def water_mask(grad: torch.Tensor, reference_model: torch.Tensor,
     """Zero the gradient wherever the true/initial model is water."""
     return torch.where(reference_model == water_vel,
                        torch.zeros_like(grad), grad)
+
+
+def taper_top(grad: torch.Tensor, rows: int, *,
+              smooth: int = 0) -> torch.Tensor:
+    """Zero (optionally cosine-ramp) the top ``rows`` rows, the DENISE
+    seabed mask."""
+    nz = grad.shape[-2]
+    z = torch.arange(nz, dtype=grad.dtype, device=grad.device)
+    if smooth > 0:
+        ramp = torch.clamp((z - rows) / smooth, 0.0, 1.0)
+        w = 0.5 * (1 - torch.cos(math.pi * ramp))
+    else:
+        w = (z >= rows).to(grad.dtype)
+    return grad * w[..., :, None]
+
+
+def rescale_to_model(grad: torch.Tensor, model: torch.Tensor,
+                     eps: float = 1e-20) -> torch.Tensor:
+    """Scale so max|grad| matches max|model| (DENISE's per-field r1..r3
+    step)."""
+    r = torch.amax(torch.abs(model)) / (torch.amax(torch.abs(grad)) + eps)
+    return grad * r

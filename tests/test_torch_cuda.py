@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from physicsbasedfwi2_tpu_torch.geo import ricker
+from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
+from physicsbasedfwi2_tpu_torch.ops import trace_normalize
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
     fwi_l1_loss_grad, fwi_l1_loss_grad_plain,
 )
@@ -19,7 +21,10 @@ from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
     _prepare2, _rows_cuda, forward2, forward2_plain,
 )
 
-from torch_parity import acoustic_case, rel_l2, rel_max, torch_acoustic
+from torch_parity import (
+    acoustic_case, elastic_case, rel_l2, rel_max, torch_acoustic,
+    torch_elastic,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +90,73 @@ def test_kernel_wrapper_rejects_bad_inputs(case):
     with pytest.raises(ValueError, match="contiguous"):
         _rows_cuda(K, dp.t(), dm, wav[None].expand(2, -1).contiguous(),
                    sz, sz, sz, cfg.grid.nt)
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["free_surface", "absorbing_top"])
+def el_case(dev, request):
+    grid, cfg, wargs, med, geom = elastic_case(free_surface=request.param)
+    med = tuple(torch.as_tensor(a, device=dev) for a in med)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in geom)
+    return torch_elastic(grid, cfg), ricker(*wargs, device=dev), med, geom
+
+
+def test_ring_forward_kernel_matches_plain(el_case):
+    cfg, wav, med, geom = el_case
+    before = ef.simulate_elastic_ring.launches
+    got = ef.simulate_elastic_ring(*med, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert ef.simulate_elastic_ring.launches == before + 1
+    ref = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    for a, b in zip(got, ref):
+        # FMA contraction and sum order differ: 1e-5 of max over 64 steps
+        assert rel_max(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("misfit", ["l2", "tnl1"])
+def test_b3_kernel_matches_plain(el_case, misfit):
+    cfg, wav, med, geom = el_case
+    obs = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    if misfit == "tnl1":
+        obs = tuple(trace_normalize(o) for o in obs)
+    rows = [ef.scatter_rows_el(o, geom[3], cfg, KC=8) for o in obs]
+    meds = ef.prep_medium(med[0] * 0.9, med[1], med[2], cfg)
+    damp = ef.prep_damp(cfg, wav.device)
+    args = (meds, damp, wav, *geom, cfg, *rows)
+    before = ef.fused_elastic_loss_grad_meds.launches
+    lk, gk = ef.fused_elastic_loss_grad_meds(*args, KC=8, misfit=misfit)
+    torch.cuda.synchronize()
+    assert ef.fused_elastic_loss_grad_meds.launches == before + 1
+    lp, gp = ef.fused_elastic_loss_grad_meds_plain(*args, KC=8,
+                                                   misfit=misfit)
+    # float32 rounding in another order: loss 1e-5, gradients 1e-4 rel L2
+    np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
+    for a, b in zip(gk, gp):
+        assert rel_l2(a, b) <= 1e-4
+
+
+def test_b3_wrapper_rejects_bad_inputs(el_case):
+    cfg, wav, med, geom = el_case
+    meds = ef.prep_medium(*med, cfg)
+    damp = ef.prep_damp(cfg, wav.device)
+    g = cfg.grid
+    nt_pad = -(-g.nt // 8) * 8
+    wav2, sz, sx, rrow, gain, rmask, fs_row = ef._geometry(
+        cfg, meds[1], wav, *geom, nt_pad)
+    rows = torch.zeros((2, nt_pad, damp.shape[1]), device=wav.device)
+    good = [meds, damp, wav2, sz, sx, rrow, gain, rows, rows, rmask, fs_row,
+            g.nt, 8, 0.1, 0.1, 1e-3, "l2"]
+
+    def call(i, bad):
+        a = list(good)
+        a[i] = bad
+        return ef._loss_gmeds_cuda(*a)
+
+    with pytest.raises(ValueError, match="contiguous"):
+        call(1, damp.double())                 # dtype
+    with pytest.raises(ValueError, match="contiguous"):
+        call(7, rows.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="shape"):
+        call(7, rows[:1])                      # shape
+    with pytest.raises(ValueError, match="contiguous"):
+        call(3, sz.long())

@@ -83,3 +83,55 @@ def port_workload(jwl):
         grid=cfg.grid, cfg=cfg, acq=acq, wavelet=t(jwl.wavelet),
         vp_true=t(jwl.vp_true), vp_start=t(jwl.vp_start), obs=t(jwl.obs),
         obs_norm=t(jwl.obs_norm))
+
+
+def elastic_case(free_surface: bool = True):
+    """The JAX package's fused-elastic test case (tests/test_elastic.py,
+    ``test_fused_elastic_kernel_matches_autodiff_interpret``) as numpy:
+    (grid kwargs, cfg kwargs, wavelet args, (vp, vs, rho), geometry);
+    ``free_surface=False`` absorbs at the top as well."""
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        make_elastic_model, make_marmousi_like)
+    nz, nx, nt = 36, 48, 64
+    grid = dict(nz=nz, nx=nx, dx=15.0, nt=nt, dt=0.0015, pml_width=8,
+                free_surface=free_surface)
+    cfg = dict(chunk=16, vmax_pml=4000.0)
+    vp = make_marmousi_like(nz, nx, seed=0, water_rows=4)
+    ns, nr = 2, 10
+    geom = (np.array([5, 5], np.int32), np.array([10, 30], np.int32),
+            np.full((ns, nr), 5, np.int32),
+            np.tile(np.linspace(3, nx - 4, nr, dtype=np.int32), (ns, 1)))
+    return (grid, cfg, (12.0, nt, 0.0015),
+            make_elastic_model(vp, water_rows=4), geom)
+
+
+def jax_elastic(grid, cfg):
+    from physicsbasedfwi2_tpu.geo import Grid2D
+    from physicsbasedfwi2_tpu.ops import ElasticConfig
+    return ElasticConfig(grid=Grid2D(**grid), **cfg)
+
+
+def torch_elastic(grid, cfg):
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D
+    from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
+    return ElasticConfig(grid=Grid2D(**grid), **cfg)
+
+
+def port_elastic_workload(jwl):
+    """The port's SyntheticElasticWorkload holding the same arrays as a
+    JAX one (CPU tensors)."""
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticElasticWorkload)
+    from physicsbasedfwi2_tpu_torch.geo.acquisition import Acquisition
+    g = jwl.grid
+    grid = dict(nz=g.nz, nx=g.nx, dx=g.dx, nt=g.nt, dt=g.dt,
+                pml_width=g.pml_width, free_surface=g.free_surface)
+    cfg = torch_elastic(grid, dict(chunk=jwl.cfg.chunk,
+                                   vmax_pml=jwl.cfg.vmax_pml))
+    acq = Acquisition(*(np.asarray(a) for a in (
+        jwl.acq.src_z, jwl.acq.src_x, jwl.acq.rcv_z, jwl.acq.rcv_x)))
+    return SyntheticElasticWorkload(
+        grid=cfg.grid, cfg=cfg, acq=acq, wavelet=t(jwl.wavelet),
+        true={k: t(v) for k, v in jwl.true.items()},
+        start={k: t(v) for k, v in jwl.start.items()},
+        obs_vx=t(jwl.obs_vx), obs_vz=t(jwl.obs_vz))

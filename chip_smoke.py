@@ -25,7 +25,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    epochs=3)`` at full width on ``cuda:0``;
 6. the elastic path: ``train(get_workload("marmousi_elastic"),
    epochs=lstart + 3)`` at full width: the 30 warmup epochs, then 3
-   physics epochs on the 4 Hz continuation stage.
+   physics epochs on the 4 Hz continuation stage;
+7. kernels B4a (``forward2_ckpt``) and B4b (``backward2``) against B1
+   and their plain versions at the acoustic path's shapes, and the
+   gradient of a smooth misfit through ``acoustic_pallas2`` against the
+   plain version in float32 and float64;
+8. kernels B5 (``acoustic_forward_pallas``) and B6
+   (``acoustic_pallas_backward``) the same way through
+   ``acoustic_pallas``, and B5 against ``simulate_acoustic``;
+9. the differentiable propagators' path at full width: the workload
+   built with ``backend="pallas"`` (B5), the direct wave from
+   ``select_acoustic("auto")``, then 3 model-pixel FWI iterations of
+   the trace-normalized L1 loss through ``acoustic_pallas`` (B5 + B6)
+   and 3 through ``acoustic_pallas2`` (B4a + B4b);
+10. the acoustic engine's non-fused path: ``train(get_workload(
+    "marmousi_acoustic", backend="xla"), epochs=2)`` at full width
+    (plain PyTorch autograd through ``simulate_acoustic``, no kernel).
 
 Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
@@ -45,6 +60,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/scalar2.cu"
 EL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/elastic.cu"
+AC_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/acoustic.cu"
 NT = 4001  # marmousi_acoustic's time steps
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM bandwidth
@@ -59,6 +75,11 @@ FLOPS_B1 = 17
 FLOPS_B2_ADJ = 20
 FLOPS_B3 = 68
 FLOPS_B3_ADJ = 99
+# B5's forward (4 staggered derivatives at 5, p = px + pz, 4 updates at
+# 3) and B6's transpose (4 derivatives at 5, 2 weights, kap products 2,
+# imaging 4, 4 cotangent updates, pb0 2, 2 sums)
+FLOPS_B5 = 33
+FLOPS_B6_ADJ = 36
 
 
 class SmokeFailure(RuntimeError):
@@ -556,6 +577,285 @@ def phase_slice2(dev):
     return launches
 
 
+ACC_SHOTS = 4  # shots of the float64 comparisons of phases 7 and 8
+
+
+def _grad_accuracy(name, shape, gk, gp, ms_k, ms_p, grads4):
+    """Print and check a kernel gradient at the path's shape against the
+    plain float32 version (1e-4 rel L2: float32 rounding in another
+    order) and, at ACC_SHOTS shots, against the plain version in float64:
+    the kernel's relative L2 error at most 2x the plain float32
+    version's own.  ``grads4``: the kernel's, the plain float32 and the
+    plain float64 gradients at ACC_SHOTS shots."""
+    import torch
+    k4, p4, r4 = grads4
+    rel = _rel_l2(gk, gp)
+    err_k, err_p = _rel_l2(k4.double(), r4), _rel_l2(p4.double(), r4)
+    print(f"{name} gradient {shape}: rel L2 vs plain {rel:.2e} (tol 1e-4); "
+          f"kernel {ms_k:.2f} ms, plain {ms_p:.2f} ms; against the plain "
+          f"version in float64 at {ACC_SHOTS} shots (float64 sweeps over 18 "
+          f"shots would add ~30 s): kernel {err_k:.2e}, plain float32 "
+          f"{err_p:.2e} (tol 2x plain)")
+    check(bool(torch.isfinite(gk).all()), f"{name} gradient not finite")
+    check(rel <= 1e-4, f"{name} gradient disagrees with its plain version")
+    check(err_k <= 2.0 * err_p,
+          f"{name} gradient is less accurate than its plain version")
+    return float((gk - gp).abs().max())
+
+
+def _plain_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_b4(dev):
+    """B4a against B1 and its plain version (traces and checkpoints); B4b
+    and the gradient of mean((pred - obs)^2) through acoustic_pallas2,
+    obs from the true model, at the smooth starting model."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
+        acoustic_pallas2, backward2, backward2_plain, forward2, forward2_ckpt,
+        forward2_ckpt_plain, scatter_rows)
+    cfg, wav, geom, vp, vp0 = flagship_case(dev)
+    g = cfg.grid
+    shape = f"[18 shots, nt {g.nt}]"
+    (recs, ckpt), ms_k = timed_ms(lambda: forward2_ckpt(vp0, wav, *geom, cfg))
+    same_b1 = float((recs - forward2(vp0, wav, *geom, cfg)).abs().max())
+    (recs_p, ckpt_p), ms_p = _plain_ms(
+        lambda: forward2_ckpt_plain(vp0, wav, *geom, cfg))
+    scale = float(recs_p.abs().max())
+    err = float((recs - recs_p).abs().max())
+    err_ck = float((ckpt - ckpt_p).abs().max()) / float(ckpt_p.abs().max())
+    print(f"B4a forward2_ckpt {shape}, ckpt {tuple(ckpt.shape)}: vs B1 "
+          f"max|diff| {same_b1:.3e} (the same step kernel: 0); vs plain "
+          f"max|err| {err:.3e} of max {scale:.3e}, checkpoints {err_ck:.3e} "
+          f"of max (tol 1e-5 of max); kernel {ms_k:.2f} ms, plain "
+          f"{ms_p:.2f} ms")
+    check(same_b1 == 0.0, "B4a traces differ from B1's")
+    check(bool(torch.isfinite(recs).all() and torch.isfinite(ckpt).all()),
+          "B4a output not finite")
+    check(err <= 1e-5 * scale and err_ck <= 1e-5,
+          "B4a disagrees with its plain version")
+    b4a = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+
+    obs = forward2(vp, wav, *geom, cfg)
+    v = vp0.clone().requires_grad_(True)
+    torch.mean((acoustic_pallas2(v, wav, *geom, cfg) - obs) ** 2).backward()
+    gk_auto = v.grad
+
+    def rows_of(pred):
+        ybar = 2.0 * (pred - obs[:len(pred)].to(pred.dtype)) / pred.numel()
+        return scatter_rows(ybar, geom[3][:len(pred)], nt=g.nt, nx=g.nx,
+                            pml_width=g.pml_width)
+
+    def grad4(fwd, bwd, **kw):
+        g4 = tuple(a[:ACC_SHOTS] for a in geom)
+        recs4, ck4 = fwd(vp0, wav, *g4, cfg, **kw)
+        return bwd(vp0, wav, *g4, cfg, rows_of(recs4), ck4, **kw)
+
+    rows_k = rows_of(recs)
+    gk, ms_bk = timed_ms(lambda: backward2(vp0, wav, *geom, cfg, rows_k,
+                                           ckpt))
+    # the same kernel on cotangents that differ in the last bit
+    check(_rel_l2(gk_auto, gk) <= 1e-5,
+          "acoustic_pallas2's gradient is not B4b's")
+    gp, ms_bp = _plain_ms(lambda: backward2_plain(
+        vp0, wav, *geom, cfg, rows_of(recs_p), ckpt_p))
+    grads4 = (grad4(forward2_ckpt, backward2),
+              grad4(forward2_ckpt_plain, backward2_plain),
+              grad4(forward2_ckpt_plain, backward2_plain,
+                    dtype=torch.float64))
+    err_b = _grad_accuracy("B4b backward2 (acoustic_pallas2)", shape, gk, gp,
+                           ms_bk, ms_bp, grads4)
+    ns = len(geom[0])
+    cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
+    planes = 3 * 192 * 256 * 4
+    io_a = planes + nbytes(wav, *geom[:3], recs, ckpt)
+    io_b = planes + nbytes(wav, *geom[:3], rows_k, ckpt, gk)
+    b4a.update(bound(FLOPS_B1 * cells * g.nt, io_a), library_ms=None)
+    b4b = {"max_abs_err": err_b, "ms": ms_bk, "plain_ms": ms_bp,
+           **bound(FLOPS_B2_ADJ * cells * g.nt, io_b), "library_ms": None}
+    return b4a, b4b
+
+
+def phase_b56(dev):
+    """B5 against its plain version and simulate_acoustic; B6 and the
+    gradient of mean((pred - obs)^2) through acoustic_pallas, obs from
+    the true model, at the smooth starting model."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
+    from physicsbasedfwi2_tpu_torch.ops.adjoint import (
+        acoustic_pallas, acoustic_pallas_backward,
+        acoustic_pallas_backward_plain)
+    from physicsbasedfwi2_tpu_torch.ops.kernels import (
+        acoustic_forward_pallas, acoustic_forward_pallas_plain)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import scatter_rows
+    cfg, wav, geom, vp, vp0 = flagship_case(dev)
+    g = cfg.grid
+    shape = f"[18 shots, nt {g.nt}]"
+    recs, ms_k = timed_ms(lambda: acoustic_forward_pallas(vp0, wav, *geom,
+                                                          cfg))
+    recs_p, ms_p = _plain_ms(lambda: acoustic_forward_pallas_plain(
+        vp0, wav, *geom, cfg))
+    scale = float(recs_p.abs().max())
+    err = float((recs - recs_p).abs().max())
+    with torch.no_grad():
+        sim = simulate_acoustic(vp0, wav, *geom, cfg)
+    err_sim = float((recs - sim).abs().max()) / float(sim.abs().max())
+    print(f"B5 acoustic_forward_pallas {shape}: max|err| {err:.3e} of max "
+          f"{scale:.3e} (tol 1e-5 of max); vs simulate_acoustic {err_sim:.3e} "
+          f"of max (tol 5e-3: no ring, 1/dx associated differently); kernel "
+          f"{ms_k:.2f} ms, plain {ms_p:.2f} ms")
+    check(bool(torch.isfinite(recs).all()), "B5 traces not finite")
+    check(err <= 1e-5 * scale, "B5 disagrees with its plain version")
+    check(err_sim <= 5e-3, "B5 disagrees with simulate_acoustic")
+    b5 = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+
+    obs = acoustic_forward_pallas(vp, wav, *geom, cfg)
+    v = vp0.clone().requires_grad_(True)
+    torch.mean((acoustic_pallas(v, wav, *geom, cfg) - obs) ** 2).backward()
+    gk_auto = v.grad
+
+    def rows_of(pred):
+        ybar = 2.0 * (pred - obs[:len(pred)].to(pred.dtype)) / pred.numel()
+        return scatter_rows(ybar, geom[3][:len(pred)], nt=g.nt, nx=g.nx,
+                            pml_width=g.pml_width, KC=16)
+
+    def grad4(fwd, bwd, **kw):
+        g4 = tuple(a[:ACC_SHOTS] for a in geom)
+        rows4 = rows_of(fwd(vp0, wav, *g4, cfg, **kw))
+        return bwd(vp0, wav, *g4, cfg, rows4, **kw)
+
+    rows_k = rows_of(recs)
+    gk, ms_bk = timed_ms(lambda: acoustic_pallas_backward(
+        vp0, wav, *geom, cfg, rows_k))
+    check(_rel_l2(gk_auto, gk) <= 1e-5,
+          "acoustic_pallas's gradient is not B6's")
+    gp, ms_bp = _plain_ms(lambda: acoustic_pallas_backward_plain(
+        vp0, wav, *geom, cfg, rows_of(recs_p)))
+    grads4 = (grad4(acoustic_forward_pallas, acoustic_pallas_backward),
+              grad4(acoustic_forward_pallas_plain,
+                    acoustic_pallas_backward_plain),
+              grad4(acoustic_forward_pallas_plain,
+                    acoustic_pallas_backward_plain, dtype=torch.float64))
+    err_b = _grad_accuracy("B6 acoustic_pallas_backward (acoustic_pallas)",
+                           shape, gk, gp, ms_bk, ms_bp, grads4)
+    ns = len(geom[0])
+    cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
+    planes = 5 * 192 * 256 * 4
+    io5 = planes + nbytes(wav, *geom, recs)
+    io6 = planes + nbytes(wav, *geom, rows_k, gk)
+    b5.update(bound(FLOPS_B5 * cells * g.nt, io5), library_ms=None)
+    b6 = {"max_abs_err": err_b, "ms": ms_bk, "plain_ms": ms_bp,
+          **bound((FLOPS_B5 + FLOPS_B6_ADJ) * cells * g.nt, io6),
+          "library_ms": None}
+    return b5, b6
+
+
+def phase_slice3(dev):
+    """The differentiable propagators' path at full width: 3 model-pixel
+    FWI iterations of the trace-normalized L1 loss (direct wave
+    subtracted) through acoustic_pallas and through acoustic_pallas2."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticAcousticWorkload)
+    from physicsbasedfwi2_tpu_torch.ops import (
+        adjoint, kernels, normalized_trace_misfit, scalar2, select_acoustic,
+        trace_normalize)
+    counters = {"forward2_ckpt": scalar2.forward2_ckpt,
+                "backward2": scalar2.backward2,
+                "acoustic_forward_pallas": kernels.acoustic_forward_pallas,
+                "acoustic_pallas_backward": adjoint.acoustic_pallas_backward}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    wl = SyntheticAcousticWorkload.build(backend="pallas", device=dev)
+    torch.cuda.synchronize()
+    print(f"slice 3: workload (backend pallas: B5) {wl.obs.shape[0]} shots, "
+          f"nt {wl.grid.nt}, built in {time.perf_counter() - t0:.2f} s")
+    geom, cfg, wav = wl.geom, wl.cfg, wl.wavelet
+    const = torch.full_like(wl.vp_true, 1500.0)
+    auto = select_acoustic("auto")
+    check(auto is adjoint.acoustic_pallas,
+          f"select_acoustic('auto') on the card is {auto.__name__}")
+    for name, prop, obs in (
+            ("acoustic_pallas", auto, wl.obs),
+            ("acoustic_pallas2", scalar2.acoustic_pallas2,
+             scalar2.acoustic_pallas2(wl.vp_true, wav, *geom, cfg))):
+        direct = prop(const, wav, *geom, cfg)
+        obs_norm = trace_normalize(obs - direct)
+
+        def loss_of(v):
+            return normalized_trace_misfit(prop(v, wav, *geom, cfg),
+                                           obs_norm, direct, kind="l1")
+
+        with torch.no_grad():
+            l_true = float(loss_of(wl.vp_true))
+        vp = wl.vp_start.clone()
+        losses, secs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = vp.clone().requires_grad_(True)
+            loss = loss_of(v)
+            loss.backward()
+            grad = v.grad
+            vp = vp - 20.0 * grad / (grad.abs().max() + 1e-20)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+            check(bool(torch.isfinite(grad).all()) and bool(grad.abs().max() > 0),
+                  f"{name}: gradient not finite or zero")
+        print(f"slice 3 {name}: loss at the true model {l_true:.3e} (tol "
+              f"1e-6); losses {', '.join(f'{x:.6g}' for x in losses)}; "
+              f"seconds per iteration {', '.join(f'{x:.4f}' for x in secs)}")
+        check(l_true <= 1e-6, f"{name}: loss at the true model")
+        check(all(math.isfinite(x) for x in losses), f"{name}: loss")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"slice 3: launches {launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    for k, n in launches.items():
+        check(n >= 1, f"{k} was not launched on the slice's path")
+    return launches
+
+
+def phase_xla_engine(dev):
+    """The acoustic engine's non-fused ("xla") path at full width."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    cfg = get_workload("marmousi_acoustic", backend="xla",
+                       save_dir=str(ROOT / "build" / "chip_smoke"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    engine, history = train(cfg, epochs=2, quiet=True, device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    for rec in history:
+        print("epoch", json.dumps(rec))
+    epochs = ", ".join(f"{r['epoch_time']:.4f}" for r in history)
+    print(f"xla path: {total:.2f} s in all (engine setup included), epochs "
+          f"{epochs} s, physics "
+          f"path {engine.physics_path}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(engine.physics_path == "xla", f"physics path {engine.physics_path}")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
+    loss_true, grad = engine.physics_value_and_grad(engine.wl.vp_true)
+    print(f"xla path: misfit at the true model {float(loss_true):.3e} (tol "
+          f"1e-6), gradient {tuple(grad.shape)}")
+    check(float(loss_true) <= 1e-6, "xla engine misfit at the true model")
+    check(tuple(grad.shape) == (cfg.nz, cfg.nx)
+          and bool(torch.isfinite(grad).all()), "xla engine gradient")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -577,6 +877,10 @@ def main() -> int:
     b3, ring = phase_b3(dev)
     launches = phase_slice(dev)
     launches.update(phase_slice2(dev))
+    b4a, b4b = phase_b4(dev)
+    b5, b6 = phase_b56(dev)
+    launches.update(phase_slice3(dev))
+    phase_xla_engine(dev)
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",
@@ -594,6 +898,20 @@ def main() -> int:
          "source": EL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic_fused.py:208",
          "launches": launches["simulate_elastic_ring"], **ring},
+        {"name": "forward2_ckpt", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:119",
+         "launches": launches["forward2_ckpt"], **b4a},
+        {"name": "backward2", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:158",
+         "launches": launches["backward2"], **b4b},
+        {"name": "acoustic_forward_pallas", "route": "cuda",
+         "source": AC_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_kernels.py:69",
+         "launches": launches["acoustic_forward_pallas"], **b5},
+        {"name": "acoustic_pallas_backward", "route": "cuda",
+         "source": AC_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_adjoint.py:51",
+         "launches": launches["acoustic_pallas_backward"], **b6},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

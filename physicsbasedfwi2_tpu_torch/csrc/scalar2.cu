@@ -1,10 +1,23 @@
 // Second-order acoustic FWI kernels for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package:
 //   B1  b1_forward2             <- physicsbasedfwi2_tpu/ops/pallas_scalar2.py
 //                                  forward2 / _fwd_kernel
 //   B2  b2_fwi_l1_loss_grad     <- physicsbasedfwi2_tpu/ops/pallas_fwi_fused.py
 //                                  fwi_l1_loss_grad / _kernel
+//   B4a b4a_forward2_ckpt       <- pallas_scalar2.py forward2_ckpt /
+//                                  _fwd_ckpt_kernel (B2's phase 1)
+//   B4b b4b_backward2           <- pallas_scalar2.py _backward2 / _bwd_kernel
+//                                  (B2's phase 3 for any row cotangent)
+//
+// B4a and B4b are the primal and adjoint of the acoustic_pallas2 custom
+// VJP.  They run B2's own sweeps (fwd_ckpt_sweep, reverse_sweep below), so
+// they cost what B2's phases cost: per step B4a is B1's step plus the
+// checkpoint writes every KC steps, B4b B2's recompute and adjoint steps.
+// Prediction before their first chip run, at marmousi_acoustic's shape:
+// B4a ~30 ms (B1's 4 k launches), B4b ~90-100 ms (B2 minus its forward),
+// against operation bounds of ~0.84 and ~0.99 ms: bound by launches and
+// the step's L2 traffic, as B1 and B2 are.
 //
 // Scheme (K = (vp dt/dx)^2, d+ / d- the sponge factors with a 2-cell zero
 // ring folded into d+):
@@ -269,6 +282,95 @@ inline dim3 cell_grid(int ns, int nz, int nx) {
   } while (0)
 #define LAUNCHED() RET_IF(cudaGetLastError())
 
+namespace {
+
+// Forward sweep of n_ck*KC steps from zero fields, (u0, u_-1) written to
+// ckpt[s, c] before step c*KC; hist rows (minus dir's, if given) for
+// t < nt_valid, row stride nt_rows.
+cudaError_t fwd_ckpt_sweep(const float* K, const float* dp, const float* dm,
+                           const Geom& geo, float* u0, float* um1,
+                           float* hist, const float* dir, int nt_rows,
+                           int nt_valid, float* ckpt, int ns, int nz, int nx,
+                           int n_ck, int KC, cudaStream_t st) {
+  const long long F = (long long)nz * nx;
+  const size_t fbytes = sizeof(float) * (size_t)ns * F;
+  RET_IF(cudaMemsetAsync(u0, 0, fbytes, st));
+  RET_IF(cudaMemsetAsync(um1, 0, fbytes, st));
+  const dim3 grid = cell_grid(ns, nz, nx), block(BX, BY);
+  const long long ck_stride = (long long)n_ck * 2 * F;
+  float* cur = u0;
+  float* prev = um1;
+  for (int c = 0; c < n_ck; ++c) {
+    for (int kk = 0; kk < KC; ++kk) {
+      const int t = c * KC + kk;
+      fwd_step<<<grid, block, 0, st>>>(
+          K, dp, dm, cur, prev, geo, t, kk == 0 ? ckpt + c * 2 * F : nullptr,
+          ck_stride, nullptr, 0, hist, dir, nt_rows, nt_valid, nz, nx);
+      LAUNCHED();
+      float* tmp = cur;
+      cur = prev;
+      prev = tmp;
+    }
+  }
+  return cudaSuccess;
+}
+
+// Reverse sweep: per chunk (last first) restore (u0, u_-1) from ckpt,
+// recompute KC steps caching Lap(u0), then KC adjoint steps injecting the
+// cotangent rows ybar (row stride nt_rows) for t < nt_valid; dJ/dK per
+// shot in gk_shots, summed over shots in order into gk_out.
+cudaError_t reverse_sweep(const float* K, const float* dp, const float* dm,
+                          const Geom& geo, const float* ybar, int nt_rows,
+                          int nt_valid, const float* ckpt, float* u0,
+                          float* um1, float* pb0, float* pb1, float* qb,
+                          float* gk_shots, float* lapc, float* gk_out, int ns,
+                          int nz, int nx, int n_ck, int KC, cudaStream_t st) {
+  const long long F = (long long)nz * nx;
+  const size_t fbytes = sizeof(float) * (size_t)ns * F;
+  for (float* p : {pb0, qb, gk_shots})
+    RET_IF(cudaMemsetAsync(p, 0, fbytes, st));
+  const dim3 grid = cell_grid(ns, nz, nx), block(BX, BY);
+  const long long ck_stride = (long long)n_ck * 2 * F;
+  const long long lap_stride = (long long)KC * F;
+  float* pin = pb0;
+  float* pout = pb1;
+  for (int c = n_ck - 1; c >= 0; --c) {
+    for (int f = 0; f < 2; ++f)
+      RET_IF(cudaMemcpy2DAsync(
+          f == 0 ? u0 : um1, sizeof(float) * F, ckpt + (c * 2 + f) * F,
+          sizeof(float) * ck_stride, sizeof(float) * F, ns,
+          cudaMemcpyDeviceToDevice, st));
+    float* cur = u0;
+    float* prev = um1;
+    for (int kk = 0; kk < KC; ++kk) {
+      fwd_step<<<grid, block, 0, st>>>(K, dp, dm, cur, prev, geo, c * KC + kk,
+                                       nullptr, 0, lapc + kk * F, lap_stride,
+                                       nullptr, nullptr, nt_rows, nt_valid,
+                                       nz, nx);
+      LAUNCHED();
+      float* tmp = cur;
+      cur = prev;
+      prev = tmp;
+    }
+    for (int kk = KC - 1; kk >= 0; --kk) {
+      adj_step<<<grid, block, 0, st>>>(K, dp, dm, pin, pout, qb, gk_shots,
+                                       lapc + kk * F, lap_stride, ybar,
+                                       nt_rows, nt_valid, geo, c * KC + kk,
+                                       nz, nx);
+      LAUNCHED();
+      float* tmp = pin;
+      pin = pout;
+      pout = tmp;
+    }
+  }
+  sum_shots<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
+                                                        gk_out);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+}  // namespace
+
 extern "C" {
 
 const char* pbfwi_error_string(int err) {
@@ -316,76 +418,53 @@ int b2_fwi_l1_loss_grad(const float* K, const float* dp, const float* dm,
                         float* gk_out, int ns, int nz, int nx, int nt,
                         int n_ck, int KC, float inv_count, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long F = (long long)nz * nx;
-  const size_t fbytes = sizeof(float) * (size_t)ns * F;
   const int nt_pad = n_ck * KC;
-  for (float* p : {u0, um1, pb0, qb, gk_shots})
-    RET_IF(cudaMemsetAsync(p, 0, fbytes, st));
   RET_IF(cudaMemsetAsync(hist, 0, sizeof(float) * (size_t)ns * nt_pad * nx,
                          st));
   const Geom geo{src_z, src_x, rcv_row, wav, nt_pad};
-  const dim3 grid = cell_grid(ns, nz, nx), block(BX, BY);
-  const long long ck_stride = (long long)n_ck * 2 * F;
-
   // phase 1: forward with checkpoints every KC steps; hist = pred - dir
-  float* cur = u0;
-  float* prev = um1;
-  for (int c = 0; c < n_ck; ++c) {
-    for (int kk = 0; kk < KC; ++kk) {
-      const int t = c * KC + kk;
-      fwd_step<<<grid, block, 0, st>>>(
-          K, dp, dm, cur, prev, geo, t, kk == 0 ? ckpt + c * 2 * F : nullptr,
-          ck_stride, nullptr, 0, hist, dir, nt_pad, nt, nz, nx);
-      LAUNCHED();
-      float* tmp = cur;
-      cur = prev;
-      prev = tmp;
-    }
-  }
-
+  RET_IF(fwd_ckpt_sweep(K, dp, dm, geo, u0, um1, hist, dir, nt_pad, nt, ckpt,
+                        ns, nz, nx, n_ck, KC, st));
   // phase 2: misfit, loss partials and the cotangent rows (over hist)
   misfit_cols<<<dim3((nx + 127) / 128, ns), 128, 0, st>>>(
       hist, obs, rmask, ns, nt_pad, nx, inv_count, loss_part);
   LAUNCHED();
-
   // phase 3: reverse sweep, chunk by chunk from the checkpoints
-  const long long lap_stride = (long long)KC * F;
-  float* pin = pb0;
-  float* pout = pb1;
-  for (int c = n_ck - 1; c >= 0; --c) {
-    for (int f = 0; f < 2; ++f)
-      RET_IF(cudaMemcpy2DAsync(
-          f == 0 ? u0 : um1, sizeof(float) * F, ckpt + (c * 2 + f) * F,
-          sizeof(float) * ck_stride, sizeof(float) * F, ns,
-          cudaMemcpyDeviceToDevice, st));
-    cur = u0;
-    prev = um1;
-    for (int kk = 0; kk < KC; ++kk) {
-      fwd_step<<<grid, block, 0, st>>>(K, dp, dm, cur, prev, geo, c * KC + kk,
-                                       nullptr, 0, lapc + kk * F, lap_stride,
-                                       nullptr, nullptr, nt_pad, nt, nz, nx);
-      LAUNCHED();
-      float* tmp = cur;
-      cur = prev;
-      prev = tmp;
-    }
-    for (int kk = KC - 1; kk >= 0; --kk) {
-      adj_step<<<grid, block, 0, st>>>(K, dp, dm, pin, pout, qb, gk_shots,
-                                       lapc + kk * F, lap_stride, hist,
-                                       nt_pad, nt, geo, c * KC + kk, nz, nx);
-      LAUNCHED();
-      float* tmp = pin;
-      pin = pout;
-      pout = tmp;
-    }
-  }
-
-  sum_shots<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
-                                                        gk_out);
-  LAUNCHED();
+  RET_IF(reverse_sweep(K, dp, dm, geo, hist, nt_pad, nt, ckpt, u0, um1, pb0,
+                       pb1, qb, gk_shots, lapc, gk_out, ns, nz, nx, n_ck, KC,
+                       st));
   sum_loss<<<1, 1, 0, st>>>(loss_part, ns * nx, inv_count, loss_out);
   LAUNCHED();
   return cudaSuccess;
+}
+
+// B4a: forward2 with (u0, u_-1) checkpoints every KC steps.
+//   wav [ns, n_ck*KC] (zero past nt); hist [ns, nt, nx];
+//   u0, um1 [ns, nz, nx] scratch; ckpt [ns, n_ck, 2, nz, nx].
+int b4a_forward2_ckpt(const float* K, const float* dp, const float* dm,
+                      const float* wav, const int* src_z, const int* src_x,
+                      const int* rcv_row, float* u0, float* um1, float* hist,
+                      float* ckpt, int ns, int nz, int nx, int nt, int n_ck,
+                      int KC, void* stream) {
+  const Geom geo{src_z, src_x, rcv_row, wav, n_ck * KC};
+  return fwd_ckpt_sweep(K, dp, dm, geo, u0, um1, hist, nullptr, nt, nt, ckpt,
+                        ns, nz, nx, n_ck, KC, (cudaStream_t)stream);
+}
+
+// B4b: dJ/dK of the second-order forward for receiver-row cotangents
+// ybar [ns, n_ck*KC, nx] (every row injected, as the Pallas kernel does),
+// from B4a's checkpoints.  Scratch as in B2; gk_out [nz, nx].
+int b4b_backward2(const float* K, const float* dp, const float* dm,
+                  const float* wav, const int* src_z, const int* src_x,
+                  const int* rcv_row, const float* ybar, const float* ckpt,
+                  float* u0, float* um1, float* pb0, float* pb1, float* qb,
+                  float* gk_shots, float* lapc, float* gk_out, int ns, int nz,
+                  int nx, int n_ck, int KC, void* stream) {
+  const int nt_pad = n_ck * KC;
+  const Geom geo{src_z, src_x, rcv_row, wav, nt_pad};
+  return reverse_sweep(K, dp, dm, geo, ybar, nt_pad, nt_pad, ckpt, u0, um1,
+                       pb0, pb1, qb, gk_shots, lapc, gk_out, ns, nz, nx, n_ck,
+                       KC, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 ``physicsbasedfwi2_tpu/data/synthetic.py``).
 
 The velocity models are numpy (copied as they are, so both packages
-make the same model from a seed); the observed gathers come from the
-plain :func:`simulate_acoustic` / :func:`simulate_elastic` on the
-requested device.
+make the same model from a seed); the observed gathers come from
+:func:`simulate_acoustic` (or, with ``backend="pallas"``, kernel B5
+:func:`acoustic_forward_pallas`) / :func:`simulate_elastic` on the
+requested device, by default the first CUDA card.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from physicsbasedfwi2_tpu_torch.device import default_device
 from physicsbasedfwi2_tpu_torch.geo import (
     Grid2D, check_cfl, elastic_line, ricker, seabed_rows, surface_line,
 )
@@ -24,6 +26,7 @@ from physicsbasedfwi2_tpu_torch.ops import (
 from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig, simulate_elastic,
 )
+from physicsbasedfwi2_tpu_torch.ops.kernels import acoustic_forward_pallas
 
 
 def make_layered_model(nz: int, nx: int, *, v_top=1500.0, v_bottom=4000.0,
@@ -110,11 +113,13 @@ class SyntheticAcousticWorkload:
     def build(cls, *, nz=151, nx=200, dx=10.0, nt=4001, dt=0.001,
               pml_width=20, freq=8.0, num_shots=18, num_receivers=200,
               seed=0, water_rows=26, chunk=64, backend="xla",
-              device: torch.device | str = "cpu"):
-        if backend != "xla":
-            raise NotImplementedError(
-                f"backend={backend!r} (kernel B5) is not ported yet "
-                "(ROADMAP Queue B)")
+              device: torch.device | str | None = None):
+        """``backend="pallas"`` makes the observed data with kernel B5
+        (its plain version on the CPU), any other value with
+        :func:`simulate_acoustic`.  ``device=None`` is
+        :func:`default_device` (the card; raises without one)."""
+        if device is None:
+            device = default_device()
         grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
                       pml_width=pml_width)
         cfg = AcousticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
@@ -128,7 +133,10 @@ class SyntheticAcousticWorkload:
             smooth_model(vp_np, preserve_rows=water_rows), device=device)
         wl = cls(grid=grid, cfg=cfg, acq=acq, wavelet=wav, vp_true=vp_true,
                  vp_start=vp_start, obs=None, obs_norm=None)
-        wl.obs = simulate_acoustic(vp_true, wav, *wl.geom, cfg)
+        sim = (acoustic_forward_pallas if backend == "pallas"
+               else simulate_acoustic)
+        with torch.no_grad():
+            wl.obs = sim(vp_true, wav, *wl.geom, cfg)
         wl.obs_norm = trace_normalize(wl.obs)
         return wl
 
@@ -168,11 +176,14 @@ class SyntheticElasticWorkload:
               seed=0, water_rows=26, chunk=64, free_surface=True,
               src_depth_row=None, rcv_depth_row=None,
               rcv_follow_seabed=False,
-              device: torch.device | str = "cpu"):
+              device: torch.device | str | None = None):
         """src_depth_row / rcv_depth_row: explicit acquisition rows
         (default water_rows + 1, the just-below-seabed line);
         rcv_follow_seabed: per-column receiver depths from the water
-        bottom."""
+        bottom.  ``device=None`` is :func:`default_device` (the card;
+        raises without one)."""
+        if device is None:
+            device = default_device()
         grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
                       pml_width=pml_width, free_surface=free_surface)
         cfg = ElasticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)

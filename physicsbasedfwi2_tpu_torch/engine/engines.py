@@ -1,13 +1,14 @@
 """Inversion engines (port of ``physicsbasedfwi2_tpu/engine/engines.py``:
-``EngineBase``, ``AcousticDIPEngine`` and ``ElasticDIPEngine`` on their
-fused paths, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages``
+``EngineBase``, ``AcousticDIPEngine`` on its fused and "xla" paths,
+``ElasticDIPEngine`` on its fused path, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages``
 and ``create_engine``).
 
 The JAX engines inject the processed physics gradient into the
 generator's autodiff with a ``jax.custom_vjp``; here that is
 :class:`_PhysicsLoss`, a ``torch.autograd.Function`` whose forward runs
-the fused loss+gradient (kernel B2 or B3 on CUDA, their plain versions
-on CPU) and the engine's gradient processing, and whose backward
+the physics loss+gradient (the fused kernel B2 or B3 on CUDA, their
+plain versions on CPU, or autograd through ``simulate_acoustic``) and
+the engine's gradient processing, and whose backward
 returns the processed gradient.
 """
 
@@ -22,6 +23,7 @@ import torch
 from physicsbasedfwi2_tpu_torch.data.synthetic import (
     SyntheticAcousticWorkload, SyntheticElasticWorkload,
 )
+from physicsbasedfwi2_tpu_torch.device import default_device
 from physicsbasedfwi2_tpu_torch.engine.config import ExperimentConfig
 from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
 from physicsbasedfwi2_tpu_torch.models import (
@@ -31,7 +33,10 @@ from physicsbasedfwi2_tpu_torch.models import (
 from physicsbasedfwi2_tpu_torch.models.convert import (
     npz_from_state_dict, state_dict_from_npz,
 )
-from physicsbasedfwi2_tpu_torch.ops import trace_normalize
+from physicsbasedfwi2_tpu_torch.ops import (
+    acoustic_gradient, normalized_trace_misfit, simulate_acoustic,
+    trace_normalize,
+)
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
     fwi_l1_loss_grad, scatter_rows,
 )
@@ -45,18 +50,6 @@ from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
 from physicsbasedfwi2_tpu_torch.optim.schedules import (
     PlateauController, make_scheduler,
 )
-
-
-def default_device() -> torch.device:
-    """The first CUDA card.  Raises when no card is visible: the
-    entry points run on the card unless the caller asks for the CPU
-    (``device="cpu"``, ``--device cpu``)."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA card is visible (torch.cuda.is_available() is "
-            "False); pass device=\"cpu\" (--device cpu) to run the plain "
-            "PyTorch versions of the kernels on the CPU")
-    return torch.device("cuda:0")
 
 
 def _resolve_device(device) -> torch.device:
@@ -164,11 +157,13 @@ class _PhysicsLoss(torch.autograd.Function):
 
 
 class AcousticDIPEngine(EngineBase):
-    """Generator-reparameterized acoustic FWI on the fused
-    second-order path.
+    """Generator-reparameterized acoustic FWI.
 
-    ``device`` holds the generator, the workload and the physics; on
-    CUDA the physics runs kernels B1/B2, on CPU their plain versions.
+    ``device`` holds the generator, the workload and the physics.  On
+    the fused second-order path (``backend`` "auto"/"pallas", ``l1``
+    misfit, single-row receivers) the physics runs kernels B1/B2 on
+    CUDA and their plain versions on CPU; otherwise it takes the JAX
+    engine's "xla" path, autograd through :func:`simulate_acoustic`.
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None,
@@ -209,31 +204,42 @@ class AcousticDIPEngine(EngineBase):
              f"backend={cfg.backend}"),
             (cfg.misfit != "l1", f"misfit={cfg.misfit}"),
             (not single_row, "multi-row receivers")) if cond]
-        if why:
-            raise NotImplementedError(
-                "only the fused second-order path is ported ("
-                + ", ".join(why) + "); the autodiff acoustic path waits "
-                "in ROADMAP Queue A, slice-1 leftovers")
-        self.physics_path = ("fused-cuda" if self.device.type == "cuda"
-                             else "fused-plain")
-        _log_path(cfg.name, "acoustic", self.physics_path)
+        # the fused path runs kernel B2 on the card and its plain version
+        # on the CPU; otherwise the JAX engine's "xla" path: autograd
+        # through simulate_acoustic, plain PyTorch on either device
+        self._use_fused = not why
+        if self._use_fused:
+            self.physics_path = ("fused-cuda" if self.device.type == "cuda"
+                                 else "fused-plain")
+            _log_path(cfg.name, "acoustic", self.physics_path)
+        else:
+            self.physics_path = "xla"
+            _log_path(cfg.name, "acoustic", self.physics_path,
+                      "fused unavailable: " + ", ".join(why))
 
         geom = self.wl.geom
         g = self.wl.cfg.grid
-        if not self.wl.from_disk:
+        if self._use_fused and not self.wl.from_disk:
             # regenerate obs with the fused path's operator so the
             # misfit is zero at the true model
             self.wl.obs = forward2(self.wl.vp_true, self.wl.wavelet, *geom,
                                    self.wl.cfg)
             self.wl.obs_norm = trace_normalize(self.wl.obs)
         self._dir_rows = None
+        self._direct = None
         if cfg.direct_wave:
             const = torch.full_like(self.wl.vp_true, cfg.water_vel)
-            self._dir_rows = forward2(const, self.wl.wavelet, *geom,
-                                      self.wl.cfg, return_rows=True)
-            cols = geom[3].long() + g.pml_width
-            dir_recs = torch.gather(self._dir_rows, 2,
-                                    cols[:, None, :].expand(-1, g.nt, -1))
+            if self._use_fused:
+                self._dir_rows = forward2(const, self.wl.wavelet, *geom,
+                                          self.wl.cfg, return_rows=True)
+                cols = geom[3].long() + g.pml_width
+                dir_recs = torch.gather(
+                    self._dir_rows, 2, cols[:, None, :].expand(-1, g.nt, -1))
+            else:
+                with torch.no_grad():
+                    self._direct = simulate_acoustic(
+                        const, self.wl.wavelet, *geom, self.wl.cfg)
+                dir_recs = self._direct
             if not self.wl.from_disk:
                 # synthetic obs mirror the reference's storage convention:
                 # the stored gathers lack the direct arrival
@@ -262,18 +268,20 @@ class AcousticDIPEngine(EngineBase):
         self._build_physics()
 
     def _build_physics(self):
-        """Observed and direct rows in the fused kernel's layout, and
-        the validation inputs."""
+        """Observed and direct rows in the fused kernel's layout (fused
+        path only), and the validation inputs."""
         cfg, wl = self.cfg, self.wl
         g = wl.cfg.grid
-        self._obs_rows = scatter_rows(wl.obs_norm, wl.acq.rcv_x, nt=g.nt,
-                                      nx=g.nx, pml_width=g.pml_width)
-        if self._dir_rows is not None:
-            pad_t = self._obs_rows.shape[1] - self._dir_rows.shape[1]
-            self._dir_rows_pad = torch.nn.functional.pad(
-                self._dir_rows, (0, 0, 0, pad_t)).contiguous()
-        else:
-            self._dir_rows_pad = torch.zeros_like(self._obs_rows)
+        if self._use_fused:
+            self._obs_rows = scatter_rows(wl.obs_norm, wl.acq.rcv_x,
+                                          nt=g.nt, nx=g.nx,
+                                          pml_width=g.pml_width)
+            if self._dir_rows is not None:
+                pad_t = self._obs_rows.shape[1] - self._dir_rows.shape[1]
+                self._dir_rows_pad = torch.nn.functional.pad(
+                    self._dir_rows, (0, 0, 0, pad_t)).contiguous()
+            else:
+                self._dir_rows_pad = torch.zeros_like(self._obs_rows)
         if self.val_wl is not None:
             # the twin's network input is its simulate_acoustic output,
             # without direct-wave removal (as in the JAX engine)
@@ -283,12 +291,26 @@ class AcousticDIPEngine(EngineBase):
             self._val_in, self._val_true = self.shots_in, self.wl.vp_true
         self._geom = wl.geom
 
+    def _physics_loss_raw(self, pred: torch.Tensor) -> torch.Tensor:
+        """The reference misfit pipeline on simulated traces (the "xla"
+        path): subtract the direct wave, trace-normalize, L1/L2/Huber
+        against the normalized observed data."""
+        return normalized_trace_misfit(pred, self.wl.obs_norm,
+                                       direct=self._direct,
+                                       kind=self.cfg.misfit)
+
     def physics_value_and_grad(self, vp: torch.Tensor):
-        """(loss, processed dJ/dvp): fused loss+gradient, then depth^2
-        weighting, the water mask and ``grad_scale``."""
+        """(loss, processed dJ/dvp): the fused loss+gradient (B2) or, on
+        the "xla" path, autograd through :func:`simulate_acoustic`; then
+        depth^2 weighting, the water mask and ``grad_scale``."""
         cfg, wl = self.cfg, self.wl
-        loss, grad = fwi_l1_loss_grad(vp, wl.wavelet, *self._geom, wl.cfg,
-                                      self._obs_rows, self._dir_rows_pad)
+        if self._use_fused:
+            loss, grad = fwi_l1_loss_grad(vp, wl.wavelet, *self._geom,
+                                          wl.cfg, self._obs_rows,
+                                          self._dir_rows_pad)
+        else:
+            loss, grad = acoustic_gradient(vp, self._physics_loss_raw,
+                                           wl.wavelet, *self._geom, wl.cfg)
         grad = depth_weighting(grad, 2.0)
         grad = water_mask(grad, wl.vp_true, cfg.water_vel)
         return loss, grad * cfg.grad_scale

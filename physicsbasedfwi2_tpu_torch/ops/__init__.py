@@ -1,23 +1,54 @@
-"""Wave-physics ops of the acoustic and elastic slices.
+"""Wave-physics ops of the ported slices.
 
-Kernel modules: :mod:`scalar2` (B1, forward), :mod:`fwi_fused` (B2,
-fused loss+gradient) and :mod:`elastic_fused` (B3, fused elastic
-loss+gradient, and the ring forward); each holds its CUDA wrapper and
-plain version.
+Kernel modules: :mod:`scalar2` (B1 forward, B4a/B4b and
+``acoustic_pallas2``), :mod:`fwi_fused` (B2, fused loss+gradient),
+:mod:`elastic_fused` (B3, fused elastic loss+gradient, and the ring
+forward), :mod:`kernels` (B5, first-order forward) and :mod:`adjoint`
+(B6 and ``acoustic_pallas``); each holds its CUDA wrapper and plain
+version.
 """
+
+import torch
 
 from physicsbasedfwi2_tpu_torch.ops.acoustic import (
     AcousticConfig,
+    acoustic_gradient,
     simulate_acoustic,
 )
+from physicsbasedfwi2_tpu_torch.ops.adjoint import acoustic_pallas
 from physicsbasedfwi2_tpu_torch.ops.gradproc import depth_weighting, water_mask
-from physicsbasedfwi2_tpu_torch.ops.misfit import l1_misfit, trace_normalize
+from physicsbasedfwi2_tpu_torch.ops.misfit import (
+    huber_misfit,
+    l1_misfit,
+    l2_misfit,
+    normalized_trace_misfit,
+    trace_normalize,
+)
+
+
+def select_acoustic(backend: str = "auto"):
+    """Pick the propagator: ``"xla"`` -> :func:`simulate_acoustic`
+    (plain PyTorch autograd), ``"pallas"`` -> :func:`acoustic_pallas`
+    (on this package the CUDA kernels B5/B6), ``"auto"`` -> the kernels
+    when a CUDA card is visible, else :func:`simulate_acoustic`."""
+    if backend == "xla":
+        return simulate_acoustic
+    if backend == "pallas":
+        return acoustic_pallas
+    return acoustic_pallas if torch.cuda.is_available() else simulate_acoustic
+
 
 __all__ = [
     "AcousticConfig",
     "simulate_acoustic",
+    "acoustic_gradient",
+    "acoustic_pallas",
+    "select_acoustic",
     "depth_weighting",
     "water_mask",
-    "l1_misfit",
     "trace_normalize",
+    "l1_misfit",
+    "l2_misfit",
+    "huber_misfit",
+    "normalized_trace_misfit",
 ]

@@ -1,12 +1,13 @@
-"""2D scalar acoustic propagator, forward only (port of
+"""Differentiable 2D scalar acoustic propagator (port of
 ``physicsbasedfwi2_tpu/ops/acoustic.py``).
 
 First-order velocity-pressure staggered-grid finite differences
 (4th-order space, leapfrog time) with split-field PML, batched over
-shots.  The JAX package differentiates this scheme with autodiff; on
-the ported path it only makes observed data (the synthetic workload
-and the validation twin), so the port runs it under ``no_grad`` in
-plain PyTorch.  It is not a Pallas kernel.
+shots, time-stepped by :func:`chunked_checkpoint_scan`.  The adjoint
+(dJ/dvp, and dJ/dwavelet for a floating wavelet) is plain autograd
+through the loop, as the JAX package uses autodiff through its scan.
+This is the ``"xla"`` backend of :func:`select_acoustic`: plain
+PyTorch, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from physicsbasedfwi2_tpu_torch.geo.grid import Grid2D
 from physicsbasedfwi2_tpu_torch.ops import pml, stencil
+from physicsbasedfwi2_tpu_torch.ops.scan_utils import chunked_checkpoint_scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,10 +65,10 @@ def _damping(cfg: AcousticConfig, device):
     )
 
 
-@torch.no_grad()
 def simulate_acoustic(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
                       cfg: AcousticConfig) -> torch.Tensor:
-    """Simulate a shot gather.
+    """Simulate a shot gather (differentiable in ``vp`` and
+    ``wavelet``).
 
     Args:
         vp: [nz, nx] velocity in m/s (interior grid, row 0 = surface).
@@ -77,14 +79,16 @@ def simulate_acoustic(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
         cfg: static AcousticConfig.
 
     All tensors on one device.  Returns receivers [num_shots, nt, nr],
-    float32.
+    float32; a float64 ``vp`` runs the whole loop in float64 (a
+    reference for finite-difference checks).
     """
     g = cfg.grid
     dev = vp.device
-    vp = vp.to(torch.float32)
+    dtype = torch.float64 if vp.dtype == torch.float64 else torch.float32
+    vp = vp.to(dtype)
     vp_pad = _pad_model(vp, g)
     kappa_dt = (vp_pad * vp_pad) * g.dt  # rho == 1 (scalar medium)
-    ax_v, az_v, ax_p, az_p = _damping(cfg, dev)
+    ax_v, az_v, ax_p, az_p = (d.to(dtype) for d in _damping(cfg, dev))
     top, w = g.top_pad, g.pml_width
     src_z = src_z.long() + top
     src_x = src_x.long() + w
@@ -93,23 +97,41 @@ def simulate_acoustic(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
     ns = src_z.shape[0]
     if wavelet.ndim == 1:
         wavelet = wavelet[None, :].expand(ns, -1)
-    wavelet = wavelet.to(torch.float32)
+    wavelet = wavelet.to(dtype)
 
     inv_dx = 1.0 / g.dx
     dt = g.dt
     shot = torch.arange(ns, device=dev)
     # moment-source injection: amp * dt * kappa / cell-area
     src_gain = kappa_dt[src_z, src_x] * (inv_dx * inv_dx)
-    vx = torch.zeros((ns,) + vp_pad.shape, dtype=torch.float32, device=dev)
-    vz, px, pz = (torch.zeros_like(vx) for _ in range(3))
-    recs = torch.empty((ns, g.nt, rcv_x.shape[1]), dtype=torch.float32,
-                       device=dev)
-    for t in range(g.nt):
+
+    def step(carry, x):
+        vx, vz, px, pz = carry
+        (amp_t,) = x
         p = px + pz
         vx = ax_v * (vx + dt * stencil.dx_fwd(p, inv_dx, cfg.order))
         vz = az_v * (vz + dt * stencil.dz_fwd(p, inv_dx, cfg.order))
         px = ax_p * (px + kappa_dt * stencil.dx_bwd(vx, inv_dx, cfg.order))
         pz = az_p * (pz + kappa_dt * stencil.dz_bwd(vz, inv_dx, cfg.order))
-        pz[shot, src_z, src_x] += wavelet[:, t] * src_gain
-        recs[:, t] = (px + pz)[shot[:, None], rcv_z, rcv_x]
-    return recs
+        pz = pz.index_put((shot, src_z, src_x), amp_t * src_gain,
+                          accumulate=True)
+        return (vx, vz, px, pz), (px + pz)[shot[:, None], rcv_z, rcv_x]
+
+    zero = torch.zeros((ns,) + vp_pad.shape, dtype=dtype, device=dev)
+    _, recs = chunked_checkpoint_scan(step, (zero,) * 4, (wavelet.T,),
+                                      chunk=cfg.chunk)
+    return recs.permute(1, 0, 2).contiguous()
+
+
+def acoustic_gradient(vp, loss_fn, wavelet, src_z, src_x, rcv_z, rcv_x,
+                      cfg: AcousticConfig):
+    """(loss, dJ/dvp) for an arbitrary data-misfit ``loss_fn(pred)``:
+    one reverse-mode pass through :func:`simulate_acoustic`, the
+    counterpart of the reference's ``lossinner.backward();
+    net1out1.grad``.  Both results are detached."""
+    with torch.enable_grad():
+        v = vp.detach().requires_grad_(True)
+        loss = loss_fn(simulate_acoustic(v, wavelet, src_z, src_x, rcv_z,
+                                         rcv_x, cfg))
+        (grad,) = torch.autograd.grad(loss, v)
+    return loss.detach(), grad

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1
-and B2; ``elastic.cu``: kernel B3) for ``sm_90a``, one process per
+``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
+B2, B4a and B4b; ``elastic.cu``: kernel B3; ``acoustic.cu``: kernels B5
+and B6) for ``sm_90a``, one process per
 source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads.  The build
 runs at first use, never at import, into ``build/torch_kernels/`` at
@@ -20,7 +21,7 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (_CSRC / "scalar2.cu", _CSRC / "elastic.cu")
+SOURCES = (_CSRC / "scalar2.cu", _CSRC / "elastic.cu", _CSRC / "acoustic.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -30,9 +31,14 @@ _SIGNATURES = {
     # csrc/scalar2.cu
     "b1_forward2": [_P] * 10 + [_I] * 4 + [_P],
     "b2_fwi_l1_loss_grad": [_P] * 22 + [_I] * 6 + [_F, _P],
+    "b4a_forward2_ckpt": [_P] * 11 + [_I] * 6 + [_P],
+    "b4b_backward2": [_P] * 17 + [_I] * 5 + [_P],
     # csrc/elastic.cu
     "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
     "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],
+    # csrc/acoustic.cu
+    "b5_acoustic_forward": [_P] * 11 + [_I] * 4 + [_F, _P],
+    "b6_acoustic_backward": [_P] * 18 + [_I] * 5 + [_F, _P],
 }
 
 _lib = None

@@ -31,9 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from physicsbasedfwi2_tpu_torch.ops.acoustic import AcousticConfig, _pad_model
-from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-    _common, _lap, _round_up, _step,
+from physicsbasedfwi2_tpu_torch.ops.acoustic import AcousticConfig
+# scatter_rows is re-exported: the JAX package's pallas_fwi_fused has it
+from physicsbasedfwi2_tpu_torch.ops.scalar2 import (  # noqa: F401
+    _bwd_plain, _common, _fwd_ckpt_plain, _vp_grad, scatter_rows,
 )
 
 EPS = 1e-10
@@ -59,61 +60,12 @@ def _misfit_plain(hist, obs_rows, rmask, inv_count):
 
 def _loss_gk_plain(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
                    nt, KC, inv_count):
-    """(loss, dJ/dK on the padded grid) in plain PyTorch."""
-    ns, nt_pad = wav.shape
-    n_ck = nt_pad // KC
-    nz8, nx128 = K.shape
-    dev = K.device
-    shot = torch.arange(ns, device=dev)
-    sz, sx, rrow = sz.long(), sx.long(), rrow.long()
-    gain = K[sz, sx]
-
-    # phase 1: forward sweep, checkpoints, hist rows = pred - direct
-    u0 = torch.zeros((ns, nz8, nx128), dtype=K.dtype, device=dev)
-    um1 = torch.zeros_like(u0)
-    ckpt = torch.empty((ns, n_ck, 2, nz8, nx128), dtype=K.dtype, device=dev)
-    hist = torch.zeros((ns, nt_pad, nx128), dtype=K.dtype, device=dev)
-    for c in range(n_ck):
-        ckpt[:, c, 0] = u0
-        ckpt[:, c, 1] = um1
-        for kk in range(KC):
-            t = c * KC + kk
-            u1 = _step(u0, um1, K, dp, dm, _lap(u0), shot, sz, sx, gain,
-                       wav[:, t])
-            um1, u0 = u0, u1
-            if t < nt:
-                hist[:, t] = u0[shot, rrow] - dir_rows[:, t]
-
-    # phase 2: misfit and the cotangent rows
+    """(loss, dJ/dK on the padded grid) in plain PyTorch: B4a's forward
+    sweep, the misfit, B4b's reverse sweep."""
+    hist, ckpt = _fwd_ckpt_plain(K, dp, dm, wav, sz, sx, rrow, nt, KC,
+                                 dir_rows)
     loss, ybar = _misfit_plain(hist, obs_rows, rmask, inv_count)
-
-    # phase 3: reverse sweep from the checkpoints (exact transpose)
-    pb = torch.zeros_like(u0)
-    qb = torch.zeros_like(u0)
-    gk = torch.zeros_like(u0)
-    lapc = torch.empty((ns, KC, nz8, nx128), dtype=K.dtype, device=dev)
-    for c in reversed(range(n_ck)):
-        u0 = ckpt[:, c, 0]
-        um1 = ckpt[:, c, 1]
-        for kk in range(KC):
-            t = c * KC + kk
-            lapc[:, kk] = _lap(u0)
-            u1 = _step(u0, um1, K, dp, dm, lapc[:, kk], shot, sz, sx, gain,
-                       wav[:, t])
-            um1, u0 = u0, u1
-        for kk in reversed(range(KC)):
-            t = c * KC + kk
-            if t < nt:
-                pb[shot, rrow] += ybar[:, t]
-            w = dp * pb
-            # the source is added after the damping: its cotangent is pb
-            gk[shot, sz, sx] += wav[:, t] * pb[shot, sz, sx]
-            gk = gk + w * lapc[:, kk]
-            pb, qb = qb + 2.0 * w + _lap(K * w), -(dm * w)
-    gk_sum = gk[0]
-    for s in range(1, ns):
-        gk_sum = gk_sum + gk[s]
-    return loss, gk_sum
+    return loss, _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt)
 
 
 def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
@@ -189,29 +141,7 @@ def _loss_grad(core, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
             a.to(dtype) for a in (K, dp, dm, wav, obs_rows, dir_rows, rmask))
     loss, gk = core(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
                     g.nt, KC, inv_count)
-    return loss, _vp_grad(gk, vp, cfg)
-
-
-def _vp_grad(gk: torch.Tensor, vp: torch.Tensor, cfg: AcousticConfig):
-    """Chain rule K = (vp dt/dx)^2, then the transpose of the edge
-    padding (pad-region gradient folds onto the edge rows/columns)."""
-    g = cfg.grid
-    top, w = g.top_pad, g.pml_width
-    vp_pad = _pad_model(vp.to(torch.float32), g).to(gk.dtype)
-    nzp, nxp = vp_pad.shape
-    gz = gk[:nzp, :nxp] * (2.0 * vp_pad * (g.dt / g.dx) ** 2)
-    row_bot = torch.sum(gz[top + g.nz:, :], dim=0)
-    row_top = torch.sum(gz[:top, :], dim=0) if top else None
-    gz = gz[top: top + g.nz, :].clone()
-    if row_top is not None:
-        gz[0, :] += row_top
-    gz[-1, :] += row_bot
-    col_l = torch.sum(gz[:, :w], dim=1)
-    col_r = torch.sum(gz[:, w + g.nx:], dim=1)
-    gz = gz[:, w: w + g.nx].clone()
-    gz[:, 0] += col_l
-    gz[:, -1] += col_r
-    return gz
+    return loss, _vp_grad(gk, vp, cfg, (g.dt / g.dx) ** 2)
 
 
 @torch.no_grad()
@@ -258,17 +188,3 @@ def fwi_l1_loss_grad(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 
 fwi_l1_loss_grad.launches = 0
-
-
-def scatter_rows(data, rcv_x, *, nt, nx, pml_width, KC: int = 32):
-    """[ns, nt, nr] traces -> [ns, nt_pad, nx128] receiver-row layout
-    used by the fused kernel (duplicate columns add)."""
-    ns, _, nr = data.shape
-    nt_pad = -(-nt // KC) * KC
-    nx128 = _round_up(nx + 2 * pml_width, 128)
-    cols = torch.as_tensor(rcv_x, device=data.device).long() + pml_width
-    rows = torch.zeros((ns, nt_pad, nx128), dtype=torch.float32,
-                       device=data.device)
-    rows[:, :nt].scatter_add_(2, cols[:, None, :].expand(ns, nt, nr),
-                              data.to(torch.float32))
-    return rows

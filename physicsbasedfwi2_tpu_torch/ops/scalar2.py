@@ -1,18 +1,28 @@
-"""Second-order scalar wave equation, forward (kernel B1).
+"""Second-order scalar wave equation: forward (kernel B1), forward with
+checkpoints (B4a), its exact transpose (B4b) and the differentiable
+propagator ``acoustic_pallas2`` built from them.
 
 Port of ``physicsbasedfwi2_tpu/ops/pallas_scalar2.py`` (``_prepare2``,
-``forward2``; Pallas kernel ``_fwd_kernel``).  Scheme (K = vp^2 dt^2 /
-dx^2, sigma = Kosloff sponge profile, d+ = 1/(1+sigma dt/2), d- =
-1-sigma dt/2, a 2-cell zero ring folded into d+):
+``forward2``, ``forward2_ckpt``, ``_backward2``, ``acoustic_pallas2``;
+Pallas kernels ``_fwd_kernel``, ``_fwd_ckpt_kernel``, ``_bwd_kernel``).
+Scheme (K = vp^2 dt^2 / dx^2, sigma = Kosloff sponge profile, d+ =
+1/(1+sigma dt/2), d- = 1-sigma dt/2, a 2-cell zero ring folded into
+d+):
 
     u1 = d+ * (2 u0 - d- u_m1 + K Lap(u0)) + e_src * amp * K[src]
     y_t = u1[rrow]
 
-:func:`forward2` launches the hand-written CUDA kernel
-(``csrc/scalar2.cu::b1_forward2``) on CUDA tensors and runs
-:func:`forward2_plain`, the same algorithm in plain PyTorch batched
+Exact transpose, with (pb, qb) the cotangents of (u1, u0):
+
+    pb += S^T ybar_t;  w = d+ pb;  Kbar += w Lap(u0)  [+ amp pb at src]
+    (pb, qb) <- (qb + 2 w + Lap(K w), -d- w)
+
+Each of :func:`forward2`, :func:`forward2_ckpt` and :func:`backward2`
+launches its hand-written CUDA kernel (``csrc/scalar2.cu``) on CUDA
+tensors and runs its plain PyTorch version, the same algorithm batched
 over shots, on CPU tensors.  Fields read zeros outside the array where
-Pallas rolls circularly; the zero ring makes the two equal.
+Pallas rolls circularly; the zero ring makes the two equal.  On this
+package ``acoustic_pallas2`` means those CUDA kernels.
 """
 
 from __future__ import annotations
@@ -127,24 +137,37 @@ def _rows_plain(K, dp, dm, wav, sz, sx, rrow, nt):
     return hist
 
 
+def check_tensors(what: str, dev, specs) -> None:
+    """Raise unless each (name, tensor, dtype, shape) of ``specs`` is a
+    contiguous tensor of that dtype on ``dev`` with that shape (None:
+    any shape): what a kernel's wrapper checks before passing
+    pointers."""
+    for name, a, dtype, shape in specs:
+        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{dtype} tensor on {dev}")
+        if shape is not None and tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(a.shape)}, "
+                             f"expected {tuple(shape)}")
+
+
+def _check_common(what, K, dp, dm, wav, sz, sx, rrow):
+    ns = wav.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    check_tensors(what, K.device, (
+        ("K", K, f32, None), ("d+", dp, f32, K.shape), ("d-", dm, f32, K.shape),
+        ("wavelet", wav, f32, None), ("src_z", sz, i32, (ns,)),
+        ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,))))
+
+
 def _rows_cuda(K, dp, dm, wav, sz, sx, rrow, nt):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns = wav.shape[0]
     nz8, nx128 = K.shape
     dev = K.device
-    for name, a, dtype in (("K", K, torch.float32), ("d+", dp, torch.float32),
-                           ("d-", dm, torch.float32),
-                           ("wavelet", wav, torch.float32),
-                           ("src_z", sz, torch.int32),
-                           ("src_x", sx, torch.int32),
-                           ("rcv_row", rrow, torch.int32)):
-        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
-            raise ValueError(f"forward2: {name} must be a contiguous "
-                             f"{dtype} tensor on {dev}")
-    if dp.shape != K.shape or dm.shape != K.shape or wav.shape != (ns, nt):
-        raise ValueError("forward2: coefficient or wavelet shape mismatch")
-    if sz.shape != (ns,) or sx.shape != (ns,) or rrow.shape != (ns,):
-        raise ValueError("forward2: geometry must be [ns] per shot")
+    _check_common("forward2", K, dp, dm, wav, sz, sx, rrow)
+    if wav.shape != (ns, nt):
+        raise ValueError("forward2: wavelet must be [ns, nt]")
     lib = cuda_build.load_library()
     u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
     um1 = torch.empty_like(u0)
@@ -168,8 +191,24 @@ def _forward2(rows_fn, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
     hist = rows_fn(K, dp, dm, wav, sz, sx, rrow, g.nt)
     if return_rows:
         return hist
-    cols = torch.as_tensor(rcv_x, device=vp.device).long() + g.pml_width
-    return torch.gather(hist, 2, cols[:, None, :].expand(-1, g.nt, -1))
+    return _gather_cols(hist, rcv_x, g)
+
+
+def _gather_cols(hist, rcv_x, g):
+    """Receiver traces [ns, nt, nr] from row histories [ns, >= nt, nx]."""
+    cols = torch.as_tensor(rcv_x, device=hist.device).long() + g.pml_width
+    return torch.gather(hist[:, :g.nt], 2,
+                        cols[:, None, :].expand(-1, g.nt, -1))
+
+
+def _kernel_route(vp, what: str) -> bool:
+    """True for a CUDA ``vp`` (launch the kernel), False for a CPU one
+    (run the plain version); any other device raises."""
+    if vp.device.type == "cpu":
+        return False
+    if vp.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {vp.device}")
+    return True
 
 
 @torch.no_grad()
@@ -195,13 +234,319 @@ def forward2(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
     counts the launches); on a CPU ``vp`` it runs
     :func:`forward2_plain`.  Any other device raises.
     """
-    if vp.device.type == "cpu":
+    if not _kernel_route(vp, "forward2"):
         return forward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
                               return_rows=return_rows)
-    if vp.device.type != "cuda":
-        raise ValueError(f"forward2: no kernel for device {vp.device}")
     return _forward2(_rows_cuda, vp, wavelet, src_z, src_x, rcv_z, rcv_x,
                      cfg, return_rows)
 
 
 forward2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B4a (forward2_ckpt), B4b (backward2) and acoustic_pallas2
+# ---------------------------------------------------------------------------
+
+def _fwd_ckpt_plain(K, dp, dm, wav, sz, sx, rrow, nt, KC, dir_rows=None):
+    """Forward sweep of n_ck*KC steps (wav [ns, n_ck*KC]) with (u0, u_-1)
+    checkpoints [ns, n_ck, 2, nz8, nx128] every KC steps, and the
+    receiver-row history [ns, n_ck*KC, nx128] (minus ``dir_rows``) for
+    t < nt, zero after: B4a, and phase 1 of the fused kernel B2."""
+    ns, nt_pad = wav.shape
+    n_ck = nt_pad // KC
+    nz8, nx128 = K.shape
+    dev = K.device
+    shot = torch.arange(ns, device=dev)
+    sz, sx, rrow = sz.long(), sx.long(), rrow.long()
+    gain = K[sz, sx]
+    u0 = torch.zeros((ns, nz8, nx128), dtype=K.dtype, device=dev)
+    um1 = torch.zeros_like(u0)
+    ckpt = torch.empty((ns, n_ck, 2, nz8, nx128), dtype=K.dtype, device=dev)
+    hist = torch.zeros((ns, nt_pad, nx128), dtype=K.dtype, device=dev)
+    for c in range(n_ck):
+        ckpt[:, c, 0] = u0
+        ckpt[:, c, 1] = um1
+        for kk in range(KC):
+            t = c * KC + kk
+            u1 = _step(u0, um1, K, dp, dm, _lap(u0), shot, sz, sx, gain,
+                       wav[:, t])
+            um1, u0 = u0, u1
+            if t < nt:
+                row = u0[shot, rrow]
+                hist[:, t] = row if dir_rows is None else row - dir_rows[:, t]
+    return hist, ckpt
+
+
+def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
+    """Reverse sweep from the checkpoints: restore each chunk, recompute
+    it caching Lap(u0), and run the exact transpose, injecting the
+    cotangent rows ``ybar`` [ns, n_ck*KC, nx128] for t < nt_valid.
+    Returns dJ/dK [nz8, nx128], shots summed in order: B4b, and phase 3
+    of the fused kernel B2."""
+    ns, nt_pad = wav.shape
+    n_ck = ckpt.shape[1]
+    KC = nt_pad // n_ck
+    nz8, nx128 = K.shape
+    dev = K.device
+    shot = torch.arange(ns, device=dev)
+    sz, sx, rrow = sz.long(), sx.long(), rrow.long()
+    gain = K[sz, sx]
+    pb = torch.zeros((ns, nz8, nx128), dtype=K.dtype, device=dev)
+    qb = torch.zeros_like(pb)
+    gk = torch.zeros_like(pb)
+    lapc = torch.empty((ns, KC, nz8, nx128), dtype=K.dtype, device=dev)
+    for c in reversed(range(n_ck)):
+        u0 = ckpt[:, c, 0]
+        um1 = ckpt[:, c, 1]
+        for kk in range(KC):
+            t = c * KC + kk
+            lapc[:, kk] = _lap(u0)
+            u1 = _step(u0, um1, K, dp, dm, lapc[:, kk], shot, sz, sx, gain,
+                       wav[:, t])
+            um1, u0 = u0, u1
+        for kk in reversed(range(KC)):
+            t = c * KC + kk
+            if t < nt_valid:
+                pb[shot, rrow] += ybar[:, t]
+            w = dp * pb
+            # the source is added after the damping: its cotangent is pb
+            gk[shot, sz, sx] += wav[:, t] * pb[shot, sz, sx]
+            gk = gk + w * lapc[:, kk]
+            pb, qb = qb + 2.0 * w + _lap(K * w), -(dm * w)
+    gk_sum = gk[0]
+    for s in range(1, ns):
+        gk_sum = gk_sum + gk[s]
+    return gk_sum
+
+
+def _fwd_ckpt_cuda(K, dp, dm, wav, sz, sx, rrow, nt, KC):
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    ns, nt_pad = wav.shape
+    n_ck = nt_pad // KC
+    nz8, nx128 = K.shape
+    dev = K.device
+    _check_common("forward2_ckpt", K, dp, dm, wav, sz, sx, rrow)
+    if n_ck * KC != nt_pad or nt_pad < nt:
+        raise ValueError("forward2_ckpt: wavelet must be padded to a "
+                         "multiple of KC >= nt")
+    lib = cuda_build.load_library()
+    u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
+    um1 = torch.empty_like(u0)
+    hist = torch.empty((ns, nt, nx128), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((ns, n_ck, 2, nz8, nx128), dtype=torch.float32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, u0, um1,
+                                   hist, ckpt)]
+    err = lib.b4a_forward2_ckpt(*ptrs, ns, nz8, nx128, nt, n_ck, KC, stream)
+    cuda_build.check(err, "b4a_forward2_ckpt")
+    forward2_ckpt.launches += 1
+    return hist, ckpt
+
+
+def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    ns, nt_pad = wav.shape
+    n_ck = ckpt.shape[1]
+    KC = nt_pad // n_ck
+    nz8, nx128 = K.shape
+    dev = K.device
+    _check_common("backward2", K, dp, dm, wav, sz, sx, rrow)
+    check_tensors("backward2", dev, (
+        ("ybar_rows", ybar, torch.float32, (ns, nt_pad, nx128)),
+        ("ckpt", ckpt, torch.float32, (ns, n_ck, 2, nz8, nx128))))
+    if n_ck * KC != nt_pad or nt_valid != nt_pad:
+        raise ValueError("backward2: checkpoints and rows disagree on KC")
+    lib = cuda_build.load_library()
+    u0, um1, pb0, pb1, qb, gk_shots = (
+        torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
+        for _ in range(6))
+    lapc = torch.empty((ns, KC, nz8, nx128), dtype=torch.float32, device=dev)
+    gk = torch.empty((nz8, nx128), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt,
+                                   u0, um1, pb0, pb1, qb, gk_shots, lapc,
+                                   gk)]
+    err = lib.b4b_backward2(*ptrs, ns, nz8, nx128, n_ck, KC, stream)
+    cuda_build.check(err, "b4b_backward2")
+    backward2.launches += 1
+    return gk
+
+
+def _common_padded(vp, wavelet, src_z, src_x, rcv_z, cfg, KC, dtype):
+    """:func:`_common` with the wavelet zero-padded to n_ck*KC steps and
+    the coefficients and wavelet in ``dtype``."""
+    g = cfg.grid
+    (K, dp, dm, _, _, wav, sz, sx,
+     rrow) = _common(vp, wavelet, src_z, src_x, rcv_z, cfg)
+    nt_pad = -(-g.nt // KC) * KC
+    wav = F.pad(wav, (0, nt_pad - g.nt)).contiguous()
+    K, dp, dm, wav = (a.to(dtype) for a in (K, dp, dm, wav))
+    return K, dp, dm, wav, sz, sx, rrow
+
+
+def _forward2_ckpt(fwd_fn, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
+                   KC, dtype=torch.float32):
+    K, dp, dm, wav, sz, sx, rrow = _common_padded(
+        vp, wavelet, src_z, src_x, rcv_z, cfg, KC, dtype)
+    hist, ckpt = fwd_fn(K, dp, dm, wav, sz, sx, rrow, cfg.grid.nt, KC)
+    return _gather_cols(hist, rcv_x, cfg.grid), ckpt
+
+
+@torch.no_grad()
+def forward2_ckpt_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                        cfg: AcousticConfig, *, KC: int = 32,
+                        dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of :func:`forward2_ckpt` (any device;
+    ``dtype=torch.float64`` as in :func:`forward2_plain`)."""
+    return _forward2_ckpt(_fwd_ckpt_plain, vp, wavelet, src_z, src_x, rcv_z,
+                          rcv_x, cfg, KC, dtype)
+
+
+@torch.no_grad()
+def forward2_ckpt(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                  cfg: AcousticConfig, *, KC: int = 32):
+    """:func:`forward2`'s traces [ns, nt, nr] and the checkpoint buffer
+    [ns, n_ck, 2, nz8, nx128] of (u0, u_-1) every KC steps, the wavelet
+    zero-padded to n_ck*KC steps: the primal of
+    :func:`acoustic_pallas2`.
+
+    On a CUDA ``vp`` this launches kernel B4a
+    (``forward2_ckpt.launches`` counts the launches); on a CPU ``vp`` it
+    runs :func:`forward2_ckpt_plain`.  Any other device raises.
+    """
+    if not _kernel_route(vp, "forward2_ckpt"):
+        return forward2_ckpt_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                                   cfg, KC=KC)
+    return _forward2_ckpt(_fwd_ckpt_cuda, vp, wavelet, src_z, src_x, rcv_z,
+                          rcv_x, cfg, KC)
+
+
+forward2_ckpt.launches = 0
+
+
+def _backward2(bwd_fn, vp, wavelet, src_z, src_x, rcv_z, cfg, ybar_rows,
+               ckpt, dtype=torch.float32):
+    g = cfg.grid
+    KC = ybar_rows.shape[1] // ckpt.shape[1]
+    K, dp, dm, wav, sz, sx, rrow = _common_padded(
+        vp, wavelet, src_z, src_x, rcv_z, cfg, KC, dtype)
+    gk = bwd_fn(K, dp, dm, wav, sz, sx, rrow, ybar_rows.to(dtype),
+                ckpt.to(dtype), wav.shape[1])
+    return _vp_grad(gk, vp, cfg, (g.dt / g.dx) ** 2)
+
+
+@torch.no_grad()
+def backward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                    cfg: AcousticConfig, ybar_rows, ckpt,
+                    *, dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of :func:`backward2` (any device;
+    ``dtype=torch.float64`` runs the same discrete problem without
+    float32 rounding)."""
+    return _backward2(_bwd_plain, vp, wavelet, src_z, src_x, rcv_z, cfg,
+                      ybar_rows, ckpt, dtype)
+
+
+@torch.no_grad()
+def backward2(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg: AcousticConfig,
+              ybar_rows, ckpt):
+    """dJ/dvp [nz, nx] of the second-order forward for receiver-row
+    cotangents ``ybar_rows`` [ns, n_ck*KC, nx128] (every row injected),
+    from :func:`forward2_ckpt`'s checkpoints: the exact transpose, the
+    chain rule K = (vp dt/dx)^2 and the transpose of the edge padding
+    (port of ``_backward2``).
+
+    On a CUDA ``vp`` this launches kernel B4b (``backward2.launches``
+    counts the launches); on a CPU ``vp`` it runs
+    :func:`backward2_plain`.  Any other device raises.
+    """
+    if not _kernel_route(vp, "backward2"):
+        return backward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
+                               ybar_rows, ckpt)
+    return _backward2(_bwd_cuda, vp, wavelet, src_z, src_x, rcv_z, cfg,
+                      ybar_rows, ckpt)
+
+
+backward2.launches = 0
+
+
+def _vp_grad(gk: torch.Tensor, vp: torch.Tensor, cfg: AcousticConfig,
+             scale: float):
+    """dJ/dvp [nz, nx] from a coefficient gradient gk on the padded grid,
+    for a coefficient c = vp_pad^2 * scale (K = vp^2 (dt/dx)^2: scale
+    (dt/dx)^2): the chain rule, then the transpose of the edge padding
+    (pad-region gradient folds onto the edge rows/columns)."""
+    g = cfg.grid
+    top, w = g.top_pad, g.pml_width
+    vp_pad = _pad_model(vp.to(torch.float32), g).to(gk.dtype)
+    nzp, nxp = vp_pad.shape
+    gz = gk[:nzp, :nxp] * (2.0 * vp_pad * scale)
+    row_bot = torch.sum(gz[top + g.nz:, :], dim=0)
+    row_top = torch.sum(gz[:top, :], dim=0) if top else None
+    gz = gz[top: top + g.nz, :].clone()
+    if row_top is not None:
+        gz[0, :] += row_top
+    gz[-1, :] += row_bot
+    col_l = torch.sum(gz[:, :w], dim=1)
+    col_r = torch.sum(gz[:, w + g.nx:], dim=1)
+    gz = gz[:, w: w + g.nx].clone()
+    gz[:, 0] += col_l
+    gz[:, -1] += col_r
+    return gz
+
+
+def scatter_rows(data, rcv_x, *, nt, nx, pml_width, KC: int = 32):
+    """[ns, nt, nr] traces -> [ns, nt_pad, nx128] receiver-row layout
+    (duplicate columns add, as ``.at[].add`` does), in data's dtype."""
+    ns, _, nr = data.shape
+    nt_pad = -(-nt // KC) * KC
+    nx128 = _round_up(nx + 2 * pml_width, 128)
+    cols = torch.as_tensor(rcv_x, device=data.device).long() + pml_width
+    rows = torch.zeros((ns, nt_pad, nx128), dtype=data.dtype,
+                       device=data.device)
+    rows[:, :nt].scatter_add_(2, cols[:, None, :].expand(ns, nt, nr), data)
+    return rows
+
+
+class _AcousticPallas2(torch.autograd.Function):
+    """Forward B1 (no vp gradient wanted) or B4a, saving the
+    checkpoints; backward scatters the trace cotangents into receiver
+    rows and runs B4b.  The wavelet's cotangent is zero, as the JAX
+    package's custom VJP returns it."""
+
+    @staticmethod
+    def forward(ctx, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg):
+        ctx.cfg = cfg
+        ctx.geom = (src_z, src_x, rcv_z, rcv_x)
+        if not ctx.needs_input_grad[0]:
+            ctx.save_for_backward(vp, wavelet, None)
+            return forward2(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg)
+        recs, ckpt = forward2_ckpt(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                                   cfg)
+        ctx.save_for_backward(vp, wavelet, ckpt)
+        return recs
+
+    @staticmethod
+    def backward(ctx, ybar):
+        vp, wavelet, ckpt = ctx.saved_tensors
+        g = ctx.cfg.grid
+        gvp = gw = None
+        if ctx.needs_input_grad[0]:
+            rows = scatter_rows(ybar.to(torch.float32), ctx.geom[3], nt=g.nt,
+                                nx=g.nx, pml_width=g.pml_width)
+            gvp = backward2(vp, wavelet, *ctx.geom, ctx.cfg, rows, ckpt)
+        if ctx.needs_input_grad[1]:
+            gw = torch.zeros_like(wavelet)
+        return gvp, gw, None, None, None, None, None
+
+
+def acoustic_pallas2(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                     cfg: AcousticConfig) -> torch.Tensor:
+    """Differentiable second-order-scheme propagator: traces [ns, nt, nr]
+    with a gradient w.r.t. ``vp`` (the wavelet's is zero).  On this
+    package it runs the CUDA kernels B1/B4a forward and B4b backward on
+    a CUDA ``vp``, their plain versions on a CPU one.  Records only row
+    ``rcv_z[:, 0]`` of each shot, as the Pallas kernels do."""
+    return _AcousticPallas2.apply(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
+                                  cfg)

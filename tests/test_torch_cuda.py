@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from physicsbasedfwi2_tpu_torch.geo import ricker
+from physicsbasedfwi2_tpu_torch.ops import adjoint, kernels, scalar2
 from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
 from physicsbasedfwi2_tpu_torch.ops import trace_normalize
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
@@ -160,3 +161,93 @@ def test_b3_wrapper_rejects_bad_inputs(el_case):
         call(7, rows[:1])                      # shape
     with pytest.raises(ValueError, match="contiguous"):
         call(3, sz.long())
+
+
+# ---------------------------------------------------------------------------
+# B4a, B4b (acoustic_pallas2) and B5, B6 (acoustic_pallas)
+# ---------------------------------------------------------------------------
+
+def _l2_rows(case, forward, KC):
+    """Receiver-row cotangents of mean((pred - obs)^2) at vp, with obs
+    from 1.05 vp, both by ``forward``'s plain version."""
+    cfg, wav, vp, geom = case
+    g = cfg.grid
+    pred = forward(vp, wav, *geom, cfg)
+    obs = forward(vp * 1.05, wav, *geom, cfg)
+    ybar = 2.0 * (pred - obs) / pred.numel()
+    return scalar2.scatter_rows(ybar, geom[3], nt=g.nt, nx=g.nx,
+                                pml_width=g.pml_width, KC=KC)
+
+
+def test_b4a_kernel_matches_plain(case):
+    cfg, wav, vp, geom = case
+    before = scalar2.forward2_ckpt.launches
+    recs, ckpt = scalar2.forward2_ckpt(vp, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert scalar2.forward2_ckpt.launches == before + 1
+    recs_p, ckpt_p = scalar2.forward2_ckpt_plain(vp, wav, *geom, cfg)
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(recs, recs_p) <= 1e-5
+    assert rel_max(ckpt, ckpt_p) <= 1e-5
+    # the same step kernel as B1
+    assert torch.equal(recs, scalar2.forward2(vp, wav, *geom, cfg))
+
+
+def test_b4b_kernel_matches_plain(case):
+    cfg, wav, vp, geom = case
+    rows = _l2_rows(case, scalar2.forward2_plain, 32)
+    _, ckpt = scalar2.forward2_ckpt_plain(vp, wav, *geom, cfg)
+    before = scalar2.backward2.launches
+    got = scalar2.backward2(vp, wav, *geom, cfg, rows, ckpt)
+    torch.cuda.synchronize()
+    assert scalar2.backward2.launches == before + 1
+    ref = scalar2.backward2_plain(vp, wav, *geom, cfg, rows, ckpt)
+    # float32 rounding in another order: 1e-4 rel L2
+    assert rel_l2(got, ref) <= 1e-4
+
+
+def test_acoustic_pallas2_launches_b4a_and_b4b(case):
+    cfg, wav, vp, geom = case
+    counts = (scalar2.forward2_ckpt.launches, scalar2.backward2.launches)
+    v = vp.clone().requires_grad_(True)
+    scalar2.acoustic_pallas2(v, wav, *geom, cfg).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (scalar2.forward2_ckpt.launches,
+            scalar2.backward2.launches) == (counts[0] + 1, counts[1] + 1)
+    assert bool(torch.isfinite(v.grad).all())
+
+
+def test_b5_kernel_matches_plain(case):
+    cfg, wav, vp, geom = case
+    before = kernels.acoustic_forward_pallas.launches
+    got = kernels.acoustic_forward_pallas(vp, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert kernels.acoustic_forward_pallas.launches == before + 1
+    ref = kernels.acoustic_forward_pallas_plain(vp, wav, *geom, cfg)
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(got, ref) <= 1e-5
+
+
+def test_b6_kernel_matches_plain(case):
+    cfg, wav, vp, geom = case
+    rows = _l2_rows(case, kernels.acoustic_forward_pallas_plain, 16)
+    before = adjoint.acoustic_pallas_backward.launches
+    got = adjoint.acoustic_pallas_backward(vp, wav, *geom, cfg, rows)
+    torch.cuda.synchronize()
+    assert adjoint.acoustic_pallas_backward.launches == before + 1
+    ref = adjoint.acoustic_pallas_backward_plain(vp, wav, *geom, cfg, rows)
+    # float32 rounding in another order: 1e-4 rel L2
+    assert rel_l2(got, ref) <= 1e-4
+
+
+def test_acoustic_pallas_launches_b5_and_b6(case):
+    cfg, wav, vp, geom = case
+    counts = (kernels.acoustic_forward_pallas.launches,
+              adjoint.acoustic_pallas_backward.launches)
+    v = vp.clone().requires_grad_(True)
+    adjoint.acoustic_pallas(v, wav, *geom, cfg).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (kernels.acoustic_forward_pallas.launches,
+            adjoint.acoustic_pallas_backward.launches) == (counts[0] + 1,
+                                                           counts[1] + 1)
+    assert bool(torch.isfinite(v.grad).all())

@@ -173,7 +173,7 @@ def test_synthetic_elastic_workload_matches_jax():
               freq=20.0, num_shots=3, num_receivers=12, seed=1,
               water_rows=4, chunk=16)
     jwl = JWorkload.build(**kw)
-    wl = SyntheticElasticWorkload.build(**kw)
+    wl = SyntheticElasticWorkload.build(**kw, device="cpu")
     assert wl.cfg.grid == wl.grid and wl.grid.free_surface
     for k in ("vp", "vs", "rho"):
         np.testing.assert_array_equal(n(wl.true[k]), np.asarray(jwl.true[k]))

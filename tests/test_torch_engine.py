@@ -215,8 +215,8 @@ def test_plateau_detector_matches_jax(mode, eps, cap):
 def test_unported_options_raise(slice_run):
     wl = port_workload(slice_run["jwl"])
     cfg = slice_run["cfg"]
-    for kw in (dict(misfit="l2"), dict(backend="xla"),
-               dict(optimizer="lbfgs"), dict(encoded_shots=2),
+    # (misfit="l2" and backend="xla" take the ported "xla" path)
+    for kw in (dict(optimizer="lbfgs"), dict(encoded_shots=2),
                dict(wavelet_from_data=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AcousticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")

@@ -150,7 +150,7 @@ def test_synthetic_workload_build_matches_jax():
     kw = dict(nz=24, nx=30, dx=10.0, nt=120, dt=0.001, freq=15.0,
               num_shots=2, num_receivers=6, seed=3, water_rows=4)
     a = JWL.build(**kw)
-    b = SyntheticAcousticWorkload.build(**kw)
+    b = SyntheticAcousticWorkload.build(**kw, device="cpu")
     ref = port_workload(a)
     # the models are the same numpy code: exact
     np.testing.assert_array_equal(n(b.vp_true), n(ref.vp_true))

@@ -39,8 +39,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the trace-normalized L1 loss through ``acoustic_pallas`` (B5 + B6)
    and 3 through ``acoustic_pallas2`` (B4a + B4b);
 10. the acoustic engine's non-fused path: ``train(get_workload(
-    "marmousi_acoustic", backend="xla"), epochs=2)`` at full width
-    (plain PyTorch autograd through ``simulate_acoustic``, no kernel).
+    "marmousi_acoustic", backend="xla"), epochs=1)`` at full width
+    (plain PyTorch autograd through ``simulate_acoustic``, no kernel);
+11. kernels B7a (``forward2b``) and B7b (``backward2b``) against B4a/B4b
+    and their plain versions at the acoustic path's shapes (the gradient
+    of a smooth misfit also in float64 at 4 shots, and an odd shot
+    count, 5), timed beside B4a and B4b on the same inputs; then the
+    shot-pair propagator's path: 3 model-pixel FWI iterations of the
+    trace-normalized L1 loss through ``acoustic_pallas2b`` at 18 shots
+    and one at 17;
+12. kernel B8 (``elastic_forward_pallas``) at ``marmousi_elastic``'s
+    shape with an absorbing top (35 shots): its path, one call, then
+    against its plain version and against the ring forward on the same
+    inputs, both timed, with a device trace counting each one's
+    launches;
+13. B2's wavelet gradient (``want_wavelet_grad``) at phase 3's shape
+    against the plain version in float32 and float64;
+14. the acoustic engine's new paths at full width:
+    ``train(get_workload("marmousi_acoustic_real", stage_max_epochs=2),
+    epochs=6)`` across continuation stages, and
+    ``train(get_workload("marmousi_acoustic_wav"), epochs=3)`` (AutoWav,
+    30 shots with per-shot wavelets).
 
 Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
@@ -61,6 +80,8 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/scalar2.cu"
 EL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/elastic.cu"
 AC_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/acoustic.cu"
+PAIR_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/scalar2b.cu"
+ELF_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/elastic_fwd.cu"
 NT = 4001  # marmousi_acoustic's time steps
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM bandwidth
@@ -298,9 +319,10 @@ def phase_b2(dev):
             **bound(flops, io), "library_ms": None}
 
 
-def elastic_case(dev):
-    """marmousi_elastic's grid, its 35 shots, true and starting media,
-    without the workload's simulation."""
+def elastic_case(dev, free_surface=None):
+    """marmousi_elastic's grid (its free surface unless
+    ``free_surface`` says otherwise), its 35 shots, true and starting
+    media, without the workload's simulation."""
     import torch
     from physicsbasedfwi2_tpu_torch.data.synthetic import (
         make_elastic_model, make_marmousi_like, smooth_model)
@@ -309,7 +331,9 @@ def elastic_case(dev):
     from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
     c = get_workload("marmousi_elastic")
     grid = Grid2D(nz=c.nz, nx=c.nx, dx=c.dx, nt=c.nt, dt=c.dt,
-                  pml_width=c.pml_width, free_surface=c.free_surface)
+                  pml_width=c.pml_width,
+                  free_surface=(c.free_surface if free_surface is None
+                                else free_surface))
     cfg = ElasticConfig(grid=grid, chunk=c.chunk, vmax_pml=5000.0)
     vp = make_marmousi_like(c.nz, c.nx, seed=c.seed, water_rows=c.water_rows)
     true = make_elastic_model(vp, water_rows=c.water_rows)
@@ -833,7 +857,7 @@ def phase_xla_engine(dev):
                        save_dir=str(ROOT / "build" / "chip_smoke"))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    engine, history = train(cfg, epochs=2, quiet=True, device=dev)
+    engine, history = train(cfg, epochs=1, quiet=True, device=dev)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     for rec in history:
@@ -854,6 +878,331 @@ def phase_xla_engine(dev):
     check(float(loss_true) <= 1e-6, "xla engine misfit at the true model")
     check(tuple(grad.shape) == (cfg.nz, cfg.nx)
           and bool(torch.isfinite(grad).all()), "xla engine gradient")
+
+
+def _rel_max(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_b7(dev):
+    """B7a against B4a (at KC 16, the same checkpoints) and its plain
+    version; B7b against B4b and its plain version on the gradient of
+    mean((pred - obs)^2), obs from the true model, at the smooth starting
+    model, in float64 at 4 shots as phase 7; an odd shot count (5); each
+    B7 kernel timed beside its B4 counterpart on the same inputs."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import scalar2b
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
+        backward2, forward2, forward2_ckpt, scatter_rows)
+    cfg, wav, geom, vp, vp0 = flagship_case(dev)
+    g = cfg.grid
+    shape = f"[18 shots, nt {g.nt}]"
+    (recs, ckpt), ms_k = timed_ms(lambda: scalar2b.forward2b(vp0, wav, *geom,
+                                                             cfg))
+    (recs4, _), ms_4a = timed_ms(lambda: forward2_ckpt(vp0, wav, *geom, cfg))
+    _, ck16 = forward2_ckpt(vp0, wav, *geom, cfg, KC=16)
+    (recs_p, ckpt_p), ms_p = _plain_ms(lambda: scalar2b.forward2b_plain(
+        vp0, wav, *geom, cfg))
+    scale = float(recs_p.abs().max())
+    vs_b4 = float((recs - recs4).abs().max())
+    vs_b4_ck = _rel_max(scalar2b._from_pairs(ckpt), ck16)
+    err = float((recs - recs_p).abs().max())
+    err_ck = _rel_max(ckpt, ckpt_p)
+    print(f"B7a forward2b {shape}, ckpt {tuple(ckpt.shape)}: vs B4a max|diff| "
+          f"{vs_b4:.3e} of max {scale:.3e}, checkpoints {vs_b4_ck:.3e} of "
+          f"max (tol 1e-6 of max; bit-equal: "
+          f"{vs_b4 == 0.0 and vs_b4_ck == 0.0}); "
+          f"vs plain max|err| {err:.3e}, checkpoints {err_ck:.3e} of max "
+          f"(tol 1e-5 of max); kernel {ms_k:.2f} ms, B4a {ms_4a:.2f} ms, plain "
+          f"{ms_p:.2f} ms")
+    check(bool(torch.isfinite(recs).all() and torch.isfinite(ckpt).all()),
+          "B7a output not finite")
+    check(vs_b4 <= 1e-6 * scale and vs_b4_ck <= 1e-6,
+          "B7a disagrees with B4a")
+    check(err <= 1e-5 * scale and err_ck <= 1e-5,
+          "B7a disagrees with its plain version")
+    b7a = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+
+    obs = forward2(vp, wav, *geom, cfg)
+
+    def rows_of(pred, kc=16):
+        ybar = 2.0 * (pred - obs[:len(pred)].to(pred.dtype)) / pred.numel()
+        return scatter_rows(ybar, geom[3][:len(pred)], nt=g.nt, nx=g.nx,
+                            pml_width=g.pml_width, KC=kc)
+
+    def grad_n(fwd, bwd, n, **kw):
+        gn = tuple(a[:n].contiguous() for a in geom)
+        recs_n, ck_n = fwd(vp0, wav, *gn, cfg, **kw)
+        return bwd(vp0, wav, *gn, cfg, rows_of(recs_n), ck_n, **kw)
+
+    rows_k = rows_of(recs)
+    gk, ms_bk = timed_ms(lambda: scalar2b.backward2b(vp0, wav, *geom, cfg,
+                                                     rows_k, ckpt))
+    _, ck32 = forward2_ckpt(vp0, wav, *geom, cfg)
+    rows32 = rows_of(recs, 32)
+    g4, ms_4b = timed_ms(lambda: backward2(vp0, wav, *geom, cfg, rows32,
+                                           ck32))
+    vs_b4b = _rel_max(gk, g4)
+    print(f"B7b backward2b vs B4b {shape}: {vs_b4b:.2e} of max (tol 1e-5: the "
+          f"shot sum in pairs); kernel {ms_bk:.2f} ms, B4b {ms_4b:.2f} ms")
+    check(vs_b4b <= 1e-5, "B7b disagrees with B4b")
+    gp, ms_bp = _plain_ms(lambda: scalar2b.backward2b_plain(
+        vp0, wav, *geom, cfg, rows_of(recs_p), ckpt_p))
+    grads4 = (grad_n(scalar2b.forward2b, scalar2b.backward2b, ACC_SHOTS),
+              grad_n(scalar2b.forward2b_plain, scalar2b.backward2b_plain,
+                     ACC_SHOTS),
+              grad_n(scalar2b.forward2b_plain, scalar2b.backward2b_plain,
+                     ACC_SHOTS, dtype=torch.float64))
+    err_b = _grad_accuracy("B7b backward2b (acoustic_pallas2b)", shape, gk,
+                           gp, ms_bk, ms_bp, grads4)
+
+    # an odd shot count: the last shot is repeated to make the pairs
+    g5 = tuple(a[:5].contiguous() for a in geom)
+    r5, c5 = scalar2b.forward2b(vp0, wav, *g5, cfg)
+    r5p, c5p = scalar2b.forward2b_plain(vp0, wav, *g5, cfg)
+    gk5 = grad_n(scalar2b.forward2b, scalar2b.backward2b, 5)
+    gp5 = grad_n(scalar2b.forward2b_plain, scalar2b.backward2b_plain, 5)
+    e5, e5g = _rel_max(r5, r5p), _rel_l2(gk5, gp5)
+    print(f"B7 at 5 shots (padded to 6): ckpt {tuple(c5.shape)}, traces "
+          f"{e5:.2e} of max from plain (tol 1e-5), gradient rel L2 {e5g:.2e} "
+          f"(tol 1e-4)")
+    check(tuple(c5.shape[:1]) == (3,) and e5 <= 1e-5 and e5g <= 1e-4,
+          "B7 at an odd shot count disagrees with its plain version")
+
+    ns = len(geom[0])
+    cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
+    planes = 3 * 192 * 256 * 4
+    io_a = planes + nbytes(wav, *geom[:3], recs, ckpt)
+    io_b = planes + nbytes(wav, *geom[:3], rows_k, ckpt, gk)
+    b7a.update(bound(FLOPS_B1 * cells * g.nt, io_a), library_ms=None)
+    b7b = {"max_abs_err": err_b, "ms": ms_bk, "plain_ms": ms_bp,
+           **bound(FLOPS_B2_ADJ * cells * g.nt, io_b), "library_ms": None}
+    return b7a, b7b
+
+
+def phase_slice4_pairs(dev):
+    """The shot-pair propagator's path at full width: model-pixel FWI
+    iterations of the trace-normalized L1 loss (direct wave subtracted)
+    through acoustic_pallas2b, 3 at 18 shots and 1 at 17."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import (
+        normalized_trace_misfit, scalar2b, trace_normalize)
+    cfg, wav, geom, vp_true, vp0 = flagship_case(dev)
+    prop = scalar2b.acoustic_pallas2b
+    scalar2b.forward2b.launches = 0
+    scalar2b.backward2b.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    const = torch.full_like(vp_true, 1500.0)
+    for ns in (18, 17):
+        gm = tuple(a[:ns].contiguous() for a in geom)
+        with torch.no_grad():
+            direct = prop(const, wav, *gm, cfg)
+            obs_norm = trace_normalize(prop(vp_true, wav, *gm, cfg) - direct)
+
+        def loss_of(v):
+            return normalized_trace_misfit(prop(v, wav, *gm, cfg), obs_norm,
+                                           direct, kind="l1")
+
+        with torch.no_grad():
+            l_true = float(loss_of(vp_true))
+        vp = vp0.clone()
+        losses, secs = [], []
+        for _ in range(3 if ns == 18 else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = vp.clone().requires_grad_(True)
+            loss = loss_of(v)
+            loss.backward()
+            grad = v.grad
+            vp = vp - 20.0 * grad / (grad.abs().max() + 1e-20)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(loss.detach()))
+            check(bool(torch.isfinite(grad).all()) and bool(grad.abs().max() > 0),
+                  f"acoustic_pallas2b ({ns} shots): gradient not finite or zero")
+        print(f"slice 4 acoustic_pallas2b, {ns} shots: loss at the true model "
+              f"{l_true:.3e} (tol 1e-6); losses "
+              f"{', '.join(f'{x:.6g}' for x in losses)}; seconds per iteration "
+              f"{', '.join(f'{x:.4f}' for x in secs)}")
+        check(l_true <= 1e-6, f"acoustic_pallas2b ({ns} shots): loss at the "
+              f"true model")
+        check(all(math.isfinite(x) for x in losses), "acoustic_pallas2b loss")
+    launches = {"forward2b": scalar2b.forward2b.launches,
+                "backward2b": scalar2b.backward2b.launches}
+    print(f"slice 4 pairs: launches {launches}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    for k, n in launches.items():
+        check(n >= 1, f"{k} was not launched on the slice's path")
+    return launches
+
+
+def device_launches(fn, key: str) -> tuple[int, int]:
+    """(launches of the kernels whose name holds ``key``, all kernel
+    launches) in a device trace of fn() (torch.profiler, CUDA activity
+    only; memory copies and sets not counted)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and "mem" not in e.name().lower()):
+            count[key in e.name()] += 1
+    return count[True], count[True] + count[False]
+
+
+def phase_b8(dev):
+    """B8 at marmousi_elastic's shape with an absorbing top, 35 shots: the
+    path (one call, counts read around it), then against its plain
+    version and against the ring forward on the same inputs, both
+    timed, and a device trace of one call of each counting launches."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+        simulate_elastic_ring)
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fwd import (
+        elastic_forward_pallas, elastic_forward_pallas_plain)
+    cfg, wav, geom, true, _ = elastic_case(dev, free_surface=False)
+    g = cfg.grid
+    ns = len(geom[0])
+    elastic_forward_pallas.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vx, vz = elastic_forward_pallas(*true, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = elastic_forward_pallas.launches
+    blocks = elastic_forward_pallas.grid_blocks
+    print(f"slice 4 elastic_forward_pallas [{ns} shots, nt {g.nt}, absorbing "
+          f"top]: {launches} launch of {blocks} blocks of 256 threads, first "
+          f"call {first_s:.3f} s")
+    check(launches == 1, "B8 was not launched once on its path")
+    check(bool(torch.isfinite(vx).all() and torch.isfinite(vz).all()),
+          "B8 traces not finite")
+    (kx, kz), ms_k = timed_ms(lambda: elastic_forward_pallas(*true, wav, *geom,
+                                                             cfg))
+    (rx, rz), ms_r = timed_ms(lambda: simulate_elastic_ring(*true, wav, *geom,
+                                                            cfg))
+    (px, pz), ms_p = _plain_ms(lambda: elastic_forward_pallas_plain(
+        *true, wav, *geom, cfg))
+    scale = max(float(px.abs().max()), float(pz.abs().max()))
+    vs_ring = max(float((kx - rx).abs().max()), float((kz - rz).abs().max()))
+    err = max(float((kx - px).abs().max()), float((kz - pz).abs().max()))
+    n_b8 = device_launches(lambda: elastic_forward_pallas(*true, wav, *geom,
+                                                          cfg), "el_forward")
+    n_ring = device_launches(lambda: simulate_elastic_ring(*true, wav, *geom,
+                                                           cfg), "el_fwd_")
+    print(f"B8 vs the ring forward (the same function, 2 launches per step): "
+          f"max|diff| {vs_ring:.3e} of max {scale:.3e} (tol 1e-6 of max); vs "
+          f"plain max|err| {err:.3e} (tol 1e-5 of max); kernel {ms_k:.2f} ms, "
+          f"ring forward {ms_r:.2f} ms, plain {ms_p:.2f} ms; device trace, "
+          f"kernel launches of one call (its own of all): B8 {n_b8[0]} of "
+          f"{n_b8[1]}, ring forward {n_ring[0]} of {n_ring[1]}")
+    check(vs_ring <= 1e-6 * scale, "B8 disagrees with the ring forward")
+    check(err <= 1e-5 * scale, "B8 disagrees with its plain version")
+    check(n_b8[0] == 1, "B8 is not one kernel launch per call")
+    check(n_ring[0] == 2 * g.nt, "ring forward launch count")
+    cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
+    # five media and damp on the kernel's grid, the wavelet and geometry
+    # in; the two traces out
+    io = 6 * 144 * 384 * 4 + nbytes(wav, *geom, kx, kz)
+    return launches, {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                      **bound(FLOPS_B3 * cells * g.nt, io),
+                      "library_ms": None}
+
+
+def phase_b2_wavelet(dev):
+    """B2's dJ/dwavelet (want_wavelet_grad) at phase 3's shape on the
+    misfit whose residuals keep their signs, against the plain version
+    in float32 and float64; B2 timed with and without it."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import trace_normalize
+    from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
+        fwi_l1_loss_grad, fwi_l1_loss_grad_plain, scatter_rows)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
+    cfg, wav, geom, vp, vp0 = flagship_case(dev)
+    g = cfg.grid
+    dir_rows = forward2(torch.full_like(vp, 1500.0), wav, *geom, cfg,
+                        return_rows=True)
+    cols = geom[3].long() + g.pml_width
+    obs = forward2(vp, wav, *geom, cfg) - torch.gather(
+        dir_rows, 2, cols[:, None, :].expand(-1, g.nt, -1))
+    obs_rows = scatter_rows(trace_normalize(obs), geom[3], nt=g.nt, nx=g.nx,
+                            pml_width=g.pml_width)
+    dir_pad = torch.nn.functional.pad(
+        dir_rows, (0, 0, 0, obs_rows.shape[1] - g.nt)).contiguous()
+    off = (obs_rows + 3.0).contiguous()
+    args = (vp0, wav, *geom, cfg, off, dir_pad)
+    (_, _, wk), ms_on = timed_ms(lambda: fwi_l1_loss_grad(
+        *args, want_wavelet_grad=True))
+    _, ms_off = timed_ms(lambda: fwi_l1_loss_grad(*args))
+    _, _, wp = fwi_l1_loss_grad_plain(*args, want_wavelet_grad=True)
+    _, _, wr = fwi_l1_loss_grad_plain(*args, want_wavelet_grad=True,
+                                      dtype=torch.float64)
+    err_k, err_p = _rel_l2(wk.double(), wr), _rel_l2(wp.double(), wr)
+    err = float((wk - wp).abs().max())
+    print(f"B2 dJ/dwavelet [18 shots, nt {g.nt}, residual signs fixed]: "
+          f"{tuple(wk.shape)}, max|err| vs plain {err:.3e} of max "
+          f"{float(wp.abs().max()):.3e}; against the plain version in "
+          f"float64: kernel {err_k:.2e}, plain float32 {err_p:.2e} (tol "
+          f"max(1e-5, 2x plain)); B2 with it {ms_on:.2f} ms, without "
+          f"{ms_off:.2f} ms")
+    check(tuple(wk.shape) == (len(geom[0]), g.nt)
+          and bool(torch.isfinite(wk).all()), "B2 dJ/dwavelet shape")
+    check(err_k <= max(1e-5, 2.0 * err_p),
+          "B2 dJ/dwavelet is less accurate than its plain version")
+    return err
+
+
+def phase_engine_paths(dev):
+    """The acoustic engine's continuation stages (marmousi_acoustic_real)
+    and AutoWav (marmousi_acoustic_wav) at full width."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops import fwi_fused, scalar2
+    for name, kw, epochs in (
+            ("marmousi_acoustic_real", dict(stage_max_epochs=2), 6),
+            ("marmousi_acoustic_wav", {}, 3)):
+        cfg = get_workload(name, save_dir=str(ROOT / "build" / "chip_smoke"),
+                           **kw)
+        scalar2.forward2.launches = 0
+        fwi_fused.fwi_l1_loss_grad.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        engine, history = train(cfg, epochs=epochs, quiet=True, device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = {"forward2": scalar2.forward2.launches,
+                    "fwi_l1_loss_grad": fwi_fused.fwi_l1_loss_grad.launches}
+        for rec in history:
+            print("epoch", json.dumps(rec))
+        secs = ", ".join(f"{r['epoch_time']:.4f}" for r in history)
+        print(f"{name}: {cfg.num_shots} shots, wavelet "
+              f"{tuple(engine.wl.wavelet.shape)}, stages "
+              f"{[r['freq_stage'] for r in history]}; {total:.2f} s in all "
+              f"(engine setup included), epochs {secs} s; "
+              f"launches {launches}, physics path {engine.physics_path}, peak "
+              f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        check(engine.physics_path == "fused-cuda",
+              f"{name}: physics path {engine.physics_path}")
+        check(launches["fwi_l1_loss_grad"] == epochs,
+              f"{name}: B2 not launched once per epoch")
+        for rec in history:
+            for k, v in rec.items():
+                if isinstance(v, float):
+                    check(math.isfinite(v), f"{name} epoch {rec['epoch']}: "
+                          f"{k}={v}")
+        if cfg.freq_stages:
+            check(len({r["freq_stage"] for r in history}) >= 2,
+                  f"{name} did not cross two continuation stages")
+        if cfg.wavelet_from_data:
+            check(tuple(engine.wl.wavelet.shape) == (cfg.num_shots, cfg.nt),
+                  f"{name}: wavelet not per shot")
 
 
 def main() -> int:
@@ -881,6 +1230,11 @@ def main() -> int:
     b5, b6 = phase_b56(dev)
     launches.update(phase_slice3(dev))
     phase_xla_engine(dev)
+    b7a, b7b = phase_b7(dev)
+    launches.update(phase_slice4_pairs(dev))
+    launches["elastic_forward_pallas"], b8 = phase_b8(dev)
+    b2["gwav_max_abs_err"] = phase_b2_wavelet(dev)
+    phase_engine_paths(dev)
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",
@@ -912,6 +1266,16 @@ def main() -> int:
          "source": AC_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_adjoint.py:51",
          "launches": launches["acoustic_pallas_backward"], **b6},
+        {"name": "forward2b", "route": "cuda", "source": PAIR_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2b.py:35",
+         "launches": launches["forward2b"], **b7a},
+        {"name": "backward2b", "route": "cuda", "source": PAIR_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2b.py:105",
+         "launches": launches["backward2b"], **b7b},
+        {"name": "elastic_forward_pallas", "route": "cuda",
+         "source": ELF_SOURCE,
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic.py:77",
+         "launches": launches["elastic_forward_pallas"], **b8},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@
 //   B1  b1_forward2             <- physicsbasedfwi2_tpu/ops/pallas_scalar2.py
 //                                  forward2 / _fwd_kernel
 //   B2  b2_fwi_l1_loss_grad     <- physicsbasedfwi2_tpu/ops/pallas_fwi_fused.py
-//                                  fwi_l1_loss_grad / _kernel
+//                                  fwi_l1_loss_grad / _kernel (with its
+//                                  want_wavelet_grad output)
 //   B4a b4a_forward2_ckpt       <- pallas_scalar2.py forward2_ckpt /
 //                                  _fwd_ckpt_kernel (B2's phase 1)
 //   B4b b4b_backward2           <- pallas_scalar2.py _backward2 / _bwd_kernel
@@ -164,6 +165,8 @@ __device__ __forceinline__ float kw_at(const float* K, const float* dp,
 //   pb += S^T ybar_t;  w = d+ pb;  gk[src] += amp_t pb[src];  gk += w Lap(u0)
 //   pb' = qb + 2 w + Lap(K w);  qb' = -d- w
 // pb is double-buffered (neighbours are read); qb and gk are per-cell.
+// gwav (optional) [ns, nt_wav] receives dJ/d amp_t = K[src] pb[src], the
+// source cell's thread its only writer (pallas_fwi_fused.py:219-226).
 __global__ void adj_step(const float* __restrict__ K,
                          const float* __restrict__ dp,
                          const float* __restrict__ dm,
@@ -172,7 +175,8 @@ __global__ void adj_step(const float* __restrict__ K,
                          float* __restrict__ gk,
                          const float* __restrict__ lapc, long long lap_stride,
                          const float* __restrict__ ybar, int nt_rows,
-                         int nt_valid, Geom geo, int t, int nz, int nx) {
+                         int nt_valid, float* __restrict__ gwav, Geom geo,
+                         int t, int nz, int nx) {
   const int j = blockIdx.x * BX + threadIdx.x;
   const int i = blockIdx.y * BY + threadIdx.y;
   const int s = blockIdx.z;
@@ -186,8 +190,10 @@ __global__ void adj_step(const float* __restrict__ K,
   const float p = pb_at(pbs, yrow, rrow, i, j, nz, nx);
   const float w = dp[idx] * p;
   float g = gk[s * F + idx];
-  if (i == geo.src_z[s] && j == geo.src_x[s])
+  if (i == geo.src_z[s] && j == geo.src_x[s]) {
     g += geo.wav[(long long)s * geo.nt_wav + t] * p;
+    if (gwav) gwav[(long long)s * geo.nt_wav + t] = p * K[idx];
+  }
   g += w * lapc[s * lap_stride + idx];
   gk[s * F + idx] = g;
   const float kwc = K[idx] * w;
@@ -318,13 +324,15 @@ cudaError_t fwd_ckpt_sweep(const float* K, const float* dp, const float* dm,
 // Reverse sweep: per chunk (last first) restore (u0, u_-1) from ckpt,
 // recompute KC steps caching Lap(u0), then KC adjoint steps injecting the
 // cotangent rows ybar (row stride nt_rows) for t < nt_valid; dJ/dK per
-// shot in gk_shots, summed over shots in order into gk_out.
+// shot in gk_shots, summed over shots in order into gk_out; dJ/dwavelet
+// into gwav [ns, nt_wav] when it is given.
 cudaError_t reverse_sweep(const float* K, const float* dp, const float* dm,
                           const Geom& geo, const float* ybar, int nt_rows,
                           int nt_valid, const float* ckpt, float* u0,
                           float* um1, float* pb0, float* pb1, float* qb,
-                          float* gk_shots, float* lapc, float* gk_out, int ns,
-                          int nz, int nx, int n_ck, int KC, cudaStream_t st) {
+                          float* gk_shots, float* lapc, float* gk_out,
+                          float* gwav, int ns, int nz, int nx, int n_ck,
+                          int KC, cudaStream_t st) {
   const long long F = (long long)nz * nx;
   const size_t fbytes = sizeof(float) * (size_t)ns * F;
   for (float* p : {pb0, qb, gk_shots})
@@ -355,8 +363,8 @@ cudaError_t reverse_sweep(const float* K, const float* dp, const float* dm,
     for (int kk = KC - 1; kk >= 0; --kk) {
       adj_step<<<grid, block, 0, st>>>(K, dp, dm, pin, pout, qb, gk_shots,
                                        lapc + kk * F, lap_stride, ybar,
-                                       nt_rows, nt_valid, geo, c * KC + kk,
-                                       nz, nx);
+                                       nt_rows, nt_valid, gwav, geo,
+                                       c * KC + kk, nz, nx);
       LAUNCHED();
       float* tmp = pin;
       pin = pout;
@@ -407,7 +415,8 @@ int b1_forward2(const float* K, const float* dp, const float* dm,
 //   wav [ns, n_ck*KC] (zero past nt); obs, dir, hist [ns, n_ck*KC, nx];
 //   rmask [ns, nx]; u0, um1, pb0, pb1, qb, gk_shots [ns, nz, nx];
 //   lapc [ns, KC, nz, nx]; ckpt [ns, n_ck, 2, nz, nx];
-//   loss_part [ns, nx] doubles; loss_out [1]; gk_out [nz, nx].
+//   loss_part [ns, nx] doubles; loss_out [1]; gk_out [nz, nx];
+//   gwav (null, or want_wavelet_grad) [ns, n_ck*KC] gets dJ/dwavelet.
 int b2_fwi_l1_loss_grad(const float* K, const float* dp, const float* dm,
                         const float* wav, const int* src_z, const int* src_x,
                         const int* rcv_row, const float* obs,
@@ -415,8 +424,9 @@ int b2_fwi_l1_loss_grad(const float* K, const float* dp, const float* dm,
                         float* um1, float* pb0, float* pb1, float* qb,
                         float* gk_shots, float* lapc, float* hist,
                         float* ckpt, double* loss_part, float* loss_out,
-                        float* gk_out, int ns, int nz, int nx, int nt,
-                        int n_ck, int KC, float inv_count, void* stream) {
+                        float* gk_out, float* gwav, int ns, int nz, int nx,
+                        int nt, int n_ck, int KC, float inv_count,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nt_pad = n_ck * KC;
   RET_IF(cudaMemsetAsync(hist, 0, sizeof(float) * (size_t)ns * nt_pad * nx,
@@ -431,8 +441,8 @@ int b2_fwi_l1_loss_grad(const float* K, const float* dp, const float* dm,
   LAUNCHED();
   // phase 3: reverse sweep, chunk by chunk from the checkpoints
   RET_IF(reverse_sweep(K, dp, dm, geo, hist, nt_pad, nt, ckpt, u0, um1, pb0,
-                       pb1, qb, gk_shots, lapc, gk_out, ns, nz, nx, n_ck, KC,
-                       st));
+                       pb1, qb, gk_shots, lapc, gk_out, gwav, ns, nz, nx, n_ck,
+                       KC, st));
   sum_loss<<<1, 1, 0, st>>>(loss_part, ns * nx, inv_count, loss_out);
   LAUNCHED();
   return cudaSuccess;
@@ -463,8 +473,8 @@ int b4b_backward2(const float* K, const float* dp, const float* dm,
   const int nt_pad = n_ck * KC;
   const Geom geo{src_z, src_x, rcv_row, wav, nt_pad};
   return reverse_sweep(K, dp, dm, geo, ybar, nt_pad, nt_pad, ckpt, u0, um1,
-                       pb0, pb1, qb, gk_shots, lapc, gk_out, ns, nz, nx, n_ck,
-                       KC, (cudaStream_t)stream);
+                       pb0, pb1, qb, gk_shots, lapc, gk_out, nullptr, ns, nz,
+                       nx, n_ck, KC, (cudaStream_t)stream);
 }
 
 }  // extern "C"

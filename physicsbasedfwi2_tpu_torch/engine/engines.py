@@ -164,6 +164,9 @@ class AcousticDIPEngine(EngineBase):
     misfit, single-row receivers) the physics runs kernels B1/B2 on
     CUDA and their plain versions on CPU; otherwise it takes the JAX
     engine's "xla" path, autograd through :func:`simulate_acoustic`.
+    Frequency continuation swaps the physics data per stage
+    (:meth:`_stage_data`); ``wavelet_from_data`` (AutoWav) on a synthetic
+    workload gives every shot its own copy of the wavelet.
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None,
@@ -176,10 +179,6 @@ class AcousticDIPEngine(EngineBase):
             raise NotImplementedError(
                 "dataroot workloads are not ported yet (ROADMAP Queue A, "
                 "item 12)")
-        if cfg.wavelet_from_data:
-            raise NotImplementedError(
-                "wavelet_from_data (AutoWav) is not ported yet (ROADMAP "
-                "Queue A, slice-1 leftovers)")
         if cfg.encoded_shots > 0:
             raise NotImplementedError(
                 "encoded_shots is not ported yet (ROADMAP Queue A, item 11)")
@@ -197,6 +196,12 @@ class AcousticDIPEngine(EngineBase):
         if self.wl.device != self.device:
             raise ValueError(f"workload lives on {self.wl.device}, engine "
                              f"on {self.device}")
+        if cfg.wavelet_from_data and self.wl.wavelet.ndim == 1:
+            # AutoWav on a synthetic workload: the per-shot wavelet array
+            # [ns, nt] that stored data would carry
+            ns = int(self.wl.acq.src_z.shape[0])
+            self.wl.wavelet = self.wl.wavelet[None].expand(
+                ns, -1).contiguous()
         acq = self.wl.acq
         single_row = bool((acq.rcv_z == acq.rcv_z[:, :1]).all())
         why = [w for cond, w in (
@@ -267,21 +272,32 @@ class AcousticDIPEngine(EngineBase):
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         self._build_physics()
 
+    def _kernel_rows(self, pd, dir_rows):
+        """Add the fused kernel's layouts to the physics data ``pd``: the
+        normalized observed gathers as receiver rows, and the direct-wave
+        rows (or zeros) padded to the rows' length."""
+        g = self.wl.cfg.grid
+        obs_rows = scatter_rows(pd["obs_norm"], self.wl.acq.rcv_x, nt=g.nt,
+                                nx=g.nx, pml_width=g.pml_width)
+        if dir_rows is None:
+            pd["dir_rows"] = torch.zeros_like(obs_rows)
+        else:
+            pad_t = obs_rows.shape[1] - dir_rows.shape[1]
+            pd["dir_rows"] = torch.nn.functional.pad(
+                dir_rows, (0, 0, 0, pad_t)).contiguous()
+        pd["obs_rows"] = obs_rows
+        return pd
+
     def _build_physics(self):
-        """Observed and direct rows in the fused kernel's layout (fused
-        path only), and the validation inputs."""
-        cfg, wl = self.cfg, self.wl
-        g = wl.cfg.grid
+        """The base physics data (the full band: wavelet, normalized
+        observed gathers, direct wave and, on the fused path, the
+        kernel's rows), the stage cache, and the validation inputs."""
+        wl = self.wl
+        self._phys = {"wav": wl.wavelet, "obs_norm": wl.obs_norm,
+                      "direct": self._direct}
         if self._use_fused:
-            self._obs_rows = scatter_rows(wl.obs_norm, wl.acq.rcv_x,
-                                          nt=g.nt, nx=g.nx,
-                                          pml_width=g.pml_width)
-            if self._dir_rows is not None:
-                pad_t = self._obs_rows.shape[1] - self._dir_rows.shape[1]
-                self._dir_rows_pad = torch.nn.functional.pad(
-                    self._dir_rows, (0, 0, 0, pad_t)).contiguous()
-            else:
-                self._dir_rows_pad = torch.zeros_like(self._obs_rows)
+            self._kernel_rows(self._phys, self._dir_rows)
+        self._stage_cache = {}
         if self.val_wl is not None:
             # the twin's network input is its simulate_acoustic output,
             # without direct-wave removal (as in the JAX engine)
@@ -291,42 +307,74 @@ class AcousticDIPEngine(EngineBase):
             self._val_in, self._val_true = self.shots_in, self.wl.vp_true
         self._geom = wl.geom
 
-    def _physics_loss_raw(self, pred: torch.Tensor) -> torch.Tensor:
-        """The reference misfit pipeline on simulated traces (the "xla"
-        path): subtract the direct wave, trace-normalize, L1/L2/Huber
-        against the normalized observed data."""
-        return normalized_trace_misfit(pred, self.wl.obs_norm,
-                                       direct=self._direct,
-                                       kind=self.cfg.misfit)
+    def _stage_data(self, fc):
+        """Physics data of the continuation stage ``fc`` (port of the JAX
+        engine's ``_stage_phys_pd``; the mesh branches are not ported):
+        the wavelet, the observed gathers (then trace-normalized) and the
+        direct wave low-passed at ``fc`` once per stage (by linearity
+        simulating with the filtered wavelet equals filtering the
+        prediction), and on the fused path the kernel's rows rebuilt from
+        them.  ``fc <= 0`` returns the base data; a new stage evicts the
+        cached ones."""
+        key = float(fc or 0.0)
+        if key <= 0.0:
+            return self._phys
+        if key not in self._stage_cache:
+            dt, wl = self.cfg.dt, self.wl
+            pd = dict(self._phys)
+            pd["wav"] = lowpass_filter_time(wl.wavelet, key, dt, axis=-1)
+            pd["obs_norm"] = trace_normalize(
+                lowpass_filter_time(wl.obs, key, dt, axis=1))
+            if self._direct is not None:
+                pd["direct"] = lowpass_filter_time(self._direct, key, dt,
+                                                   axis=1)
+            if self._use_fused:
+                dir_rows = (None if self._dir_rows is None else
+                            lowpass_filter_time(self._dir_rows, key, dt,
+                                                axis=1))
+                self._kernel_rows(pd, dir_rows)
+            _evict_stale_stages(self._stage_cache, key)
+            self._stage_cache[key] = pd
+        return self._stage_cache[key]
 
-    def physics_value_and_grad(self, vp: torch.Tensor):
-        """(loss, processed dJ/dvp): the fused loss+gradient (B2) or, on
-        the "xla" path, autograd through :func:`simulate_acoustic`; then
-        depth^2 weighting, the water mask and ``grad_scale``."""
+    def physics_value_and_grad(self, vp: torch.Tensor, fc: float = 0.0):
+        """(loss, processed dJ/dvp) at stage ``fc`` (0 = full band): the
+        fused loss+gradient (B2) or, on the "xla" path, autograd through
+        :func:`simulate_acoustic`; then depth^2 weighting, the water mask
+        and ``grad_scale``."""
         cfg, wl = self.cfg, self.wl
+        pd = self._stage_data(fc)
         if self._use_fused:
-            loss, grad = fwi_l1_loss_grad(vp, wl.wavelet, *self._geom,
-                                          wl.cfg, self._obs_rows,
-                                          self._dir_rows_pad)
+            loss, grad = fwi_l1_loss_grad(vp, pd["wav"], *self._geom,
+                                          wl.cfg, pd["obs_rows"],
+                                          pd["dir_rows"])
         else:
-            loss, grad = acoustic_gradient(vp, self._physics_loss_raw,
-                                           wl.wavelet, *self._geom, wl.cfg)
+            def misfit(pred):
+                # the reference pipeline: subtract the direct wave,
+                # trace-normalize, L1/L2/Huber against the observed data
+                return normalized_trace_misfit(pred, pd["obs_norm"],
+                                               direct=pd["direct"],
+                                               kind=cfg.misfit)
+
+            loss, grad = acoustic_gradient(vp, misfit, pd["wav"],
+                                           *self._geom, wl.cfg)
         grad = depth_weighting(grad, 2.0)
         grad = water_mask(grad, wl.vp_true, cfg.water_vel)
         return loss, grad * cfg.grad_scale
 
-    def physics_loss(self, vp: torch.Tensor) -> torch.Tensor:
-        """Differentiable physics loss of vp [nz, nx]."""
-        return _PhysicsLoss.apply(vp, self.physics_value_and_grad)
+    def physics_loss(self, vp: torch.Tensor, fc: float = 0.0) -> torch.Tensor:
+        """Differentiable physics loss of vp [nz, nx] at stage ``fc``."""
+        return _PhysicsLoss.apply(
+            vp, lambda v: self.physics_value_and_grad(v, fc))
 
-    def _total_loss(self, use_physics: bool):
+    def _total_loss(self, use_physics: bool, fc: float = 0.0):
         cfg = self.cfg
         out = apply_generator(self.net, self.shots_in)
         vp = apply_velocity_output(out.field, self.true_b,
                                    water_vel=cfg.water_vel)[0, :, :, 0]
         model_mse = torch.mean((vp - self.wl.vp_true) ** 2)
         if use_physics:
-            loss = self.physics_loss(vp)
+            loss = self.physics_loss(vp, fc)
         else:
             loss = torch.zeros((), device=self.device)
         if cfg.supervised_weight > 0:
@@ -336,20 +384,18 @@ class AcousticDIPEngine(EngineBase):
             loss = loss + model_mse
         return loss, model_mse
 
-    def optimize_parameters(self, epoch: int, freq: float | None = None):
-        """One iteration.  ``freq`` (frequency continuation) is not
-        ported and raises."""
-        if freq:
-            raise NotImplementedError(
-                "frequency continuation (_stage_phys_pd) is not ported yet "
-                "(ROADMAP Queue A, slice-1 leftovers)")
+    def optimize_parameters(self, epoch: int, freq: float | None = None,
+                            tether_stage: int | None = None):
+        """One iteration at continuation stage ``freq`` (None or 0: the
+        full band).  ``tether_stage`` is accepted for the train loop's
+        sake, as in the JAX engine (the tether is an elastic recipe)."""
         use_physics = epoch > self.cfg.lstart
         if self.lr_policy is not None:
             lr = self.lr_policy.lr_for_epoch(epoch)
             for group in self.opt.param_groups:
                 group["lr"] = lr
         self.opt.zero_grad(set_to_none=True)
-        loss, model_mse = self._total_loss(use_physics)
+        loss, model_mse = self._total_loss(use_physics, freq or 0.0)
         loss.backward()
         self.opt.step()
         # one device sync for both scalars

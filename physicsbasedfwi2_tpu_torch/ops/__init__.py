@@ -4,7 +4,9 @@ Kernel modules: :mod:`scalar2` (B1 forward, B4a/B4b and
 ``acoustic_pallas2``), :mod:`fwi_fused` (B2, fused loss+gradient),
 :mod:`elastic_fused` (B3, fused elastic loss+gradient, and the ring
 forward), :mod:`kernels` (B5, first-order forward) and :mod:`adjoint`
-(B6 and ``acoustic_pallas``); each holds its CUDA wrapper and plain
+(B6 and ``acoustic_pallas``), :mod:`scalar2b` (B7a/B7b and
+``acoustic_pallas2b``) and :mod:`elastic_fwd` (B8,
+``elastic_forward_pallas``); each holds its CUDA wrapper and plain
 version.
 """
 

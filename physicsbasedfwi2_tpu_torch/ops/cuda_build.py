@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
 B2, B4a and B4b; ``elastic.cu``: kernel B3; ``acoustic.cu``: kernels B5
-and B6) for ``sm_90a``, one process per
+and B6; ``scalar2b.cu``: kernels B7a and B7b; ``elastic_fwd.cu``: kernel
+B8) for ``sm_90a``, one process per
 source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads.  The build
 runs at first use, never at import, into ``build/torch_kernels/`` at
@@ -21,7 +22,8 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (_CSRC / "scalar2.cu", _CSRC / "elastic.cu", _CSRC / "acoustic.cu")
+SOURCES = tuple(_CSRC / f for f in ("scalar2.cu", "elastic.cu", "acoustic.cu",
+                                     "scalar2b.cu", "elastic_fwd.cu"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -30,7 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # csrc/scalar2.cu
     "b1_forward2": [_P] * 10 + [_I] * 4 + [_P],
-    "b2_fwi_l1_loss_grad": [_P] * 22 + [_I] * 6 + [_F, _P],
+    "b2_fwi_l1_loss_grad": [_P] * 23 + [_I] * 6 + [_F, _P],
     "b4a_forward2_ckpt": [_P] * 11 + [_I] * 6 + [_P],
     "b4b_backward2": [_P] * 17 + [_I] * 5 + [_P],
     # csrc/elastic.cu
@@ -39,6 +41,12 @@ _SIGNATURES = {
     # csrc/acoustic.cu
     "b5_acoustic_forward": [_P] * 11 + [_I] * 4 + [_F, _P],
     "b6_acoustic_backward": [_P] * 18 + [_I] * 5 + [_F, _P],
+    # csrc/scalar2b.cu
+    "b7a_forward2b": [_P] * 11 + [_I] * 6 + [_P],
+    "b7b_backward2b": [_P] * 17 + [_I] * 5 + [_P],
+    # csrc/elastic_fwd.cu (the grid size comes back through an int*)
+    "b8_elastic_forward": [_P] * 9 + [ctypes.POINTER(_I)] + [_I] * 5
+    + [_F, _P],
 }
 
 _lib = None

@@ -16,7 +16,9 @@ One call computes, for every shot:
        S    = sum_t g yn,  cnt = #ties
 
 3. the reverse sweep: restore each chunk from its checkpoint, recompute
-   it caching Lap(u0), and run the exact transpose, accumulating dJ/dK.
+   it caching Lap(u0), and run the exact transpose, accumulating dJ/dK
+   and, with ``want_wavelet_grad``, dJ/d amp_t = K[src] pb[src] (the
+   source is added after the damping, so its cotangent is pb there).
 
 Then the host-side chain rule K = (vp dt/dx)^2 and the transpose of the
 edge padding give dJ/dvp.
@@ -34,7 +36,8 @@ import torch
 from physicsbasedfwi2_tpu_torch.ops.acoustic import AcousticConfig
 # scatter_rows is re-exported: the JAX package's pallas_fwi_fused has it
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (  # noqa: F401
-    _bwd_plain, _common, _fwd_ckpt_plain, _vp_grad, scatter_rows,
+    _bwd_plain_shots, _common, _fwd_ckpt_plain, _sum_shots, _vp_grad,
+    scatter_rows,
 )
 
 EPS = 1e-10
@@ -59,17 +62,19 @@ def _misfit_plain(hist, obs_rows, rmask, inv_count):
 
 
 def _loss_gk_plain(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
-                   nt, KC, inv_count):
-    """(loss, dJ/dK on the padded grid) in plain PyTorch: B4a's forward
-    sweep, the misfit, B4b's reverse sweep."""
+                   nt, KC, inv_count, want_gwav):
+    """(loss, dJ/dK on the padded grid, dJ/dwavelet [ns, n_ck*KC] or
+    None) in plain PyTorch: B4a's forward sweep, the misfit, B4b's
+    reverse sweep."""
     hist, ckpt = _fwd_ckpt_plain(K, dp, dm, wav, sz, sx, rrow, nt, KC,
                                  dir_rows)
     loss, ybar = _misfit_plain(hist, obs_rows, rmask, inv_count)
-    return loss, _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt)
+    gk, gw = _bwd_plain_shots(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt)
+    return loss, _sum_shots(gk), gw if want_gwav else None
 
 
 def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
-                  nt, KC, inv_count):
+                  nt, KC, inv_count, want_gwav):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = wav.shape
     n_ck = nt_pad // KC
@@ -105,24 +110,23 @@ def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
     loss_part = torch.empty((ns, nx128), dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=f32, device=dev)
     gk = torch.empty((nz8, nx128), dtype=f32, device=dev)
+    gw = (torch.empty((ns, nt_pad), dtype=f32, device=dev) if want_gwav
+          else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a.data_ptr() for a in (
         K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask, u0, um1,
         pb0, pb1, qb, gk_shots, lapc, hist, ckpt, loss_part, loss, gk)]
-    err = lib.b2_fwi_l1_loss_grad(*ptrs, ns, nz8, nx128, nt, n_ck, KC,
-                                  inv_count, stream)
+    err = lib.b2_fwi_l1_loss_grad(*ptrs, gw.data_ptr() if want_gwav else None,
+                                  ns, nz8, nx128, nt, n_ck, KC, inv_count,
+                                  stream)
     cuda_build.check(err, "b2_fwi_l1_loss_grad")
     fwi_l1_loss_grad.launches += 1
-    return loss, gk
+    return loss, gk, gw
 
 
 def _loss_grad(core, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
                obs_rows, dir_rows, KC, want_wavelet_grad,
                dtype=torch.float32):
-    if want_wavelet_grad:
-        raise NotImplementedError(
-            "want_wavelet_grad (marmousi_acoustic_wav) is not ported yet: "
-            "ROADMAP Queue A, slice-1 leftovers")
     g = cfg.grid
     dev = vp.device
     ns = int(src_z.shape[0])
@@ -139,9 +143,12 @@ def _loss_grad(core, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
     if dtype != torch.float32:
         K, dp, dm, wav, obs_rows, dir_rows, rmask = (
             a.to(dtype) for a in (K, dp, dm, wav, obs_rows, dir_rows, rmask))
-    loss, gk = core(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
-                    g.nt, KC, inv_count)
-    return loss, _vp_grad(gk, vp, cfg, (g.dt / g.dx) ** 2)
+    loss, gk, gw = core(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows,
+                        rmask, g.nt, KC, inv_count, want_wavelet_grad)
+    gz = _vp_grad(gk, vp, cfg, (g.dt / g.dx) ** 2)
+    if want_wavelet_grad:
+        return loss, gz, gw[:, :g.nt]
+    return loss, gz
 
 
 @torch.no_grad()
@@ -162,14 +169,15 @@ def fwi_l1_loss_grad_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 def fwi_l1_loss_grad(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
                      cfg: AcousticConfig, obs_rows, dir_rows,
                      *, KC: int = 32, want_wavelet_grad: bool = False):
-    """(loss, dJ/dvp) for the trace-normalized L1 misfit with
-    direct-wave removal.
+    """(loss, dJ/dvp[, dJ/dwavelet]) for the trace-normalized L1 misfit
+    with direct-wave removal.
 
     Args:
         obs_rows: [ns, nt_pad, nx128] trace-normalized observed data
             scattered into receiver-row columns (:func:`scatter_rows`).
         dir_rows: [ns, nt_pad, nx128] direct-wave rows, same layout.
-        want_wavelet_grad: not ported yet (raises).
+        want_wavelet_grad: also return dJ/dwavelet [ns, nt] (per shot,
+            whether the wavelet was given as [nt] or [ns, nt]).
 
     On a CUDA ``vp`` this launches kernel B2
     (``fwi_l1_loss_grad.launches`` counts the launches); on a CPU

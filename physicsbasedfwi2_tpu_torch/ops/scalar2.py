@@ -278,12 +278,13 @@ def _fwd_ckpt_plain(K, dp, dm, wav, sz, sx, rrow, nt, KC, dir_rows=None):
     return hist, ckpt
 
 
-def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
+def _bwd_plain_shots(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
     """Reverse sweep from the checkpoints: restore each chunk, recompute
     it caching Lap(u0), and run the exact transpose, injecting the
     cotangent rows ``ybar`` [ns, n_ck*KC, nx128] for t < nt_valid.
-    Returns dJ/dK [nz8, nx128], shots summed in order: B4b, and phase 3
-    of the fused kernel B2."""
+    Returns dJ/dK of each shot [ns, nz8, nx128] and dJ/dwavelet
+    [ns, n_ck*KC] (K[src] pb[src] after the row injection, the order of
+    pallas_fwi_fused.py:210-226)."""
     ns, nt_pad = wav.shape
     n_ck = ckpt.shape[1]
     KC = nt_pad // n_ck
@@ -295,6 +296,7 @@ def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
     pb = torch.zeros((ns, nz8, nx128), dtype=K.dtype, device=dev)
     qb = torch.zeros_like(pb)
     gk = torch.zeros_like(pb)
+    gw = torch.zeros_like(wav)
     lapc = torch.empty((ns, KC, nz8, nx128), dtype=K.dtype, device=dev)
     for c in reversed(range(n_ck)):
         u0 = ckpt[:, c, 0]
@@ -312,12 +314,27 @@ def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
             w = dp * pb
             # the source is added after the damping: its cotangent is pb
             gk[shot, sz, sx] += wav[:, t] * pb[shot, sz, sx]
+            gw[:, t] = pb[shot, sz, sx] * gain
             gk = gk + w * lapc[:, kk]
             pb, qb = qb + 2.0 * w + _lap(K * w), -(dm * w)
-    gk_sum = gk[0]
-    for s in range(1, ns):
-        gk_sum = gk_sum + gk[s]
-    return gk_sum
+    return gk, gw
+
+
+def _sum_shots(gk):
+    """Per-shot dJ/dK [ns, ...] summed over shots in order, as the
+    kernels sum it."""
+    acc = gk[0]
+    for s in range(1, gk.shape[0]):
+        acc = acc + gk[s]
+    return acc
+
+
+def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
+    """:func:`_bwd_plain_shots`'s dJ/dK [nz8, nx128], shots summed in
+    order: B4b, and phase 3 of the fused kernel B2."""
+    gk, _ = _bwd_plain_shots(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt,
+                             nt_valid)
+    return _sum_shots(gk)
 
 
 def _fwd_ckpt_cuda(K, dp, dm, wav, sz, sx, rrow, nt, KC):

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from physicsbasedfwi2_tpu_torch.geo import ricker
-from physicsbasedfwi2_tpu_torch.ops import adjoint, kernels, scalar2
+from physicsbasedfwi2_tpu_torch.ops import (
+    adjoint, elastic_fwd, kernels, scalar2, scalar2b,
+)
 from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
 from physicsbasedfwi2_tpu_torch.ops import trace_normalize
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
@@ -251,3 +253,77 @@ def test_acoustic_pallas_launches_b5_and_b6(case):
             adjoint.acoustic_pallas_backward.launches) == (counts[0] + 1,
                                                            counts[1] + 1)
     assert bool(torch.isfinite(v.grad).all())
+
+
+# ---------------------------------------------------------------------------
+# B7a, B7b (acoustic_pallas2b), B8 (elastic_forward_pallas), B2's gwav
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ns", [2, 3])
+def test_b7_kernels_match_b4_and_plain(case, ns):
+    cfg, wav, vp, geom = case
+    geom = tuple(torch.cat([a, a[:1]])[:ns].contiguous() for a in geom)
+    before = scalar2b.forward2b.launches
+    recs, ckpt = scalar2b.forward2b(vp, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert scalar2b.forward2b.launches == before + 1
+    recs_p, ckpt_p = scalar2b.forward2b_plain(vp, wav, *geom, cfg)
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(recs, recs_p) <= 1e-5
+    assert rel_max(ckpt, ckpt_p) <= 1e-5
+    # B4a's step arithmetic, per cell, for each shot of a pair
+    assert rel_max(recs, scalar2.forward2(vp, wav, *geom, cfg)) <= 1e-6
+    rows = _l2_rows((cfg, wav, vp, geom), scalar2.forward2_plain, 16)
+    before = scalar2b.backward2b.launches
+    got = scalar2b.backward2b(vp, wav, *geom, cfg, rows, ckpt_p)
+    torch.cuda.synchronize()
+    assert scalar2b.backward2b.launches == before + 1
+    ref = scalar2b.backward2b_plain(vp, wav, *geom, cfg, rows, ckpt_p)
+    # float32 rounding in another order: 1e-4 rel L2
+    assert rel_l2(got, ref) <= 1e-4
+    _, ck4 = scalar2.forward2_ckpt_plain(vp, wav, *geom, cfg, KC=16)
+    assert rel_l2(got, scalar2.backward2(vp, wav, *geom, cfg, rows,
+                                         ck4)) <= 1e-5
+
+
+def test_b8_kernel_matches_plain_and_ring(dev):
+    grid, cfgk, wargs, med, geom = elastic_case(free_surface=False)
+    cfg = torch_elastic(grid, cfgk)
+    wav = ricker(*wargs, device=dev)
+    med = tuple(torch.as_tensor(a, device=dev) for a in med)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in geom)
+    before = elastic_fwd.elastic_forward_pallas.launches
+    got = elastic_fwd.elastic_forward_pallas(*med, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert elastic_fwd.elastic_forward_pallas.launches == before + 1
+    assert elastic_fwd.elastic_forward_pallas.grid_blocks >= 1
+    ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
+    ring = ef.simulate_elastic_ring(*med, wav, *geom, cfg)
+    for a, b, c in zip(got, ref, ring):
+        # FMA contraction and sum order differ: 1e-5 of max over 64 steps
+        assert rel_max(a, b) <= 1e-5
+        # the ring forward's arithmetic per cell
+        assert rel_max(a, c) <= 1e-6
+
+
+def test_b2_wavelet_gradient_matches_plain(case):
+    cfg, wav, vp, geom = case
+    g = cfg.grid
+    gen = torch.Generator(device=vp.device).manual_seed(1)
+    obs_rows = torch.zeros((2, 192, 128), device=vp.device)
+    obs_rows[:, :g.nt] = torch.rand((2, g.nt, 128), generator=gen,
+                                    device=vp.device) + 2.5
+    dir_rows = torch.zeros_like(obs_rows)
+    lk, gk, wk = fwi_l1_loss_grad(vp, wav, *geom, cfg, obs_rows, dir_rows,
+                                  want_wavelet_grad=True)
+    lp, gp, wp = fwi_l1_loss_grad_plain(vp, wav, *geom, cfg, obs_rows,
+                                        dir_rows, want_wavelet_grad=True)
+    assert wk.shape == wp.shape == (2, g.nt)
+    # residual signs fixed (obs > 2.5 > |yn|); float32 sums in another
+    # order: 1e-4 rel L2
+    np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
+    assert rel_l2(gk, gp) <= 1e-4
+    assert rel_l2(wk, wp) <= 1e-4
+    # without the flag the kernel returns what it returned before
+    l2, g2 = fwi_l1_loss_grad(vp, wav, *geom, cfg, obs_rows, dir_rows)
+    assert float(l2) == float(lk) and torch.equal(g2, gk)

@@ -102,7 +102,7 @@ def test_engine_path_and_setup_rows(slice_run):
     # direct wave), which scales the same rounding up: 2e-5 of max
     assert rel_max(pe.wl.obs, je.wl.obs) <= 2e-5
     assert rel_max(pe.shots_in, je.shots_in) <= 2e-5
-    assert rel_max(pe._obs_rows, je._pack["phys"]["obs_rows"]) <= 2e-5
+    assert rel_max(pe._phys["obs_rows"], je._pack["phys"]["obs_rows"]) <= 2e-5
 
 
 def test_validation_loss_matches(slice_run):
@@ -215,18 +215,98 @@ def test_plateau_detector_matches_jax(mode, eps, cap):
 def test_unported_options_raise(slice_run):
     wl = port_workload(slice_run["jwl"])
     cfg = slice_run["cfg"]
-    # (misfit="l2" and backend="xla" take the ported "xla" path)
-    for kw in (dict(optimizer="lbfgs"), dict(encoded_shots=2),
-               dict(wavelet_from_data=True)):
+    # (misfit="l2" and backend="xla" take the ported "xla" path;
+    # freq_stages and wavelet_from_data are ported)
+    for kw in (dict(optimizer="lbfgs"), dict(encoded_shots=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AcousticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")
-    for kw in (dict(freq_stages=(3.0, 0.0)),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(cfg.replace(**kw), engine=slice_run["pe"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(cfg, engine=slice_run["pe"], profile_dir="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slice_run["pe"].optimize_parameters(1, freq=3.0)
+
+
+@pytest.fixture(scope="module")
+def stage_run(slice_run):
+    """The 4 Hz continuation stage on both engines of ``slice_run``: the
+    stage data, and one step's loss from the same generator weights."""
+    je, pe = slice_run["je"], slice_run["pe"]
+    jpd, ppd = je._stage_phys_pd(4.0), pe._stage_data(4.0)
+    out = {"data": {k: (np.asarray(jpd[k]), n(ppd[k]))
+                    for k in ("wav", "obs_norm", "obs_rows", "dir_rows")}}
+    pe.net.load_state_dict(params_from_flax(_flax_np(je.params)))
+    out["step"] = (je.optimize_parameters(1, freq=4.0),
+                   pe.optimize_parameters(1, freq=4.0))
+    out["cached"] = pe._stage_data(4.0) is ppd
+    return out
+
+
+def test_stage_data_matches_jax(stage_run, slice_run):
+    d = stage_run["data"]
+    # the same zero-phase FFT low-pass of the same float32 data
+    assert rel_max(*d["wav"][::-1]) <= 1e-6
+    # the direct rows carry forward2's rounding (1e-5 of max,
+    # test_engine_path_and_setup_rows) through the filter; obs = pred -
+    # direct carries the 2e-5 of its cancellation, which the 4 Hz
+    # low-pass (the band keeps a fraction of each trace's peak) and the
+    # trace normalization scale up to ~7e-5 of max
+    assert rel_max(d["dir_rows"][1], d["dir_rows"][0]) <= 1e-5
+    for k in ("obs_norm", "obs_rows"):
+        assert d[k][1].shape == d[k][0].shape, k
+        assert rel_max(d[k][1], d[k][0]) <= 1e-4, k
+    # the stage really band-limits the wavelet (as tests/test_engine.py)
+    w = d["wav"][1]
+    spec = np.abs(np.fft.rfft(w))
+    f = np.fft.rfftfreq(w.shape[-1], slice_run["cfg"].dt)
+    assert spec[f > 8.0].max() < 0.05 * spec.max()
+    pe = slice_run["pe"]
+    assert stage_run["cached"] and pe._stage_data(0.0) is pe._phys
+
+
+def test_stage_step_loss_matches_jax(stage_run):
+    jrec, prec = stage_run["step"]
+    assert jrec.keys() == prec.keys() == {"loss_D", "loss_M_MSE", "lr"}
+    for k in jrec:
+        np.testing.assert_allclose(prec[k], jrec[k], rtol=1e-5, err_msg=k)
+
+
+def test_train_advances_stages_like_jax(slice_run, stage_run):
+    """train() over freq_stages (4, 8, 0) with a 3-epoch stage cap, as
+    tests/test_engine.py runs the JAX package's: both packages walk the
+    same stages and every epoch's loss is finite."""
+    kw = dict(freq_stages=(4.0, 8.0, 0.0), stage_max_epochs=3)
+    _, jh = j_train(slice_run["jcfg"].replace(**kw), epochs=7,
+                    engine=slice_run["je"], quiet=True)
+    _, ph = train(slice_run["cfg"].replace(**kw), epochs=7,
+                  engine=slice_run["pe"], quiet=True)
+    stages = [r["freq_stage"] for r in ph]
+    # the third epoch of a stage advances it, and its record names the
+    # new stage
+    assert stages == [r["freq_stage"] for r in jh] == [4.0, 4.0, 8.0, 8.0,
+                                                       8.0, 0.0, 0.0]
+    assert all(np.isfinite(r["loss_D"]) for r in ph)
+    assert list(slice_run["pe"]._stage_cache) == [8.0]
+
+
+def test_autowav_step_with_per_shot_wavelets_matches_jax(tmp_path):
+    """marmousi_acoustic_wav (AutoWav, wavelet_from_data): the engine
+    gives each shot its own wavelet [ns, nt]; one step's loss from the
+    same weights matches the JAX engine's."""
+    jcfg = j_config.get_workload(
+        "marmousi_acoustic_wav", **SIZE, filters=(4, 8),
+        save_dir=str(tmp_path / "jax"), extras={"fused_interpret": True})
+    cfg = config.get_workload("marmousi_acoustic_wav", **SIZE, filters=(4, 8),
+                              save_dir=str(tmp_path / "torch"))
+    jwl = JWorkload.build(**SIZE, seed=0, water_rows=1)
+    pwl = port_workload(jwl)
+    assert pwl.wavelet.ndim == 1
+    je = JEngine(jcfg, workload=jwl)
+    pe = AcousticDIPEngine(cfg, workload=pwl, device="cpu")
+    assert tuple(pe.wl.wavelet.shape) == tuple(je.wl.wavelet.shape) == (
+        SIZE["num_shots"], SIZE["nt"])
+    np.testing.assert_array_equal(n(pe.wl.wavelet), np.asarray(je.wl.wavelet))
+    pe.net.load_state_dict(params_from_flax(_flax_np(je.params)))
+    jrec, prec = je.optimize_parameters(1), pe.optimize_parameters(1)
+    for k in jrec:
+        np.testing.assert_allclose(prec[k], jrec[k], rtol=1e-5, err_msg=k)
 
 
 def test_port_imports_no_jax():

@@ -12,39 +12,66 @@
 //                                  (B2's phase 3 for any row cotangent)
 //
 // B4a and B4b are the primal and adjoint of the acoustic_pallas2 custom
-// VJP.  They run B2's own sweeps (fwd_ckpt_sweep, reverse_sweep below), so
-// they cost what B2's phases cost: per step B4a is B1's step plus the
-// checkpoint writes every KC steps, B4b B2's recompute and adjoint steps.
-// Prediction before their first chip run, at marmousi_acoustic's shape:
-// B4a ~30 ms (B1's 4 k launches), B4b ~90-100 ms (B2 minus its forward),
-// against operation bounds of ~0.84 and ~0.99 ms: bound by launches and
-// the step's L2 traffic, as B1 and B2 are.
+// VJP.  They run B2's own sweeps on either route (fwd_resident and
+// rev_resident, or fwd_ckpt_sweep and reverse_sweep), so they cost what
+// B2's phases cost: per step B4a is B1's step plus the checkpoint writes
+// every KC steps, B4b B2's recompute and adjoint steps.
 //
 // Scheme (K = (vp dt/dx)^2, d+ / d- the sponge factors with a 2-cell zero
 // ring folded into d+):
 //     u1 = d+ (2 u0 - d- u_-1 + K Lap4(u0)),  u1[src] += amp_t K[src]
 // and the receiver row of u1 is recorded every step.
 //
-// Design.  The Pallas kernels keep one shot's whole grid (about 11 MB of
-// fields, Laplacian cache and row history) resident on chip, one program
-// per shot.  That does not fit in 227 KB of shared memory, so here every
-// time step is one launch over all shots at once, one thread per cell of
-// [ns, nz8, nx128], with the fields in global memory.  At the flagship
-// shape (18 shots, 192 x 256 padded) a field is 3.5 MB for all shots, so
-// the live fields and the three coefficient planes (about 14 MB) stay in
-// the 50 MB L2; the Laplacian cache and checkpoints stream from HBM.
+// Two routes run the same arithmetic; ops/scalar2.py picks one by shape
+// before any launch (resident_plan) and counts each route's launches.
 //
-// What bounds it on the H100: per cell-step the forward reads u0 (plus its
-// stencil neighbours, mostly L1/L2 hits), u_-1, K, d+, d- and writes u1:
-// about 24 B, some 21 MB per step for all shots; the reverse sweep adds
-// the Laplacian cache and checkpoints, which stream from HBM.  At
-// nt = 4001 the forward is 4 k launches and the fused loss+gradient
-// 3 x 4 k.  Measured on an H100 80GB HBM3 at 700 W (PERF.md), a step
-// costs 7.3 us (B1) and 10.1 us (B2) against launch floors of 2.7 and
-// 3.5 us: the step's memory traffic bounds it, launches take a third.
-// The design keeps the time loop inside one C call per kernel (no Python
-// per step) and leaves CUDA graphs, a persistent kernel and on-chip
-// tiling to later work.
+// Resident route (fwd_resident, rev_resident; the default where the plan
+// fits).  The Pallas kernels keep one shot's whole grid on chip for the
+// whole time loop, one program per shot.  Here one thread-block cluster
+// of C CTAs holds one shot: CTA r owns a band of R rows (a multiple of 8;
+// the last band may be shorter) across the full width, each thread a
+// block of RPT = 5 rows of 4 columns (one float4).  Shared memory holds the
+// band's K, d+ and d- and a double-buffered field (u0 forward, K w in the
+// adjoint) with 2 halo rows above and below and zero columns each side;
+// u_-1, and in the reverse sweep pb, qb and the shot's dJ/dK, stay in
+// registers.  A step computes every owned cell from the current buffer,
+// writes it to the other one and its 2 edge rows into the neighbours'
+// halo rows through distributed shared memory, then passes one cluster
+// barrier (arrive.release / wait.acquire, the receiver row's store
+// between the two).  The top band's upper and the bottom band's lower
+// halo stay zero, as ld0's zero reads and the Pallas rolls over the zero
+// ring.  The plan is the smallest cluster whose bands fit.  At the
+// flagship shape (18 shots, 192 x 256 padded) it is
+// C = 5, R = 40, RPT = 5, 512 threads, 215,808 B of shared memory: the
+// card keeps 22 such clusters resident, so all 18 shots run in one wave
+// (6-CTA clusters of 32-row bands fit only 17: a cluster stays within
+// one GPC).  Each kernel is one launch per sweep.  The reverse
+// sweep restores each chunk's checkpoint into the band (halos from
+// global memory), recomputes it writing Lap(u0) to a per-shot cache, and
+// runs the adjoint steps; each thread reads back only its own cells of
+// the cache.  Every route checkpoints at the caller's KC.  At 18 shots
+// the cache is 113 MB at KC 32, more than the 50 MB L2, and 28 MB at KC
+// 8, which holds 4x the checkpoints; on an H100 80GB HBM3 at 700 W B2
+// took 45.7 ms at KC 32 and 47.5-48.0 at KC 8, with 1.0 and 3.4 GiB
+// above its inputs (chip_smoke.py, both in turns; PERF.md).
+//
+// What bounds the resident route: a step is ~20 cells of shared-memory
+// stencil work per thread at 16 warps an SM (one CTA: its shared memory
+// and 128 registers a thread allow no more), then one cluster barrier;
+// registers bound the reverse sweep (pb, qb, dJ/dK and the prefetched
+// cache row: it spills a little, so phase B recomputes p and w rather
+// than hold them).  Predicted before the first timed run (H100, 700 W):
+// 1-2 us a step, B1 ~5-8 ms, B2 ~15-30 ms.  Measured (PERF.md):
+// 2.6-2.8 us a forward step, ~6 us an adjoint step; B1 ~10.5 ms (per-step
+// route ~30), B2 ~46 ms (~120), bit-equal to the per-step route.
+//
+// Per-step route (fwd_step, adj_step; grids the plan cannot hold, and
+// kept as an entry point for comparison).  Every time step is one launch
+// over all shots, one thread per cell of [ns, nz8, nx128], the fields in
+// global memory (L2 resident at the flagship shape).  Measured on an
+// H100 80GB HBM3 at 700 W (PERF.md), a step costs ~7.5 us (B1) and ~10
+// us (B2): the step's L2 traffic and the 9 neighbour products of the
+// adjoint bound it, launches take a third.
 //
 // Boundaries: Pallas reads neighbours with circular rolls; the zero ring in
 // d+ keeps every field zero within 2 cells of the array edge, so reading 0
@@ -54,8 +81,10 @@
 //
 // Determinism: no atomics.  The gradient is accumulated per shot and the
 // shots are summed in order afterwards; the loss is accumulated per
-// (shot, column) in double and summed in order by one thread.
+// (shot, column) in double, in a fixed order, and summed in order by one
+// thread.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <initializer_list>
@@ -211,33 +240,51 @@ __global__ void adj_step(const float* __restrict__ K,
   qbs[idx] = -(dm[idx] * w);
 }
 
-// Trace-normalized L1 misfit and its cotangent, one thread per (shot,
-// column), four sweeps over the column's history (max; ties; loss and S;
-// cotangent written over the history):
+// Trace-normalized L1 misfit and its cotangent, four sweeps over each
+// column's history (max; ties; loss and S; cotangent written over the
+// history):
 //   yn = y / (m + eps),  r = (yn - obs) mask,  g = sign(r) / count
 //   ybar = g / (m + eps) - 1[|y| == m] sign(y) S / (cnt (m + eps))
-// the exact jnp.max subgradient (pallas_fwi_fused.py:21-30).
-__global__ void misfit_cols(float* __restrict__ hist,
-                            const float* __restrict__ obs,
-                            const float* __restrict__ rmask, int ns,
-                            int nt_rows, int nx, float inv_count,
-                            double* __restrict__ loss_part) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+// the exact jnp.max subgradient (pallas_fwi_fused.py:21-30).  A block
+// takes 32 columns of one shot (coalesced rows) and spreads the rows over
+// MF_ROWS thread rows; the per-thread partials are combined in a fixed
+// order (max and the tie count exactly, loss and S in double), so the
+// result is deterministic.  Both routes use it.  nx % 32 == 0.
+constexpr int MF_COLS = 32;
+constexpr int MF_ROWS = 16;
+
+__global__ void __launch_bounds__(MF_COLS * MF_ROWS)
+    misfit_tiles(float* __restrict__ hist, const float* __restrict__ obs,
+                 const float* __restrict__ rmask, int nt_rows, int nx,
+                 float inv_count, double* __restrict__ loss_part) {
+  __shared__ float red_f[MF_ROWS][MF_COLS];
+  __shared__ double red_d[2][MF_ROWS][MF_COLS];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j = blockIdx.x * MF_COLS + tx;
   const int s = blockIdx.y;
-  if (j >= nx || s >= ns) return;
   const long long base = (long long)s * nt_rows * nx + j;
   float* y = hist + base;
   const float* ob = obs + base;
   float m = 0.0f;
-  for (int t = 0; t < nt_rows; ++t) m = fmaxf(m, fabsf(y[(long long)t * nx]));
+  for (int t = ty; t < nt_rows; t += MF_ROWS)
+    m = fmaxf(m, fabsf(y[(long long)t * nx]));
+  red_f[ty][tx] = m;
+  __syncthreads();
+  m = red_f[0][tx];
+  for (int k = 1; k < MF_ROWS; ++k) m = fmaxf(m, red_f[k][tx]);
+  __syncthreads();
   const float inv_m = 1.0f / (m + kEps);
   float cnt = 0.0f;
-  for (int t = 0; t < nt_rows; ++t)
+  for (int t = ty; t < nt_rows; t += MF_ROWS)
     cnt += fabsf(y[(long long)t * nx]) == m ? 1.0f : 0.0f;
+  red_f[ty][tx] = cnt;
+  __syncthreads();
+  cnt = red_f[0][tx];
+  for (int k = 1; k < MF_ROWS; ++k) cnt += red_f[k][tx];
   const float inv_cnt = 1.0f / fmaxf(cnt, 1.0f);
   const float mk = rmask[s * nx + j];
   double loss = 0.0, S = 0.0;
-  for (int t = 0; t < nt_rows; ++t) {
+  for (int t = ty; t < nt_rows; t += MF_ROWS) {
     const long long q = (long long)t * nx;
     const float yn = y[q] * inv_m;
     const float r = (yn - ob[q]) * mk;
@@ -245,8 +292,17 @@ __global__ void misfit_cols(float* __restrict__ hist,
     loss += fabsf(r);
     S += g * yn;
   }
+  red_d[0][ty][tx] = loss;
+  red_d[1][ty][tx] = S;
+  __syncthreads();
+  loss = red_d[0][0][tx];
+  S = red_d[1][0][tx];
+  for (int k = 1; k < MF_ROWS; ++k) {
+    loss += red_d[0][k][tx];
+    S += red_d[1][k][tx];
+  }
   const float corr = inv_cnt * (float)S * inv_m;
-  for (int t = 0; t < nt_rows; ++t) {
+  for (int t = ty; t < nt_rows; t += MF_ROWS) {
     const long long q = (long long)t * nx;
     const float yk = y[q];
     const float yn = yk * inv_m;
@@ -254,7 +310,7 @@ __global__ void misfit_cols(float* __restrict__ hist,
     const float star = fabsf(yk) == m ? 1.0f : 0.0f;
     y[q] = g * inv_m - star * sgn(yk) * corr;
   }
-  loss_part[s * nx + j] = loss;
+  if (ty == 0) loss_part[s * nx + j] = loss;
 }
 
 __global__ void sum_loss(const double* __restrict__ part, int n,
@@ -273,6 +329,425 @@ __global__ void sum_shots(const float* __restrict__ per_shot, int ns,
   float acc = 0.0f;
   for (int s = 0; s < ns; ++s) acc += per_shot[s * F + q];
   out[q] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// Resident route: one thread-block cluster per shot (see the note above).
+// Grid (C, ns), cluster (C, 1, 1): CTA r = blockIdx.x of shot blockIdx.y.
+// Every thread reaches every cluster barrier; cells outside the band are
+// predicated, never returned from.
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int kResThreads = 512;  // at most: 128 registers a thread
+constexpr int kVec = 4;           // columns a thread owns (one float4)
+constexpr int kPadL = 4;          // zero columns left of column 0 (2 read)
+constexpr int RPT = 5;            // rows a thread owns (ROWS_PER_THREAD)
+
+// The .aligned forms: every warp reaches each barrier converged (the
+// loops around them have the same bounds in every thread).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ld4(float (&d)[kVec], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&s)[kVec]) {
+  *reinterpret_cast<float4*>(p) = make_float4(s[0], s[1], s[2], s[3]);
+}
+
+// A CTA's band and its shared memory: two field buffers of (H + 4) x P
+// floats (P = nx + 8; buffer row lr + 2 holds band row lr, column j + 4
+// column j, so that every thread's 4 columns are one aligned float4; H =
+// TY x RPT >= rows, the rows the threads cover), then K, d+ and d- of
+// the band ([R, nx] each).  Thread (ty, x) owns rows i0 = ty RPT ..
+// i0 + RPT - 1 of columns j0 = 4x .. j0 + 3.  Buffer k sits at offset
+// k bsz, here and in the neighbours.
+struct Band {
+  int r, C, R, rows, row0, nz, nx, P, j0, i0, bsz;
+  float* buf0;
+  float* up0;  // the upper neighbour's buffer 0 (null for the top band)
+  float* dn0;  // the lower neighbour's (null for the bottom band)
+  float* Ks;
+  float* dps;
+  float* dms;
+  __device__ float* buf(int k) const { return buf0 + k * bsz; }
+  // offset of band row lr, own column 0, in a buffer
+  __device__ int at(int lr) const { return (lr + 2) * P + j0 + kPadL; }
+};
+
+__device__ __forceinline__ Band make_band(float* smem, int R, int nz,
+                                          int nx) {
+  Band b;
+  b.r = blockIdx.x;
+  b.C = gridDim.x;
+  b.R = R;
+  b.nz = nz;
+  b.nx = nx;
+  b.P = nx + 2 * kPadL;
+  b.row0 = b.r * R;
+  b.rows = min(R, nz - b.row0);
+  const int per_row = nx / kVec;
+  b.j0 = (threadIdx.x % per_row) * kVec;
+  b.i0 = (threadIdx.x / per_row) * RPT;
+  b.bsz = ((blockDim.x / per_row) * RPT + 4) * b.P;
+  b.buf0 = smem;
+  b.Ks = smem + 2 * b.bsz;
+  b.dps = b.Ks + R * nx;
+  b.dms = b.dps + R * nx;
+  cg::cluster_group cl = cg::this_cluster();
+  b.up0 = b.r > 0 ? cl.map_shared_rank(smem, b.r - 1) : nullptr;
+  b.dn0 = b.r + 1 < b.C ? cl.map_shared_rank(smem, b.r + 1) : nullptr;
+  return b;
+}
+
+// Zero both buffers (halos, pad columns and rows past the band stay zero
+// for good) and load the band's coefficients.  The caller then passes a
+// cluster barrier before any neighbour writes into the halos.
+__device__ __forceinline__ void band_init(const Band& b, const float* K,
+                                          const float* dp, const float* dm) {
+  const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4* buf = reinterpret_cast<float4*>(b.buf0);
+  for (int q = threadIdx.x; q < 2 * b.bsz / kVec; q += blockDim.x) buf[q] = z;
+  const int off = b.row0 * b.nx;
+  for (int q = threadIdx.x * kVec; q < b.rows * b.nx; q += blockDim.x * kVec) {
+    *reinterpret_cast<float4*>(b.Ks + q) =
+        *reinterpret_cast<const float4*>(K + off + q);
+    *reinterpret_cast<float4*>(b.dps + q) =
+        *reinterpret_cast<const float4*>(dp + off + q);
+    *reinterpret_cast<float4*>(b.dms + q) =
+        *reinterpret_cast<const float4*>(dm + off + q);
+  }
+}
+
+// Write v (own 4 cells of band row lr) into buffer k and, for the band's
+// 2 edge rows, into the neighbours' halo rows of their buffer k.
+__device__ __forceinline__ void band_put(const Band& b, int k, int lr,
+                                         const float (&v)[kVec]) {
+  const int off = k * b.bsz + b.j0 + kPadL;
+  st4(b.buf0 + off + (lr + 2) * b.P, v);
+  if (lr < 2 && b.up0) st4(b.up0 + off + (b.R + 2 + lr) * b.P, v);
+  if (lr >= b.rows - 2 && b.dn0) st4(b.dn0 + off + (lr - b.rows + 2) * b.P, v);
+}
+
+// Lap of the 4 own cells of band row i0 + c from buffer f: v holds the
+// thread's columns of rows i0 - 2 .. i0 + RPT + 1 (v[c + 2] is row c),
+// h the row's columns j0 - 2 .. j0 + 5.  Same summation order as lap4.
+__device__ __forceinline__ void lap_row(float (&out)[kVec],
+                                        const float (&v)[RPT + 4][kVec],
+                                        const float* f, int c) {
+  float h[kVec + 4];
+  const float2 l = *reinterpret_cast<const float2*>(f - 2);
+  const float2 r = *reinterpret_cast<const float2*>(f + kVec);
+  h[0] = l.x;
+  h[1] = l.y;
+#pragma unroll
+  for (int m = 0; m < kVec; ++m) h[m + 2] = v[c + 2][m];
+  h[kVec + 2] = r.x;
+  h[kVec + 3] = r.y;
+#pragma unroll
+  for (int m = 0; m < kVec; ++m) {
+    const float s1 = h[m + 3] + h[m + 1] + v[c + 3][m] + v[c + 1][m];
+    const float s2 = h[m + 4] + h[m] + v[c + 4][m] + v[c][m];
+    out[m] = kL0 * h[m + 2] + kL1 * s1 + kL2 * s2;
+  }
+}
+
+// One forward step of the band, as fwd_step: u0 from buffer n & 1 (halos
+// included), u1 into buffer (n + 1) & 1 and the neighbours' halos; um1
+// holds u_-1 on entry and u0 on exit; Lap(u0) into lap_out ([nz, nx],
+// optional).  Same expressions as fwd_step.  (sc, sm): the source's row
+// and column among the thread's cells (sc = -1: not this thread's).
+// kHold keeps the new rows in registers until all are computed (all
+// loads first); without it each row is stored at once, which saves
+// registers where pb, qb and dJ/dK hold them (the reverse sweep).
+template <bool kHold>
+__device__ __forceinline__ void band_fwd_step(const Band& b, int n,
+                                              float (&um1)[RPT][kVec],
+                                              float amp, int sc, int sm,
+                                              float* lap_out) {
+  const float* cur = b.buf(n & 1);
+  float v[RPT + 4][kVec];
+  float u1[RPT][kVec];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) ld4(v[c], cur + b.at(b.i0 + c - 2));
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+    ld4(v[c + 4], cur + b.at(b.i0 + c + 2));
+    const int lr = b.i0 + c;
+    float lp[kVec], kk[kVec], dp[kVec], dm[kVec];
+    lap_row(lp, v, cur + b.at(lr), c);
+    if (lr < b.rows) {
+      const int k = lr * b.nx + b.j0;
+      ld4(kk, b.Ks + k);
+      ld4(dp, b.dps + k);
+      ld4(dm, b.dms + k);
+#pragma unroll
+      for (int m = 0; m < kVec; ++m) {
+        float u = dp[m] * (2.0f * v[c + 2][m] - dm[m] * um1[c][m] + kk[m] * lp[m]);
+        if (c == sc && m == sm) u += amp * kk[m];
+        u1[c][m] = u;
+      }
+      if (lap_out) st4(lap_out + (b.row0 + lr) * b.nx + b.j0, lp);
+      if (!kHold) band_put(b, (n + 1) & 1, lr, u1[c]);
+    }
+#pragma unroll
+    for (int m = 0; m < kVec; ++m) um1[c][m] = v[c + 2][m];
+  }
+  if (kHold) {
+#pragma unroll
+    for (int c = 0; c < RPT; ++c)
+      if (b.i0 + c < b.rows) band_put(b, (n + 1) & 1, b.i0 + c, u1[c]);
+  }
+}
+
+// (row, column) of global cell (gi, gj) among the thread's cells, or -1.
+__device__ __forceinline__ void own_cell(const Band& b, int rpt, int gi,
+                                         int gj, int& c, int& m) {
+  const int lr = gi - b.row0;
+  const bool mine = lr >= 0 && lr < b.rows && lr >= b.i0 && lr < b.i0 + rpt &&
+                    gj >= b.j0 && gj < b.j0 + kVec;
+  c = mine ? lr - b.i0 : -1;
+  m = mine ? gj - b.j0 : -1;
+}
+
+// The adjoint step's p = pb (+ the cotangent row on the receiver row)
+// and w = d+ p for the 4 own cells of band row lr, as adj_step.
+__device__ __forceinline__ void adj_pw(const Band& b, int lr, int lrr,
+                                       const float* yrow,
+                                       const float (&pbc)[kVec],
+                                       float (&p)[kVec], float (&w)[kVec]) {
+  float dp[kVec];
+#pragma unroll
+  for (int m = 0; m < kVec; ++m) p[m] = pbc[m];
+  if (yrow && lr == lrr) {
+    float y[kVec];
+    ld4(y, yrow);
+#pragma unroll
+    for (int m = 0; m < kVec; ++m) p[m] = p[m] + y[m];
+  }
+  ld4(dp, b.dps + lr * b.nx + b.j0);
+#pragma unroll
+  for (int m = 0; m < kVec; ++m) w[m] = dp[m] * p[m];
+}
+
+struct FwdArgs {
+  const float* K;
+  const float* dp;
+  const float* dm;
+  Geom geo;
+  float* hist;       // row t of [ns, nt_rows, nx] for t < nt_valid
+  const float* dir;  // subtracted from the row (optional)
+  int nt_rows, nt_valid;
+  float* ckpt;  // [ns, n_ck, 2, nz, nx] (u0, u_-1) before step c KC, or null
+  int KC, n_ck, nsteps, nz, nx, R;
+};
+
+// Forward sweep of nsteps steps from zero fields: B1, B4a and B2's phase 1.
+__global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int s = blockIdx.y;
+  const Band b = make_band(smem, a.R, a.nz, a.nx);
+  band_init(b, a.K, a.dp, a.dm);
+  cg::this_cluster().sync();
+  const long long F = (long long)a.nz * a.nx;
+  int sc, sm;
+  own_cell(b, RPT, a.geo.src_z[s], a.geo.src_x[s], sc, sm);
+  const int lrr = a.geo.rcv_row[s] - b.row0;  // receiver row in the band
+  const bool has_rcv = lrr >= 0 && lrr < b.rows && lrr >= b.i0 &&
+                       lrr < b.i0 + RPT;
+  const float* wav = a.geo.wav + (long long)s * a.geo.nt_wav;
+  float um1[RPT][kVec];
+#pragma unroll
+  for (int c = 0; c < RPT; ++c)
+#pragma unroll
+    for (int m = 0; m < kVec; ++m) um1[c][m] = 0.0f;
+  for (int t = 0; t < a.nsteps; ++t) {
+    if (a.ckpt && t % a.KC == 0) {
+      float* ck = a.ckpt + ((long long)s * a.n_ck + t / a.KC) * 2 * F;
+      const float* cur = b.buf(t & 1);
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int lr = b.i0 + c;
+        if (lr < b.rows) {
+          const long long g = (long long)(b.row0 + lr) * a.nx + b.j0;
+          float u[kVec];
+          ld4(u, cur + b.at(lr));
+          st4(ck + g, u);
+          st4(ck + F + g, um1[c]);
+        }
+      }
+    }
+    const float amp = sc >= 0 ? wav[t] : 0.0f;
+    band_fwd_step<true>(b, t, um1, amp, sc, sm, nullptr);
+    cluster_arrive();
+    if (a.hist && has_rcv && t < a.nt_valid) {
+      float u[kVec];
+      ld4(u, b.buf((t + 1) & 1) + b.at(lrr));
+      const long long q = ((long long)s * a.nt_rows + t) * a.nx + b.j0;
+      if (a.dir) {
+        float d[kVec];
+        ld4(d, a.dir + q);
+#pragma unroll
+        for (int m = 0; m < kVec; ++m) u[m] = u[m] - d[m];
+      }
+      st4(a.hist + q, u);
+    }
+    cluster_wait();
+  }
+  cg::this_cluster().sync();
+}
+
+struct RevArgs {
+  const float* K;
+  const float* dp;
+  const float* dm;
+  Geom geo;
+  const float* ybar;  // cotangent rows [ns, nt_rows, nx], t < nt_valid
+  int nt_rows, nt_valid;
+  const float* ckpt;  // [ns, n_ck, 2, nz, nx]
+  int n_ck, KC;
+  float* lapc;      // [ns, KC, nz, nx] scratch
+  float* gk_shots;  // [ns, nz, nx] dJ/dK per shot
+  float* gwav;      // [ns, nt_wav] dJ/d amp_t, or null
+  int nz, nx, R;
+};
+
+// Reverse sweep, chunk by chunk from the checkpoints (last first): B4b
+// and B2's phase 3.  pb, qb and the shot's dJ/dK stay in registers.
+__global__ void __launch_bounds__(kResThreads, 1) rev_resident(RevArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int s = blockIdx.y;
+  const Band b = make_band(smem, a.R, a.nz, a.nx);
+  band_init(b, a.K, a.dp, a.dm);
+  const long long F = (long long)a.nz * a.nx;
+  int sc, sm;
+  own_cell(b, RPT, a.geo.src_z[s], a.geo.src_x[s], sc, sm);
+  const int lrr = a.geo.rcv_row[s] - b.row0;
+  const float* wav = a.geo.wav + (long long)s * a.geo.nt_wav;
+  float* lap_s = a.lapc + (long long)s * a.KC * F;
+  float pb[RPT][kVec], qb[RPT][kVec], gk[RPT][kVec];
+#pragma unroll
+  for (int c = 0; c < RPT; ++c)
+#pragma unroll
+    for (int m = 0; m < kVec; ++m) pb[c][m] = qb[c][m] = gk[c][m] = 0.0f;
+  for (int ck = a.n_ck - 1; ck >= 0; --ck) {
+    cg::this_cluster().sync();
+    // restore (u0 with its halo rows, u_-1) from the checkpoint
+    const float* src = a.ckpt + ((long long)s * a.n_ck + ck) * 2 * F;
+    const int per_row = a.nx / kVec;
+    for (int q = threadIdx.x; q < (b.rows + 4) * per_row; q += blockDim.x) {
+      const int lr = q / per_row - 2, jq = (q % per_row) * kVec;
+      const int gi = b.row0 + lr;
+      float u[kVec] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (gi >= 0 && gi < a.nz) ld4(u, src + (long long)gi * a.nx + jq);
+      st4(b.buf0 + (lr + 2) * b.P + jq + kPadL, u);
+    }
+    float um1[RPT][kVec];
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      const int lr = b.i0 + c;
+#pragma unroll
+      for (int m = 0; m < kVec; ++m) um1[c][m] = 0.0f;
+      if (lr < b.rows)
+        ld4(um1[c], src + F + (long long)(b.row0 + lr) * a.nx + b.j0);
+    }
+    __syncthreads();
+    for (int kk = 0; kk < a.KC; ++kk) {
+      const float amp = sc >= 0 ? wav[ck * a.KC + kk] : 0.0f;
+      band_fwd_step<false>(b, kk, um1, amp, sc, sm, lap_s + kk * F);
+      cluster_arrive();
+      cluster_wait();
+    }
+    for (int kk = a.KC - 1; kk >= 0; --kk) {
+      const int t = ck * a.KC + kk;
+      const int nb = (2 * a.KC - kk) & 1;  // buffer of step 2 KC - 1 - kk
+      const float* yrow =
+          t < a.nt_valid
+              ? a.ybar + ((long long)s * a.nt_rows + t) * a.nx + b.j0
+              : nullptr;
+      // Lap(u0) of this step from the cache, loaded first so that phase
+      // A and the barrier hide its latency
+      float lp[RPT][kVec];
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int lr = b.i0 + c;
+        if (lr < b.rows)
+          ld4(lp[c], lap_s + kk * F + (long long)(b.row0 + lr) * a.nx + b.j0);
+      }
+      // phase A: K w once per cell into the buffer and the neighbours'
+      // halos (p and w as adj_pw gives them)
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        const int lr = b.i0 + c;
+        if (lr < b.rows) {
+          float p[kVec], w[kVec], k4[kVec], kw[kVec];
+          adj_pw(b, lr, lrr, yrow, pb[c], p, w);
+          ld4(k4, b.Ks + lr * a.nx + b.j0);
+#pragma unroll
+          for (int m = 0; m < kVec; ++m) kw[m] = k4[m] * w[m];
+          band_put(b, nb, lr, kw);
+        }
+      }
+      cluster_arrive();
+      cluster_wait();
+      // phase B: p and w again (the same operations: cheaper than holding
+      // w across the barrier, registers being what bounds this kernel);
+      // the source term, then w Lap(u0), as adj_step; then
+      // pb = qb + 2 w + Lap(K w), qb = -d- w
+      const float* kwb = b.buf(nb);
+      float v[RPT + 4][kVec];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ld4(v[c], kwb + b.at(b.i0 + c - 2));
+#pragma unroll
+      for (int c = 0; c < RPT; ++c) {
+        ld4(v[c + 4], kwb + b.at(b.i0 + c + 2));
+        const int lr = b.i0 + c;
+        if (lr < b.rows) {
+          const int k = lr * a.nx + b.j0;
+          float p[kVec], w[kVec], lkw[kVec], dm[kVec];
+          adj_pw(b, lr, lrr, yrow, pb[c], p, w);
+#pragma unroll
+          for (int m = 0; m < kVec; ++m) {
+            if (c == sc && m == sm) {
+              gk[c][m] += wav[t] * p[m];
+              if (a.gwav)
+                a.gwav[(long long)s * a.geo.nt_wav + t] = p[m] * b.Ks[k + m];
+            }
+            gk[c][m] += w[m] * lp[c][m];
+          }
+          lap_row(lkw, v, kwb + b.at(lr), c);
+          ld4(dm, b.dms + k);
+#pragma unroll
+          for (int m = 0; m < kVec; ++m) {
+            pb[c][m] = qb[c][m] + 2.0f * w[m] + lkw[m];
+            qb[c][m] = -(dm[m] * w[m]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < RPT; ++c) {
+    const int lr = b.i0 + c;
+    if (lr < b.rows)
+      st4(a.gk_shots + s * F + (long long)(b.row0 + lr) * a.nx + b.j0,
+          gk[c]);
+  }
+  cg::this_cluster().sync();
 }
 
 inline dim3 cell_grid(int ns, int nz, int nx) {
@@ -377,6 +852,74 @@ cudaError_t reverse_sweep(const float* K, const float* dp, const float* dm,
   return cudaSuccess;
 }
 
+cudaError_t misfit(float* hist, const float* obs, const float* rmask, int ns,
+                   int nt_rows, int nx, float inv_count, double* loss_part,
+                   cudaStream_t st) {
+  if (nx % MF_COLS) return cudaErrorInvalidValue;
+  misfit_tiles<<<dim3(nx / MF_COLS, ns), dim3(MF_COLS, MF_ROWS), 0, st>>>(
+      hist, obs, rmask, nt_rows, nx, inv_count, loss_part);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// The resident route's launch plan, made by ops/scalar2.py::resident_plan:
+// C CTAs of `threads` threads per shot, bands of R rows, a thread rpt
+// rows of 4 columns, `smem` bytes of dynamic shared memory.
+struct Plan {
+  int C, R, rpt, threads, smem;
+};
+
+int plan_smem(const Plan& p, int nx) {
+  const int H = p.threads / (nx / kVec) * p.rpt;
+  return (int)sizeof(float) * (2 * (H + 4) * (nx + 2 * kPadL) + 3 * p.R * nx);
+}
+
+cudaError_t check_plan(const Plan& p, int nz, int nx) {
+  const bool ok =
+      nx % MF_COLS == 0 && p.C >= 1 && p.C <= 8 && p.R >= 8 &&
+      p.R % 8 == 0 && p.C * p.R >= nz && (p.C - 1) * p.R < nz &&
+      nz - (p.C - 1) * p.R >= 2 &&
+      p.rpt == RPT &&
+      p.threads % (nx / kVec) == 0 && p.threads <= kResThreads &&
+      p.threads / (nx / kVec) * p.rpt >= p.R && p.smem >= plan_smem(p, nx) &&
+      p.smem <= 232448;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename Args>
+using ResKernel = void (*)(Args);
+
+// Grid (C, ns), clusters of (C, 1, 1), the plan's threads and shared memory.
+template <typename Args>
+cudaLaunchConfig_t cluster_config(ResKernel<Args> kern, const Plan& p, int ns,
+                                  cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.C, ns);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Args>
+cudaError_t launch_resident(ResKernel<Args> kern, const Args& a,
+                            const Plan& p, int ns, cudaStream_t st) {
+  RET_IF(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              p.smem));
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(kern, p, ns, st, &attr);
+  RET_IF(cudaLaunchKernelEx(&cfg, kern, a));
+  LAUNCHED();
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -436,9 +979,7 @@ int b2_fwi_l1_loss_grad(const float* K, const float* dp, const float* dm,
   RET_IF(fwd_ckpt_sweep(K, dp, dm, geo, u0, um1, hist, dir, nt_pad, nt, ckpt,
                         ns, nz, nx, n_ck, KC, st));
   // phase 2: misfit, loss partials and the cotangent rows (over hist)
-  misfit_cols<<<dim3((nx + 127) / 128, ns), 128, 0, st>>>(
-      hist, obs, rmask, ns, nt_pad, nx, inv_count, loss_part);
-  LAUNCHED();
+  RET_IF(misfit(hist, obs, rmask, ns, nt_pad, nx, inv_count, loss_part, st));
   // phase 3: reverse sweep, chunk by chunk from the checkpoints
   RET_IF(reverse_sweep(K, dp, dm, geo, hist, nt_pad, nt, ckpt, u0, um1, pb0,
                        pb1, qb, gk_shots, lapc, gk_out, gwav, ns, nz, nx, n_ck,
@@ -475,6 +1016,122 @@ int b4b_backward2(const float* K, const float* dp, const float* dm,
   return reverse_sweep(K, dp, dm, geo, ybar, nt_pad, nt_pad, ckpt, u0, um1,
                        pb0, pb1, qb, gk_shots, lapc, gk_out, nullptr, ns, nz,
                        nx, n_ck, KC, (cudaStream_t)stream);
+}
+
+// --- resident route: the same functions, one cluster per shot ------------
+// Each takes the plan (C, R, rpt, threads, smem) after its sizes and
+// returns cudaErrorInvalidValue for a plan that does not fit the grid.
+
+// B1, resident.  hist [ns, nt, nx].
+int b1_forward2_resident(const float* K, const float* dp, const float* dm,
+                         const float* wav, const int* src_z,
+                         const int* src_x, const int* rcv_row, float* hist,
+                         int ns, int nz, int nx, int nt, int C, int R,
+                         int rpt, int threads, int smem, void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  const FwdArgs a{K,  dp, dm, Geom{src_z, src_x, rcv_row, wav, nt},
+                  hist, nullptr, nt, nt, nullptr, 1, 0, nt, nz, nx, R};
+  return launch_resident(fwd_resident, a, p, ns, (cudaStream_t)stream);
+}
+
+// B4a, resident.  wav [ns, n_ck*KC]; hist [ns, nt, nx];
+// ckpt [ns, n_ck, 2, nz, nx].
+int b4a_forward2_ckpt_resident(const float* K, const float* dp,
+                               const float* dm, const float* wav,
+                               const int* src_z, const int* src_x,
+                               const int* rcv_row, float* hist, float* ckpt,
+                               int ns, int nz, int nx, int nt, int n_ck,
+                               int KC, int C, int R, int rpt, int threads,
+                               int smem, void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  const int nt_pad = n_ck * KC;
+  const FwdArgs a{K,    dp,      dm, Geom{src_z, src_x, rcv_row, wav, nt_pad},
+                  hist, nullptr, nt, nt, ckpt, KC, n_ck, nt_pad, nz, nx, R};
+  return launch_resident(fwd_resident, a, p, ns, (cudaStream_t)stream);
+}
+
+// B4b, resident.  ybar [ns, n_ck*KC, nx]; ckpt from B4a; gk_shots
+// [ns, nz, nx] and lapc [ns, KC, nz, nx] scratch; gk_out [nz, nx].
+int b4b_backward2_resident(const float* K, const float* dp, const float* dm,
+                           const float* wav, const int* src_z,
+                           const int* src_x, const int* rcv_row,
+                           const float* ybar, const float* ckpt,
+                           float* gk_shots, float* lapc, float* gk_out,
+                           int ns, int nz, int nx, int n_ck, int KC, int C,
+                           int R, int rpt, int threads, int smem,
+                           void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt_pad = n_ck * KC;
+  const RevArgs a{K,    dp,   dm,       Geom{src_z, src_x, rcv_row, wav, nt_pad},
+                  ybar, nt_pad, nt_pad, ckpt, n_ck, KC, lapc, gk_shots,
+                  nullptr, nz, nx, R};
+  RET_IF(launch_resident(rev_resident, a, p, ns, st));
+  const long long F = (long long)nz * nx;
+  sum_shots<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
+                                                        gk_out);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// B2, resident.  As b2_fwi_l1_loss_grad, without the per-step scratch
+// fields: lapc [ns, KC, nz, nx], ckpt [ns, n_ck, 2, nz, nx].
+int b2_fwi_l1_loss_grad_resident(
+    const float* K, const float* dp, const float* dm, const float* wav,
+    const int* src_z, const int* src_x, const int* rcv_row, const float* obs,
+    const float* dir, const float* rmask, float* gk_shots, float* lapc,
+    float* hist, float* ckpt, double* loss_part, float* loss_out,
+    float* gk_out, float* gwav, int ns, int nz, int nx, int nt, int n_ck,
+    int KC, int C, int R, int rpt, int threads, int smem, float inv_count,
+    void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt_pad = n_ck * KC;
+  const Geom geo{src_z, src_x, rcv_row, wav, nt_pad};
+  RET_IF(cudaMemsetAsync(hist, 0, sizeof(float) * (size_t)ns * nt_pad * nx,
+                         st));
+  const FwdArgs fa{K,    dp,  dm, geo,  hist,   dir, nt_pad, nt,
+                   ckpt, KC, n_ck, nt_pad, nz, nx, R};
+  RET_IF(launch_resident(fwd_resident, fa, p, ns, st));
+  RET_IF(misfit(hist, obs, rmask, ns, nt_pad, nx, inv_count, loss_part, st));
+  const RevArgs ra{K,    dp,   dm,       geo,  hist, nt_pad, nt, ckpt,
+                   n_ck, KC,   lapc, gk_shots, gwav, nz, nx, R};
+  RET_IF(launch_resident(rev_resident, ra, p, ns, st));
+  const long long F = (long long)nz * nx;
+  sum_shots<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
+                                                        gk_out);
+  LAUNCHED();
+  sum_loss<<<1, 1, 0, st>>>(loss_part, ns * nx, inv_count, loss_out);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// How many clusters of a plan the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters) for the forward (reverse = 0) or the
+// reverse kernel, into *out.
+int pbfwi_resident_max_clusters(int reverse, int ns, int nz, int nx, int C,
+                                int R, int rpt, int threads, int smem,
+                                int* out) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  cudaLaunchAttribute attr;
+  if (reverse) {
+    const ResKernel<RevArgs> kern = rev_resident;
+    RET_IF(cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    const cudaLaunchConfig_t cfg = cluster_config(kern, p, ns, 0, &attr);
+    return cudaOccupancyMaxActiveClusters(out, (const void*)kern, &cfg);
+  }
+  const ResKernel<FwdArgs> kern = fwd_resident;
+  RET_IF(cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem));
+  const cudaLaunchConfig_t cfg = cluster_config(kern, p, ns, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(out, (const void*)kern, &cfg);
 }
 
 }  // extern "C"

@@ -35,6 +35,12 @@ _SIGNATURES = {
     "b2_fwi_l1_loss_grad": [_P] * 23 + [_I] * 6 + [_F, _P],
     "b4a_forward2_ckpt": [_P] * 11 + [_I] * 6 + [_P],
     "b4b_backward2": [_P] * 17 + [_I] * 5 + [_P],
+    # the resident route of the same four (sizes, then the plan)
+    "b1_forward2_resident": [_P] * 8 + [_I] * 9 + [_P],
+    "b2_fwi_l1_loss_grad_resident": [_P] * 18 + [_I] * 11 + [_F, _P],
+    "b4a_forward2_ckpt_resident": [_P] * 9 + [_I] * 11 + [_P],
+    "b4b_backward2_resident": [_P] * 12 + [_I] * 10 + [_P],
+    "pbfwi_resident_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
     # csrc/elastic.cu
     "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
     "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],

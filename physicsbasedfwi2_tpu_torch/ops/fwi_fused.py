@@ -24,12 +24,16 @@ Then the host-side chain rule K = (vp dt/dx)^2 and the transpose of the
 edge padding give dJ/dvp.
 
 :func:`fwi_l1_loss_grad` launches the hand-written CUDA kernel
-(``csrc/scalar2.cu::b2_fwi_l1_loss_grad``) on CUDA tensors and runs
+(``csrc/scalar2.cu``: ``b2_fwi_l1_loss_grad_resident``, one
+thread-block cluster per shot, where the resident plan holds the grid,
+else ``b2_fwi_l1_loss_grad``, a launch per step) on CUDA tensors and runs
 :func:`fwi_l1_loss_grad_plain`, the same algorithm in plain PyTorch
 batched over shots, on CPU tensors.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -37,7 +41,7 @@ from physicsbasedfwi2_tpu_torch.ops.acoustic import AcousticConfig
 # scatter_rows is re-exported: the JAX package's pallas_fwi_fused has it
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (  # noqa: F401
     _bwd_plain_shots, _common, _fwd_ckpt_plain, _sum_shots, _vp_grad,
-    scatter_rows,
+    count_launch, pick_route, reset_launches, scatter_rows,
 )
 
 EPS = 1e-10
@@ -74,7 +78,7 @@ def _loss_gk_plain(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
 
 
 def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
-                  nt, KC, inv_count, want_gwav):
+                  nt, KC, inv_count, want_gwav, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = wav.shape
     n_ck = nt_pad // KC
@@ -98,29 +102,38 @@ def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
     if n_ck * KC != nt_pad or nt_pad < nt:
         raise ValueError("fwi_l1_loss_grad: wavelet must be padded to "
                          "a multiple of KC >= nt")
+    route, plan = pick_route("fwi_l1_loss_grad", nz8, nx128, route)
     lib = cuda_build.load_library()
 
     def field(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=f32, device=dev)
 
-    u0, um1, pb0, pb1, qb, gk_shots = (field(ns) for _ in range(6))
-    lapc = field(ns, KC)
-    ckpt = field(ns, n_ck, 2)
     hist = torch.empty((ns, nt_pad, nx128), dtype=f32, device=dev)
     loss_part = torch.empty((ns, nx128), dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=f32, device=dev)
     gk = torch.empty((nz8, nx128), dtype=f32, device=dev)
     gw = (torch.empty((ns, nt_pad), dtype=f32, device=dev) if want_gwav
           else None)
+    gw_ptr = gw.data_ptr() if want_gwav else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in (
-        K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask, u0, um1,
-        pb0, pb1, qb, gk_shots, lapc, hist, ckpt, loss_part, loss, gk)]
-    err = lib.b2_fwi_l1_loss_grad(*ptrs, gw.data_ptr() if want_gwav else None,
-                                  ns, nz8, nx128, nt, n_ck, KC, inv_count,
-                                  stream)
-    cuda_build.check(err, "b2_fwi_l1_loss_grad")
-    fwi_l1_loss_grad.launches += 1
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, obs_rows,
+                                   dir_rows, rmask)]
+    gk_shots, lapc, ckpt = field(ns), field(ns, KC), field(ns, n_ck, 2)
+    if route == "resident":
+        out = [gk_shots, lapc, hist, ckpt, loss_part, loss, gk]
+        err = lib.b2_fwi_l1_loss_grad_resident(
+            *ptrs, *(a.data_ptr() for a in out), gw_ptr, ns, nz8, nx128, nt,
+            n_ck, KC, *plan.args(), inv_count, stream)
+        cuda_build.check(err, "b2_fwi_l1_loss_grad_resident")
+    else:
+        u0, um1, pb0, pb1, qb = (field(ns) for _ in range(5))
+        out = [u0, um1, pb0, pb1, qb, gk_shots, lapc, hist, ckpt, loss_part,
+               loss, gk]
+        err = lib.b2_fwi_l1_loss_grad(
+            *ptrs, *(a.data_ptr() for a in out), gw_ptr, ns, nz8, nx128, nt,
+            n_ck, KC, inv_count, stream)
+        cuda_build.check(err, "b2_fwi_l1_loss_grad")
+    count_launch(fwi_l1_loss_grad, route)
     return loss, gk, gw
 
 
@@ -168,7 +181,8 @@ def fwi_l1_loss_grad_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 @torch.no_grad()
 def fwi_l1_loss_grad(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
                      cfg: AcousticConfig, obs_rows, dir_rows,
-                     *, KC: int = 32, want_wavelet_grad: bool = False):
+                     *, KC: int = 32, want_wavelet_grad: bool = False,
+                     route=None):
     """(loss, dJ/dvp[, dJ/dwavelet]) for the trace-normalized L1 misfit
     with direct-wave removal.
 
@@ -179,10 +193,12 @@ def fwi_l1_loss_grad(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
         want_wavelet_grad: also return dJ/dwavelet [ns, nt] (per shot,
             whether the wavelet was given as [nt] or [ns, nt]).
 
-    On a CUDA ``vp`` this launches kernel B2
-    (``fwi_l1_loss_grad.launches`` counts the launches); on a CPU
-    ``vp`` it runs :func:`fwi_l1_loss_grad_plain`.  Any other device
-    raises.
+    On a CUDA ``vp`` this launches kernel B2 on the route that
+    ``scalar2.pick_route`` gives ``route`` (by default the resident
+    route where its plan holds the grid); ``fwi_l1_loss_grad.launches``
+    counts the launches, ``resident_launches`` and ``per_step_launches``
+    each route's.  On a CPU ``vp`` it runs
+    :func:`fwi_l1_loss_grad_plain`.  Any other device raises.
     """
     if vp.device.type == "cpu":
         return fwi_l1_loss_grad_plain(
@@ -191,8 +207,9 @@ def fwi_l1_loss_grad(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
     if vp.device.type != "cuda":
         raise ValueError(f"fwi_l1_loss_grad: no kernel for device "
                          f"{vp.device}")
-    return _loss_grad(_loss_gk_cuda, vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-                      cfg, obs_rows, dir_rows, KC, want_wavelet_grad)
+    return _loss_grad(partial(_loss_gk_cuda, route=route), vp, wavelet, src_z,
+                      src_x, rcv_z, rcv_x, cfg, obs_rows, dir_rows, KC,
+                      want_wavelet_grad)
 
 
-fwi_l1_loss_grad.launches = 0
+reset_launches(fwi_l1_loss_grad)

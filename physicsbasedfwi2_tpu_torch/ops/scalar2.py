@@ -20,12 +20,20 @@ Exact transpose, with (pb, qb) the cotangents of (u1, u0):
 Each of :func:`forward2`, :func:`forward2_ckpt` and :func:`backward2`
 launches its hand-written CUDA kernel (``csrc/scalar2.cu``) on CUDA
 tensors and runs its plain PyTorch version, the same algorithm batched
-over shots, on CPU tensors.  Fields read zeros outside the array where
-Pallas rolls circularly; the zero ring makes the two equal.  On this
-package ``acoustic_pallas2`` means those CUDA kernels.
+over shots, on CPU tensors.  The kernels have two routes with the same
+arithmetic: the resident one (one thread-block cluster per shot holding
+the fields in shared memory for the whole sweep), taken wherever
+:func:`resident_plan` holds the grid, and the per-step one (a launch per
+time step) elsewhere; the choice is made by shape before any launch
+(:func:`pick_route`).  Fields read zeros outside the array where Pallas
+rolls circularly; the zero ring makes the two equal.  On this package
+``acoustic_pallas2`` means those CUDA kernels.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -160,7 +168,114 @@ def _check_common(what, K, dp, dm, wav, sz, sx, rrow):
         ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,))))
 
 
-def _rows_cuda(K, dp, dm, wav, sz, sx, rrow, nt):
+# ---------------------------------------------------------------------------
+# Routes of the CUDA kernels B1, B2, B4a and B4b (csrc/scalar2.cu)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # bytes of shared memory one block can use (H100)
+MAX_CLUSTER = 8       # the portable thread-block cluster size
+RES_THREADS = 512     # threads a CTA at most: 128 registers each
+COLS_PER_THREAD = 4   # a thread's columns: one float4
+ROWS_PER_THREAD = 5   # a thread's rows: the kernels' one template instance
+ROUTES = ("resident", "per_step")
+
+
+@dataclass(frozen=True)
+class ResidentPlan:
+    """Launch plan of the resident route for one [nz8, nx128] grid: one
+    thread-block cluster of ``cluster`` CTAs per shot, CTA r owning rows
+    [r R, min((r+1) R, nz8)) (R = ``band_rows``) across the full width,
+    each of its ``threads`` threads a block of ROWS_PER_THREAD rows of
+    COLS_PER_THREAD columns, with ``smem_bytes`` of dynamic shared
+    memory (two field buffers with 2 halo rows and 4 zero columns each
+    side, and the band's K, d+ and d-)."""
+
+    cluster: int
+    band_rows: int
+    threads: int
+    smem_bytes: int
+
+    def args(self) -> tuple[int, ...]:
+        """The plan as the C entry points take it."""
+        return (self.cluster, self.band_rows, ROWS_PER_THREAD, self.threads,
+                self.smem_bytes)
+
+    def bands(self, nz8: int) -> list[tuple[int, int]]:
+        """Each CTA's rows as [start, stop)."""
+        R = self.band_rows
+        return [(r * R, min(nz8, (r + 1) * R)) for r in range(self.cluster)]
+
+
+def resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
+    """The resident route's plan for an [nz8, nx128] grid, or None where
+    no plan holds it (the per-step route runs): the smallest cluster
+    whose bands (a multiple of 8 rows, the last may be shorter) take at
+    most RES_THREADS threads and SMEM_LIMIT bytes of shared memory.  At
+    the flagship 192 x 256 that is 5 CTAs of 40 rows; the card keeps 22
+    such clusters resident at once (cudaOccupancyMaxActiveClusters,
+    chip_smoke.py), so 18 shots run in one wave."""
+    per_row = nx128 // COLS_PER_THREAD
+    for C in range(1, MAX_CLUSTER + 1):
+        R = _round_up(-(-nz8 // C), 8)
+        if -(-nz8 // R) != C:   # the same bands as a smaller cluster
+            continue
+        ty = -(-R // ROWS_PER_THREAD)
+        smem = 4 * (2 * (ty * ROWS_PER_THREAD + 4) * (nx128 + 8)
+                    + 3 * R * nx128)
+        if per_row * ty <= RES_THREADS and smem <= SMEM_LIMIT:
+            return ResidentPlan(C, R, per_row * ty, smem)
+    return None
+
+
+def pick_route(what: str, nz8: int, nx128: int, route=None):
+    """(route, plan) for a launch: ``route`` None takes the resident
+    route where :func:`resident_plan` holds the grid and the per-step
+    route elsewhere; "resident" (raises where no plan holds it) or
+    "per_step" choose."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"{what}: route must be one of {ROUTES}, not "
+                         f"{route!r}")
+    plan = resident_plan(nz8, nx128)
+    if route is None:
+        route = "resident" if plan is not None else "per_step"
+    if route == "resident" and plan is None:
+        raise ValueError(f"{what}: no resident plan holds a {nz8} x "
+                         f"{nx128} grid")
+    return route, plan
+
+
+def count_launch(fn, route: str) -> None:
+    """Add one launch to ``fn``'s counts: ``launches`` and the route's
+    own (``resident_launches`` or ``per_step_launches``)."""
+    fn.launches += 1
+    if route == "resident":
+        fn.resident_launches += 1
+    else:
+        fn.per_step_launches += 1
+
+
+def reset_launches(*fns) -> None:
+    """Set every launch count of each of ``fns`` to 0."""
+    for fn in fns:
+        fn.launches = fn.resident_launches = fn.per_step_launches = 0
+
+
+def max_active_clusters(plan: ResidentPlan, ns: int, nz8: int, nx128: int,
+                        *, reverse: bool = False) -> int:
+    """cudaOccupancyMaxActiveClusters of the forward (or reverse)
+    resident kernel under ``plan``: how many shots the card runs at
+    once (a query; launches nothing)."""
+    import ctypes
+
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    out = ctypes.c_int(0)
+    err = cuda_build.load_library().pbfwi_resident_max_clusters(
+        int(reverse), ns, nz8, nx128, *plan.args(), ctypes.byref(out))
+    cuda_build.check(err, "pbfwi_resident_max_clusters")
+    return out.value
+
+
+def _rows_cuda(K, dp, dm, wav, sz, sx, rrow, nt, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns = wav.shape[0]
     nz8, nx128 = K.shape
@@ -168,17 +283,22 @@ def _rows_cuda(K, dp, dm, wav, sz, sx, rrow, nt):
     _check_common("forward2", K, dp, dm, wav, sz, sx, rrow)
     if wav.shape != (ns, nt):
         raise ValueError("forward2: wavelet must be [ns, nt]")
+    route, plan = pick_route("forward2", nz8, nx128, route)
     lib = cuda_build.load_library()
-    u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
-    um1 = torch.empty_like(u0)
     hist = torch.zeros((ns, nt, nx128), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.b1_forward2(K.data_ptr(), dp.data_ptr(), dm.data_ptr(),
-                          wav.data_ptr(), sz.data_ptr(), sx.data_ptr(),
-                          rrow.data_ptr(), u0.data_ptr(), um1.data_ptr(),
-                          hist.data_ptr(), ns, nz8, nx128, nt, stream)
-    cuda_build.check(err, "b1_forward2")
-    forward2.launches += 1
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow)]
+    if route == "resident":
+        err = lib.b1_forward2_resident(*ptrs, hist.data_ptr(), ns, nz8,
+                                       nx128, nt, *plan.args(), stream)
+        cuda_build.check(err, "b1_forward2_resident")
+    else:
+        u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
+        um1 = torch.empty_like(u0)
+        err = lib.b1_forward2(*ptrs, u0.data_ptr(), um1.data_ptr(),
+                              hist.data_ptr(), ns, nz8, nx128, nt, stream)
+        cuda_build.check(err, "b1_forward2")
+    count_launch(forward2, route)
     return hist
 
 
@@ -225,23 +345,23 @@ def forward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def forward2(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-             cfg: AcousticConfig, *, return_rows: bool = False):
+             cfg: AcousticConfig, *, return_rows: bool = False, route=None):
     """Second-order-scheme forward: traces [ns, nt, nr], or with
     ``return_rows`` the full receiver-row history [ns, nt, nx128] (the
     layout the fused kernel's dir/obs rows use).
 
-    On a CUDA ``vp`` this launches kernel B1 (``forward2.launches``
-    counts the launches); on a CPU ``vp`` it runs
-    :func:`forward2_plain`.  Any other device raises.
+    On a CUDA ``vp`` this launches kernel B1 on the route that
+    :func:`pick_route` gives ``route`` (by default the resident route
+    where its plan holds the grid); ``forward2.launches`` counts the
+    launches, ``resident_launches`` and ``per_step_launches`` each
+    route's.  On a CPU ``vp`` it runs :func:`forward2_plain`.  Any other
+    device raises.
     """
     if not _kernel_route(vp, "forward2"):
         return forward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
                               return_rows=return_rows)
-    return _forward2(_rows_cuda, vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-                     cfg, return_rows)
-
-
-forward2.launches = 0
+    return _forward2(partial(_rows_cuda, route=route), vp, wavelet, src_z,
+                     src_x, rcv_z, rcv_x, cfg, return_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +457,7 @@ def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
     return _sum_shots(gk)
 
 
-def _fwd_ckpt_cuda(K, dp, dm, wav, sz, sx, rrow, nt, KC):
+def _fwd_ckpt_cuda(K, dp, dm, wav, sz, sx, rrow, nt, KC, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = wav.shape
     n_ck = nt_pad // KC
@@ -347,22 +467,31 @@ def _fwd_ckpt_cuda(K, dp, dm, wav, sz, sx, rrow, nt, KC):
     if n_ck * KC != nt_pad or nt_pad < nt:
         raise ValueError("forward2_ckpt: wavelet must be padded to a "
                          "multiple of KC >= nt")
+    route, plan = pick_route("forward2_ckpt", nz8, nx128, route)
     lib = cuda_build.load_library()
-    u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
-    um1 = torch.empty_like(u0)
     hist = torch.empty((ns, nt, nx128), dtype=torch.float32, device=dev)
     ckpt = torch.empty((ns, n_ck, 2, nz8, nx128), dtype=torch.float32,
                        device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, u0, um1,
-                                   hist, ckpt)]
-    err = lib.b4a_forward2_ckpt(*ptrs, ns, nz8, nx128, nt, n_ck, KC, stream)
-    cuda_build.check(err, "b4a_forward2_ckpt")
-    forward2_ckpt.launches += 1
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow)]
+    if route == "resident":
+        err = lib.b4a_forward2_ckpt_resident(
+            *ptrs, hist.data_ptr(), ckpt.data_ptr(), ns, nz8, nx128, nt,
+            n_ck, KC, *plan.args(), stream)
+        cuda_build.check(err, "b4a_forward2_ckpt_resident")
+    else:
+        u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
+        um1 = torch.empty_like(u0)
+        err = lib.b4a_forward2_ckpt(*ptrs, u0.data_ptr(), um1.data_ptr(),
+                                    hist.data_ptr(), ckpt.data_ptr(), ns,
+                                    nz8, nx128, nt, n_ck, KC, stream)
+        cuda_build.check(err, "b4a_forward2_ckpt")
+    count_launch(forward2_ckpt, route)
     return hist, ckpt
 
 
-def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
+def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid,
+              route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = wav.shape
     n_ck = ckpt.shape[1]
@@ -375,19 +504,28 @@ def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid):
         ("ckpt", ckpt, torch.float32, (ns, n_ck, 2, nz8, nx128))))
     if n_ck * KC != nt_pad or nt_valid != nt_pad:
         raise ValueError("backward2: checkpoints and rows disagree on KC")
+    route, plan = pick_route("backward2", nz8, nx128, route)
     lib = cuda_build.load_library()
-    u0, um1, pb0, pb1, qb, gk_shots = (
-        torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
-        for _ in range(6))
-    lapc = torch.empty((ns, KC, nz8, nx128), dtype=torch.float32, device=dev)
-    gk = torch.empty((nz8, nx128), dtype=torch.float32, device=dev)
+
+    def field(*lead):
+        return torch.empty(lead + (nz8, nx128), dtype=torch.float32,
+                           device=dev)
+
+    gk_shots, lapc, gk = field(ns), field(ns, KC), field()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt,
-                                   u0, um1, pb0, pb1, qb, gk_shots, lapc,
-                                   gk)]
-    err = lib.b4b_backward2(*ptrs, ns, nz8, nx128, n_ck, KC, stream)
-    cuda_build.check(err, "b4b_backward2")
-    backward2.launches += 1
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt)]
+    if route == "resident":
+        err = lib.b4b_backward2_resident(
+            *ptrs, gk_shots.data_ptr(), lapc.data_ptr(), gk.data_ptr(), ns,
+            nz8, nx128, n_ck, KC, *plan.args(), stream)
+        cuda_build.check(err, "b4b_backward2_resident")
+    else:
+        scratch = [field(ns) for _ in range(5)]  # u0, um1, pb0, pb1, qb
+        err = lib.b4b_backward2(
+            *ptrs, *(a.data_ptr() for a in scratch), gk_shots.data_ptr(),
+            lapc.data_ptr(), gk.data_ptr(), ns, nz8, nx128, n_ck, KC, stream)
+        cuda_build.check(err, "b4b_backward2")
+    count_launch(backward2, route)
     return gk
 
 
@@ -423,24 +561,22 @@ def forward2_ckpt_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def forward2_ckpt(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-                  cfg: AcousticConfig, *, KC: int = 32):
+                  cfg: AcousticConfig, *, KC: int = 32, route=None):
     """:func:`forward2`'s traces [ns, nt, nr] and the checkpoint buffer
     [ns, n_ck, 2, nz8, nx128] of (u0, u_-1) every KC steps, the wavelet
     zero-padded to n_ck*KC steps: the primal of
     :func:`acoustic_pallas2`.
 
-    On a CUDA ``vp`` this launches kernel B4a
-    (``forward2_ckpt.launches`` counts the launches); on a CPU ``vp`` it
-    runs :func:`forward2_ckpt_plain`.  Any other device raises.
+    On a CUDA ``vp`` this launches kernel B4a on the route that
+    :func:`pick_route` gives ``route`` (counts as :func:`forward2`'s);
+    on a CPU ``vp`` it runs :func:`forward2_ckpt_plain`.  Any other
+    device raises.
     """
     if not _kernel_route(vp, "forward2_ckpt"):
         return forward2_ckpt_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
                                    cfg, KC=KC)
-    return _forward2_ckpt(_fwd_ckpt_cuda, vp, wavelet, src_z, src_x, rcv_z,
-                          rcv_x, cfg, KC)
-
-
-forward2_ckpt.launches = 0
+    return _forward2_ckpt(partial(_fwd_ckpt_cuda, route=route), vp, wavelet,
+                          src_z, src_x, rcv_z, rcv_x, cfg, KC)
 
 
 def _backward2(bwd_fn, vp, wavelet, src_z, src_x, rcv_z, cfg, ybar_rows,
@@ -467,25 +603,26 @@ def backward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def backward2(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg: AcousticConfig,
-              ybar_rows, ckpt):
+              ybar_rows, ckpt, *, route=None):
     """dJ/dvp [nz, nx] of the second-order forward for receiver-row
     cotangents ``ybar_rows`` [ns, n_ck*KC, nx128] (every row injected),
     from :func:`forward2_ckpt`'s checkpoints: the exact transpose, the
     chain rule K = (vp dt/dx)^2 and the transpose of the edge padding
     (port of ``_backward2``).
 
-    On a CUDA ``vp`` this launches kernel B4b (``backward2.launches``
-    counts the launches); on a CPU ``vp`` it runs
-    :func:`backward2_plain`.  Any other device raises.
+    On a CUDA ``vp`` this launches kernel B4b on the route that
+    :func:`pick_route` gives ``route`` (counts as :func:`forward2`'s);
+    on a CPU ``vp`` it runs :func:`backward2_plain`.  Any other device
+    raises.
     """
     if not _kernel_route(vp, "backward2"):
         return backward2_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
                                ybar_rows, ckpt)
-    return _backward2(_bwd_cuda, vp, wavelet, src_z, src_x, rcv_z, cfg,
-                      ybar_rows, ckpt)
+    return _backward2(partial(_bwd_cuda, route=route), vp, wavelet, src_z,
+                      src_x, rcv_z, cfg, ybar_rows, ckpt)
 
 
-backward2.launches = 0
+reset_launches(forward2, forward2_ckpt, backward2)
 
 
 def _vp_grad(gk: torch.Tensor, vp: torch.Tensor, cfg: AcousticConfig,

@@ -327,3 +327,145 @@ def test_b2_wavelet_gradient_matches_plain(case):
     # without the flag the kernel returns what it returned before
     l2, g2 = fwi_l1_loss_grad(vp, wav, *geom, cfg, obs_rows, dir_rows)
     assert float(l2) == float(lk) and torch.equal(g2, gk)
+
+
+# ---------------------------------------------------------------------------
+# The resident route of B1, B2, B4a and B4b (one thread-block cluster per
+# shot) against the per-step route and the plain versions
+# ---------------------------------------------------------------------------
+
+# 88 x 256 padded (64 x 176 and PML 12): the default plan is 3 CTAs of
+# 32, 32 and 24 rows, a band count that does not divide the rows
+RES_GRID = dict(nz=64, nx=176, dx=10.0, nt=180, dt=0.002, pml_width=12)
+RES_BANDS = [(0, 32), (32, 64), (64, 88)]
+
+
+def _edge_geom(dev, ns):
+    """``ns`` shots, each with its source on one band's edge row and its
+    receivers on the neighbouring band's (padded rows 31/32 and 63/64)."""
+    src = np.array([31, 32, 63, 64, 31][:ns], np.int32) - 12
+    rcv = np.array([32, 31, 64, 63, 32][:ns], np.int32) - 12
+    src_x = np.linspace(4, 171, ns).astype(np.int32)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        src, src_x, np.repeat(rcv[:, None], 8, axis=1),
+        np.tile(np.arange(8, dtype=np.int32) * 22 + 2, (ns, 1))))
+
+
+@pytest.fixture(scope="module", params=[1, 5], ids=["1_shot", "5_shots"])
+def res_case(dev, request):
+    assert scalar2.resident_plan(88, 256).bands(88) == RES_BANDS
+    cfg = torch_acoustic(RES_GRID, dict(chunk=20, vmax_pml=2500.0))
+    vp = np.full((64, 176), 1700.0, np.float32)
+    vp[32:] = 2100.0
+    vp += np.random.default_rng(9).uniform(-50, 50, vp.shape).astype(
+        np.float32)
+    return (cfg, ricker(10.0, 180, 0.002, device=dev),
+            torch.as_tensor(vp, device=dev), _edge_geom(dev, request.param))
+
+
+def _routes(fn):
+    return fn.resident_launches, fn.per_step_launches
+
+
+def test_resident_b1_matches_per_step_and_plain(res_case):
+    cfg, wav, vp, geom = res_case
+    before = _routes(forward2)
+    res = forward2(vp, wav, *geom, cfg, return_rows=True)
+    per = forward2(vp, wav, *geom, cfg, return_rows=True, route="per_step")
+    torch.cuda.synchronize()
+    assert _routes(forward2) == (before[0] + 1, before[1] + 1)
+    assert float(res.abs().max()) > 0
+    # the same expression per cell: bit-equal unless FMA contraction
+    # differs (then 1e-6 of max)
+    assert rel_max(res, per) <= 1e-6
+    ref = forward2_plain(vp, wav, *geom, cfg, return_rows=True)
+    assert rel_max(res, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("KC", [8, 16, 32])
+def test_resident_b4_matches_per_step_and_plain(res_case, KC):
+    cfg, wav, vp, geom = res_case
+    before = (_routes(scalar2.forward2_ckpt), _routes(scalar2.backward2))
+    recs_r, ck_r = scalar2.forward2_ckpt(vp, wav, *geom, cfg, KC=KC)
+    recs_s, ck_s = scalar2.forward2_ckpt(vp, wav, *geom, cfg, KC=KC,
+                                         route="per_step")
+    assert rel_max(recs_r, recs_s) <= 1e-6
+    assert rel_max(ck_r, ck_s) <= 1e-6
+    recs_p, ck_p = scalar2.forward2_ckpt_plain(vp, wav, *geom, cfg, KC=KC)
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(recs_r, recs_p) <= 1e-5
+    assert rel_max(ck_r, ck_p) <= 1e-5
+    rows = _l2_rows(res_case, scalar2.forward2_plain, KC)
+    g_r = scalar2.backward2(vp, wav, *geom, cfg, rows, ck_p)
+    g_s = scalar2.backward2(vp, wav, *geom, cfg, rows, ck_p,
+                            route="per_step")
+    torch.cuda.synchronize()
+    assert (_routes(scalar2.forward2_ckpt), _routes(scalar2.backward2)) == (
+        (before[0][0] + 1, before[0][1] + 1),
+        (before[1][0] + 1, before[1][1] + 1))
+    assert rel_max(g_r, g_s) <= 1e-6
+    ref = scalar2.backward2_plain(vp, wav, *geom, cfg, rows, ck_p)
+    # float32 rounding in another order: 1e-4 rel L2
+    assert rel_l2(g_r, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("KC", [8, 16, 32])
+def test_resident_b2_matches_per_step_and_plain(res_case, KC):
+    cfg, wav, vp, geom = res_case
+    g = cfg.grid
+    ns = len(geom[0])
+    nt_pad = -(-g.nt // KC) * KC
+    gen = torch.Generator(device=vp.device).manual_seed(2)
+    obs_rows = torch.zeros((ns, nt_pad, 256), device=vp.device)
+    # residual signs fixed: obs > 2.5 > |yn|
+    obs_rows[:, :g.nt] = torch.rand((ns, g.nt, 256), generator=gen,
+                                    device=vp.device) + 2.5
+    direct = forward2_plain(torch.full_like(vp, 1700.0), wav, *geom, cfg,
+                            return_rows=True)
+    dir_rows = torch.nn.functional.pad(0.5 * direct,
+                                       (0, 0, 0, nt_pad - g.nt)).contiguous()
+    args = (vp, wav, *geom, cfg, obs_rows, dir_rows)
+    before = _routes(fwi_l1_loss_grad)
+    lr, gr, wr = fwi_l1_loss_grad(*args, KC=KC, want_wavelet_grad=True)
+    ls, gs, ws = fwi_l1_loss_grad(*args, KC=KC, want_wavelet_grad=True,
+                                  route="per_step")
+    torch.cuda.synchronize()
+    assert _routes(fwi_l1_loss_grad) == (before[0] + 1, before[1] + 1)
+    # the same sweeps' arithmetic and the same misfit kernel
+    assert abs(float(lr) - float(ls)) <= 1e-6 * abs(float(ls))
+    assert rel_max(gr, gs) <= 1e-6
+    assert rel_max(wr, ws) <= 1e-6
+    lp, gp, wp = fwi_l1_loss_grad_plain(*args, KC=KC, want_wavelet_grad=True)
+    # float32 rounding in another order: loss 1e-5, gradients 1e-4 rel L2
+    np.testing.assert_allclose(float(lr), float(lp), rtol=1e-5)
+    assert rel_l2(gr, gp) <= 1e-4
+    assert rel_l2(wr, wp) <= 1e-4
+
+
+def test_grid_beyond_the_plan_takes_the_per_step_route(dev):
+    # 72 x 1024 padded: 8-row bands would need 9 CTAs, 16-row ones more
+    # shared memory than a block has, so B1 and B2 take the per-step
+    # route by shape
+    grid = dict(nz=48, nx=1000, dx=10.0, nt=40, dt=0.002, pml_width=12)
+    cfg = torch_acoustic(grid, dict(chunk=20, vmax_pml=2500.0))
+    assert scalar2.resident_plan(72, 1024) is None
+    wav = ricker(10.0, 40, 0.002, device=dev)
+    vp = torch.full((48, 1000), 1800.0, device=dev)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.array([3, 3], np.int32), np.array([100, 500], np.int32),
+        np.full((2, 8), 3, np.int32),
+        np.tile(np.arange(8, dtype=np.int32) * 120 + 20, (2, 1))))
+    before = (_routes(forward2), _routes(fwi_l1_loss_grad))
+    got = forward2(vp, wav, *geom, cfg)
+    rows = torch.zeros((2, 64, 1024), device=dev)
+    lk, gk = fwi_l1_loss_grad(vp * 1.02, wav, *geom, cfg, rows + 2.5, rows)
+    torch.cuda.synchronize()
+    assert (_routes(forward2), _routes(fwi_l1_loss_grad)) == (
+        (before[0][0], before[0][1] + 1), (before[1][0], before[1][1] + 1))
+    assert rel_max(got, forward2_plain(vp, wav, *geom, cfg)) <= 1e-5
+    lp, gp = fwi_l1_loss_grad_plain(vp * 1.02, wav, *geom, cfg, rows + 2.5,
+                                    rows)
+    np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
+    assert rel_l2(gk, gp) <= 1e-4
+    with pytest.raises(ValueError, match="no resident plan"):
+        forward2(vp, wav, *geom, cfg, route="resident")

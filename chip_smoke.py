@@ -30,13 +30,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    elastic path's shapes (100 x 300, free surface, nt 3334; the ring
    forward on all 35 shots, B3 on 5 shots x 298 receivers): the ring
    forward, the ``l2`` misfit, ``tnl1`` with residual signs fixed and
-   on the real misfit, and the loss at the true model;
+   on the real misfit, and the loss at the true model, all on B3's
+   resident route; B3's resident plan and how many of its clusters the
+   card keeps resident, its two routes timed in turns on the same
+   inputs (``l2`` and ``tnl1``) and held to bit equality, and a device
+   trace of one call on each route (the forward sweep, the misfit, the
+   reverse sweep);
 5. the acoustic path: ``train(get_workload("marmousi_acoustic"),
    epochs=3)`` at full width on ``cuda:0``, every epoch's B2 on the
    resident route;
 6. the elastic path: ``train(get_workload("marmousi_elastic"),
    epochs=lstart + 3)`` at full width: the 30 warmup epochs, then 3
-   physics epochs on the 4 Hz continuation stage;
+   physics epochs on the 4 Hz continuation stage, every one's B3 on the
+   resident route;
 7. kernels B4a (``forward2_ckpt``) and B4b (``backward2``) against B1
    and their plain versions at the acoustic path's shapes, each route
    against the other in turns as B1's, and the
@@ -76,7 +82,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (B1, B2, B4a and B4b: ``ms`` on the resident
+error, times and bound (B1, B2, B3, B4a and B4b: ``ms`` on the resident
 route, ``per_step_ms`` on the per-step one); the last line is the
 result object.  The
 script never falls back to the CPU or to the plain versions.
@@ -155,17 +161,21 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _flat(out):
-    return out if isinstance(out, tuple) else (out,)
+def _flat(out) -> tuple:
+    """The tensors of a kernel's output, nested tuples flattened."""
+    if not isinstance(out, tuple):
+        return (out,)
+    return tuple(x for o in out for x in _flat(o))
 
 
-def route_turns(name: str, fn, steps: int, repeats: int = 2) -> dict:
-    """Time ``fn(route)`` on both routes of B1/B2/B4a/B4b in turns
+def route_turns(name: str, fn, steps: int, repeats: int = 2,
+                exact: bool = False) -> dict:
+    """Time ``fn(route)`` on both routes of B1/B2/B3/B4a/B4b in turns
     (per-step, resident, resident, per-step; each turn a warm-up call
     and ``repeats`` timed ones), print each route's ms and us per time
     step (``steps`` of them per call) and how far the two outputs are
-    apart, and check that they agree bit for bit or, where FMA
-    contraction differs, within 1e-6 of max.  Returns the resident
+    apart, and check that they agree bit for bit (``exact``) or, where
+    FMA contraction differs, within 1e-6 of max.  Returns the resident
     output and both times."""
     import torch
     outs, times = {}, {"per_step": [], "resident": []}
@@ -188,6 +198,8 @@ def route_turns(name: str, fn, steps: int, repeats: int = 2) -> dict:
           f"difference {max(diffs):.3e} of max (tol 1e-6)")
     check(max(diffs) <= 1e-6, f"{name}: resident and per-step routes "
           f"disagree")
+    check(same or not exact, f"{name}: resident and per-step routes are "
+          f"not bit-equal")
     return {"out": outs["resident"], "ms": ms_r, "per_step_ms": ms_s}
 
 
@@ -200,6 +212,20 @@ def cluster_report(ns: int) -> None:
     rev = scalar2.max_active_clusters(plan, ns, 192, 256, reverse=True)
     print(f"resident plan for {ns} shots on 192 x 256: {plan}; clusters "
           f"resident at once: forward {fwd}, reverse {rev} (of {ns})")
+
+
+def el_cluster_report(ns: int) -> None:
+    """marmousi_elastic's grid (128 x 384 in kernel layout): B3's
+    resident plan and how many of its clusters the card keeps resident
+    (cudaOccupancyMaxActiveClusters)."""
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
+    plan = ef.elastic_resident_plan(128, 384)
+    fwd = ef.elastic_max_active_clusters(plan, ns, 128, 384)
+    rev = ef.elastic_max_active_clusters(plan, ns, 128, 384, reverse=True)
+    print(f"B3 resident plan for {ns} shots on 128 x 384: {plan}; clusters "
+          f"resident at once: forward {fwd}, reverse {rev} (of {ns}; "
+          f"{plan.cluster * min(ns, fwd)} of 132 SMs busy)")
+    check(min(fwd, rev) >= 1, "B3's resident kernels cannot be resident")
 
 
 def ptxas_summary(log: str, keys) -> list[str]:
@@ -246,8 +272,8 @@ def phase_card():
                                    "error", ".cu:")):
             print(f"  ptxas: {line.strip()}")
     for line in ptxas_summary(log, ("resident", "misfit_tiles", "fwd_step",
-                                    "adj_step")):
-        print(f"  ptxas, B1/B2/B4 routes: {line}")
+                                    "adj_step", "el_fwd_", "el_adj_")):
+        print(f"  ptxas, B1/B2/B3/B4 routes: {line}")
     cuda_build.load_library()
 
 
@@ -525,13 +551,16 @@ def phase_b3(dev):
     each held to the plain version's own float32 error against a
     float64 run of the same algorithm; (4) ``tnl1`` on the real misfit,
     held to the plain gradient's move under a 1e-7 relative change of
-    its observed rows; (5) the loss at the true model."""
+    its observed rows; (5) the loss at the true model.  (2)-(5) run on
+    B3's resident route, the engine's at this shape; its two routes are
+    timed in turns on the same inputs and held to bit equality."""
     import torch
     from physicsbasedfwi2_tpu_torch.ops import trace_normalize
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-        fused_elastic_loss_grad_meds, fused_elastic_loss_grad_meds_plain,
-        prep_damp, prep_medium, scatter_rows_el, simulate_elastic_ring,
-        simulate_elastic_ring_plain)
+        elastic_resident_plan, fused_elastic_loss_grad_meds,
+        fused_elastic_loss_grad_meds_plain, prep_damp, prep_medium,
+        scatter_rows_el, simulate_elastic_ring, simulate_elastic_ring_plain)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
     cfg, wav, geom_all, true, start = elastic_case(dev)
     g = cfg.grid
 
@@ -560,17 +589,34 @@ def phase_b3(dev):
     ovx, ovz = ovx[pick], ovz[pick]
     ns, nr = geom[3].shape
     shape = f"[{ns} shots x {nr} receivers, nt {g.nt}]"
+    el_cluster_report(ns)
 
     damp = prep_damp(cfg, dev)
+    check(elastic_resident_plan(*damp.shape) is not None,
+          "no resident plan holds marmousi_elastic's grid")
     meds = prep_medium(*start, cfg)
     rows = {"l2": tuple(scatter_rows_el(o, geom[3], cfg, KC=8)
                         for o in (ovx, ovz)),
             "tnl1": tuple(scatter_rows_el(trace_normalize(o), geom[3], cfg,
                                           KC=8) for o in (ovx, ovz))}
 
-    def kernel(misfit, obs, m=meds):
+    def kernel(misfit, obs, m=meds, route=None):
         return fused_elastic_loss_grad_meds(m, damp, wav, *geom, cfg, *obs,
-                                            KC=8, misfit=misfit)
+                                            KC=8, misfit=misfit, route=route)
+
+    # both routes in turns on the same inputs, bit for bit; a device
+    # trace of one call on each
+    steps = 3 * rows["l2"][0].shape[1]  # forward, recompute, adjoint
+    route_turns("B3 l2", lambda r: kernel("l2", rows["l2"], route=r), steps,
+                exact=True)
+    turns = route_turns("B3 tnl1", lambda r: kernel("tnl1", rows["tnl1"],
+                                                    route=r),
+                        steps, exact=True)
+    for route in ("resident", "per_step"):
+        phase_trace(f"B3 tnl1 ({route} route)",
+                    lambda: kernel("tnl1", rows["tnl1"], route=route))
+    fn = fused_elastic_loss_grad_meds
+    reset_launches(fn)
 
     def plain(misfit, obs, dtype=torch.float32):
         torch.cuda.synchronize()
@@ -605,8 +651,8 @@ def phase_b3(dev):
         check(err_k <= max(1e-4, 2.0 * err_p),
               f"B3 {name}: gradient less accurate than the plain version")
 
-    # (4) the real tnl1 misfit (the main path's), timed
-    (lk, gk), ms_k = timed_ms(lambda: kernel("tnl1", rows["tnl1"]))
+    # (4) the real tnl1 misfit (the main path's), timed in turns above
+    (lk, gk), ms_k = kernel("tnl1", rows["tnl1"]), turns["ms"]
     (lp, gp), ms_p = plain("tnl1", rows["tnl1"])
     gen = torch.Generator(device=dev).manual_seed(0)
     pert = tuple((r * (1.0 + 1e-7 * torch.randn(r.shape, generator=gen,
@@ -636,6 +682,10 @@ def phase_b3(dev):
         print(f"B3 {misfit} loss at the true model: {float(l_true):.3e} "
               f"(tol 1e-9)")
         check(float(l_true) <= 1e-9, f"B3 {misfit} loss at the true model")
+    print(f"B3 checks (2)-(5): {fn.launches} launches, resident "
+          f"{fn.resident_launches}, per-step {fn.per_step_launches}")
+    check(fn.per_step_launches == 0 and fn.resident_launches == fn.launches,
+          "B3's checks did not run on the resident route")
 
     # free surface: 2 ring rows on top
     cells = ns * (g.nz + 2 + g.pml_width) * (g.nx + 2 * g.pml_width)
@@ -646,6 +696,7 @@ def phase_b3(dev):
              + ns * damp.shape[1] * 4 + 4)
     return (
         {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+         "per_step_ms": turns["per_step_ms"],
          **bound((FLOPS_B3 + FLOPS_B3_ADJ) * cells * g.nt, b3_io),
          "library_ms": None},
         {"max_abs_err": err_r, "ms": ms_rk, "plain_ms": ms_rp,
@@ -710,6 +761,7 @@ def phase_slice2(dev):
     from physicsbasedfwi2_tpu_torch.engine.engines import ElasticDIPEngine
     from physicsbasedfwi2_tpu_torch.engine.train import train
     from physicsbasedfwi2_tpu_torch.ops import elastic_fused
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
     cfg = get_workload("marmousi_elastic",
                        save_dir=str(ROOT / "build" / "chip_smoke"))
     print(f"slice 2: marmousi_elastic {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
@@ -717,7 +769,8 @@ def phase_slice2(dev):
           f"({cfg.shots_per_iter} per iteration), {cfg.netG} filters "
           f"{cfg.filters}, misfit {cfg.misfit}, stages {cfg.freq_stages}")
     torch.cuda.reset_peak_memory_stats(dev)
-    elastic_fused.fused_elastic_loss_grad_meds.launches = 0
+    b3 = elastic_fused.fused_elastic_loss_grad_meds
+    reset_launches(b3)
     elastic_fused.simulate_elastic_ring.launches = 0
     t0 = time.perf_counter()
     engine = ElasticDIPEngine(cfg, device=dev)
@@ -729,9 +782,9 @@ def phase_slice2(dev):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {
-        "fused_elastic_loss_grad":
-            elastic_fused.fused_elastic_loss_grad_meds.launches,
+        "fused_elastic_loss_grad": b3.launches,
         "simulate_elastic_ring": elastic_fused.simulate_elastic_ring.launches}
+    b3_routes = (b3.resident_launches, b3.per_step_launches)
     for rec in history[:2] + history[cfg.lstart - 1:]:
         print("epoch", json.dumps(rec))
     warm = [r["epoch_time"] for r in history[:cfg.lstart]]
@@ -740,12 +793,15 @@ def phase_slice2(dev):
           f"{total:.2f} s; warmup epochs: first {warm[0]:.4f} s, median of "
           f"the rest {sorted(warm[1:])[len(warm[1:]) // 2]:.4f} s; physics "
           f"epochs {', '.join(f'{x:.4f}' for x in phys)} s; launches "
-          f"{launches}; physics path {engine.physics_path}; peak memory "
+          f"{launches}, B3 (resident, per-step) {b3_routes}; physics path "
+          f"{engine.physics_path}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     check(engine.physics_path == "fused-cuda",
           f"physics path {engine.physics_path}")
     check(launches["fused_elastic_loss_grad"] == 3,
           "B3 not launched once per physics epoch")
+    check(b3_routes == (3, 0),
+          "B3 did not take the resident route on every physics epoch")
     check(launches["simulate_elastic_ring"] >= 1,
           "the ring forward did not make the observed data")
     for rec in history:

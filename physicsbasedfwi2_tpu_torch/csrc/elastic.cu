@@ -17,27 +17,69 @@
 // wav_t * dt/dx^2 * l2m[src] to sxx and szz; szz is zeroed on the
 // free-surface row.
 //
-// Design.  Like csrc/scalar2.cu: the Pallas kernel keeps one shot's
-// whole state (10 fields, a KC-step cache of 5 more, row buffers) in
-// VMEM, far more than the 227 KB of shared memory a block has, so here
-// every phase of a time step is one launch over all shots, one thread
-// per cell of [ns, nz8, nx128], with the fields in global memory (at
-// the slice shape a field is 0.98 MB for 5 shots, so the live state and
-// the media stay in the 50 MB L2).  Each step splits into two phases
-// whose reads and writes do not overlap, so the state is updated in
-// place without double buffering:
+// Each step splits into two phases whose reads and writes do not
+// overlap, so the state is updated in place without double buffering:
 //   forward  V: reads stress neighbours, writes its own vx, vz;
 //            S: reads the new velocity neighbours, writes its own
 //               sxx, szz, sxz;
-//   adjoint  A: injects the receiver cotangent, reads the stress
-//               cotangents' neighbours, writes its own Vx, Vz (and
-//               accumulates dJ/dbx, dJ/dbz);
-//            B: reads the new Vx, Vz neighbours, writes its own Sxx,
+//   adjoint  A: injects the receiver cotangent, reads the neighbours'
+//               products of the stress cotangents (cbar, abar, bbar),
+//               writes its own Vx, Vz (and accumulates dJ/dbx, dJ/dbz);
+//            B: reads the neighbours' products of the new velocity
+//               cotangents (dtx bx Vx, dtx bz Vz), writes its own Sxx,
 //               Szz, Sxz (and accumulates dJ/dlam, dJ/dl2m, dJ/dmuxz,
 //               with the source-gain term on l2m at the source cell).
-// The checkpoint interval KC and the layouts of the checkpoints
-// [n_ck, ns, 5, F] and the cache [KC, ns, 5, F] are this port's own;
-// results differ from the Pallas kernel only by rounding.
+// The arithmetic of one cell in each phase is one __device__ function
+// (fwd_v_cell, fwd_s_cell, adj_v_cell, adj_s_cell) that reads its
+// neighbours through an accessor: global memory with zeros outside the
+// array, or a band in shared memory.  Both routes below call them, so
+// they give the same bits.  The adjoint ones round every operation
+// explicitly (__fmul_rn, __fsub_rn, __fmaf_rn): the routes keep a cell's
+// cotangent in different places (registers across steps, or memory
+// between launches), and which product the compiler fuses into an FMA
+// otherwise follows the surrounding code (the difference showed in the
+// sponge, where damp < 1 makes a product inexact).  The checkpoint interval KC and the layouts of
+// the checkpoints [n_ck, ns, 5, F] and the cache [KC, ns, 5, F] are this
+// port's own; results differ from the Pallas kernel only by rounding.
+//
+// Two routes; ops/elastic_fused.py picks one by shape before any launch
+// (elastic_resident_plan) and counts each route's launches.
+//
+// Resident route (el_fwd_resident, el_rev_resident; the default where
+// the plan holds the grid).  The Pallas kernel keeps one shot's state,
+// cotangent and KC-step caches in VMEM, one program per shot.  Here one
+// thread-block cluster of C CTAs holds one shot: CTA r owns the band of
+// rows [8 r, 8 r + 8) across the full width, one thread a column (8
+// cells).  Shared memory holds 5 field buffers of the band with 2 halo
+// rows above and below and 4 zero columns each side, and the band's six
+// media (lam, l2m, muxz, bx, bz, damp).  The forward sweep keeps the
+// state in the 5 buffers; a phase computes the thread's 8 cells, writes
+// them and the band's 2 edge rows into the neighbours' halo rows
+// (distributed shared memory), then passes one cluster barrier: two per
+// step.  The reverse sweep keeps the shot's cotangent (5 fields) and its
+// 5 gradient accumulators in registers at the thread's own cells, since
+// no neighbour reads them; per chunk (last first) it restores the
+// checkpoint into the buffers, recomputes KC steps writing the 5
+// derivative terms of its own cells to the cache, and then reuses the 5
+// buffers for what neighbours do read: before phase A the products
+// cbar, abar, bbar, before phase B dtx bx Vx and dtx bz Vz, each computed
+// once per cell (the per-step route evaluates them at 8-16 neighbours).
+// Two launches per call, one per sweep; the misfit (el_misfit_cols),
+// sum_shots5 and sum_loss run between and after them as on the per-step
+// route.  The plan: C = nz8 / 8 CTAs (at most 16, a non-portable cluster
+// size that the launch allows explicitly), nx128 threads (at most 384,
+// so 168 registers a thread), 4 (5 (8 + 4)(nx128 + 8) + 6 8 nx128) bytes
+// of shared memory: at 128 x 384 (the marmousi_elastic family) 16 CTAs
+// of 384 threads and 167,808 B.  Grids the plan does not hold (seam_
+// elastic's 144 x 384, real_data's 192 x 384) take the per-step route.
+//
+// Per-step route (el_fwd_v, el_fwd_s, el_adj_v, el_adj_s; and the ring
+// forward).  Every phase of a time step is one launch over all shots,
+// one thread per cell of [ns, nz8, nx128], the fields in global memory
+// (at the slice shape a field is 0.98 MB for 5 shots, so the live state
+// and the media stay in the 50 MB L2): 4 launches per time step and 2
+// more per step of the checkpointed forward sweep, ~20 k launches per
+// call.
 //
 // Boundaries: Pallas reads neighbours with circular rolls; the zero
 // ring keeps every field (and cotangent) zero within 2 cells of the
@@ -51,21 +93,32 @@
 // needs about 68 flops per cell-step forward and 99 adjoint, 1.2e11
 // flop at the slice shape (5 shots, 122 x 340 padded, nt 3334), 1.7 ms
 // at 67 TFLOP/s of float32; its inputs and outputs are ~53 MB, 16 us
-// at 3.35 TB/s.  So the function is compute-bound.  This kernel is the
-// simple version: 4 launches per time step (2 forward, 2 adjoint) and
-// 2 more per step of the checkpointed forward sweep, ~20 k launches per
-// call.  Prediction, written before the first run on the card: at the
-// 2.7-3.5 us launch floor measured for csrc/scalar2.cu plus a few us of
-// L2 traffic per phase, 50-100 ms per call, bound by launches, 30-60x
-// above the compute bound.  Measured on an NVIDIA H100 80GB HBM3 at
-// 700 W (PERF.md): 125-162 ms, the card idle 23 % of a call between
-// launches.  A persistent or cluster-tiled design is later work.
+// at 3.35 TB/s.  So the function is compute-bound.  Per-step route:
+// predicted 50-100 ms per call before the first run on the card;
+// measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 125-162 ms,
+// the card idle 23 % of a call between launches.
+//
+// Resident route, predicted before its first timed run (H100, 700 W):
+// 5 shots fill 80 of the 132 SMs, one CTA (12 warps) an SM.  A forward
+// step is 2 cluster barriers across 16 CTAs plus 8 cells of ~68 flop and
+// ~20 shared-memory loads a thread: ~3-4 us.  A reverse step is a
+// recomputed forward step plus an adjoint step of 2 barriers, ~99 flop
+// and the 10 cache loads and stores a cell: ~8-11 us.  So the forward
+// sweep ~10-13 ms and the reverse sweep ~27-37 ms: B3 ~40-55 ms per call
+// (from ~128) and a marmousi_elastic physics epoch ~0.07-0.09 s (from
+// 0.145-0.163).  Registers bound the reverse kernel (80 live floats a
+// thread for the cotangent and the gradients).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <initializer_list>
 
+#include "cluster.cuh"
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int BX = 32;
 constexpr int BY = 8;
@@ -73,8 +126,11 @@ constexpr float kC1 = 9.0f / 8.0f;
 constexpr float kC2 = -1.0f / 24.0f;
 constexpr float kEps = 1e-10f;
 enum { VX = 0, VZ, SXX, SZZ, SXZ };           // state / cotangent fields
-enum { LAM = 0, L2M, MUXZ, BXX, BZZ };        // media / gradients
+enum { LAM = 0, L2M, MUXZ, BXX, BZZ, DAMP };  // media / gradients
 enum { T1 = 0, T2, CA, CB, CC };              // cached derivative terms
+// what the adjoint phases read at neighbours: the products of the stress
+// cotangents (phase A) and of the new velocity cotangents (phase B)
+enum { PC = 0, PA, PB, PTX, PTZ };
 
 struct Dims {
   int ns, nz, nx;
@@ -87,27 +143,54 @@ __device__ __forceinline__ float ld0(const float* f, int i, int j,
                                                      : 0.0f;
 }
 
-// staggered derivatives of a field read with zeros outside the array,
-// in the operation order of pallas_kernels._dx_fwd and the others
-__device__ __forceinline__ float dxf(const float* f, int i, int j,
-                                     const Dims& d) {
-  return kC1 * (ld0(f, i, j + 1, d) - ld0(f, i, j, d)) +
-         kC2 * (ld0(f, i, j + 2, d) - ld0(f, i, j - 1, d));
+// staggered derivatives of field f of accessor r (r(f, i, j): the value
+// at cell (i, j), zero outside the array), in the operation order of
+// pallas_kernels._dx_fwd and the others
+template <class Rd>
+__device__ __forceinline__ float dxf(const Rd& r, int f, int i, int j) {
+  return kC1 * (r(f, i, j + 1) - r(f, i, j)) +
+         kC2 * (r(f, i, j + 2) - r(f, i, j - 1));
 }
-__device__ __forceinline__ float dxb(const float* f, int i, int j,
-                                     const Dims& d) {
-  return kC1 * (ld0(f, i, j, d) - ld0(f, i, j - 1, d)) +
-         kC2 * (ld0(f, i, j + 1, d) - ld0(f, i, j - 2, d));
+template <class Rd>
+__device__ __forceinline__ float dxb(const Rd& r, int f, int i, int j) {
+  return kC1 * (r(f, i, j) - r(f, i, j - 1)) +
+         kC2 * (r(f, i, j + 1) - r(f, i, j - 2));
 }
-__device__ __forceinline__ float dzf(const float* f, int i, int j,
-                                     const Dims& d) {
-  return kC1 * (ld0(f, i + 1, j, d) - ld0(f, i, j, d)) +
-         kC2 * (ld0(f, i + 2, j, d) - ld0(f, i - 1, j, d));
+template <class Rd>
+__device__ __forceinline__ float dzf(const Rd& r, int f, int i, int j) {
+  return kC1 * (r(f, i + 1, j) - r(f, i, j)) +
+         kC2 * (r(f, i + 2, j) - r(f, i - 1, j));
 }
-__device__ __forceinline__ float dzb(const float* f, int i, int j,
-                                     const Dims& d) {
-  return kC1 * (ld0(f, i, j, d) - ld0(f, i - 1, j, d)) +
-         kC2 * (ld0(f, i + 1, j, d) - ld0(f, i - 2, j, d));
+template <class Rd>
+__device__ __forceinline__ float dzb(const Rd& r, int f, int i, int j) {
+  return kC1 * (r(f, i, j) - r(f, i - 1, j)) +
+         kC2 * (r(f, i + 1, j) - r(f, i - 2, j));
+}
+
+// The same four derivatives with every operation rounded explicitly
+// (no contraction left to the compiler), for the adjoint phases: there
+// the two routes hold a cell's values in different places (registers
+// across steps, or memory between launches), and the compiler's choice
+// of which product to fuse into an FMA follows the surrounding code.
+__device__ __forceinline__ float d4_rn(float p1, float p0, float p2,
+                                       float pm) {
+  return __fmaf_rn(kC1, __fsub_rn(p1, p0), __fmul_rn(kC2, __fsub_rn(p2, pm)));
+}
+template <class Rd>
+__device__ __forceinline__ float dxf_rn(const Rd& r, int f, int i, int j) {
+  return d4_rn(r(f, i, j + 1), r(f, i, j), r(f, i, j + 2), r(f, i, j - 1));
+}
+template <class Rd>
+__device__ __forceinline__ float dxb_rn(const Rd& r, int f, int i, int j) {
+  return d4_rn(r(f, i, j), r(f, i, j - 1), r(f, i, j + 1), r(f, i, j - 2));
+}
+template <class Rd>
+__device__ __forceinline__ float dzf_rn(const Rd& r, int f, int i, int j) {
+  return d4_rn(r(f, i + 1, j), r(f, i, j), r(f, i + 2, j), r(f, i - 1, j));
+}
+template <class Rd>
+__device__ __forceinline__ float dzb_rn(const Rd& r, int f, int i, int j) {
+  return d4_rn(r(f, i, j), r(f, i - 1, j), r(f, i + 1, j), r(f, i - 2, j));
 }
 
 struct Src {
@@ -117,6 +200,156 @@ struct Src {
   const float* gain;  // [ns] dt/dx^2 l2m[src]
   const float* wav;   // [ns, nt_wav]
   int nt_wav;
+};
+
+// --- the per-cell arithmetic of the four phases (both routes) -----------
+
+// Forward phase V: vx, vz old in, new out; t1, t2 the cached terms.
+template <class Rd>
+__device__ __forceinline__ void fwd_v_cell(const Rd& r, int i, int j,
+                                           float dm, float bx, float bz,
+                                           float dtx, float& vx, float& vz,
+                                           float& t1, float& t2) {
+  t1 = dxf(r, SXX, i, j) + dzb(r, SXZ, i, j);
+  vx = dm * (vx + dtx * bx * t1);
+  t2 = dxb(r, SXZ, i, j) + dzf(r, SZZ, i, j);
+  vz = dm * (vz + dtx * bz * t2);
+}
+
+// Forward phase S at time t: the stresses old in, new out; a, b, cc the
+// cached terms.  is_src: the shot's source cell; is_fs: the free-surface
+// row.
+template <class Rd>
+__device__ __forceinline__ void fwd_s_cell(const Rd& r, int i, int j,
+                                           float lam, float l2m, float muxz,
+                                           float dm, float dtx, bool is_src,
+                                           const Src& src, int s, int t,
+                                           bool is_fs, float& sxx, float& szz,
+                                           float& sxz, float& a, float& b,
+                                           float& cc) {
+  a = dxb(r, VX, i, j);
+  b = dzb(r, VZ, i, j);
+  sxx = dm * (sxx + dtx * (l2m * a + lam * b));
+  szz = dm * (szz + dtx * (lam * a + l2m * b));
+  if (is_src) {
+    const float amp = src.wav[(long long)s * src.nt_wav + t] * src.gain[s];
+    sxx += amp;
+    szz += amp;
+  }
+  if (is_fs) szz = 0.0f;
+  cc = dxf(r, VZ, i, j) + dzf(r, VX, i, j);
+  sxz = dm * (sxz + dtx * muxz * cc);
+}
+
+// The cotangents flowing into the velocities from the stress updates:
+//   cbar = dtx muxz damp Sxz
+//   abar = dtx lam damp w4 + dtx l2m damp Sxx,  w4 = fs Szz
+//   bbar = dtx l2m damp w4 + dtx lam damp Sxx
+// and into the stresses from the velocity updates: dtx b W (t1bar with
+// bx and Vx, t2bar with bz and Vz).  The per-step route evaluates them
+// where the derivatives use them, the resident route stores them; like
+// the adjoint phases below, every operation is rounded explicitly, so
+// that both give the same bits.
+__device__ __forceinline__ float cbar_val(float dtx, float muxz, float dm,
+                                          float sxz) {
+  return __fmul_rn(__fmul_rn(dtx, muxz), __fmul_rn(dm, sxz));
+}
+__device__ __forceinline__ float abar_val(float dtx, float lam, float l2m,
+                                          float dm, float w4, float sxx) {
+  return __fmaf_rn(__fmul_rn(__fmul_rn(dtx, l2m), dm), sxx,
+                   __fmul_rn(__fmul_rn(__fmul_rn(dtx, lam), dm), w4));
+}
+__device__ __forceinline__ float bbar_val(float dtx, float lam, float l2m,
+                                          float dm, float w4, float sxx) {
+  return __fmaf_rn(__fmul_rn(__fmul_rn(dtx, lam), dm), sxx,
+                   __fmul_rn(__fmul_rn(__fmul_rn(dtx, l2m), dm), w4));
+}
+__device__ __forceinline__ float tbar_val(float dtx, float b, float w) {
+  return __fmul_rn(__fmul_rn(dtx, b), w);
+}
+
+// Adjoint phase A: vx, vz the velocity cotangents (receiver row already
+// injected) in, w1 = damp Vx', w2 = damp Vz' out; r reads PC, PA, PB.
+template <class Rd>
+__device__ __forceinline__ void adj_v_cell(const Rd& r, int i, int j,
+                                           float dm, float dtx, float t1,
+                                           float t2, float& vx, float& vz,
+                                           float& gbx, float& gbz) {
+  // Vz -= Dxb(cbar); Vx -= Dzb(cbar); Vx -= Dxf(abar); Vz -= Dzf(bbar)
+  vz = __fsub_rn(vz, dxb_rn(r, PC, i, j));
+  vx = __fsub_rn(vx, dzb_rn(r, PC, i, j));
+  vx = __fsub_rn(vx, dxf_rn(r, PA, i, j));
+  vz = __fsub_rn(vz, dzf_rn(r, PB, i, j));
+  vx = __fmul_rn(dm, vx);
+  vz = __fmul_rn(dm, vz);
+  gbz = __fmaf_rn(__fmul_rn(dtx, t2), vz, gbz);
+  gbx = __fmaf_rn(__fmul_rn(dtx, t1), vx, gbx);
+}
+
+// Adjoint phase B at time t (wav_t unscaled): the stress cotangents in
+// and out; r reads PTX, PTZ (of the new velocity cotangents).
+template <class Rd>
+__device__ __forceinline__ void adj_s_cell(
+    const Rd& r, int i, int j, float dm, float dtx, float dt_invdx2, float a,
+    float b, float cc, bool is_src, const Src& src, int s, int t, bool is_fs,
+    float& sxx, float& szz, float& sxz, float& glam, float& gl2m,
+    float& gmuxz) {
+  const float s0 = sxx;
+  const float w4 = is_fs ? 0.0f : szz;
+  const float w5 = __fmul_rn(dm, sxz);
+  const float da = __fmul_rn(__fmul_rn(dtx, a), dm);
+  const float db = __fmul_rn(__fmul_rn(dtx, b), dm);
+  gmuxz = __fmaf_rn(__fmul_rn(dtx, cc), w5, gmuxz);
+  glam = __fmaf_rn(da, w4, glam);
+  gl2m = __fmaf_rn(db, w4, gl2m);
+  gl2m = __fmaf_rn(da, s0, gl2m);
+  glam = __fmaf_rn(db, s0, glam);
+  if (is_src)
+    gl2m = __fmaf_rn(
+        __fmul_rn(src.wav[(long long)s * src.nt_wav + t], dt_invdx2),
+        __fadd_rn(s0, w4), gl2m);
+  // Sxz = w5 - Dxf(t2bar) - Dzf(t1bar); Szz = damp w4 - Dzb(t2bar);
+  // Sxx = damp Sxx - Dxb(t1bar)
+  sxz = __fsub_rn(__fsub_rn(w5, dxf_rn(r, PTZ, i, j)), dzf_rn(r, PTX, i, j));
+  szz = __fsub_rn(__fmul_rn(dm, w4), dzb_rn(r, PTZ, i, j));
+  sxx = __fsub_rn(__fmul_rn(dm, s0), dxb_rn(r, PTX, i, j));
+}
+
+// --- per-step route ------------------------------------------------------
+
+// One shot's [5, F] fields in global memory, zero outside the array.
+struct GlobalRd {
+  const float* f;
+  Dims d;
+  __device__ float operator()(int k, int i, int j) const {
+    return ld0(f + k * d.F, i, j, d);
+  }
+};
+
+// The adjoint products at a (possibly out-of-range) cell, evaluated from
+// the media and one shot's cotangent [5, F] (0 outside the array).
+struct ProductRd {
+  const float* med;
+  const float* damp;
+  const float* cot;
+  int fs_row;
+  float dtx;
+  Dims d;
+  __device__ float operator()(int p, int i, int j) const {
+    if (i < 0 || i >= d.nz || j < 0 || j >= d.nx) return 0.0f;
+    const int k = i * d.nx + j;
+    const long long F = d.F;
+    const float dm = damp[k];
+    if (p == PC) return cbar_val(dtx, med[MUXZ * F + k], dm, cot[SXZ * F + k]);
+    if (p == PTX) return tbar_val(dtx, med[BXX * F + k], cot[VX * F + k]);
+    if (p == PTZ) return tbar_val(dtx, med[BZZ * F + k], cot[VZ * F + k]);
+    const float w4 = i == fs_row ? 0.0f : cot[SZZ * F + k];
+    const float sxx = cot[SXX * F + k];
+    const float lam = med[LAM * F + k];
+    const float l2m = med[L2M * F + k];
+    return p == PA ? abar_val(dtx, lam, l2m, dm, w4, sxx)
+                   : bbar_val(dtx, lam, l2m, dm, w4, sxx);
+  }
 };
 
 #define CELL_INDEX                                  \
@@ -137,14 +370,9 @@ __global__ void el_fwd_v(const float* __restrict__ med,
                          float dtx) {
   CELL_INDEX
   float* st = state + s * 5 * F;
-  const float* sxx = st + SXX * F;
-  const float* szz = st + SZZ * F;
-  const float* sxz = st + SXZ * F;
-  const float dm = damp[idx];
-  const float t1 = dxf(sxx, i, j, d) + dzb(sxz, i, j, d);
-  const float vx = dm * (st[VX * F + idx] + dtx * med[BXX * F + idx] * t1);
-  const float t2 = dxb(sxz, i, j, d) + dzf(szz, i, j, d);
-  const float vz = dm * (st[VZ * F + idx] + dtx * med[BZZ * F + idx] * t2);
+  float vx = st[VX * F + idx], vz = st[VZ * F + idx], t1, t2;
+  fwd_v_cell(GlobalRd{st, d}, i, j, damp[idx], med[BXX * F + idx],
+             med[BZZ * F + idx], dtx, vx, vz, t1, t2);
   st[VX * F + idx] = vx;
   st[VZ * F + idx] = vz;
   if (cache) {
@@ -166,24 +394,12 @@ __global__ void el_fwd_s(const float* __restrict__ med,
                          int fs_row, Dims d, float dtx) {
   CELL_INDEX
   float* st = state + s * 5 * F;
-  const float* vx = st + VX * F;
-  const float* vz = st + VZ * F;
-  const float lam = med[LAM * F + idx];
-  const float l2m = med[L2M * F + idx];
-  const float dm = damp[idx];
-  const float a = dxb(vx, i, j, d);
-  const float b = dzb(vz, i, j, d);
-  float sxx = dm * (st[SXX * F + idx] + dtx * (l2m * a + lam * b));
-  float szz = dm * (st[SZZ * F + idx] + dtx * (lam * a + l2m * b));
-  if (i == src.src_z[s] && j == src.src_x[s]) {
-    const float amp = src.wav[(long long)s * src.nt_wav + t] * src.gain[s];
-    sxx += amp;
-    szz += amp;
-  }
-  if (i == fs_row) szz = 0.0f;
-  const float cc = dxf(vz, i, j, d) + dzf(vx, i, j, d);
-  const float sxz =
-      dm * (st[SXZ * F + idx] + dtx * med[MUXZ * F + idx] * cc);
+  float sxx = st[SXX * F + idx], szz = st[SZZ * F + idx],
+        sxz = st[SXZ * F + idx], a, b, cc;
+  fwd_s_cell(GlobalRd{st, d}, i, j, med[LAM * F + idx], med[L2M * F + idx],
+             med[MUXZ * F + idx], damp[idx], dtx,
+             i == src.src_z[s] && j == src.src_x[s], src, s, t, i == fs_row,
+             sxx, szz, sxz, a, b, cc);
   st[SXX * F + idx] = sxx;
   st[SZZ * F + idx] = szz;
   st[SXZ * F + idx] = sxz;
@@ -193,39 +409,6 @@ __global__ void el_fwd_s(const float* __restrict__ med,
     c[CB * F + idx] = b;
     c[CC * F + idx] = cc;
   }
-}
-
-// Adjoint helpers: the cotangents flowing into the velocities from the
-// stress updates, at a (possibly out-of-range) cell (0 outside).
-//   cbar = dtx muxz damp Sxz
-//   abar = dtx lam damp w4 + dtx l2m damp Sxx,  w4 = fs Szz
-//   bbar = dtx l2m damp w4 + dtx lam damp Sxx
-struct AdjIn {
-  const float* med;
-  const float* damp;
-  const float* cot;  // this shot's [5, F]
-  int fs_row;
-  float dtx;
-};
-
-__device__ __forceinline__ float cbar_at(const AdjIn& q, int i, int j,
-                                         const Dims& d) {
-  if (i < 0 || i >= d.nz || j < 0 || j >= d.nx) return 0.0f;
-  const int k = i * d.nx + j;
-  return q.dtx * q.med[MUXZ * d.F + k] * (q.damp[k] * q.cot[SXZ * d.F + k]);
-}
-
-__device__ __forceinline__ float abar_at(const AdjIn& q, int i, int j,
-                                         const Dims& d, bool want_a) {
-  if (i < 0 || i >= d.nz || j < 0 || j >= d.nx) return 0.0f;
-  const int k = i * d.nx + j;
-  const float dm = q.damp[k];
-  const float w4 = i == q.fs_row ? 0.0f : q.cot[SZZ * d.F + k];
-  const float sxx = q.cot[SXX * d.F + k];
-  const float lam = q.med[LAM * d.F + k];
-  const float l2m = q.med[L2M * d.F + k];
-  return want_a ? q.dtx * lam * dm * w4 + q.dtx * l2m * dm * sxx
-                : q.dtx * l2m * dm * w4 + q.dtx * lam * dm * sxx;
 }
 
 // Adjoint phase A at time t.  ybar [2, ns, nt_rows, nx] holds the
@@ -240,7 +423,6 @@ __global__ void el_adj_v(const float* __restrict__ med,
                          int nt_rows, int fs_row, Dims d, float dtx) {
   CELL_INDEX
   float* cs = cot + s * 5 * F;
-  const AdjIn q{med, damp, cs, fs_row, dtx};
   float vx = cs[VX * F + idx];
   float vz = cs[VZ * F + idx];
   if (i == src.rcv_row[s]) {
@@ -248,39 +430,18 @@ __global__ void el_adj_v(const float* __restrict__ med,
     vx += ybar[r];
     vz += ybar[(long long)d.ns * nt_rows * d.nx + r];
   }
-  // Vz -= Dxb(cbar); Vx -= Dzb(cbar)
-  vz -= kC1 * (cbar_at(q, i, j, d) - cbar_at(q, i, j - 1, d)) +
-        kC2 * (cbar_at(q, i, j + 1, d) - cbar_at(q, i, j - 2, d));
-  vx -= kC1 * (cbar_at(q, i, j, d) - cbar_at(q, i - 1, j, d)) +
-        kC2 * (cbar_at(q, i + 1, j, d) - cbar_at(q, i - 2, j, d));
-  // Vx -= Dxf(abar); Vz -= Dzf(bbar)
-  vx -= kC1 * (abar_at(q, i, j + 1, d, true) - abar_at(q, i, j, d, true)) +
-        kC2 * (abar_at(q, i, j + 2, d, true) - abar_at(q, i, j - 1, d, true));
-  vz -= kC1 * (abar_at(q, i + 1, j, d, false) - abar_at(q, i, j, d, false)) +
-        kC2 * (abar_at(q, i + 2, j, d, false) -
-               abar_at(q, i - 1, j, d, false));
-  const float dm = damp[idx];
-  const float w1 = dm * vx;
-  const float w2 = dm * vz;
-  cs[VX * F + idx] = w1;
-  cs[VZ * F + idx] = w2;
   const float* c = cache + s * 5 * F;
   float* g = gmed + s * 5 * F;
-  g[BZZ * F + idx] += dtx * c[T2 * F + idx] * w2;
-  g[BXX * F + idx] += dtx * c[T1 * F + idx] * w1;
+  float gbx = g[BXX * F + idx], gbz = g[BZZ * F + idx];
+  adj_v_cell(ProductRd{med, damp, cs, fs_row, dtx, d}, i, j, damp[idx], dtx,
+             c[T1 * F + idx], c[T2 * F + idx], vx, vz, gbx, gbz);
+  cs[VX * F + idx] = vx;
+  cs[VZ * F + idx] = vz;
+  g[BXX * F + idx] = gbx;
+  g[BZZ * F + idx] = gbz;
 }
 
-// dtx * b * W at a (possibly out-of-range) cell, W the new velocity
-// cotangent (t1bar with bx and Vx, t2bar with bz and Vz)
-__device__ __forceinline__ float tbar_at(const float* b, const float* w,
-                                         float dtx, int i, int j,
-                                         const Dims& d) {
-  if (i < 0 || i >= d.nz || j < 0 || j >= d.nx) return 0.0f;
-  const int k = i * d.nx + j;
-  return dtx * b[k] * w[k];
-}
-
-// Adjoint phase B at time t (wav_t unscaled).
+// Adjoint phase B at time t.
 __global__ void el_adj_s(const float* __restrict__ med,
                          const float* __restrict__ damp, float* cot,
                          const float* __restrict__ cache,
@@ -290,52 +451,20 @@ __global__ void el_adj_s(const float* __restrict__ med,
   float* cs = cot + s * 5 * F;
   const float* c = cache + s * 5 * F;
   float* g = gmed + s * 5 * F;
-  const float dm = damp[idx];
-  const float sxx = cs[SXX * F + idx];
-  const float szz = cs[SZZ * F + idx];
-  const float w4 = i == fs_row ? 0.0f : szz;
-  const float w5 = dm * cs[SXZ * F + idx];
-  const float a = c[CA * F + idx];
-  const float b = c[CB * F + idx];
-  g[MUXZ * F + idx] += dtx * c[CC * F + idx] * w5;
-  float glam = g[LAM * F + idx];
-  float gl2m = g[L2M * F + idx];
-  glam += dtx * a * dm * w4;
-  gl2m += dtx * b * dm * w4;
-  gl2m += dtx * a * dm * sxx;
-  glam += dtx * b * dm * sxx;
-  if (i == src.src_z[s] && j == src.src_x[s])
-    gl2m += src.wav[(long long)s * src.nt_wav + t] * dt_invdx2 * (sxx + w4);
+  float sxx = cs[SXX * F + idx], szz = cs[SZZ * F + idx],
+        sxz = cs[SXZ * F + idx];
+  float glam = g[LAM * F + idx], gl2m = g[L2M * F + idx],
+        gmuxz = g[MUXZ * F + idx];
+  adj_s_cell(ProductRd{med, damp, cs, fs_row, dtx, d}, i, j, damp[idx], dtx,
+             dt_invdx2, c[CA * F + idx], c[CB * F + idx], c[CC * F + idx],
+             i == src.src_z[s] && j == src.src_x[s], src, s, t, i == fs_row,
+             sxx, szz, sxz, glam, gl2m, gmuxz);
   g[LAM * F + idx] = glam;
   g[L2M * F + idx] = gl2m;
-  const float* bx = med + BXX * F;
-  const float* bz = med + BZZ * F;
-  const float* Vx = cs + VX * F;
-  const float* Vz = cs + VZ * F;
-  // Sxz = w5 - Dxf(t2bar) - Dzf(t1bar); Szz = damp w4 - Dzb(t2bar);
-  // Sxx = damp Sxx - Dxb(t1bar)
-  float nsxz = w5;
-  nsxz -= kC1 * (tbar_at(bz, Vz, dtx, i, j + 1, d) -
-                 tbar_at(bz, Vz, dtx, i, j, d)) +
-          kC2 * (tbar_at(bz, Vz, dtx, i, j + 2, d) -
-                 tbar_at(bz, Vz, dtx, i, j - 1, d));
-  const float nszz =
-      dm * w4 - (kC1 * (tbar_at(bz, Vz, dtx, i, j, d) -
-                        tbar_at(bz, Vz, dtx, i - 1, j, d)) +
-                 kC2 * (tbar_at(bz, Vz, dtx, i + 1, j, d) -
-                        tbar_at(bz, Vz, dtx, i - 2, j, d)));
-  const float nsxx =
-      dm * sxx - (kC1 * (tbar_at(bx, Vx, dtx, i, j, d) -
-                         tbar_at(bx, Vx, dtx, i, j - 1, d)) +
-                  kC2 * (tbar_at(bx, Vx, dtx, i, j + 1, d) -
-                         tbar_at(bx, Vx, dtx, i, j - 2, d)));
-  nsxz -= kC1 * (tbar_at(bx, Vx, dtx, i + 1, j, d) -
-                 tbar_at(bx, Vx, dtx, i, j, d)) +
-          kC2 * (tbar_at(bx, Vx, dtx, i + 2, j, d) -
-                 tbar_at(bx, Vx, dtx, i - 1, j, d));
-  cs[SXX * F + idx] = nsxx;
-  cs[SZZ * F + idx] = nszz;
-  cs[SXZ * F + idx] = nsxz;
+  g[MUXZ * F + idx] = gmuxz;
+  cs[SXX * F + idx] = sxx;
+  cs[SZZ * F + idx] = szz;
+  cs[SXZ * F + idx] = sxz;
 }
 
 __device__ __forceinline__ float sgn(float x) {  // jnp.sign: sign(0) = 0
@@ -422,18 +551,330 @@ __global__ void sum_shots5(const float* __restrict__ per_shot, int ns,
   out[q] = acc;
 }
 
+
+// ---------------------------------------------------------------------------
+// Resident route: one thread-block cluster per shot (see the note above).
+// Grid (C, ns), cluster (C, 1, 1): CTA r = blockIdx.x of shot blockIdx.y,
+// thread x owns column x of rows [8 r, 8 r + 8).  Every thread reaches
+// every cluster barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 8;        // band rows: the rows a thread owns
+constexpr int kMaxCols = 384;   // threads (columns) at most: 168 registers
+constexpr int kMaxCluster = 16;
+constexpr int kPad = 4;         // zero columns each side (2 are read)
+
+int el_plan_smem(int nx) {
+  return (int)sizeof(float) *
+         (5 * (kRows + 4) * (nx + 2 * kPad) + 6 * kRows * nx);
+}
+
+// A CTA's band in shared memory: 5 field buffers of (kRows + 4) x P
+// floats (P = nx + 8; buffer row lr + 2 holds band row lr, column j + 4
+// column j), then the band's 6 media ([kRows, nx] each).  Buffer f sits
+// at offset f fsz, here and in the neighbours.
+struct Band {
+  int row0, nx, P, fsz;
+  float* sm;
+  float* up;  // the upper neighbour's buffers (null for the top band)
+  float* dn;  // the lower neighbour's (null for the bottom band)
+  const float* med;
+  __device__ int at(int f, int lr) const {
+    return f * fsz + (lr + 2) * P + (int)threadIdx.x + kPad;
+  }
+  __device__ float m(int k, int lr) const {
+    return med[(k * kRows + lr) * nx + threadIdx.x];
+  }
+  // write v at the thread's cell of band row lr of buffer f and, for the
+  // band's 2 edge rows, into the neighbours' halo rows
+  __device__ void put(int f, int lr, float v) const {
+    const int c = f * fsz + (int)threadIdx.x + kPad;
+    sm[c + (lr + 2) * P] = v;
+    if (lr < 2 && up) up[c + (kRows + 2 + lr) * P] = v;
+    if (lr >= kRows - 2 && dn) dn[c + (lr - kRows + 2) * P] = v;
+  }
+};
+
+// The band's buffers as an accessor of global rows i
+struct SharedRd {
+  const float* sm;
+  int fsz, P, row0;
+  __device__ float operator()(int f, int i, int j) const {
+    return sm[f * fsz + (i - row0 + 2) * P + j + kPad];
+  }
+};
+
+struct ElArgs {
+  const float* med;   // [5, nz, nx]
+  const float* damp;  // [nz, nx]
+  Src src;
+  float* ckpt;        // [n_ck, ns, 5, nz, nx]
+  float* hist;        // forward: [2, ns, nt_rows, nx] receiver rows;
+                      // reverse: their cotangents
+  float* cache;       // [KC, ns, 5, nz, nx] scratch (reverse)
+  float* gmed;        // [ns, 5, nz, nx] per-shot gradients (reverse)
+  int ns, nz, nx, nt_rows, nt_valid, n_ck, KC, fs_row;
+  float dtx, dt_invdx2;
+};
+
+// Zero the buffers (halos and pad columns stay zero unless a neighbour
+// writes them) and load the band's media.  The caller passes a cluster
+// barrier before any neighbour writes into the halos.
+__device__ __forceinline__ Band band_init(float* smem, const ElArgs& a) {
+  Band b;
+  const int r = blockIdx.x, C = gridDim.x;
+  b.row0 = r * kRows;
+  b.nx = a.nx;
+  b.P = a.nx + 2 * kPad;
+  b.fsz = (kRows + 4) * b.P;
+  b.sm = smem;
+  float* med = smem + 5 * b.fsz;
+  b.med = med;
+  cg::cluster_group cl = cg::this_cluster();
+  b.up = r > 0 ? cl.map_shared_rank(smem, r - 1) : nullptr;
+  b.dn = r + 1 < C ? cl.map_shared_rank(smem, r + 1) : nullptr;
+  for (int q = threadIdx.x; q < 5 * b.fsz; q += blockDim.x) smem[q] = 0.0f;
+  const long long F = (long long)a.nz * a.nx;
+  const int j = threadIdx.x;
+#pragma unroll
+  for (int lr = 0; lr < kRows; ++lr) {
+    const long long g = (long long)(b.row0 + lr) * a.nx + j;
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      med[(k * kRows + lr) * a.nx + j] = a.med[k * F + g];
+    med[(DAMP * kRows + lr) * a.nx + j] = a.damp[g];
+  }
+  return b;
+}
+
+// One forward step of the band at time t (the state in the buffers),
+// each phase ending at a cluster barrier.  cache (optional): this shot's
+// [5, F] slot of the step's derivative terms; hist (optional): the
+// receiver rows.
+__device__ __forceinline__ void band_fwd_step(const Band& b, const ElArgs& a,
+                                              int s, int t, float* cache,
+                                              float* hist) {
+  const int j = threadIdx.x;
+  const long long F = (long long)a.nz * a.nx;
+  const SharedRd r{b.sm, b.fsz, b.P, b.row0};
+  const int rr = a.src.rcv_row[s], sz = a.src.src_z[s], sx = a.src.src_x[s];
+  float u[kRows], w[kRows];
+#pragma unroll
+  for (int lr = 0; lr < kRows; ++lr) {
+    const int i = b.row0 + lr;
+    float t1, t2;
+    u[lr] = b.sm[b.at(VX, lr)];
+    w[lr] = b.sm[b.at(VZ, lr)];
+    fwd_v_cell(r, i, j, b.m(DAMP, lr), b.m(BXX, lr), b.m(BZZ, lr), a.dtx,
+               u[lr], w[lr], t1, t2);
+    if (cache) {
+      cache[T1 * F + (long long)i * a.nx + j] = t1;
+      cache[T2 * F + (long long)i * a.nx + j] = t2;
+    }
+  }
+#pragma unroll
+  for (int lr = 0; lr < kRows; ++lr) {
+    b.put(VX, lr, u[lr]);
+    b.put(VZ, lr, w[lr]);
+    const int i = b.row0 + lr;
+    if (hist && i == rr && t < a.nt_valid) {
+      const long long q = ((long long)s * a.nt_rows + t) * a.nx + j;
+      hist[q] = u[lr];
+      hist[(long long)a.ns * a.nt_rows * a.nx + q] = w[lr];
+    }
+  }
+  cluster_barrier();
+  float v[kRows];
+#pragma unroll
+  for (int lr = 0; lr < kRows; ++lr) {
+    const int i = b.row0 + lr;
+    float ca, cb, cc;
+    u[lr] = b.sm[b.at(SXX, lr)];
+    w[lr] = b.sm[b.at(SZZ, lr)];
+    v[lr] = b.sm[b.at(SXZ, lr)];
+    fwd_s_cell(r, i, j, b.m(LAM, lr), b.m(L2M, lr), b.m(MUXZ, lr),
+               b.m(DAMP, lr), a.dtx, i == sz && j == sx, a.src, s, t,
+               i == a.fs_row, u[lr], w[lr], v[lr], ca, cb, cc);
+    if (cache) {
+      cache[CA * F + (long long)i * a.nx + j] = ca;
+      cache[CB * F + (long long)i * a.nx + j] = cb;
+      cache[CC * F + (long long)i * a.nx + j] = cc;
+    }
+  }
+#pragma unroll
+  for (int lr = 0; lr < kRows; ++lr) {
+    b.put(SXX, lr, u[lr]);
+    b.put(SZZ, lr, w[lr]);
+    b.put(SXZ, lr, v[lr]);
+  }
+  cluster_barrier();
+}
+
+// Forward sweep of n_ck KC steps from zero fields: B3's phase 1, the
+// state written to ckpt before every KC-th step, the receiver rows to
+// hist.
+__global__ void __launch_bounds__(kMaxCols, 1) el_fwd_resident(ElArgs a) {
+  extern __shared__ float4 smem4[];
+  const Band b = band_init(reinterpret_cast<float*>(smem4), a);
+  cluster_barrier();
+  const int s = blockIdx.y, j = threadIdx.x;
+  const long long F = (long long)a.nz * a.nx;
+  const int nsteps = a.n_ck * a.KC;
+  for (int t = 0; t < nsteps; ++t) {
+    if (t % a.KC == 0) {
+      float* ck = a.ckpt + ((long long)(t / a.KC) * a.ns + s) * 5 * F;
+#pragma unroll
+      for (int f = 0; f < 5; ++f)
+#pragma unroll
+        for (int lr = 0; lr < kRows; ++lr)
+          ck[f * F + (long long)(b.row0 + lr) * a.nx + j] = b.sm[b.at(f, lr)];
+    }
+    band_fwd_step(b, a, s, t, nullptr, a.hist);
+  }
+}
+
+// The products of the thread's stress cotangents (cot: Sxx, Szz, Sxz of
+// band row lr) into PC, PA, PB.
+__device__ __forceinline__ void put_stress_products(const Band& b,
+                                                    const ElArgs& a, int lr,
+                                                    float sxx, float szz,
+                                                    float sxz) {
+  const int i = b.row0 + lr;
+  const float dm = b.m(DAMP, lr), lam = b.m(LAM, lr), l2m = b.m(L2M, lr);
+  const float w4 = i == a.fs_row ? 0.0f : szz;
+  b.put(PC, lr, cbar_val(a.dtx, b.m(MUXZ, lr), dm, sxz));
+  b.put(PA, lr, abar_val(a.dtx, lam, l2m, dm, w4, sxx));
+  b.put(PB, lr, bbar_val(a.dtx, lam, l2m, dm, w4, sxx));
+}
+
+// Reverse sweep, chunk by chunk from the checkpoints (last first): B3's
+// phase 3.  The cotangent and the gradients stay in registers.
+__global__ void __launch_bounds__(kMaxCols, 1) el_rev_resident(ElArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Band b = band_init(smem, a);
+  const int s = blockIdx.y, j = threadIdx.x;
+  const long long F = (long long)a.nz * a.nx;
+  const SharedRd r{b.sm, b.fsz, b.P, b.row0};
+  const int rr = a.src.rcv_row[s], sz = a.src.src_z[s], sx = a.src.src_x[s];
+  const long long yz = (long long)a.ns * a.nt_rows * a.nx;
+  float cot[5][kRows], g[5][kRows];
+#pragma unroll
+  for (int f = 0; f < 5; ++f)
+#pragma unroll
+    for (int lr = 0; lr < kRows; ++lr) cot[f][lr] = g[f][lr] = 0.0f;
+  for (int ck = a.n_ck - 1; ck >= 0; --ck) {
+    cluster_barrier();  // every CTA is done with the buffers
+    // restore the state with its halo rows from the checkpoint
+    const float* src = a.ckpt + ((long long)ck * a.ns + s) * 5 * F;
+#pragma unroll
+    for (int f = 0; f < 5; ++f)
+      for (int lr = -2; lr < kRows + 2; ++lr) {
+        const int gi = b.row0 + lr;
+        b.sm[f * b.fsz + (lr + 2) * b.P + j + kPad] =
+            gi >= 0 && gi < a.nz ? src[f * F + (long long)gi * a.nx + j]
+                                 : 0.0f;
+      }
+    cluster_barrier();  // no neighbour writes a halo row being restored
+    for (int kk = 0; kk < a.KC; ++kk)
+      band_fwd_step(b, a, s, ck * a.KC + kk,
+                    a.cache + ((long long)kk * a.ns + s) * 5 * F, nullptr);
+#pragma unroll
+    for (int lr = 0; lr < kRows; ++lr)
+      put_stress_products(b, a, lr, cot[SXX][lr], cot[SZZ][lr],
+                          cot[SXZ][lr]);
+    cluster_barrier();
+    for (int kk = a.KC - 1; kk >= 0; --kk) {
+      const int t = ck * a.KC + kk;
+      const float* c = a.cache + ((long long)kk * a.ns + s) * 5 * F;
+      // phase A
+#pragma unroll
+      for (int lr = 0; lr < kRows; ++lr) {
+        const int i = b.row0 + lr;
+        const long long q = (long long)i * a.nx + j;
+        float vx = cot[VX][lr], vz = cot[VZ][lr];
+        if (i == rr) {
+          const long long y = ((long long)s * a.nt_rows + t) * a.nx + j;
+          vx += a.hist[y];
+          vz += a.hist[yz + y];
+        }
+        adj_v_cell(r, i, j, b.m(DAMP, lr), a.dtx, c[T1 * F + q],
+                   c[T2 * F + q], vx, vz, g[BXX][lr], g[BZZ][lr]);
+        cot[VX][lr] = vx;
+        cot[VZ][lr] = vz;
+      }
+#pragma unroll
+      for (int lr = 0; lr < kRows; ++lr) {
+        b.put(PTX, lr, tbar_val(a.dtx, b.m(BXX, lr), cot[VX][lr]));
+        b.put(PTZ, lr, tbar_val(a.dtx, b.m(BZZ, lr), cot[VZ][lr]));
+      }
+      cluster_barrier();
+      // phase B, then the products of the new stress cotangents for the
+      // next step's phase A
+#pragma unroll
+      for (int lr = 0; lr < kRows; ++lr) {
+        const int i = b.row0 + lr;
+        const long long q = (long long)i * a.nx + j;
+        adj_s_cell(r, i, j, b.m(DAMP, lr), a.dtx, a.dt_invdx2, c[CA * F + q],
+                   c[CB * F + q], c[CC * F + q], i == sz && j == sx, a.src, s,
+                   t, i == a.fs_row, cot[SXX][lr], cot[SZZ][lr],
+                   cot[SXZ][lr], g[LAM][lr], g[L2M][lr], g[MUXZ][lr]);
+      }
+#pragma unroll
+      for (int lr = 0; lr < kRows; ++lr)
+        put_stress_products(b, a, lr, cot[SXX][lr], cot[SZZ][lr],
+                            cot[SXZ][lr]);
+      cluster_barrier();
+    }
+  }
+  float* gs = a.gmed + (long long)s * 5 * F;
+#pragma unroll
+  for (int f = 0; f < 5; ++f)
+#pragma unroll
+    for (int lr = 0; lr < kRows; ++lr)
+      gs[f * F + (long long)(b.row0 + lr) * a.nx + j] = g[f][lr];
+}
+
 inline dim3 cell_grid(const Dims& d) {
   return dim3((d.nx + BX - 1) / BX, (d.nz + BY - 1) / BY, d.ns);
 }
 
-}  // namespace
+// The resident plan (Plan, csrc/cluster.cuh), made by
+// ops/elastic_fused.py::elastic_resident_plan: C bands of 8 rows cover
+// the grid, one thread a column.
+cudaError_t el_check_plan(const Plan& p, int nz, int nx) {
+  const bool ok = p.R == kRows && p.rpt == kRows && p.C >= 1 &&
+                  p.C <= kMaxCluster && p.C * kRows == nz && nx % 32 == 0 &&
+                  p.threads == nx && nx <= kMaxCols &&
+                  p.smem >= el_plan_smem(nx) && p.smem <= 232448;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
 
-#define RET_IF(expr)                    \
-  do {                                  \
-    cudaError_t e_ = (expr);            \
-    if (e_ != cudaSuccess) return e_;   \
-  } while (0)
-#define LAUNCHED() RET_IF(cudaGetLastError())
+// Misfit, loss partials and the cotangent rows over hist (both routes).
+cudaError_t el_misfit(float* hist, const float* obs_x, const float* obs_z,
+                      const float* rmask, int ns, int nt_rows, int nt_valid,
+                      int nx, float inv_count, int tnl1, double* loss_part,
+                      cudaStream_t st) {
+  el_misfit_cols<<<dim3((nx + 127) / 128, ns, 2), 128, 0, st>>>(
+      hist, obs_x, obs_z, rmask, ns, nt_rows, nt_valid, nx, inv_count, tnl1,
+      loss_part);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// The gradients summed over shots and the loss (both routes).
+cudaError_t el_sums(const float* gmed_shots, const double* loss_part, int ns,
+                    int nx, long long F, float inv_count, float* gmed_out,
+                    float* loss_out, cudaStream_t st) {
+  sum_shots5<<<(unsigned)((5 * F + 255) / 256), 256, 0, st>>>(
+      gmed_shots, ns, F, gmed_out);
+  LAUNCHED();
+  sum_loss<<<1, 1, 0, st>>>(loss_part, 2 * ns * nx, inv_count, loss_out);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -462,7 +903,7 @@ int b3_elastic_ring(const float* med, const float* damp, const float* wav,
   return cudaSuccess;
 }
 
-// B3: fused loss and dJ/d(lam, l2m, muxz, bx, bz).
+// B3: fused loss and dJ/d(lam, l2m, muxz, bx, bz), per-step route.
 //   med [5, nz, nx]; damp [nz, nx]; wav [ns, n_ck*KC] (zero past nt);
 //   obs_x, obs_z [ns, n_ck*KC, nx]; rmask [ns, nx];
 //   state, cot, gmed_shots [ns, 5, nz, nx]; ckpt [n_ck, ns, 5, nz, nx];
@@ -504,10 +945,8 @@ int b3_fused_elastic_loss_grad(
   }
 
   // phase 2: misfit, loss partials and the cotangent rows (over hist)
-  el_misfit_cols<<<dim3((nx + 127) / 128, ns, 2), 128, 0, st>>>(
-      hist, obs_x, obs_z, rmask, ns, nt_pad, nt, nx, inv_count, tnl1,
-      loss_part);
-  LAUNCHED();
+  RET_IF(el_misfit(hist, obs_x, obs_z, rmask, ns, nt_pad, nt, nx, inv_count,
+                   tnl1, loss_part, st));
 
   // phase 3: reverse sweep, chunk by chunk from the checkpoints
   for (int c = n_ck - 1; c >= 0; --c) {
@@ -534,13 +973,48 @@ int b3_fused_elastic_loss_grad(
       LAUNCHED();
     }
   }
+  return el_sums(gmed_shots, loss_part, ns, nx, d.F, inv_count, gmed_out,
+                 loss_out, st);
+}
 
-  sum_shots5<<<(unsigned)((5 * d.F + 255) / 256), 256, 0, st>>>(
-      gmed_shots, ns, d.F, gmed_out);
-  LAUNCHED();
-  sum_loss<<<1, 1, 0, st>>>(loss_part, 2 * ns * nx, inv_count, loss_out);
-  LAUNCHED();
-  return cudaSuccess;
+// B3, resident route: as b3_fused_elastic_loss_grad, without the
+// per-step scratch (state, cot), then the plan (C, R, rpt, threads,
+// smem; cudaErrorInvalidValue for a plan that does not hold the grid).
+int b3_fused_elastic_loss_grad_resident(
+    const float* med, const float* damp, const float* wav, const int* src_z,
+    const int* src_x, const int* rcv_row, const float* gain,
+    const float* obs_x, const float* obs_z, const float* rmask, float* ckpt,
+    float* cache, float* hist, float* gmed_shots, double* loss_part,
+    float* loss_out, float* gmed_out, int ns, int nz, int nx, int nt,
+    int n_ck, int KC, int fs_row, int tnl1, int C, int R, int rpt,
+    int threads, int smem, float dtx, float dt_invdx2, float inv_count,
+    void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(el_check_plan(p, nz, nx));
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt_pad = n_ck * KC;
+  RET_IF(cudaMemsetAsync(hist, 0,
+                         sizeof(float) * 2 * (size_t)ns * nt_pad * nx, st));
+  const ElArgs a{med,  damp, Src{src_z, src_x, rcv_row, gain, wav, nt_pad},
+                 ckpt, hist, cache, gmed_shots, ns, nz, nx, nt_pad, nt, n_ck,
+                 KC,   fs_row, dtx, dt_invdx2};
+  RET_IF(launch_resident(el_fwd_resident, a, p, ns, st));
+  RET_IF(el_misfit(hist, obs_x, obs_z, rmask, ns, nt_pad, nt, nx, inv_count,
+                   tnl1, loss_part, st));
+  RET_IF(launch_resident(el_rev_resident, a, p, ns, st));
+  return el_sums(gmed_shots, loss_part, ns, nx, (long long)nz * nx,
+                 inv_count, gmed_out, loss_out, st);
+}
+
+// How many clusters of a plan the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters) for the forward (reverse = 0) or the
+// reverse kernel of B3's resident route, into *out.
+int pbfwi_b3_max_clusters(int reverse, int ns, int nz, int nx, int C, int R,
+                          int rpt, int threads, int smem, int* out) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(el_check_plan(p, nz, nx));
+  return max_active_clusters<ElArgs>(
+      reverse ? el_rev_resident : el_fwd_resident, p, ns, out);
 }
 
 }  // extern "C"

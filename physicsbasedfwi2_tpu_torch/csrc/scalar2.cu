@@ -89,6 +89,8 @@
 
 #include <initializer_list>
 
+#include "cluster.cuh"
+
 namespace {
 
 constexpr int BX = 32;
@@ -344,16 +346,6 @@ constexpr int kResThreads = 512;  // at most: 128 registers a thread
 constexpr int kVec = 4;           // columns a thread owns (one float4)
 constexpr int kPadL = 4;          // zero columns left of column 0 (2 read)
 constexpr int RPT = 5;            // rows a thread owns (ROWS_PER_THREAD)
-
-// The .aligned forms: every warp reaches each barrier converged (the
-// loops around them have the same bounds in every thread).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void ld4(float (&d)[kVec], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -756,13 +748,6 @@ inline dim3 cell_grid(int ns, int nz, int nx) {
 
 }  // namespace
 
-#define RET_IF(expr)                    \
-  do {                                  \
-    cudaError_t e_ = (expr);            \
-    if (e_ != cudaSuccess) return e_;   \
-  } while (0)
-#define LAUNCHED() RET_IF(cudaGetLastError())
-
 namespace {
 
 // Forward sweep of n_ck*KC steps from zero fields, (u0, u_-1) written to
@@ -862,13 +847,8 @@ cudaError_t misfit(float* hist, const float* obs, const float* rmask, int ns,
   return cudaSuccess;
 }
 
-// The resident route's launch plan, made by ops/scalar2.py::resident_plan:
-// C CTAs of `threads` threads per shot, bands of R rows, a thread rpt
-// rows of 4 columns, `smem` bytes of dynamic shared memory.
-struct Plan {
-  int C, R, rpt, threads, smem;
-};
-
+// The resident route's launch plan (Plan, csrc/cluster.cuh) is made by
+// ops/scalar2.py::resident_plan: a thread owns rpt rows of 4 columns.
 int plan_smem(const Plan& p, int nx) {
   const int H = p.threads / (nx / kVec) * p.rpt;
   return (int)sizeof(float) * (2 * (H + 4) * (nx + 2 * kPadL) + 3 * p.R * nx);
@@ -884,40 +864,6 @@ cudaError_t check_plan(const Plan& p, int nz, int nx) {
       p.threads / (nx / kVec) * p.rpt >= p.R && p.smem >= plan_smem(p, nx) &&
       p.smem <= 232448;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-template <typename Args>
-using ResKernel = void (*)(Args);
-
-// Grid (C, ns), clusters of (C, 1, 1), the plan's threads and shared memory.
-template <typename Args>
-cudaLaunchConfig_t cluster_config(ResKernel<Args> kern, const Plan& p, int ns,
-                                  cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.C, ns);
-  cfg.blockDim = dim3(p.threads);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p.C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-template <typename Args>
-cudaError_t launch_resident(ResKernel<Args> kern, const Args& a,
-                            const Plan& p, int ns, cudaStream_t st) {
-  RET_IF(cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              p.smem));
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(kern, p, ns, st, &attr);
-  RET_IF(cudaLaunchKernelEx(&cfg, kern, a));
-  LAUNCHED();
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -1118,20 +1064,9 @@ int pbfwi_resident_max_clusters(int reverse, int ns, int nz, int nx, int C,
                                 int* out) {
   const Plan p{C, R, rpt, threads, smem};
   RET_IF(check_plan(p, nz, nx));
-  cudaLaunchAttribute attr;
-  if (reverse) {
-    const ResKernel<RevArgs> kern = rev_resident;
-    RET_IF(cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    const cudaLaunchConfig_t cfg = cluster_config(kern, p, ns, 0, &attr);
-    return cudaOccupancyMaxActiveClusters(out, (const void*)kern, &cfg);
-  }
-  const ResKernel<FwdArgs> kern = fwd_resident;
-  RET_IF(cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem));
-  const cudaLaunchConfig_t cfg = cluster_config(kern, p, ns, 0, &attr);
-  return cudaOccupancyMaxActiveClusters(out, (const void*)kern, &cfg);
+  if (reverse)
+    return max_active_clusters<RevArgs>(rev_resident, p, ns, out);
+  return max_active_clusters<FwdArgs>(fwd_resident, p, ns, out);
 }
 
 }  // extern "C"

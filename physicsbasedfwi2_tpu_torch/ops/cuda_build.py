@@ -3,7 +3,8 @@
 ``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
 B2, B4a and B4b; ``elastic.cu``: kernel B3; ``acoustic.cu``: kernels B5
 and B6; ``scalar2b.cu``: kernels B7a and B7b; ``elastic_fwd.cu``: kernel
-B8) for ``sm_90a``, one process per
+B8; ``cluster.cuh``: the helpers of the resident routes, included by
+``scalar2.cu`` and ``elastic.cu``) for ``sm_90a``, one process per
 source, all started together, and links the objects into one shared
 library with a plain C interface, which ``ctypes`` loads.  The build
 runs at first use, never at import, into ``build/torch_kernels/`` at
@@ -24,6 +25,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(_CSRC / f for f in ("scalar2.cu", "elastic.cu", "acoustic.cu",
                                      "scalar2b.cu", "elastic_fwd.cu"))
+# headers the sources include (the thread-block cluster helpers)
+HEADERS = (_CSRC / "cluster.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,6 +47,10 @@ _SIGNATURES = {
     # csrc/elastic.cu
     "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
     "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],
+    # its resident route (sizes, then the plan)
+    "b3_fused_elastic_loss_grad_resident": [_P] * 17 + [_I] * 13
+    + [_F] * 3 + [_P],
+    "pbfwi_b3_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
     # csrc/acoustic.cu
     "b5_acoustic_forward": [_P] * 11 + [_I] * 4 + [_F, _P],
     "b6_acoustic_backward": [_P] * 18 + [_I] * 5 + [_F, _P],
@@ -67,7 +74,7 @@ def build_dir() -> Path:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return build_dir() / f"libpbfwi_kernels_{h.hexdigest()[:16]}.so"
 

@@ -32,15 +32,24 @@ neighbours with circular rolls; the 2-cell zero ring folded into
 the array gives the same values.
 
 :func:`fused_elastic_loss_grad_meds` launches the hand-written CUDA
-kernel (``csrc/elastic.cu::b3_fused_elastic_loss_grad``) on CUDA
-tensors and runs :func:`fused_elastic_loss_grad_meds_plain`, the same
-algorithm in plain PyTorch batched over shots, on CPU tensors;
+kernel on CUDA tensors and runs
+:func:`fused_elastic_loss_grad_meds_plain`, the same algorithm in plain
+PyTorch batched over shots, on CPU tensors.  The kernel has two routes
+with the same arithmetic (bit-equal results): the resident one
+(``csrc/elastic.cu::b3_fused_elastic_loss_grad_resident``, one
+thread-block cluster per shot holding the wavefields in shared memory
+through both sweeps, one launch per sweep) wherever
+:func:`elastic_resident_plan` holds the grid, and the per-step one
+(``b3_fused_elastic_loss_grad``, launches per time step) elsewhere; the
+choice is made by shape before any launch (``scalar2.pick_route``).
 :func:`simulate_elastic_ring` does the same with B3's forward phases
 (``csrc/elastic.cu::b3_elastic_ring``).  Gradients w.r.t. (vp, vs, rho)
 come from ``torch.autograd`` through :func:`prep_medium`.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -49,12 +58,21 @@ from physicsbasedfwi2_tpu_torch.ops.acoustic import edge_pad
 from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig, _staggered_medium,
 )
-from physicsbasedfwi2_tpu_torch.ops.scalar2 import _round_up
+from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
+    SMEM_LIMIT, ResidentPlan, _round_up, count_launch, pick_route,
+    reset_launches,
+)
 from physicsbasedfwi2_tpu_torch.ops.stencil import _shift
 
 RING = 2  # zero ring width (stands in for circular rolls)
 EPS = 1e-10
 _C1, _C2 = 9.0 / 8.0, -1.0 / 24.0
+# B3's resident route (csrc/elastic.cu): bands of EL_ROWS rows, one
+# thread a column, at most EL_MAX_COLS threads (168 registers each) and
+# EL_MAX_CLUSTER CTAs (a non-portable cluster size)
+EL_ROWS = 8
+EL_MAX_COLS = 384
+EL_MAX_CLUSTER = 16
 
 
 # ---------------------------------------------------------------------------
@@ -368,9 +386,40 @@ def _check_inputs(what, dev, specs):
                              f"expected {shape}")
 
 
+def elastic_resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
+    """The resident plan of kernel B3 for an [nz8, nx128] grid, or None
+    where it cannot hold the grid (the per-step route runs): nz8 / 8
+    CTAs of EL_ROWS rows (at most EL_MAX_CLUSTER), one thread a column
+    (nx128 <= EL_MAX_COLS), and shared memory for 5 field buffers with 2
+    halo rows and 4 zero columns each side plus the band's 6 media.  At
+    128 x 384 (the marmousi_elastic family) that is 16 CTAs of 384
+    threads and 167,808 B."""
+    C = nz8 // EL_ROWS
+    smem = 4 * (5 * (EL_ROWS + 4) * (nx128 + 8) + 6 * EL_ROWS * nx128)
+    if (nz8 % EL_ROWS or not 1 <= C <= EL_MAX_CLUSTER or nx128 % 32
+            or nx128 > EL_MAX_COLS or smem > SMEM_LIMIT):
+        return None
+    return ResidentPlan(C, EL_ROWS, nx128, smem, rows_per_thread=EL_ROWS)
+
+
+def elastic_max_active_clusters(plan: ResidentPlan, ns: int, nz8: int,
+                                nx128: int, *, reverse: bool = False) -> int:
+    """cudaOccupancyMaxActiveClusters of B3's resident forward (or
+    reverse) kernel under ``plan``: how many shots the card runs at once
+    (a query; launches nothing)."""
+    import ctypes
+
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    out = ctypes.c_int(0)
+    err = cuda_build.load_library().pbfwi_b3_max_clusters(
+        int(reverse), ns, nz8, nx128, *plan.args(), ctypes.byref(out))
+    cuda_build.check(err, "pbfwi_b3_max_clusters")
+    return out.value
+
+
 def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
                      rmask, fs_row, nt, KC, dtx, dt_invdx2, inv_count,
-                     misfit):
+                     misfit, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = wav.shape
     n_ck = nt_pad // KC
@@ -391,27 +440,36 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
                          "padded to a multiple of KC >= nt")
     if misfit not in ("l2", "tnl1"):
         raise ValueError(f"fused_elastic_loss_grad_meds: misfit {misfit!r}")
+    route, plan = pick_route("fused_elastic_loss_grad_meds", nz8, nx128,
+                             route, elastic_resident_plan)
     lib = cuda_build.load_library()
 
     def buf(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=f32, device=dev)
 
-    state, cot, gmed_shots = buf(ns, 5), buf(ns, 5), buf(ns, 5)
-    ckpt = buf(n_ck, ns, 5)
-    cache = buf(KC, ns, 5)
+    gmed_shots, ckpt, cache = buf(ns, 5), buf(n_ck, ns, 5), buf(KC, ns, 5)
     hist = torch.empty((2, ns, nt_pad, nx128), dtype=f32, device=dev)
     loss_part = torch.empty((2, ns, nx128), dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=f32, device=dev)
     gmed = buf(5)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a.data_ptr() for a in (
-        med, damp, wav, sz, sx, rrow, gain, obs_x, obs_z, rmask, state, cot,
-        ckpt, cache, hist, gmed_shots, loss_part, loss, gmed)]
-    err = lib.b3_fused_elastic_loss_grad(
-        *ptrs, ns, nz8, nx128, nt, n_ck, KC, fs_row,
-        1 if misfit == "tnl1" else 0, dtx, dt_invdx2, inv_count, stream)
-    cuda_build.check(err, "b3_fused_elastic_loss_grad")
-    fused_elastic_loss_grad_meds.launches += 1
+        med, damp, wav, sz, sx, rrow, gain, obs_x, obs_z, rmask)]
+    out = [a.data_ptr() for a in (ckpt, cache, hist, gmed_shots, loss_part,
+                                  loss, gmed)]
+    tnl1 = 1 if misfit == "tnl1" else 0
+    if route == "resident":
+        err = lib.b3_fused_elastic_loss_grad_resident(
+            *ptrs, *out, ns, nz8, nx128, nt, n_ck, KC, fs_row, tnl1,
+            *plan.args(), dtx, dt_invdx2, inv_count, stream)
+        cuda_build.check(err, "b3_fused_elastic_loss_grad_resident")
+    else:
+        state, cot = buf(ns, 5), buf(ns, 5)
+        err = lib.b3_fused_elastic_loss_grad(
+            *ptrs, state.data_ptr(), cot.data_ptr(), *out, ns, nz8, nx128, nt, n_ck, KC, fs_row, tnl1, dtx, dt_invdx2,
+            inv_count, stream)
+        cuda_build.check(err, "b3_fused_elastic_loss_grad")
+    count_launch(fused_elastic_loss_grad_meds, route)
     return loss, tuple(gmed.unbind(0))
 
 
@@ -491,7 +549,7 @@ def fused_elastic_loss_grad_meds_plain(meds, damp, wavelet, src_z, src_x,
 def fused_elastic_loss_grad_meds(meds, damp, wavelet, src_z, src_x, rcv_z,
                                  rcv_x, cfg: ElasticConfig, obs_rows_x,
                                  obs_rows_z, *, KC: int = 8,
-                                 misfit: str = "l2"):
+                                 misfit: str = "l2", route=None):
     """(loss, grads w.r.t. the 5 medium fields), summed over shots; the
     loss is scaled by 1/(ns nt nr).
 
@@ -500,9 +558,13 @@ def fused_elastic_loss_grad_meds(meds, damp, wavelet, src_z, src_x, rcv_z,
         (for ``misfit="tnl1"`` scattered from trace-normalized traces;
         receiver columns must be distinct within each shot).
 
-    On a CUDA ``damp`` this launches kernel B3
-    (``fused_elastic_loss_grad_meds.launches`` counts the launches); on
-    a CPU ``damp`` it runs :func:`fused_elastic_loss_grad_meds_plain`.
+    On a CUDA ``damp`` this launches kernel B3 on the route that
+    ``scalar2.pick_route`` gives ``route`` with
+    :func:`elastic_resident_plan` (by default the resident route where
+    that plan holds the grid; "resident" raises where it does not);
+    ``fused_elastic_loss_grad_meds.launches`` counts the launches,
+    ``resident_launches`` and ``per_step_launches`` each route's.  On a
+    CPU ``damp`` it runs :func:`fused_elastic_loss_grad_meds_plain`.
     Any other device raises.
     """
     if damp.device.type == "cpu":
@@ -512,21 +574,22 @@ def fused_elastic_loss_grad_meds(meds, damp, wavelet, src_z, src_x, rcv_z,
     if damp.device.type != "cuda":
         raise ValueError(f"fused_elastic_loss_grad_meds: no kernel for "
                          f"device {damp.device}")
-    return _loss_grad_meds(_loss_gmeds_cuda, meds, damp, wavelet, src_z,
-                           src_x, rcv_z, rcv_x, cfg, obs_rows_x, obs_rows_z,
-                           KC, misfit)
+    return _loss_grad_meds(partial(_loss_gmeds_cuda, route=route), meds,
+                           damp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
+                           obs_rows_x, obs_rows_z, KC, misfit)
 
 
-fused_elastic_loss_grad_meds.launches = 0
+reset_launches(fused_elastic_loss_grad_meds)
 
 
 def fused_elastic_loss_grad(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
                             rcv_x, cfg: ElasticConfig, obs_rows_x,
                             obs_rows_z, *, KC: int = 8, misfit: str = "l2",
-                            wrt=("vp", "vs")):
+                            wrt=("vp", "vs"), route=None):
     """(loss, {field: dJ/dfield} over ``wrt``): the kernel's medium
     gradients pulled back to (vp, vs, rho) by ``torch.autograd``
-    through :func:`prep_medium` (the JAX package uses ``jax.vjp``)."""
+    through :func:`prep_medium` (the JAX package uses ``jax.vjp``).
+    ``route`` is :func:`fused_elastic_loss_grad_meds`'s."""
     fields = [a.detach().to(torch.float32).requires_grad_()
               for a in (vp, vs, rho)]
     damp = prep_damp(cfg, vp.device)
@@ -534,7 +597,7 @@ def fused_elastic_loss_grad(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
         meds = prep_medium(*fields, cfg)
     loss, gmeds = fused_elastic_loss_grad_meds(
         meds, damp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg, obs_rows_x,
-        obs_rows_z, KC=KC, misfit=misfit)
+        obs_rows_z, KC=KC, misfit=misfit, route=route)
     grads = torch.autograd.grad(meds, fields, grad_outputs=gmeds)
     named = dict(zip(("vp", "vs", "rho"), grads))
     return loss, {k: named[k] for k in wrt}

@@ -185,20 +185,23 @@ class ResidentPlan:
     """Launch plan of the resident route for one [nz8, nx128] grid: one
     thread-block cluster of ``cluster`` CTAs per shot, CTA r owning rows
     [r R, min((r+1) R, nz8)) (R = ``band_rows``) across the full width,
-    each of its ``threads`` threads a block of ROWS_PER_THREAD rows of
-    COLS_PER_THREAD columns, with ``smem_bytes`` of dynamic shared
-    memory (two field buffers with 2 halo rows and 4 zero columns each
-    side, and the band's K, d+ and d-)."""
+    each of its ``threads`` threads a block of ``rows_per_thread`` rows,
+    with ``smem_bytes`` of dynamic shared memory.  For B1, B2, B4a and
+    B4b a thread's block is ROWS_PER_THREAD rows of COLS_PER_THREAD
+    columns, and the shared memory holds two field buffers with 2 halo
+    rows and 4 zero columns each side and the band's K, d+ and d-; B3's
+    plan is :func:`elastic_fused.elastic_resident_plan`'s."""
 
     cluster: int
     band_rows: int
     threads: int
     smem_bytes: int
+    rows_per_thread: int = ROWS_PER_THREAD
 
     def args(self) -> tuple[int, ...]:
         """The plan as the C entry points take it."""
-        return (self.cluster, self.band_rows, ROWS_PER_THREAD, self.threads,
-                self.smem_bytes)
+        return (self.cluster, self.band_rows, self.rows_per_thread,
+                self.threads, self.smem_bytes)
 
     def bands(self, nz8: int) -> list[tuple[int, int]]:
         """Each CTA's rows as [start, stop)."""
@@ -227,15 +230,17 @@ def resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     return None
 
 
-def pick_route(what: str, nz8: int, nx128: int, route=None):
+def pick_route(what: str, nz8: int, nx128: int, route=None,
+               plan_fn=resident_plan):
     """(route, plan) for a launch: ``route`` None takes the resident
-    route where :func:`resident_plan` holds the grid and the per-step
-    route elsewhere; "resident" (raises where no plan holds it) or
-    "per_step" choose."""
+    route where ``plan_fn`` (the kernel family's planner, by default
+    :func:`resident_plan`) holds the grid and the per-step route
+    elsewhere; "resident" (raises where no plan holds it) or "per_step"
+    choose."""
     if route not in (None, *ROUTES):
         raise ValueError(f"{what}: route must be one of {ROUTES}, not "
                          f"{route!r}")
-    plan = resident_plan(nz8, nx128)
+    plan = plan_fn(nz8, nx128)
     if route is None:
         route = "resident" if plan is not None else "per_step"
     if route == "resident" and plan is None:

@@ -13,11 +13,15 @@ It prints, and writes as JSON:
 2. the first stage's data (low-pass and row layout), which the first
    physics epoch builds;
 3. a device trace of kernel B3 (``torch.profiler``, CUDA activity only)
-   at the slice shape: device time and launches by kernel, the busy
-   share of the call;
-4. ``marmousi_elastic`` physics epochs through the engine: host wall per
-   epoch and the device time by kernel family (B3's kernels against
-   everything else) over a traced window.
+   at the slice shape on each of its routes: device time and launches
+   by kernel (on the resident route the forward sweep
+   ``el_fwd_resident``, the misfit ``el_misfit_cols`` and the reverse
+   sweep ``el_rev_resident`` separately), the busy share of the call;
+4. ``marmousi_elastic`` physics epochs through the engine (B3 on the
+   route it takes by shape, the resident one): host wall per epoch, the
+   device time by kernel family (B3's kernels against everything else)
+   and the busy share over a traced window, B3's launches by route and
+   the epochs' peak device memory.
 
 Numbers from a CPU run would not be device numbers, so the script
 refuses to run without a card.
@@ -85,8 +89,9 @@ def _trace(fn):
 
 
 def _short(name: str) -> str:
-    for k in ("el_fwd_v", "el_fwd_s", "el_adj_v", "el_adj_s",
-              "el_misfit_cols", "sum_shots5", "sum_loss"):
+    for k in ("el_fwd_resident", "el_rev_resident", "el_fwd_v", "el_fwd_s",
+              "el_adj_v", "el_adj_s", "el_misfit_cols", "sum_shots5",
+              "sum_loss"):
         if k in name:
             return k
     if "Memcpy" in name or "memcpy" in name:
@@ -116,6 +121,7 @@ def main(argv=None) -> int:
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
         fused_elastic_loss_grad_meds, prep_damp, prep_medium,
         simulate_elastic_ring)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -170,37 +176,40 @@ def main(argv=None) -> int:
     damp = prep_damp(wl.cfg, dev)
     geom = tuple(a[idx] for a in wl.geom)
 
-    def b3():
+    def b3(route):
         return fused_elastic_loss_grad_meds(
             meds, damp, pd["wav"], *geom, wl.cfg, pd["orx"][idx],
-            pd["orz"][idx], KC=8, misfit=cfg.misfit)
+            pd["orz"][idx], KC=8, misfit=cfg.misfit, route=route)
 
-    b3()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        b3()
-    stop.record()
-    torch.cuda.synchronize()
-    ms_b3 = start.elapsed_time(stop) / 3
-    k_ns, k_n, window = _trace(lambda: [b3() for _ in range(2)])
-    by = collections.defaultdict(lambda: [0.0, 0])
-    for name, v in k_ns.items():
-        by[_short(name)][0] += v / 2e6
-        by[_short(name)][1] += k_n[name] // 2
-    busy = sum(k_ns.values())
-    report["b3"] = {"ms_per_call": ms_b3,
-                    "traced_ms_per_call": window / 2e6,
-                    "busy_share": busy / window if window else None,
-                    "per_call_by_kernel": {k: {"ms": v[0], "launches": v[1]}
-                                           for k, v in sorted(
-                                               by.items(),
-                                               key=lambda kv: -kv[1][0])}}
-    print("B3:", json.dumps(report["b3"]))
+    report["b3"] = {}
+    for route in ("resident", "per_step"):
+        b3(route)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            b3(route)
+        stop.record()
+        torch.cuda.synchronize()
+        ms_b3 = start.elapsed_time(stop) / 3
+        k_ns, k_n, window = _trace(lambda: [b3(route) for _ in range(2)])
+        by = collections.defaultdict(lambda: [0.0, 0])
+        for name, v in k_ns.items():
+            by[_short(name)][0] += v / 2e6
+            by[_short(name)][1] += k_n[name] // 2
+        busy = sum(k_ns.values())
+        report["b3"][route] = {
+            "ms_per_call": ms_b3, "traced_ms_per_call": window / 2e6,
+            "busy_share": busy / window if window else None,
+            "per_call_by_kernel": {k: {"ms": v[0], "launches": v[1]}
+                                   for k, v in sorted(
+                                       by.items(), key=lambda kv: -kv[1][0])}}
+        print(f"B3 ({route} route):", json.dumps(report["b3"][route]))
 
     # 4. physics epochs through the engine
     epoch = cfg.lstart
+    reset_launches(fused_elastic_loss_grad_meds)
+    torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(2):
         epoch += 1
         engine.optimize_parameters(epoch, freq=fc)
@@ -223,8 +232,12 @@ def main(argv=None) -> int:
                        "traced_ms_per_epoch": e_window / 2e6,
                        "busy_share": (sum(e_ns.values()) / e_window
                                       if e_window else None),
-                       "device_ms_per_epoch": dict(fam)}
+                       "device_ms_per_epoch": dict(fam),
+                       "b3_launches_resident_per_step": (
+                           fused_elastic_loss_grad_meds.resident_launches,
+                           fused_elastic_loss_grad_meds.per_step_launches)}
     print("epoch:", json.dumps(report["epoch"]))
+    # since the reset before the epochs: the epochs' peak
     report["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -469,3 +469,100 @@ def test_grid_beyond_the_plan_takes_the_per_step_route(dev):
     assert rel_l2(gk, gp) <= 1e-4
     with pytest.raises(ValueError, match="no resident plan"):
         forward2(vp, wav, *geom, cfg, route="resident")
+
+
+# ---------------------------------------------------------------------------
+# B3's resident route (one thread-block cluster per shot)
+# ---------------------------------------------------------------------------
+
+def _el_edge_geom(dev, ns, top):
+    """``ns`` shots on the elastic case's grid (top pad ``top``), each
+    with its source on one band's edge row and its receivers on the
+    neighbouring band's (padded rows 15/16, 23/24, 31/32)."""
+    src = np.array([15, 16, 23, 24, 31][:ns], np.int32) - top
+    rcv = np.array([16, 15, 24, 23, 32][:ns], np.int32) - top
+    src_x = np.linspace(3, 44, ns).astype(np.int32)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        src, src_x, np.repeat(rcv[:, None], 8, axis=1),
+        np.tile(np.arange(8, dtype=np.int32) * 6 + 2, (ns, 1))))
+
+
+@pytest.fixture(scope="module", params=[(True, 1), (True, 5), (False, 1),
+                                        (False, 5)],
+                ids=["free_surface-1_shot", "free_surface-5_shots",
+                     "absorbing_top-1_shot", "absorbing_top-5_shots"])
+def el_res_case(dev, request):
+    free_surface, ns = request.param
+    grid, cfg, wargs, med, _ = elastic_case(free_surface=free_surface)
+    grid = dict(grid, nt=60)   # KC 8 and 16 both pad to 64 steps
+    cfg = torch_elastic(grid, cfg)
+    top = 2 if free_surface else 8
+    nz8, nx128 = ef._layout(cfg)[4:]
+    plan = ef.elastic_resident_plan(nz8, nx128)
+    assert plan.cluster == (6 if free_surface else 7)
+    med = tuple(torch.as_tensor(a, device=dev) for a in med)
+    return (cfg, ricker(wargs[0], 60, wargs[2], device=dev), med,
+            _el_edge_geom(dev, ns, top))
+
+
+@pytest.mark.parametrize("KC", [8, 16])
+@pytest.mark.parametrize("misfit", ["l2", "tnl1"])
+def test_resident_b3_matches_per_step_and_plain(el_res_case, misfit, KC):
+    cfg, wav, med, geom = el_res_case
+    obs = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    if misfit == "tnl1":
+        obs = tuple(trace_normalize(o) for o in obs)
+    rows = [ef.scatter_rows_el(o, geom[3], cfg, KC=KC) for o in obs]
+    meds = ef.prep_medium(med[0] * 0.9, med[1], med[2], cfg)
+    damp = ef.prep_damp(cfg, wav.device)
+    args = (meds, damp, wav, *geom, cfg, *rows)
+    fn = ef.fused_elastic_loss_grad_meds
+    before = _routes(fn)
+    lr, gr = fn(*args, KC=KC, misfit=misfit)
+    ls, gs = fn(*args, KC=KC, misfit=misfit, route="per_step")
+    torch.cuda.synchronize()
+    assert _routes(fn) == (before[0] + 1, before[1] + 1)
+    # the same per-cell functions on both routes: the same bits
+    assert torch.equal(lr, ls)
+    assert all(torch.equal(a, b) for a, b in zip(gr, gs))
+    assert float(lr) > 0 and all(float(a.abs().max()) > 0 for a in gr)
+    lp, gp = ef.fused_elastic_loss_grad_meds_plain(*args, KC=KC,
+                                                   misfit=misfit)
+    # float32 rounding in another order: loss 1e-5, gradients 1e-4 rel L2
+    np.testing.assert_allclose(float(lr), float(lp), rtol=1e-5)
+    for a, b in zip(gr, gp):
+        assert rel_l2(a, b) <= 1e-4
+
+
+def test_b3_grid_beyond_the_plan_takes_the_per_step_route(dev):
+    # 46 x 416 padded to 48 x 512: wider than the plan's 384 threads
+    grid = dict(nz=36, nx=400, dx=15.0, nt=24, dt=0.0015, pml_width=8,
+                free_surface=True)
+    cfg = torch_elastic(grid, dict(chunk=16, vmax_pml=4000.0))
+    assert ef._layout(cfg)[4:] == (48, 512)
+    assert ef.elastic_resident_plan(48, 512) is None
+    rng = np.random.default_rng(3)
+    med = tuple(torch.as_tensor(
+        (v * (1.0 + 0.02 * rng.standard_normal((36, 400)))).astype(
+            np.float32), device=dev) for v in (2000.0, 1100.0, 2100.0))
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.array([5, 5], np.int32), np.array([60, 300], np.int32),
+        np.full((2, 8), 5, np.int32),
+        np.tile(np.arange(8, dtype=np.int32) * 48 + 10, (2, 1))))
+    wav = ricker(12.0, 24, 0.0015, device=dev)
+    rows = [ef.scatter_rows_el(o, geom[3], cfg, KC=8)
+            for o in ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)]
+    meds = ef.prep_medium(med[0] * 0.95, med[1], med[2], cfg)
+    damp = ef.prep_damp(cfg, dev)
+    args = (meds, damp, wav, *geom, cfg, *rows)
+    fn = ef.fused_elastic_loss_grad_meds
+    before = _routes(fn)
+    lk, gk = fn(*args, KC=8)
+    torch.cuda.synchronize()
+    assert _routes(fn) == (before[0], before[1] + 1)
+    lp, gp = ef.fused_elastic_loss_grad_meds_plain(*args, KC=8)
+    np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
+    for a, b in zip(gk, gp):
+        assert rel_l2(a, b) <= 1e-4
+    with pytest.raises(ValueError, match="no resident plan"):
+        fn(*args, KC=8, route="resident")

@@ -38,9 +38,10 @@
 // cotangent in different places (registers across steps, or memory
 // between launches), and which product the compiler fuses into an FMA
 // otherwise follows the surrounding code (the difference showed in the
-// sponge, where damp < 1 makes a product inexact).  The checkpoint interval KC and the layouts of
-// the checkpoints [n_ck, ns, 5, F] and the cache [KC, ns, 5, F] are this
-// port's own; results differ from the Pallas kernel only by rounding.
+// sponge, where damp < 1 makes a product inexact).  The checkpoint
+// interval KC and the layouts of the checkpoints [n_ck, ns, 5, F] and the
+// cache [KC, ns, 5, F] are this port's own; results differ from the
+// Pallas kernel only by rounding.
 //
 // Two routes; ops/elastic_fused.py picks one by shape before any launch
 // (elastic_resident_plan) and counts each route's launches.
@@ -107,7 +108,17 @@
 // sweep ~10-13 ms and the reverse sweep ~27-37 ms: B3 ~40-55 ms per call
 // (from ~128) and a marmousi_elastic physics epoch ~0.07-0.09 s (from
 // 0.145-0.163).  Registers bound the reverse kernel (80 live floats a
-// thread for the cotangent and the gradients).
+// thread for the cotangent and the gradients).  Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (chip_smoke.py, profile_torch.py; PERF.md):
+// forward sweep 14.9-15.0 ms (4.5 us a step), reverse sweep 49.9-50.1 ms
+// (15.0 us a recompute + adjoint pair), B3 67.1-71.2 ms against the
+// per-step route's 126.6-129.8 on the same inputs, bit-equal; physics
+// epochs 0.090-0.104 s.  The prediction was not met by a third.  The
+// reverse kernel takes the 168 registers it may and spills 320 B a
+// thread; loading the cached terms a phase ahead of their use (so that
+// a barrier hides their L2 latency) changed nothing (70.8-71.1 ms
+// against 70.2-70.6, more spills), so L2 latency is not what bounds it.
+// 7 clusters of 16 CTAs can be resident at once (5 needed).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -59,8 +59,8 @@ from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig, _staggered_medium,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-    SMEM_LIMIT, ResidentPlan, _round_up, count_launch, pick_route,
-    reset_launches,
+    SMEM_LIMIT, ResidentPlan, _round_up, check_tensors, count_launch,
+    pick_route, reset_launches,
 )
 from physicsbasedfwi2_tpu_torch.ops.stencil import _shift
 
@@ -376,16 +376,6 @@ def _rows_plain(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx):
 # CUDA kernels (csrc/elastic.cu)
 # ---------------------------------------------------------------------------
 
-def _check_inputs(what, dev, specs):
-    for name, a, dtype, shape in specs:
-        if a.device != dev or a.dtype != dtype or not a.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
-                             f"tensor on {dev}")
-        if shape is not None and tuple(a.shape) != shape:
-            raise ValueError(f"{what}: {name} has shape {tuple(a.shape)}, "
-                             f"expected {shape}")
-
-
 def elastic_resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     """The resident plan of kernel B3 for an [nz8, nx128] grid, or None
     where it cannot hold the grid (the per-step route runs): nz8 / 8
@@ -427,7 +417,7 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
     dev = damp.device
     f32, i32 = torch.float32, torch.int32
     med = torch.stack(meds).contiguous()
-    _check_inputs("fused_elastic_loss_grad_meds", dev, (
+    check_tensors("fused_elastic_loss_grad_meds", dev, (
         ("meds", med, f32, (5, nz8, nx128)), ("damp", damp, f32, None),
         ("wavelet", wav, f32, None), ("src_z", sz, i32, (ns,)),
         ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,)),
@@ -480,7 +470,7 @@ def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx):
     dev = damp.device
     f32, i32 = torch.float32, torch.int32
     med = torch.stack(meds).contiguous()
-    _check_inputs("simulate_elastic_ring", dev, (
+    check_tensors("simulate_elastic_ring", dev, (
         ("meds", med, f32, (5, nz8, nx128)), ("damp", damp, f32, None),
         ("wavelet", wav, f32, (ns, wav.shape[1])),
         ("src_z", sz, i32, (ns,)), ("src_x", sx, i32, (ns,)),
@@ -585,11 +575,10 @@ reset_launches(fused_elastic_loss_grad_meds)
 def fused_elastic_loss_grad(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
                             rcv_x, cfg: ElasticConfig, obs_rows_x,
                             obs_rows_z, *, KC: int = 8, misfit: str = "l2",
-                            wrt=("vp", "vs"), route=None):
+                            wrt=("vp", "vs")):
     """(loss, {field: dJ/dfield} over ``wrt``): the kernel's medium
     gradients pulled back to (vp, vs, rho) by ``torch.autograd``
-    through :func:`prep_medium` (the JAX package uses ``jax.vjp``).
-    ``route`` is :func:`fused_elastic_loss_grad_meds`'s."""
+    through :func:`prep_medium` (the JAX package uses ``jax.vjp``)."""
     fields = [a.detach().to(torch.float32).requires_grad_()
               for a in (vp, vs, rho)]
     damp = prep_damp(cfg, vp.device)
@@ -597,7 +586,7 @@ def fused_elastic_loss_grad(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
         meds = prep_medium(*fields, cfg)
     loss, gmeds = fused_elastic_loss_grad_meds(
         meds, damp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg, obs_rows_x,
-        obs_rows_z, KC=KC, misfit=misfit, route=route)
+        obs_rows_z, KC=KC, misfit=misfit)
     grads = torch.autograd.grad(meds, fields, grad_outputs=gmeds)
     named = dict(zip(("vp", "vs", "rho"), grads))
     return loss, {k: named[k] for k in wrt}

@@ -50,12 +50,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version in float32 and float64;
 8. kernels B5 (``acoustic_forward_pallas``) and B6
    (``acoustic_pallas_backward``) the same way through
-   ``acoustic_pallas``, and B5 against ``simulate_acoustic``;
+   ``acoustic_pallas``, and B5 against ``simulate_acoustic``; their
+   resident plan and how many of its clusters the card keeps resident,
+   each one's two routes timed in turns and held to bit equality (B5's
+   traces, B6's checkpoints and dJ/dvp), B6's peak memory on each route,
+   and a device trace of one B6 call on each route (the forward sweep,
+   then the recompute and adjoint);
 9. the differentiable propagators' path at full width: the workload
    built with ``backend="pallas"`` (B5), the direct wave from
    ``select_acoustic("auto")``, then 3 model-pixel FWI iterations of
    the trace-normalized L1 loss through ``acoustic_pallas`` (B5 + B6)
-   and 3 through ``acoustic_pallas2`` (B4a + B4b);
+   and 3 through ``acoustic_pallas2`` (B4a + B4b), every launch on the
+   resident route, with each propagator's peak memory;
 10. the acoustic engine's non-fused path: ``train(get_workload(
     "marmousi_acoustic", backend="xla"), epochs=1)`` at full width
     (plain PyTorch autograd through ``simulate_acoustic``, no kernel);
@@ -82,9 +88,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (B1, B2, B3, B4a and B4b: ``ms`` on the resident
-route, ``per_step_ms`` on the per-step one); the last line is the
-result object.  The
+error, times and bound (B1-B6: ``ms`` on the resident route,
+``per_step_ms`` on the per-step one); the last line is the result
+object.  The
 script never falls back to the CPU or to the plain versions.
 """
 
@@ -170,7 +176,7 @@ def _flat(out) -> tuple:
 
 def route_turns(name: str, fn, steps: int, repeats: int = 2,
                 exact: bool = False) -> dict:
-    """Time ``fn(route)`` on both routes of B1/B2/B3/B4a/B4b in turns
+    """Time ``fn(route)`` on both routes of B1-B6 in turns
     (per-step, resident, resident, per-step; each turn a warm-up call
     and ``repeats`` timed ones), print each route's ms and us per time
     step (``steps`` of them per call) and how far the two outputs are
@@ -212,6 +218,20 @@ def cluster_report(ns: int) -> None:
     rev = scalar2.max_active_clusters(plan, ns, 192, 256, reverse=True)
     print(f"resident plan for {ns} shots on 192 x 256: {plan}; clusters "
           f"resident at once: forward {fwd}, reverse {rev} (of {ns})")
+
+
+def ac_cluster_report(ns: int) -> None:
+    """The flagship grid's resident plan of B5/B6 and how many of its
+    clusters the card keeps resident (cudaOccupancyMaxActiveClusters)."""
+    from physicsbasedfwi2_tpu_torch.ops import kernels
+    plan = kernels.acoustic_resident_plan(192, 256)
+    fwd = kernels.acoustic_max_active_clusters(plan, ns, 192, 256)
+    rev = kernels.acoustic_max_active_clusters(plan, ns, 192, 256,
+                                               reverse=True)
+    print(f"B5/B6 resident plan for {ns} shots on 192 x 256: {plan}; "
+          f"clusters resident at once: forward {fwd}, reverse {rev} (of "
+          f"{ns})")
+    check(min(fwd, rev) >= 1, "B5/B6's resident kernels cannot be resident")
 
 
 def el_cluster_report(ns: int) -> None:
@@ -272,8 +292,10 @@ def phase_card():
                                    "error", ".cu:")):
             print(f"  ptxas: {line.strip()}")
     for line in ptxas_summary(log, ("resident", "misfit_tiles", "fwd_step",
-                                    "adj_step", "el_fwd_", "el_adj_")):
-        print(f"  ptxas, B1/B2/B3/B4 routes: {line}")
+                                    "adj_step", "el_fwd_", "el_adj_",
+                                    "fwd_vel", "fwd_pres", "adj_vel",
+                                    "adj_pres")):
+        print(f"  ptxas, B1-B6 routes: {line}")
     cuda_build.load_library()
 
 
@@ -940,20 +962,27 @@ def phase_b4(dev):
 def phase_b56(dev):
     """B5 against its plain version and simulate_acoustic; B6 and the
     gradient of mean((pred - obs)^2) through acoustic_pallas, obs from
-    the true model, at the smooth starting model."""
+    the true model, at the smooth starting model; each kernel's two
+    routes in turns, bit-equal (B6's checkpoints too), B6's peak memory
+    and a device trace of one B6 call on each route."""
     import torch
     from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
     from physicsbasedfwi2_tpu_torch.ops.adjoint import (
-        acoustic_pallas, acoustic_pallas_backward,
+        K_CKPT, _checkpoints_cuda, acoustic_pallas, acoustic_pallas_backward,
         acoustic_pallas_backward_plain)
     from physicsbasedfwi2_tpu_torch.ops.kernels import (
-        acoustic_forward_pallas, acoustic_forward_pallas_plain)
+        acoustic_forward_pallas, acoustic_forward_pallas_plain, operands)
     from physicsbasedfwi2_tpu_torch.ops.scalar2 import scatter_rows
     cfg, wav, geom, vp, vp0 = flagship_case(dev)
     g = cfg.grid
     shape = f"[18 shots, nt {g.nt}]"
-    recs, ms_k = timed_ms(lambda: acoustic_forward_pallas(vp0, wav, *geom,
-                                                          cfg))
+    nt_pad = -(-g.nt // K_CKPT) * K_CKPT
+    ac_cluster_report(len(geom[0]))
+    turns5 = route_turns("B5 acoustic_forward_pallas",
+                         lambda r: acoustic_forward_pallas(
+                             vp0, wav, *geom, cfg, route=r), g.nt,
+                         exact=True)
+    recs, ms_k = turns5["out"], turns5["ms"]
     recs_p, ms_p = _plain_ms(lambda: acoustic_forward_pallas_plain(
         vp0, wav, *geom, cfg))
     scale = float(recs_p.abs().max())
@@ -968,7 +997,20 @@ def phase_b56(dev):
     check(bool(torch.isfinite(recs).all()), "B5 traces not finite")
     check(err <= 1e-5 * scale, "B5 disagrees with its plain version")
     check(err_sim <= 5e-3, "B5 disagrees with simulate_acoustic")
-    b5 = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    b5 = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+          "per_step_ms": turns5["per_step_ms"]}
+
+    # B6's forward sweep on each route: the same checkpoints
+    kap, damp, _, amp, sz, sx, rrow = operands(
+        vp0, wav, *geom[:3], cfg, nt_pad=nt_pad, gain="b6")
+    cks = [_checkpoints_cuda(kap, damp, amp, sz, sx, rrow, g.dt / g.dx, r)
+           for r in ("resident", "per_step")]
+    same_ck = torch.equal(*cks)
+    print(f"B6 checkpoints {tuple(cks[0].shape)}: resident and per-step "
+          f"routes bit-equal: {same_ck}")
+    check(same_ck and bool(torch.isfinite(cks[0]).all()),
+          "B6's checkpoints differ between the routes")
+    del cks
 
     obs = acoustic_forward_pallas(vp, wav, *geom, cfg)
     v = vp0.clone().requires_grad_(True)
@@ -978,7 +1020,7 @@ def phase_b56(dev):
     def rows_of(pred):
         ybar = 2.0 * (pred - obs[:len(pred)].to(pred.dtype)) / pred.numel()
         return scatter_rows(ybar, geom[3][:len(pred)], nt=g.nt, nx=g.nx,
-                            pml_width=g.pml_width, KC=16)
+                            pml_width=g.pml_width, KC=K_CKPT)
 
     def grad4(fwd, bwd, **kw):
         g4 = tuple(a[:ACC_SHOTS] for a in geom)
@@ -986,8 +1028,24 @@ def phase_b56(dev):
         return bwd(vp0, wav, *g4, cfg, rows4, **kw)
 
     rows_k = rows_of(recs)
-    gk, ms_bk = timed_ms(lambda: acoustic_pallas_backward(
-        vp0, wav, *geom, cfg, rows_k))
+
+    def b6(route=None):
+        return acoustic_pallas_backward(vp0, wav, *geom, cfg, rows_k,
+                                        route=route)
+
+    turns6 = route_turns("B6 acoustic_pallas_backward", b6, 3 * nt_pad,
+                         exact=True)
+    gk, ms_bk = turns6["out"], turns6["ms"]
+    for route in ("resident", "per_step"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        b6(route)
+        torch.cuda.synchronize()
+        print(f"B6 ({route} route): peak memory "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+              f"above its inputs")
+        phase_trace(f"B6 ({route} route)", lambda: b6(route))
     check(_rel_l2(gk_auto, gk) <= 1e-5,
           "acoustic_pallas's gradient is not B6's")
     gp, ms_bp = _plain_ms(lambda: acoustic_pallas_backward_plain(
@@ -1006,6 +1064,7 @@ def phase_b56(dev):
     io6 = planes + nbytes(wav, *geom, rows_k, gk)
     b5.update(bound(FLOPS_B5 * cells * g.nt, io5), library_ms=None)
     b6 = {"max_abs_err": err_b, "ms": ms_bk, "plain_ms": ms_bp,
+          "per_step_ms": turns6["per_step_ms"],
           **bound((FLOPS_B5 + FLOPS_B6_ADJ) * cells * g.nt, io6),
           "library_ms": None}
     return b5, b6
@@ -1025,9 +1084,7 @@ def phase_slice3(dev):
                 "backward2": scalar2.backward2,
                 "acoustic_forward_pallas": kernels.acoustic_forward_pallas,
                 "acoustic_pallas_backward": adjoint.acoustic_pallas_backward}
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
+    scalar2.reset_launches(*counters.values())
     t0 = time.perf_counter()
     wl = SyntheticAcousticWorkload.build(backend="pallas", device=dev)
     torch.cuda.synchronize()
@@ -1052,6 +1109,7 @@ def phase_slice3(dev):
         with torch.no_grad():
             l_true = float(loss_of(wl.vp_true))
         vp = wl.vp_start.clone()
+        torch.cuda.reset_peak_memory_stats(dev)
         losses, secs = [], []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1068,14 +1126,17 @@ def phase_slice3(dev):
                   f"{name}: gradient not finite or zero")
         print(f"slice 3 {name}: loss at the true model {l_true:.3e} (tol "
               f"1e-6); losses {', '.join(f'{x:.6g}' for x in losses)}; "
-              f"seconds per iteration {', '.join(f'{x:.4f}' for x in secs)}")
+              f"seconds per iteration {', '.join(f'{x:.4f}' for x in secs)}; "
+              f"peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         check(l_true <= 1e-6, f"{name}: loss at the true model")
         check(all(math.isfinite(x) for x in losses), f"{name}: loss")
     launches = {k: fn.launches for k, fn in counters.items()}
-    print(f"slice 3: launches {launches}, peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    per_step = {k: fn.per_step_launches for k, fn in counters.items()}
+    print(f"slice 3: launches {launches}, on the per-step route {per_step}")
     for k, n in launches.items():
         check(n >= 1, f"{k} was not launched on the slice's path")
+        check(per_step[k] == 0, f"{k} left the resident route")
     return launches
 
 

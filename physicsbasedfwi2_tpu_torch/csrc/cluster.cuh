@@ -1,8 +1,10 @@
 // Thread-block cluster helpers of the resident routes: csrc/scalar2.cu
-// (kernels B1, B2, B4a, B4b) and csrc/elastic.cu (kernel B3).  A resident
-// kernel runs one cluster of C CTAs per shot on a grid of (C, ns); its
-// plan comes from the Python side (ops/scalar2.py::resident_plan,
-// ops/elastic_fused.py::elastic_resident_plan), and each source checks it
+// (kernels B1, B2, B4a, B4b), csrc/elastic.cu (kernel B3) and
+// csrc/acoustic.cu (kernels B5, B6).  A resident kernel runs one cluster
+// of C CTAs per shot on a grid of (C, ns); its plan comes from the Python
+// side (ops/scalar2.py::resident_plan,
+// ops/elastic_fused.py::elastic_resident_plan,
+// ops/kernels.py::acoustic_resident_plan), and each source checks it
 // before the launch.
 #pragma once
 

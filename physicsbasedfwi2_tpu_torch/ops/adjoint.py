@@ -17,14 +17,17 @@ to
 then dJ/dvp = kbar 2 vp dt/dx and the edge-pad transpose.
 
 :func:`acoustic_pallas_backward` launches the hand-written CUDA kernel
-(``csrc/acoustic.cu::b6_acoustic_backward``) on CUDA tensors.  Like the
-Pallas kernel it runs its own forward sweep, checkpointing the four
-fields every K = 16 steps, then per chunk recomputes K steps caching
-Dxb(vx), Dzb(vz) and runs K adjoint steps; ``acoustic_pallas``'s
-forward saves only its inputs.  On CPU tensors it runs
-:func:`acoustic_pallas_backward_plain`: autograd through the plain
-forward under :func:`chunked_checkpoint_scan`, which is the same exact
-transpose without a second hand-derived sweep.  On this package the
+(``csrc/acoustic.cu``) on CUDA tensors.  Like the Pallas kernel it runs
+its own forward sweep, checkpointing the four fields every K = 16 steps
+(``b6_checkpoints``), then per chunk recomputes K steps caching Dxb(vx),
+Dzb(vz) and runs K adjoint steps (``b6_adjoint``);
+``acoustic_pallas``'s forward saves only its inputs.  Both sweeps have
+B5's two routes (the resident one wherever
+:func:`kernels.acoustic_resident_plan` holds the grid: one launch a
+sweep; the per-step one elsewhere), with the same arithmetic.  On CPU
+tensors it runs :func:`acoustic_pallas_backward_plain`: autograd
+through the plain forward under :func:`chunked_checkpoint_scan`, which
+is the same exact transpose without a second hand-derived sweep.  On this package the
 names mean the CUDA kernels.
 """
 
@@ -34,49 +37,107 @@ import torch
 
 from physicsbasedfwi2_tpu_torch.ops.acoustic import AcousticConfig
 from physicsbasedfwi2_tpu_torch.ops.kernels import (
-    acoustic_forward_pallas, operands, rows_plain,
+    acoustic_forward_pallas, acoustic_resident_plan, check_operands,
+    damp_profiles, operands, rows_plain,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-    _kernel_route, _vp_grad, check_tensors, scatter_rows,
+    _kernel_route, _vp_grad, count_launch, pick_route, reset_launches,
+    scatter_rows,
 )
 
 K_CKPT = 16  # checkpoint interval of the Pallas kernel
 
 
-def _gk_cuda(kap, damp, wav, src_amp, sz, sx, rrow, ybar, a, inv_dx):
+def _route(kap, route):
+    nz8, nx128 = kap.shape
+    return pick_route("acoustic_pallas_backward", nz8, nx128, route,
+                      acoustic_resident_plan)
+
+
+def _checkpoints_cuda(kap, damp, src_amp, sz, sx, rrow, a, route=None):
+    """B6's forward sweep: the four fields (vx, vz, px, pz) before every
+    K_CKPT-th step, [ns, n_ck, 4, nz8, nx128] (src_amp [ns, n_ck*K])."""
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = src_amp.shape
     n_ck = nt_pad // K_CKPT
     nz8, nx128 = kap.shape
     dev = kap.device
-    f32, i32 = torch.float32, torch.int32
-    check_tensors("acoustic_pallas_backward", dev, (
-        ("kap", kap, f32, None), *((n, d, f32, kap.shape) for n, d in zip(
-            ("ax_v", "az_v", "ax_p", "az_p"), damp)),
-        ("src_amp", src_amp, f32, None), ("src_z", sz, i32, (ns,)),
-        ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,)),
-        ("ybar_rows", ybar, f32, (ns, nt_pad, nx128))))
-    if n_ck * K_CKPT != nt_pad:
-        raise ValueError("acoustic_pallas_backward: rows must be padded to "
-                         f"a multiple of {K_CKPT} steps")
+    route, plan = _route(kap, route)
+    ckpt = torch.empty((ns, n_ck, 4, nz8, nx128), dtype=torch.float32,
+                       device=dev)
     lib = cuda_build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = [t.data_ptr() for t in (src_amp, sz, sx, rrow)]
+    if route == "resident":
+        err = lib.b6_checkpoints_resident(
+            kap.data_ptr(), *(t.data_ptr() for t in damp_profiles(damp)),
+            *ptr, ckpt.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT,
+            *plan.args(), a, stream)
+        cuda_build.check(err, "b6_checkpoints_resident")
+    else:
+        st = torch.empty((ns, 4, nz8, nx128), dtype=torch.float32,
+                         device=dev)
+        err = lib.b6_checkpoints(
+            kap.data_ptr(), *(d.data_ptr() for d in damp), *ptr,
+            st.data_ptr(), ckpt.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT, a,
+            stream)
+        cuda_build.check(err, "b6_checkpoints")
+    return ckpt
+
+
+def _adjoint_cuda(kap, damp, wav, src_amp, sz, sx, rrow, ybar, ckpt, a,
+                  inv_dx, route=None):
+    """B6's reverse sweep from ``ckpt``: dJ/dkap [nz8, nx128]."""
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    ns, nt_pad = src_amp.shape
+    n_ck = nt_pad // K_CKPT
+    nz8, nx128 = kap.shape
+    dev = kap.device
+    route, plan = _route(kap, route)
     dg = (wav * inv_dx).contiguous()
 
     def buf(*lead):
-        return torch.empty(lead + (nz8, nx128), dtype=f32, device=dev)
+        return torch.empty(lead + (nz8, nx128), dtype=torch.float32,
+                           device=dev)
 
-    st, ast = buf(ns, 4), buf(ns, 4)
-    ckpt = buf(ns, n_ck, 4)
     dxv, dzv = buf(ns, K_CKPT), buf(ns, K_CKPT)
     gk_shots, gk = buf(ns), buf()
+    lib = cuda_build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in (kap, *damp, src_amp, dg, sz, sx, rrow,
-                                   ybar, st, ast, ckpt, dxv, dzv, gk_shots,
-                                   gk)]
-    err = lib.b6_acoustic_backward(*ptrs, ns, nz8, nx128, n_ck, K_CKPT, a,
-                                   stream)
-    cuda_build.check(err, "b6_acoustic_backward")
-    acoustic_pallas_backward.launches += 1
+    ptr = [t.data_ptr() for t in (src_amp, dg, sz, sx, rrow, ybar, ckpt)]
+    out = [t.data_ptr() for t in (dxv, dzv)]
+    if route == "resident":
+        stash = buf(ns, 4)
+        err = lib.b6_adjoint_resident(
+            kap.data_ptr(), *(t.data_ptr() for t in damp_profiles(damp)),
+            *ptr, *out, stash.data_ptr(), gk_shots.data_ptr(),
+            gk.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT, *plan.args(), a,
+            stream)
+        cuda_build.check(err, "b6_adjoint_resident")
+    else:
+        st, ast = buf(ns, 4), buf(ns, 4)
+        err = lib.b6_adjoint(
+            kap.data_ptr(), *(d.data_ptr() for d in damp), *ptr,
+            st.data_ptr(), ast.data_ptr(), *out, gk_shots.data_ptr(),
+            gk.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT, a, stream)
+        cuda_build.check(err, "b6_adjoint")
+    return gk
+
+
+def _gk_cuda(kap, damp, wav, src_amp, sz, sx, rrow, ybar, a, inv_dx,
+             route=None):
+    ns, nt_pad = src_amp.shape
+    check_operands("acoustic_pallas_backward", kap, damp, src_amp, sz, sx,
+                   rrow, ("ybar_rows", ybar, torch.float32,
+                          (ns, nt_pad, kap.shape[1])))
+    if nt_pad % K_CKPT:
+        raise ValueError("acoustic_pallas_backward: rows must be padded to "
+                         f"a multiple of {K_CKPT} steps")
+    route, _ = _route(kap, route)
+    ckpt = _checkpoints_cuda(kap, damp, src_amp, sz, sx, rrow, a, route)
+    gk = _adjoint_cuda(kap, damp, wav, src_amp, sz, sx, rrow, ybar, ckpt, a,
+                       inv_dx, route)
+    count_launch(acoustic_pallas_backward, route)
     return gk
 
 
@@ -106,15 +167,19 @@ def acoustic_pallas_backward_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def acoustic_pallas_backward(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-                             cfg: AcousticConfig, ybar_rows):
+                             cfg: AcousticConfig, ybar_rows, *, route=None):
     """dJ/dvp [nz, nx] for receiver-row cotangents ``ybar_rows``
     [ns, nt_pad, nx128] (nt_pad = nt rounded up to 16 steps; every row
     injected): the exact transpose of :func:`acoustic_forward_pallas`'s
     scheme, the chain rule kap = vp^2 dt/dx and the edge-pad transpose
     (port of ``_pallas_backward``).
 
-    On a CUDA ``vp`` this launches kernel B6
-    (``acoustic_pallas_backward.launches`` counts the launches); on a
+    On a CUDA ``vp`` this launches kernel B6 (both sweeps) on the route
+    that ``scalar2.pick_route`` gives ``route`` with
+    ``kernels.acoustic_resident_plan`` (by default the resident route
+    where that plan holds the grid);
+    ``acoustic_pallas_backward.launches`` counts the launches,
+    ``resident_launches`` and ``per_step_launches`` each route's.  On a
     CPU ``vp`` it runs :func:`acoustic_pallas_backward_plain`.  Any
     other device raises.
     """
@@ -126,11 +191,11 @@ def acoustic_pallas_backward(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
         vp, wavelet, src_z, src_x, rcv_z, cfg, nt_pad=ybar_rows.shape[1],
         gain="b6")
     gk = _gk_cuda(kap, damp, wav, src_amp, sz, sx, rrow, ybar_rows,
-                  g.dt * (1.0 / g.dx), 1.0 / g.dx)
+                  g.dt * (1.0 / g.dx), 1.0 / g.dx, route)
     return _vp_grad(gk, vp, cfg, g.dt / g.dx)
 
 
-acoustic_pallas_backward.launches = 0
+reset_launches(acoustic_pallas_backward)
 
 
 class _AcousticPallas(torch.autograd.Function):

@@ -4,11 +4,11 @@
 B2, B4a and B4b; ``elastic.cu``: kernel B3; ``acoustic.cu``: kernels B5
 and B6; ``scalar2b.cu``: kernels B7a and B7b; ``elastic_fwd.cu``: kernel
 B8; ``cluster.cuh``: the helpers of the resident routes, included by
-``scalar2.cu`` and ``elastic.cu``) for ``sm_90a``, one process per
-source, all started together, and links the objects into one shared
-library with a plain C interface, which ``ctypes`` loads.  The build
-runs at first use, never at import, into ``build/torch_kernels/`` at
-the root of the checkout (git-ignored; ``PBFWI_TORCH_BUILD_DIR``
+``scalar2.cu``, ``elastic.cu`` and ``acoustic.cu``) for ``sm_90a``, one
+process per source, all started together, and links the objects into
+one shared library with a plain C interface, which ``ctypes`` loads.
+The build runs at first use, never at import, into
+``build/torch_kernels/`` at the root of the checkout (git-ignored; ``PBFWI_TORCH_BUILD_DIR``
 overrides it).  The library's file name carries a hash of the sources,
 so an edited source is rebuilt and a stale library is never loaded.
 """
@@ -53,7 +53,13 @@ _SIGNATURES = {
     "pbfwi_b3_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
     # csrc/acoustic.cu
     "b5_acoustic_forward": [_P] * 11 + [_I] * 4 + [_F, _P],
-    "b6_acoustic_backward": [_P] * 18 + [_I] * 5 + [_F, _P],
+    "b6_checkpoints": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "b6_adjoint": [_P] * 18 + [_I] * 5 + [_F, _P],
+    # their resident route (sizes, then the plan)
+    "b5_acoustic_forward_resident": [_P] * 8 + [_I] * 9 + [_F, _P],
+    "b6_checkpoints_resident": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "b6_adjoint_resident": [_P] * 15 + [_I] * 10 + [_F, _P],
+    "pbfwi_b56_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
     # csrc/scalar2b.cu
     "b7a_forward2b": [_P] * 11 + [_I] * 6 + [_P],
     "b7b_backward2b": [_P] * 17 + [_I] * 5 + [_P],

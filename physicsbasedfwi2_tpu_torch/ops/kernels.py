@@ -17,15 +17,22 @@ full row is recorded every step and the host gathers the receiver
 columns.
 
 :func:`acoustic_forward_pallas` launches the hand-written CUDA kernel
-(``csrc/acoustic.cu::b5_acoustic_forward``) on CUDA tensors and runs
+(``csrc/acoustic.cu``) on CUDA tensors and runs
 :func:`acoustic_forward_pallas_plain`, the same scheme (ring,
 association, order) batched over shots in plain PyTorch, on CPU
 tensors.  The plain version is not :func:`simulate_acoustic`, which has
-no ring and associates 1/dx differently.  On this package the name
-means the CUDA kernel.
+no ring and associates 1/dx differently.  The kernel has two routes
+with the same arithmetic (bit-equal results), chosen by shape before
+any launch: the resident one (``b5_acoustic_forward_resident``, one
+thread-block cluster per shot holding the fields in shared memory for
+the whole sweep), wherever :func:`acoustic_resident_plan` holds the
+grid, and the per-step one (``b5_acoustic_forward``, two launches a
+time step) elsewhere.  On this package the name means the CUDA kernel.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -34,7 +41,8 @@ from physicsbasedfwi2_tpu_torch.ops.acoustic import (
     AcousticConfig, _damping, _pad_model, edge_pad,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-    _gather_cols, _kernel_route, _round_up, check_tensors,
+    ResidentPlan, _gather_cols, _kernel_route, _round_up, band_plan,
+    check_tensors, count_launch, pick_route, reset_launches,
 )
 from physicsbasedfwi2_tpu_torch.ops.scan_utils import chunked_checkpoint_scan
 from physicsbasedfwi2_tpu_torch.ops.stencil import _shift
@@ -160,26 +168,94 @@ def rows_plain(kap, damp, src_amp, sz, sx, rrow, a: float, *,
     return hist.permute(1, 0, 2)
 
 
-def _rows_cuda(kap, damp, src_amp, sz, sx, rrow, a: float):
+# ---------------------------------------------------------------------------
+# Routes of the CUDA kernels B5 and B6 (csrc/acoustic.cu)
+# ---------------------------------------------------------------------------
+
+AC_PLANES = 4  # field planes a resident CTA holds (B6's adjoint needs 4)
+
+
+def acoustic_resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
+    """The resident plan of kernels B5 and B6 for an [nz8, nx128] grid,
+    or None where no plan holds it (the per-step route runs): the
+    smallest cluster whose bands fit (``scalar2.band_plan``), with
+    shared memory for AC_PLANES field planes with 2 halo rows and 4
+    zero columns each side, the band's kap and its rows' az_v and az_p
+    (:func:`damp_profiles`; each thread holds its columns' ax_v and ax_p
+    in registers).  At the flagship 192 x 256 that is 5 CTAs of 40 rows,
+    512 threads and 227,136 B."""
+    return band_plan(nz8, nx128, lambda H, R: 4 * (
+        AC_PLANES * (H + 4) * (nx128 + 8) + R * nx128 + 2 * R))
+
+
+def damp_profiles(damp):
+    """The four ring-masked decay factors [nz8, nx128] as the resident
+    kernels read them: ([2, nx128] ax_v, ax_p on the ring's rows, 0 off
+    its columns; [2, nz8] az_v, az_p on the ring's columns, 0 off its
+    rows).  Each factor is its profile times the 0/1 ring, so the
+    kernels rebuild every value exactly: ax(i, j) = x[j] where az_v's
+    profile is nonzero at row i, else 0 (and az the same way round)."""
+    ax_v, az_v, ax_p, az_p = damp
+    return (torch.stack((ax_v.amax(0), ax_p.amax(0))).contiguous(),
+            torch.stack((az_v.amax(1), az_p.amax(1))).contiguous())
+
+
+def acoustic_max_active_clusters(plan: ResidentPlan, ns: int, nz8: int,
+                                 nx128: int, *,
+                                 reverse: bool = False) -> int:
+    """cudaOccupancyMaxActiveClusters of B5/B6's resident forward (or
+    reverse) kernel under ``plan``: how many shots the card runs at once
+    (a query; launches nothing)."""
+    import ctypes
+
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    out = ctypes.c_int(0)
+    err = cuda_build.load_library().pbfwi_b56_max_clusters(
+        int(reverse), ns, nz8, nx128, *plan.args(), ctypes.byref(out))
+    cuda_build.check(err, "pbfwi_b56_max_clusters")
+    return out.value
+
+
+def check_operands(what, kap, damp, src_amp, sz, sx, rrow, *extra):
+    """Raise unless the scheme's operands (and ``extra`` specs, as
+    :func:`scalar2.check_tensors` takes them) are what the kernels
+    take."""
+    ns = src_amp.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    check_tensors(what, kap.device, (
+        ("kap", kap, f32, None), *((n, d, f32, kap.shape) for n, d in zip(
+            ("ax_v", "az_v", "ax_p", "az_p"), damp)),
+        ("src_amp", src_amp, f32, None), ("src_z", sz, i32, (ns,)),
+        ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,)), *extra))
+
+
+def _rows_cuda(kap, damp, src_amp, sz, sx, rrow, a: float, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt = src_amp.shape
     nz8, nx128 = kap.shape
     dev = kap.device
-    f32, i32 = torch.float32, torch.int32
-    check_tensors("acoustic_forward_pallas", dev, (
-        ("kap", kap, f32, None), *((n, d, f32, kap.shape) for n, d in zip(
-            ("ax_v", "az_v", "ax_p", "az_p"), damp)),
-        ("src_amp", src_amp, f32, None), ("src_z", sz, i32, (ns,)),
-        ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,))))
+    check_operands("acoustic_forward_pallas", kap, damp, src_amp, sz, sx,
+                   rrow)
+    route, plan = pick_route("acoustic_forward_pallas", nz8, nx128, route,
+                             acoustic_resident_plan)
     lib = cuda_build.load_library()
-    st = torch.empty((ns, 4, nz8, nx128), dtype=f32, device=dev)
-    hist = torch.empty((ns, nt, nx128), dtype=f32, device=dev)
+    hist = torch.empty((ns, nt, nx128), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in (kap, *damp, src_amp, sz, sx, rrow, st,
-                                   hist)]
-    err = lib.b5_acoustic_forward(*ptrs, ns, nz8, nx128, nt, a, stream)
-    cuda_build.check(err, "b5_acoustic_forward")
-    acoustic_forward_pallas.launches += 1
+    ptr = [t.data_ptr() for t in (src_amp, sz, sx, rrow)]
+    if route == "resident":
+        err = lib.b5_acoustic_forward_resident(
+            kap.data_ptr(), *(t.data_ptr() for t in damp_profiles(damp)),
+            *ptr, hist.data_ptr(), ns, nz8, nx128, nt, *plan.args(), a,
+            stream)
+        cuda_build.check(err, "b5_acoustic_forward_resident")
+    else:
+        st = torch.empty((ns, 4, nz8, nx128), dtype=torch.float32,
+                         device=dev)
+        err = lib.b5_acoustic_forward(
+            kap.data_ptr(), *(d.data_ptr() for d in damp), *ptr,
+            st.data_ptr(), hist.data_ptr(), ns, nz8, nx128, nt, a, stream)
+        cuda_build.check(err, "b5_acoustic_forward")
+    count_launch(acoustic_forward_pallas, route)
     return hist
 
 
@@ -209,20 +285,26 @@ def acoustic_forward_pallas_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def acoustic_forward_pallas(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-                            cfg: AcousticConfig):
+                            cfg: AcousticConfig, *, route=None):
     """Forward simulation, receivers [ns, nt, nr]; the contract of
     :func:`simulate_acoustic` on this scheme.  Requires all receivers of
     a shot to share one grid row (row ``rcv_z[:, 0]`` is recorded).
 
-    On a CUDA ``vp`` this launches kernel B5
-    (``acoustic_forward_pallas.launches`` counts the launches); on a CPU
-    ``vp`` it runs :func:`acoustic_forward_pallas_plain`.  Any other
+    On a CUDA ``vp`` this launches kernel B5 on the route that
+    ``scalar2.pick_route`` gives ``route`` with
+    :func:`acoustic_resident_plan` (by default the resident route where
+    that plan holds the grid; "resident" raises where it does not,
+    "per_step" takes the per-step route);
+    ``acoustic_forward_pallas.launches`` counts the launches,
+    ``resident_launches`` and ``per_step_launches`` each route's.  On a
+    CPU ``vp`` it runs :func:`acoustic_forward_pallas_plain`.  Any other
     device raises.
     """
     if not _kernel_route(vp, "acoustic_forward_pallas"):
         return acoustic_forward_pallas_plain(vp, wavelet, src_z, src_x,
                                              rcv_z, rcv_x, cfg)
-    return _forward(_rows_cuda, vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg)
+    return _forward(partial(_rows_cuda, route=route), vp, wavelet, src_z,
+                    src_x, rcv_z, rcv_x, cfg)
 
 
-acoustic_forward_pallas.launches = 0
+reset_launches(acoustic_forward_pallas)

@@ -190,7 +190,8 @@ class ResidentPlan:
     B4b a thread's block is ROWS_PER_THREAD rows of COLS_PER_THREAD
     columns, and the shared memory holds two field buffers with 2 halo
     rows and 4 zero columns each side and the band's K, d+ and d-; B3's
-    plan is :func:`elastic_fused.elastic_resident_plan`'s."""
+    plan is :func:`elastic_fused.elastic_resident_plan`'s, B5's and
+    B6's :func:`kernels.acoustic_resident_plan`'s."""
 
     cluster: int
     band_rows: int
@@ -217,14 +218,23 @@ def resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     the flagship 192 x 256 that is 5 CTAs of 40 rows; the card keeps 22
     such clusters resident at once (cudaOccupancyMaxActiveClusters,
     chip_smoke.py), so 18 shots run in one wave."""
+    return band_plan(nz8, nx128, lambda H, R: 4 * (
+        2 * (H + 4) * (nx128 + 8) + 3 * R * nx128))
+
+
+def band_plan(nz8: int, nx128: int, smem_of) -> ResidentPlan | None:
+    """The smallest cluster whose bands (R rows, a multiple of 8; the
+    last may be shorter) take at most RES_THREADS threads of
+    ROWS_PER_THREAD x COLS_PER_THREAD cells and at most SMEM_LIMIT bytes
+    of shared memory, ``smem_of(H, R)`` for H = the rows the threads
+    cover; None where no cluster of at most MAX_CLUSTER CTAs fits."""
     per_row = nx128 // COLS_PER_THREAD
     for C in range(1, MAX_CLUSTER + 1):
         R = _round_up(-(-nz8 // C), 8)
         if -(-nz8 // R) != C:   # the same bands as a smaller cluster
             continue
         ty = -(-R // ROWS_PER_THREAD)
-        smem = 4 * (2 * (ty * ROWS_PER_THREAD + 4) * (nx128 + 8)
-                    + 3 * R * nx128)
+        smem = smem_of(ty * ROWS_PER_THREAD, R)
         if per_row * ty <= RES_THREADS and smem <= SMEM_LIMIT:
             return ResidentPlan(C, R, per_row * ty, smem)
     return None

@@ -566,3 +566,87 @@ def test_b3_grid_beyond_the_plan_takes_the_per_step_route(dev):
         assert rel_l2(a, b) <= 1e-4
     with pytest.raises(ValueError, match="no resident plan"):
         fn(*args, KC=8, route="resident")
+
+
+# ---------------------------------------------------------------------------
+# B5's and B6's resident route (one thread-block cluster per shot)
+# ---------------------------------------------------------------------------
+
+def test_resident_b5_b6_match_per_step_and_plain(res_case):
+    cfg, wav, vp, geom = res_case
+    g = cfg.grid
+    plan = kernels.acoustic_resident_plan(88, 256)
+    assert plan.bands(88) == RES_BANDS
+    fwd = kernels.acoustic_forward_pallas
+    bwd = adjoint.acoustic_pallas_backward
+    before = (_routes(fwd), _routes(bwd))
+    res = fwd(vp, wav, *geom, cfg)
+    per = fwd(vp, wav, *geom, cfg, route="per_step")
+    # the same rounded per-cell functions on both routes: the same bits
+    assert torch.equal(res, per) and float(res.abs().max()) > 0
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(res, kernels.acoustic_forward_pallas_plain(
+        vp, wav, *geom, cfg)) <= 1e-5
+    # B6's forward sweep: the checkpoints of both routes
+    kap, damp, _, amp, sz, sx, rrow = kernels.operands(
+        vp, wav, *geom[:3], cfg, nt_pad=192, gain="b6")
+    a = g.dt / g.dx
+    ck_r = adjoint._checkpoints_cuda(kap, damp, amp, sz, sx, rrow, a,
+                                     "resident")
+    ck_s = adjoint._checkpoints_cuda(kap, damp, amp, sz, sx, rrow, a,
+                                     "per_step")
+    assert torch.equal(ck_r, ck_s) and float(ck_r.abs().max()) > 0
+    rows = _l2_rows(res_case, kernels.acoustic_forward_pallas_plain, 16)
+    g_r = bwd(vp, wav, *geom, cfg, rows)
+    g_s = bwd(vp, wav, *geom, cfg, rows, route="per_step")
+    torch.cuda.synchronize()
+    assert (_routes(fwd), _routes(bwd)) == (
+        (before[0][0] + 1, before[0][1] + 1),
+        (before[1][0] + 1, before[1][1] + 1))
+    assert torch.equal(g_r, g_s) and float(g_r.abs().max()) > 0
+    ref = adjoint.acoustic_pallas_backward_plain(vp, wav, *geom, cfg, rows)
+    # float32 rounding in another order: 1e-4 rel L2
+    assert rel_l2(g_r, ref) <= 1e-4
+
+
+def test_acoustic_pallas_launches_resident_b5_b6(res_case):
+    cfg, wav, vp, geom = res_case
+    fns = (kernels.acoustic_forward_pallas, adjoint.acoustic_pallas_backward)
+    before = [_routes(f) for f in fns]
+    v = vp.clone().requires_grad_(True)
+    adjoint.acoustic_pallas(v, wav, *geom, cfg).square().sum().backward()
+    torch.cuda.synchronize()
+    assert [_routes(f) for f in fns] == [(r + 1, p) for r, p in before]
+    assert bool(torch.isfinite(v.grad).all()) and float(
+        v.grad.abs().max()) > 0
+
+
+def test_b5_b6_grid_beyond_the_plan_takes_the_per_step_route(dev):
+    # 72 x 1024 padded: 8-row bands would need 9 CTAs, so B5 and B6 take
+    # the per-step route by shape
+    grid = dict(nz=48, nx=1000, dx=10.0, nt=40, dt=0.002, pml_width=12)
+    cfg = torch_acoustic(grid, dict(chunk=20, vmax_pml=2500.0))
+    assert kernels.acoustic_resident_plan(72, 1024) is None
+    wav = ricker(10.0, 40, 0.002, device=dev)
+    vp = torch.full((48, 1000), 1800.0, device=dev)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.array([3, 3], np.int32), np.array([100, 500], np.int32),
+        np.full((2, 8), 3, np.int32),
+        np.tile(np.arange(8, dtype=np.int32) * 120 + 20, (2, 1))))
+    fwd = kernels.acoustic_forward_pallas
+    bwd = adjoint.acoustic_pallas_backward
+    before = (_routes(fwd), _routes(bwd))
+    got = fwd(vp, wav, *geom, cfg)
+    rows = _l2_rows((cfg, wav, vp, geom),
+                    kernels.acoustic_forward_pallas_plain, 16)
+    gk = bwd(vp, wav, *geom, cfg, rows)
+    torch.cuda.synchronize()
+    assert (_routes(fwd), _routes(bwd)) == (
+        (before[0][0], before[0][1] + 1), (before[1][0], before[1][1] + 1))
+    assert rel_max(got, kernels.acoustic_forward_pallas_plain(
+        vp, wav, *geom, cfg)) <= 1e-5
+    assert rel_l2(gk, adjoint.acoustic_pallas_backward_plain(
+        vp, wav, *geom, cfg, rows)) <= 1e-4
+    for fn, args in ((fwd, ()), (bwd, (rows,))):
+        with pytest.raises(ValueError, match="no resident plan"):
+            fn(vp, wav, *geom, cfg, *args, route="resident")

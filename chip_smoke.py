@@ -29,9 +29,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``simulate_elastic_ring``) against their plain versions at the
    elastic path's shapes (100 x 300, free surface, nt 3334; the ring
    forward on all 35 shots, B3 on 5 shots x 298 receivers): the ring
+   forward's two routes timed in turns and held to bit equality, its
+   resident plan (8-row bands) with the clusters the card keeps
+   resident, and a device trace of one resident call; the ring
    forward, the ``l2`` misfit, ``tnl1`` with residual signs fixed and
-   on the real misfit, and the loss at the true model, all on B3's
-   resident route; B3's resident plan and how many of its clusters the
+   on the real misfit, and the loss at the true model, all on the
+   resident routes; B3's resident plan and how many of its clusters the
    card keeps resident, its two routes timed in turns on the same
    inputs (``l2`` and ``tnl1``) and held to bit equality, and a device
    trace of one call on each route (the forward sweep, the misfit, the
@@ -41,8 +44,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    resident route;
 6. the elastic path: ``train(get_workload("marmousi_elastic"),
    epochs=lstart + 3)`` at full width: the 30 warmup epochs, then 3
-   physics epochs on the 4 Hz continuation stage, every one's B3 on the
-   resident route;
+   physics epochs on the 4 Hz continuation stage, every one's B3 and
+   the engine setup's ring forward on the resident route;
 7. kernels B4a (``forward2_ckpt``) and B4b (``backward2``) against B1
    and their plain versions at the acoustic path's shapes, each route
    against the other in turns as B1's, and the
@@ -73,10 +76,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     trace-normalized L1 loss through ``acoustic_pallas2b`` at 18 shots
     and one at 17;
 12. kernel B8 (``elastic_forward_pallas``) at ``marmousi_elastic``'s
-    shape with an absorbing top (35 shots): its path, one call, then
-    against its plain version and against the ring forward on the same
-    inputs, both timed, with a device trace counting each one's
-    launches;
+    shape with an absorbing top (35 shots, 144 x 384 in kernel layout):
+    its path, one call on the resident route, then its resident
+    (9-row bands) and cooperative routes timed in turns and held to bit
+    equality, the plan with the clusters resident, a device trace of one
+    resident call, the resident route bit-equal to the ring forward's on
+    the same inputs, against its plain version, and one kernel launch a
+    call on each route (device traces);
 13. B2's wavelet gradient (``want_wavelet_grad``) at phase 3's shape
     against the plain version in float32 and float64, both routes in
     turns;
@@ -88,9 +94,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (B1-B6: ``ms`` on the resident route,
-``per_step_ms`` on the per-step one); the last line is the result
-object.  The
+error, times and bound (B1-B6 and the ring forward: ``ms`` on the
+resident route, ``per_step_ms`` on the per-step one; B8: ``coop_ms`` on
+the cooperative one); the last line is the result object.  The
 script never falls back to the CPU or to the plain versions.
 """
 
@@ -175,38 +181,40 @@ def _flat(out) -> tuple:
 
 
 def route_turns(name: str, fn, steps: int, repeats: int = 2,
-                exact: bool = False) -> dict:
-    """Time ``fn(route)`` on both routes of B1-B6 in turns
-    (per-step, resident, resident, per-step; each turn a warm-up call
-    and ``repeats`` timed ones), print each route's ms and us per time
-    step (``steps`` of them per call) and how far the two outputs are
-    apart, and check that they agree bit for bit (``exact``) or, where
-    FMA contraction differs, within 1e-6 of max.  Returns the resident
-    output and both times."""
+                exact: bool = False, other: str = "per_step") -> dict:
+    """Time ``fn(route)`` on the resident route and the ``other`` one
+    (per-step; B8's cooperative) in turns (other, resident, resident,
+    other; each turn a warm-up call and ``repeats`` timed ones), print
+    each route's ms and us per time step (``steps`` of them per call)
+    and how far the two outputs are apart, and check that they agree
+    bit for bit (``exact``) or, where FMA contraction differs, within
+    1e-6 of max.  Returns the resident output and both times (``ms``,
+    ``per_step_ms`` or ``cooperative_ms``)."""
     import torch
-    outs, times = {}, {"per_step": [], "resident": []}
-    for route in ("per_step", "resident", "resident", "per_step"):
+    outs, times = {}, {other: [], "resident": []}
+    for route in (other, "resident", "resident", other):
         outs[route], ms = timed_ms(lambda: fn(route), repeats=repeats)
         times[route].append(ms)
     diffs = [float((a.double() - b.double()).abs().max())
              / max(float(b.abs().max()), 1e-30)
-             for a, b in zip(_flat(outs["resident"]), _flat(outs["per_step"]))]
+             for a, b in zip(_flat(outs["resident"]), _flat(outs[other]))]
     same = all(torch.equal(a, b) for a, b in
-               zip(_flat(outs["resident"]), _flat(outs["per_step"])))
+               zip(_flat(outs["resident"]), _flat(outs[other])))
     ms_r = sum(times["resident"]) / 2
-    ms_s = sum(times["per_step"]) / 2
-    print(f"{name} routes in turns (per-step, resident, resident, "
-          f"per-step): resident {times['resident'][0]:.2f}, "
+    ms_o = sum(times[other]) / 2
+    label = other.replace("_", "-")
+    print(f"{name} routes in turns ({label}, resident, resident, "
+          f"{label}): resident {times['resident'][0]:.2f}, "
           f"{times['resident'][1]:.2f} ms ({ms_r / steps * 1e3:.3f} us per "
-          f"step), per-step {times['per_step'][0]:.2f}, "
-          f"{times['per_step'][1]:.2f} ms ({ms_s / steps * 1e3:.3f} us per "
+          f"step), {label} {times[other][0]:.2f}, "
+          f"{times[other][1]:.2f} ms ({ms_o / steps * 1e3:.3f} us per "
           f"step; {steps} steps a call); outputs bit-equal: {same}, largest "
           f"difference {max(diffs):.3e} of max (tol 1e-6)")
-    check(max(diffs) <= 1e-6, f"{name}: resident and per-step routes "
+    check(max(diffs) <= 1e-6, f"{name}: resident and {label} routes "
           f"disagree")
-    check(same or not exact, f"{name}: resident and per-step routes are "
+    check(same or not exact, f"{name}: resident and {label} routes are "
           f"not bit-equal")
-    return {"out": outs["resident"], "ms": ms_r, "per_step_ms": ms_s}
+    return {"out": outs["resident"], "ms": ms_r, f"{other}_ms": ms_o}
 
 
 def cluster_report(ns: int) -> None:
@@ -248,6 +256,29 @@ def el_cluster_report(ns: int) -> None:
     check(min(fwd, rev) >= 1, "B3's resident kernels cannot be resident")
 
 
+def fwd_cluster_report(ns: int, nz8: int, nx128: int, what: str) -> None:
+    """The forward sweep's resident plan for an [nz8, nx128] grid (the
+    ring forward's and B8's) and how many of its clusters the card keeps
+    resident (cudaOccupancyMaxActiveClusters), which sets the waves."""
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
+    plan = ef.elastic_forward_plan(nz8, nx128)
+    check(plan is not None, f"no resident plan holds {what}'s grid")
+    n = ef.elastic_forward_max_active_clusters(plan, ns, nz8, nx128)
+    print(f"{what} resident plan for {ns} shots on {nz8} x {nx128}: {plan}; "
+          f"clusters resident at once: {n} (of {ns}: "
+          f"{-(-ns // max(n, 1))} waves)")
+    check(n >= 1, f"{what}'s resident kernel cannot be resident")
+
+
+def _readable(name: str) -> str:
+    """A mangled el_fwd_resident<R, CK> instance as R and checkpoints."""
+    import re
+    return re.sub(r"el_fwd_residentILi(\d+)ELb([01])E",
+                  lambda m: f"el_fwd_resident<R {m[1]}, "
+                  f"{'checkpoints' if m[2] == '1' else 'no checkpoints'}>",
+                  name)
+
+
 def ptxas_summary(log: str, keys) -> list[str]:
     """One line per compiled kernel whose mangled name holds one of
     ``keys``: registers, shared memory, stack and spills (nvcc -Xptxas
@@ -261,8 +292,8 @@ def ptxas_summary(log: str, keys) -> list[str]:
             props = line
         elif name and "Used" in line and "registers" in line:
             if any(k in name for k in keys):
-                out.append(f"{name}: {line.split(':', 1)[1].strip()}; "
-                           f"{props}")
+                out.append(f"{_readable(name)}: "
+                           f"{line.split(':', 1)[1].strip()}; {props}")
             name = None
     return out
 
@@ -295,7 +326,7 @@ def phase_card():
                                     "adj_step", "el_fwd_", "el_adj_",
                                     "fwd_vel", "fwd_pres", "adj_vel",
                                     "adj_pres")):
-        print(f"  ptxas, B1-B6 routes: {line}")
+        print(f"  ptxas, resident and per-step kernels: {line}")
     cuda_build.load_library()
 
 
@@ -567,7 +598,9 @@ def _rel_meds(got, ref) -> float:
 def phase_b3(dev):
     """B3 and the ring forward against their plain versions at the
     elastic path's shapes: (1) the ring forward of all 35 shots, as the
-    engine's setup runs it; then B3 on 5 of them (every 7th), as a
+    engine's setup runs it, its two routes timed in turns and held to bit
+    equality, a device trace of one resident call, and its plan with the
+    clusters resident; then B3 on 5 of them (every 7th), as a
     physics epoch draws them: (2) the ``l2`` misfit
     and (3) ``tnl1`` with residual signs fixed (observed rows + 3),
     each held to the plain version's own float32 error against a
@@ -579,15 +612,20 @@ def phase_b3(dev):
     import torch
     from physicsbasedfwi2_tpu_torch.ops import trace_normalize
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-        elastic_resident_plan, fused_elastic_loss_grad_meds,
+        _layout, elastic_resident_plan, fused_elastic_loss_grad_meds,
         fused_elastic_loss_grad_meds_plain, prep_damp, prep_medium,
         scatter_rows_el, simulate_elastic_ring, simulate_elastic_ring_plain)
     from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
     cfg, wav, geom_all, true, start = elastic_case(dev)
     g = cfg.grid
 
-    # (1) the ring forward
-    (ovx, ovz), ms_rk = timed_ms(lambda: simulate_elastic_ring(
+    # (1) the ring forward: both routes in turns, bit for bit, then the
+    # resident one (the engine's) against the plain version
+    fwd_cluster_report(len(geom_all[0]), *_layout(cfg)[4:], "ring forward")
+    ring_turns = route_turns("ring forward", lambda r: simulate_elastic_ring(
+        *true, wav, *geom_all, cfg, route=r), g.nt, exact=True)
+    (ovx, ovz), ms_rk = ring_turns["out"], ring_turns["ms"]
+    phase_trace("ring forward (resident route)", lambda: simulate_elastic_ring(
         *true, wav, *geom_all, cfg))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -598,7 +636,7 @@ def phase_b3(dev):
     err_r = max(float((ovx - pvx).abs().max()), float((ovz - pvz).abs().max()))
     print(f"ring forward [{len(geom_all[0])} shots, nt {g.nt}]: max|err| "
           f"{err_r:.3e} of max {scale:.3e} (tol 1e-4 of max); kernel "
-          f"{ms_rk:.2f} ms, plain {ms_rp:.2f} ms")
+          f"{ms_rk:.2f} ms (resident), plain {ms_rp:.2f} ms")
     check(bool(torch.isfinite(ovx).all() and torch.isfinite(ovz).all()),
           "ring forward not finite")
     check(err_r <= 1e-4 * scale, "ring forward disagrees with its plain "
@@ -722,6 +760,7 @@ def phase_b3(dev):
          **bound((FLOPS_B3 + FLOPS_B3_ADJ) * cells * g.nt, b3_io),
          "library_ms": None},
         {"max_abs_err": err_r, "ms": ms_rk, "plain_ms": ms_rp,
+         "per_step_ms": ring_turns["per_step_ms"],
          **bound(FLOPS_B3 * ring_cells * g.nt, ring_io), "library_ms": None})
 
 
@@ -792,8 +831,8 @@ def phase_slice2(dev):
           f"{cfg.filters}, misfit {cfg.misfit}, stages {cfg.freq_stages}")
     torch.cuda.reset_peak_memory_stats(dev)
     b3 = elastic_fused.fused_elastic_loss_grad_meds
-    reset_launches(b3)
-    elastic_fused.simulate_elastic_ring.launches = 0
+    ring = elastic_fused.simulate_elastic_ring
+    reset_launches(b3, ring)
     t0 = time.perf_counter()
     engine = ElasticDIPEngine(cfg, device=dev)
     torch.cuda.synchronize()
@@ -803,10 +842,10 @@ def phase_slice2(dev):
     engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {
-        "fused_elastic_loss_grad": b3.launches,
-        "simulate_elastic_ring": elastic_fused.simulate_elastic_ring.launches}
+    launches = {"fused_elastic_loss_grad": b3.launches,
+                "simulate_elastic_ring": ring.launches}
     b3_routes = (b3.resident_launches, b3.per_step_launches)
+    ring_routes = (ring.resident_launches, ring.per_step_launches)
     for rec in history[:2] + history[cfg.lstart - 1:]:
         print("epoch", json.dumps(rec))
     warm = [r["epoch_time"] for r in history[:cfg.lstart]]
@@ -815,7 +854,8 @@ def phase_slice2(dev):
           f"{total:.2f} s; warmup epochs: first {warm[0]:.4f} s, median of "
           f"the rest {sorted(warm[1:])[len(warm[1:]) // 2]:.4f} s; physics "
           f"epochs {', '.join(f'{x:.4f}' for x in phys)} s; launches "
-          f"{launches}, B3 (resident, per-step) {b3_routes}; physics path "
+          f"{launches}, (resident, per-step) B3 {b3_routes}, ring forward "
+          f"{ring_routes}; physics path "
           f"{engine.physics_path}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     check(engine.physics_path == "fused-cuda",
@@ -826,6 +866,8 @@ def phase_slice2(dev):
           "B3 did not take the resident route on every physics epoch")
     check(launches["simulate_elastic_ring"] >= 1,
           "the ring forward did not make the observed data")
+    check(ring_routes[0] >= 1 and ring_routes[1] == 0,
+          "the engine's ring forward did not take the resident route")
     for rec in history:
         for k, v in rec.items():
             if isinstance(v, float):
@@ -1350,61 +1392,68 @@ def device_launches(fn, key: str) -> tuple[int, int]:
 
 def phase_b8(dev):
     """B8 at marmousi_elastic's shape with an absorbing top, 35 shots: the
-    path (one call, counts read around it), then against its plain
-    version and against the ring forward on the same inputs, both
-    timed, and a device trace of one call of each counting launches."""
+    path (one call, counts read around it), then its resident and
+    cooperative routes timed in turns and held to bit equality, its plan
+    with the clusters resident, a device trace of one resident call, the
+    resident route against the ring forward's (the same instance) and
+    against the plain version, and each route's kernel launches in a
+    device trace of one call."""
     import torch
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-        simulate_elastic_ring)
+        _layout, simulate_elastic_ring)
     from physicsbasedfwi2_tpu_torch.ops.elastic_fwd import (
         elastic_forward_pallas, elastic_forward_pallas_plain)
     cfg, wav, geom, true, _ = elastic_case(dev, free_surface=False)
     g = cfg.grid
     ns = len(geom[0])
-    elastic_forward_pallas.launches = 0
+    b8 = elastic_forward_pallas
+
+    def run(route=None):
+        return b8(*true, wav, *geom, cfg, route=route)
+
+    b8.launches = b8.resident_launches = b8.cooperative_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    vx, vz = elastic_forward_pallas(*true, wav, *geom, cfg)
+    vx, vz = run()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = elastic_forward_pallas.launches
-    blocks = elastic_forward_pallas.grid_blocks
+    launches = b8.launches
     print(f"slice 4 elastic_forward_pallas [{ns} shots, nt {g.nt}, absorbing "
-          f"top]: {launches} launch of {blocks} blocks of 256 threads, first "
+          f"top]: {launches} launch (resident {b8.resident_launches}), first "
           f"call {first_s:.3f} s")
-    check(launches == 1, "B8 was not launched once on its path")
+    check(launches == 1 and b8.resident_launches == 1,
+          "B8 was not launched once on its path's resident route")
     check(bool(torch.isfinite(vx).all() and torch.isfinite(vz).all()),
           "B8 traces not finite")
-    (kx, kz), ms_k = timed_ms(lambda: elastic_forward_pallas(*true, wav, *geom,
-                                                             cfg))
-    (rx, rz), ms_r = timed_ms(lambda: simulate_elastic_ring(*true, wav, *geom,
-                                                            cfg))
+    fwd_cluster_report(ns, *_layout(cfg)[4:], "B8")
+    turns = route_turns("B8", run, g.nt, exact=True, other="cooperative")
+    (kx, kz), ms_k = turns["out"], turns["ms"]
+    print(f"B8 cooperative route: {b8.grid_blocks} blocks of 256 threads")
+    phase_trace("B8 (resident route)", run)
+    rx, rz = simulate_elastic_ring(*true, wav, *geom, cfg)
     (px, pz), ms_p = _plain_ms(lambda: elastic_forward_pallas_plain(
         *true, wav, *geom, cfg))
     scale = max(float(px.abs().max()), float(pz.abs().max()))
-    vs_ring = max(float((kx - rx).abs().max()), float((kz - rz).abs().max()))
+    same_ring = torch.equal(kx, rx) and torch.equal(kz, rz)
     err = max(float((kx - px).abs().max()), float((kz - pz).abs().max()))
-    n_b8 = device_launches(lambda: elastic_forward_pallas(*true, wav, *geom,
-                                                          cfg), "el_forward")
-    n_ring = device_launches(lambda: simulate_elastic_ring(*true, wav, *geom,
-                                                           cfg), "el_fwd_")
-    print(f"B8 vs the ring forward (the same function, 2 launches per step): "
-          f"max|diff| {vs_ring:.3e} of max {scale:.3e} (tol 1e-6 of max); vs "
-          f"plain max|err| {err:.3e} (tol 1e-5 of max); kernel {ms_k:.2f} ms, "
-          f"ring forward {ms_r:.2f} ms, plain {ms_p:.2f} ms; device trace, "
-          f"kernel launches of one call (its own of all): B8 {n_b8[0]} of "
-          f"{n_b8[1]}, ring forward {n_ring[0]} of {n_ring[1]}")
-    check(vs_ring <= 1e-6 * scale, "B8 disagrees with the ring forward")
+    n_res = device_launches(run, "el_fwd_resident")
+    n_coop = device_launches(lambda: run("cooperative"), "el_forward")
+    print(f"B8 resident vs the ring forward's resident route on the same "
+          f"inputs: bit-equal {same_ring}; vs plain max|err| {err:.3e} of "
+          f"max {scale:.3e} (tol 1e-5 of max); kernel {ms_k:.2f} ms, plain "
+          f"{ms_p:.2f} ms; device trace, kernel launches of one call (its "
+          f"own of all): resident {n_res[0]} of {n_res[1]}, cooperative "
+          f"{n_coop[0]} of {n_coop[1]}")
+    check(same_ring, "B8 and the ring forward's resident route differ")
     check(err <= 1e-5 * scale, "B8 disagrees with its plain version")
-    check(n_b8[0] == 1, "B8 is not one kernel launch per call")
-    # the ring forward launches 2 kernels a step; a trace of its ~6,800
-    # records may drop a few (one run counted 6,647 of 6,668)
-    check(g.nt <= n_ring[0] <= 2 * g.nt, "ring forward launch count")
+    check(n_res[0] == 1 and n_coop[0] == 1,
+          "B8 is not one kernel launch a call on each route")
     cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
     # five media and damp on the kernel's grid, the wavelet and geometry
     # in; the two traces out
     io = 6 * 144 * 384 * 4 + nbytes(wav, *geom, kx, kz)
     return launches, {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                      "coop_ms": turns["cooperative_ms"],
                       **bound(FLOPS_B3 * cells * g.nt, io),
                       "library_ms": None}
 
@@ -1562,10 +1611,10 @@ def main(argv: list[str]) -> int:
          "source": EL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic_fused.py:152",
          "launches": launches["fused_elastic_loss_grad"], **b3},
-        # B3's forward phases alone (the Pallas kernel's fwd_update)
+        # B3's forward sweep alone (the JAX package's _ring_scan)
         {"name": "simulate_elastic_ring", "route": "cuda",
          "source": EL_SOURCE,
-         "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic_fused.py:208",
+         "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic_fused.py:595",
          "launches": launches["simulate_elastic_ring"], **ring},
         {"name": "forward2_ckpt", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:119",
@@ -1587,8 +1636,10 @@ def main(argv: list[str]) -> int:
         {"name": "backward2b", "route": "cuda", "source": PAIR_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2b.py:105",
          "launches": launches["backward2b"], **b7b},
+        # its resident route (ms) runs in EL_SOURCE, the cooperative one
+        # (coop_ms) in ELF_SOURCE
         {"name": "elastic_forward_pallas", "route": "cuda",
-         "source": ELF_SOURCE,
+         "source": EL_SOURCE, "coop_source": ELF_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic.py:77",
          "launches": launches["elastic_forward_pallas"], **b8},
     ]

@@ -5,8 +5,11 @@
 //                                      pallas_elastic_fused.py
 //                                      fused_elastic_loss_grad_meds / _kernel
 // and runs its forward phases alone for the ring forward
-//       b3_elastic_ring             <- the same file's simulate_elastic_ring
-//                                      (a JAX scan of the same scheme)
+//       b3_elastic_ring_resident,   <- the same file's simulate_elastic_ring
+//       b3_elastic_ring                (a JAX scan of the same scheme,
+//                                      _ring_scan)
+// which B8 (ops/elastic_fwd.py, elastic_forward_pallas) shares on its
+// resident route with no free-surface row.
 //
 // Scheme: the 5-field Virieux P-SV velocity-stress update with a
 // multiplicative sponge `damp` (which also zeroes a 2-cell ring) and
@@ -44,7 +47,8 @@
 // Pallas kernel only by rounding.
 //
 // Two routes; ops/elastic_fused.py picks one by shape before any launch
-// (elastic_resident_plan) and counts each route's launches.
+// (elastic_resident_plan for B3, elastic_forward_plan for the ring
+// forward) and counts each route's launches.
 //
 // Resident route (el_fwd_resident, el_rev_resident; the default where
 // the plan holds the grid).  The Pallas kernel keeps one shot's state,
@@ -73,6 +77,25 @@
 // of shared memory: at 128 x 384 (the marmousi_elastic family) 16 CTAs
 // of 384 threads and 167,808 B.  Grids the plan does not hold (seam_
 // elastic's 144 x 384, real_data's 192 x 384) take the per-step route.
+//
+// The ring forward's resident route (b3_elastic_ring_resident) is the
+// same forward sweep without checkpoints, a template on the band height
+// R (el_fwd_resident<R, CK>): R 8 at 128 x 384 (B3's instance with CK,
+// the ring forward's without), R 9 at 144 x 384 (B8 at marmousi_elastic's
+// shape with an absorbing top, seam_elastic's ring forward), 16 CTAs and
+// 4 (5 (R + 4)(nx + 8) + 6 R nx) bytes: 184,864 at R 9.  One launch over
+// all shots; the clusters the card cannot hold at once wait, so 35 shots
+// run in waves.  The reverse sweep keeps R 8 (its 168 registers spill).
+// Prediction before the first timed run (H100, 700 W): one CTA an SM at
+// either height, so 7 clusters resident as for B3, 35 shots in 5 waves of
+// ~15 ms (B3's forward sweep, 4.5 us a step): the ring forward ~70-80 ms
+// (from 137.69 per-step), B8 ~80-100 ms (from 172.17 cooperative; 9 rows
+// a thread, a step ~1.1x).  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, routes in turns; PERF.md): 7 clusters resident at both
+// heights; the ring forward 74.8-76.8 ms (22.7 us a step of 35 shots, 5
+// waves of B3's 4.5 us step) against per-step 139.1-139.5, B8 77.0-77.4
+// against cooperative 174.2-174.5 (a 9-row step 1.02x an 8-row one);
+// each bit-equal to its other route, B8 to the ring forward.
 //
 // Per-step route (el_fwd_v, el_fwd_s, el_adj_v, el_adj_s; and the ring
 // forward).  Every phase of a time step is one launch over all shots,
@@ -571,20 +594,22 @@ __global__ void sum_shots5(const float* __restrict__ per_shot, int ns,
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 8;        // band rows: the rows a thread owns
+constexpr int kRowsTall = 9;    // the forward sweep's other band height
 constexpr int kMaxCols = 384;   // threads (columns) at most: 168 registers
 constexpr int kMaxCluster = 16;
 constexpr int kPad = 4;         // zero columns each side (2 are read)
 
-int el_plan_smem(int nx) {
-  return (int)sizeof(float) *
-         (5 * (kRows + 4) * (nx + 2 * kPad) + 6 * kRows * nx);
+int el_plan_smem(int R, int nx) {
+  return (int)sizeof(float) * (5 * (R + 4) * (nx + 2 * kPad) + 6 * R * nx);
 }
 
-// A CTA's band in shared memory: 5 field buffers of (kRows + 4) x P
+// A CTA's band of R rows in shared memory: 5 field buffers of (R + 4) x P
 // floats (P = nx + 8; buffer row lr + 2 holds band row lr, column j + 4
-// column j), then the band's 6 media ([kRows, nx] each).  Buffer f sits
-// at offset f fsz, here and in the neighbours.
-struct Band {
+// column j), then the band's 6 media ([R, nx] each).  Buffer f sits at
+// offset f fsz, here and in the neighbours.  B3's reverse sweep has bands
+// of kRows; the forward sweep has an instance for kRows and kRowsTall.
+template <int R>
+struct BandR {
   int row0, nx, P, fsz;
   float* sm;
   float* up;  // the upper neighbour's buffers (null for the top band)
@@ -594,17 +619,18 @@ struct Band {
     return f * fsz + (lr + 2) * P + (int)threadIdx.x + kPad;
   }
   __device__ float m(int k, int lr) const {
-    return med[(k * kRows + lr) * nx + threadIdx.x];
+    return med[(k * R + lr) * nx + threadIdx.x];
   }
   // write v at the thread's cell of band row lr of buffer f and, for the
   // band's 2 edge rows, into the neighbours' halo rows
   __device__ void put(int f, int lr, float v) const {
     const int c = f * fsz + (int)threadIdx.x + kPad;
     sm[c + (lr + 2) * P] = v;
-    if (lr < 2 && up) up[c + (kRows + 2 + lr) * P] = v;
-    if (lr >= kRows - 2 && dn) dn[c + (lr - kRows + 2) * P] = v;
+    if (lr < 2 && up) up[c + (R + 2 + lr) * P] = v;
+    if (lr >= R - 2 && dn) dn[c + (lr - R + 2) * P] = v;
   }
 };
+using Band = BandR<kRows>;
 
 // The band's buffers as an accessor of global rows i
 struct SharedRd {
@@ -631,13 +657,14 @@ struct ElArgs {
 // Zero the buffers (halos and pad columns stay zero unless a neighbour
 // writes them) and load the band's media.  The caller passes a cluster
 // barrier before any neighbour writes into the halos.
-__device__ __forceinline__ Band band_init(float* smem, const ElArgs& a) {
-  Band b;
+template <int R = kRows>
+__device__ __forceinline__ BandR<R> band_init(float* smem, const ElArgs& a) {
+  BandR<R> b;
   const int r = blockIdx.x, C = gridDim.x;
-  b.row0 = r * kRows;
+  b.row0 = r * R;
   b.nx = a.nx;
   b.P = a.nx + 2 * kPad;
-  b.fsz = (kRows + 4) * b.P;
+  b.fsz = (R + 4) * b.P;
   b.sm = smem;
   float* med = smem + 5 * b.fsz;
   b.med = med;
@@ -648,12 +675,12 @@ __device__ __forceinline__ Band band_init(float* smem, const ElArgs& a) {
   const long long F = (long long)a.nz * a.nx;
   const int j = threadIdx.x;
 #pragma unroll
-  for (int lr = 0; lr < kRows; ++lr) {
+  for (int lr = 0; lr < R; ++lr) {
     const long long g = (long long)(b.row0 + lr) * a.nx + j;
 #pragma unroll
     for (int k = 0; k < 5; ++k)
-      med[(k * kRows + lr) * a.nx + j] = a.med[k * F + g];
-    med[(DAMP * kRows + lr) * a.nx + j] = a.damp[g];
+      med[(k * R + lr) * a.nx + j] = a.med[k * F + g];
+    med[(DAMP * R + lr) * a.nx + j] = a.damp[g];
   }
   return b;
 }
@@ -662,16 +689,17 @@ __device__ __forceinline__ Band band_init(float* smem, const ElArgs& a) {
 // each phase ending at a cluster barrier.  cache (optional): this shot's
 // [5, F] slot of the step's derivative terms; hist (optional): the
 // receiver rows.
-__device__ __forceinline__ void band_fwd_step(const Band& b, const ElArgs& a,
-                                              int s, int t, float* cache,
-                                              float* hist) {
+template <int R>
+__device__ __forceinline__ void band_fwd_step(const BandR<R>& b,
+                                              const ElArgs& a, int s, int t,
+                                              float* cache, float* hist) {
   const int j = threadIdx.x;
   const long long F = (long long)a.nz * a.nx;
   const SharedRd r{b.sm, b.fsz, b.P, b.row0};
   const int rr = a.src.rcv_row[s], sz = a.src.src_z[s], sx = a.src.src_x[s];
-  float u[kRows], w[kRows];
+  float u[R], w[R];
 #pragma unroll
-  for (int lr = 0; lr < kRows; ++lr) {
+  for (int lr = 0; lr < R; ++lr) {
     const int i = b.row0 + lr;
     float t1, t2;
     u[lr] = b.sm[b.at(VX, lr)];
@@ -684,7 +712,7 @@ __device__ __forceinline__ void band_fwd_step(const Band& b, const ElArgs& a,
     }
   }
 #pragma unroll
-  for (int lr = 0; lr < kRows; ++lr) {
+  for (int lr = 0; lr < R; ++lr) {
     b.put(VX, lr, u[lr]);
     b.put(VZ, lr, w[lr]);
     const int i = b.row0 + lr;
@@ -695,9 +723,9 @@ __device__ __forceinline__ void band_fwd_step(const Band& b, const ElArgs& a,
     }
   }
   cluster_barrier();
-  float v[kRows];
+  float v[R];
 #pragma unroll
-  for (int lr = 0; lr < kRows; ++lr) {
+  for (int lr = 0; lr < R; ++lr) {
     const int i = b.row0 + lr;
     float ca, cb, cc;
     u[lr] = b.sm[b.at(SXX, lr)];
@@ -713,7 +741,7 @@ __device__ __forceinline__ void band_fwd_step(const Band& b, const ElArgs& a,
     }
   }
 #pragma unroll
-  for (int lr = 0; lr < kRows; ++lr) {
+  for (int lr = 0; lr < R; ++lr) {
     b.put(SXX, lr, u[lr]);
     b.put(SZZ, lr, w[lr]);
     b.put(SXZ, lr, v[lr]);
@@ -721,24 +749,29 @@ __device__ __forceinline__ void band_fwd_step(const Band& b, const ElArgs& a,
   cluster_barrier();
 }
 
-// Forward sweep of n_ck KC steps from zero fields: B3's phase 1, the
-// state written to ckpt before every KC-th step, the receiver rows to
-// hist.
+// Forward sweep of n_ck KC steps from zero fields in bands of R rows,
+// the receiver rows to hist.  CK: B3's phase 1, the state written to
+// ckpt before every KC-th step; without CK the ring forward (and B8),
+// n_ck = 1 chunk of nt steps and no checkpoint.
+template <int R, bool CK>
 __global__ void __launch_bounds__(kMaxCols, 1) el_fwd_resident(ElArgs a) {
   extern __shared__ float4 smem4[];
-  const Band b = band_init(reinterpret_cast<float*>(smem4), a);
+  const BandR<R> b = band_init<R>(reinterpret_cast<float*>(smem4), a);
   cluster_barrier();
   const int s = blockIdx.y, j = threadIdx.x;
   const long long F = (long long)a.nz * a.nx;
   const int nsteps = a.n_ck * a.KC;
   for (int t = 0; t < nsteps; ++t) {
-    if (t % a.KC == 0) {
-      float* ck = a.ckpt + ((long long)(t / a.KC) * a.ns + s) * 5 * F;
+    if constexpr (CK) {
+      if (t % a.KC == 0) {
+        float* ck = a.ckpt + ((long long)(t / a.KC) * a.ns + s) * 5 * F;
 #pragma unroll
-      for (int f = 0; f < 5; ++f)
+        for (int f = 0; f < 5; ++f)
 #pragma unroll
-        for (int lr = 0; lr < kRows; ++lr)
-          ck[f * F + (long long)(b.row0 + lr) * a.nx + j] = b.sm[b.at(f, lr)];
+          for (int lr = 0; lr < R; ++lr)
+            ck[f * F + (long long)(b.row0 + lr) * a.nx + j] =
+                b.sm[b.at(f, lr)];
+      }
     }
     band_fwd_step(b, a, s, t, nullptr, a.hist);
   }
@@ -851,14 +884,23 @@ inline dim3 cell_grid(const Dims& d) {
 }
 
 // The resident plan (Plan, csrc/cluster.cuh), made by
-// ops/elastic_fused.py::elastic_resident_plan: C bands of 8 rows cover
-// the grid, one thread a column.
-cudaError_t el_check_plan(const Plan& p, int nz, int nx) {
-  const bool ok = p.R == kRows && p.rpt == kRows && p.C >= 1 &&
-                  p.C <= kMaxCluster && p.C * kRows == nz && nx % 32 == 0 &&
-                  p.threads == nx && nx <= kMaxCols &&
-                  p.smem >= el_plan_smem(nx) && p.smem <= 232448;
+// ops/elastic_fused.py::elastic_resident_plan (B3: C bands of 8 rows)
+// or elastic_forward_plan (the forward sweep alone, fwd_only: 8 or 9
+// rows) cover the grid, one thread a column.
+cudaError_t el_check_plan(const Plan& p, int nz, int nx,
+                          bool fwd_only = false) {
+  const bool rows = p.R == kRows || (fwd_only && p.R == kRowsTall);
+  const bool ok = rows && p.rpt == p.R && p.C >= 1 && p.C <= kMaxCluster &&
+                  p.C * p.R == nz && nx % 32 == 0 && p.threads == nx &&
+                  nx <= kMaxCols && p.smem >= el_plan_smem(p.R, nx) &&
+                  p.smem <= 232448;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The forward sweep without checkpoints for a checked plan's rows.
+ResKernel<ElArgs> el_ring_kernel(const Plan& p) {
+  if (p.R == kRowsTall) return el_fwd_resident<kRowsTall, false>;
+  return el_fwd_resident<kRows, false>;
 }
 
 // Misfit, loss partials and the cotangent rows over hist (both routes).
@@ -889,8 +931,8 @@ cudaError_t el_sums(const float* gmed_shots, const double* loss_part, int ns,
 
 extern "C" {
 
-// Ring forward: hist[2, ns, nt, nx] receives the receiver rows of vx and
-// vz every step.  state [ns, 5, nz, nx] is scratch.
+// Ring forward, per-step route: hist[2, ns, nt, nx] receives the receiver
+// rows of vx and vz every step.  state [ns, 5, nz, nx] is scratch.
 int b3_elastic_ring(const float* med, const float* damp, const float* wav,
                     const int* src_z, const int* src_x, const int* rcv_row,
                     const float* gain, float* state, float* hist, int ns,
@@ -1009,7 +1051,7 @@ int b3_fused_elastic_loss_grad_resident(
   const ElArgs a{med,  damp, Src{src_z, src_x, rcv_row, gain, wav, nt_pad},
                  ckpt, hist, cache, gmed_shots, ns, nz, nx, nt_pad, nt, n_ck,
                  KC,   fs_row, dtx, dt_invdx2};
-  RET_IF(launch_resident(el_fwd_resident, a, p, ns, st));
+  RET_IF(launch_resident(el_fwd_resident<kRows, true>, a, p, ns, st));
   RET_IF(el_misfit(hist, obs_x, obs_z, rmask, ns, nt_pad, nt, nx, inv_count,
                    tnl1, loss_part, st));
   RET_IF(launch_resident(el_rev_resident, a, p, ns, st));
@@ -1025,7 +1067,43 @@ int pbfwi_b3_max_clusters(int reverse, int ns, int nz, int nx, int C, int R,
   const Plan p{C, R, rpt, threads, smem};
   RET_IF(el_check_plan(p, nz, nx));
   return max_active_clusters<ElArgs>(
-      reverse ? el_rev_resident : el_fwd_resident, p, ns, out);
+      reverse ? el_rev_resident : el_fwd_resident<kRows, true>, p, ns, out);
+}
+
+// The ring forward, resident route: one launch of the forward sweep
+// without checkpoints (el_fwd_resident<R, false>) over a grid of
+// (C, ns), one cluster per shot; the clusters beyond those the card keeps
+// resident wait for a free slot, so the shots run in waves.  hist
+// [2, ns, nt, nx] receives the receiver rows of vx and vz every step; no
+// state scratch.  B8 (elastic_forward_pallas) calls it with fs_row -1.
+// Then the plan (C, R, rpt, threads, smem; cudaErrorInvalidValue for a
+// plan that does not hold the grid).
+int b3_elastic_ring_resident(const float* med, const float* damp,
+                             const float* wav, const int* src_z,
+                             const int* src_x, const int* rcv_row,
+                             const float* gain, float* hist, int ns, int nz,
+                             int nx, int nt, int nt_wav, int fs_row, int C,
+                             int R, int rpt, int threads, int smem,
+                             float dtx, void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(el_check_plan(p, nz, nx, true));
+  cudaStream_t st = (cudaStream_t)stream;
+  RET_IF(cudaMemsetAsync(hist, 0, sizeof(float) * 2 * (size_t)ns * nt * nx,
+                         st));
+  // one chunk of nt steps; no checkpoints, cache or gradients
+  const ElArgs a{med, damp, Src{src_z, src_x, rcv_row, gain, wav, nt_wav},
+                 nullptr, hist, nullptr, nullptr, ns, nz, nx, nt, nt, 1, nt,
+                 fs_row, dtx, 0.0f};
+  return launch_resident(el_ring_kernel(p), a, p, ns, st);
+}
+
+// How many clusters of a plan the card keeps resident at once for the
+// ring forward's instance (el_fwd_resident<R, false>), into *out.
+int pbfwi_ring_max_clusters(int ns, int nz, int nx, int C, int R, int rpt,
+                            int threads, int smem, int* out) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(el_check_plan(p, nz, nx, true));
+  return max_active_clusters<ElArgs>(el_ring_kernel(p), p, ns, out);
 }
 
 }  // extern "C"

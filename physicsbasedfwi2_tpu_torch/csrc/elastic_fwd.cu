@@ -1,5 +1,9 @@
 // Forward-only elastic kernel for Hopper (sm_90a): the whole time loop in
-// one launch.
+// one launch.  This cooperative kernel is B8's route for the grids that
+// ops/elastic_fused.py::elastic_forward_plan does not hold; where it does
+// (marmousi_elastic's 144 x 384 with an absorbing top), B8 runs the ring
+// forward's resident route, csrc/elastic.cu::b3_elastic_ring_resident
+// with no free-surface row.
 //
 // Replaces the Pallas TPU kernel of the JAX package
 //   B8  b8_elastic_forward  <- physicsbasedfwi2_tpu/ops/pallas_elastic.py

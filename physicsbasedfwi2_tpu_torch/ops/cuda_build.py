@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
-B2, B4a and B4b; ``elastic.cu``: kernel B3; ``acoustic.cu``: kernels B5
-and B6; ``scalar2b.cu``: kernels B7a and B7b; ``elastic_fwd.cu``: kernel
-B8; ``cluster.cuh``: the helpers of the resident routes, included by
+B2, B4a and B4b; ``elastic.cu``: kernel B3, the ring forward and B8's
+resident route; ``acoustic.cu``: kernels B5 and B6; ``scalar2b.cu``:
+kernels B7a and B7b; ``elastic_fwd.cu``: B8's cooperative route;
+``cluster.cuh``: the helpers of the resident routes, included by
 ``scalar2.cu``, ``elastic.cu`` and ``acoustic.cu``) for ``sm_90a``, one
 process per source, all started together, and links the objects into
 one shared library with a plain C interface, which ``ctypes`` loads.
@@ -51,6 +52,9 @@ _SIGNATURES = {
     "b3_fused_elastic_loss_grad_resident": [_P] * 17 + [_I] * 13
     + [_F] * 3 + [_P],
     "pbfwi_b3_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
+    # the ring forward's (and B8's) resident route
+    "b3_elastic_ring_resident": [_P] * 8 + [_I] * 11 + [_F, _P],
+    "pbfwi_ring_max_clusters": [_I] * 8 + [ctypes.POINTER(_I)],
     # csrc/acoustic.cu
     "b5_acoustic_forward": [_P] * 11 + [_I] * 4 + [_F, _P],
     "b6_checkpoints": [_P] * 11 + [_I] * 5 + [_F, _P],

@@ -42,9 +42,13 @@ through both sweeps, one launch per sweep) wherever
 :func:`elastic_resident_plan` holds the grid, and the per-step one
 (``b3_fused_elastic_loss_grad``, launches per time step) elsewhere; the
 choice is made by shape before any launch (``scalar2.pick_route``).
-:func:`simulate_elastic_ring` does the same with B3's forward phases
-(``csrc/elastic.cu::b3_elastic_ring``).  Gradients w.r.t. (vp, vs, rho)
-come from ``torch.autograd`` through :func:`prep_medium`.
+:func:`simulate_elastic_ring` runs B3's forward sweep alone on the same
+two routes: the resident one (``b3_elastic_ring_resident``, one launch
+of the sweep without checkpoints, shots in waves of the clusters the
+card keeps resident) wherever :func:`elastic_forward_plan` (bands of 8
+or 9 rows) holds the grid, the per-step one (``b3_elastic_ring``)
+elsewhere.  Gradients w.r.t. (vp, vs, rho) come from ``torch.autograd``
+through :func:`prep_medium`.
 """
 
 from __future__ import annotations
@@ -69,8 +73,10 @@ EPS = 1e-10
 _C1, _C2 = 9.0 / 8.0, -1.0 / 24.0
 # B3's resident route (csrc/elastic.cu): bands of EL_ROWS rows, one
 # thread a column, at most EL_MAX_COLS threads (168 registers each) and
-# EL_MAX_CLUSTER CTAs (a non-portable cluster size)
+# EL_MAX_CLUSTER CTAs (a non-portable cluster size); the forward sweep
+# alone (the ring forward, B8) also has bands of 9 rows
 EL_ROWS = 8
+EL_FWD_ROWS = (EL_ROWS, 9)
 EL_MAX_COLS = 384
 EL_MAX_CLUSTER = 16
 
@@ -376,20 +382,55 @@ def _rows_plain(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx):
 # CUDA kernels (csrc/elastic.cu)
 # ---------------------------------------------------------------------------
 
+def _band_plan(nz8: int, nx128: int, heights) -> ResidentPlan | None:
+    """Bands of the first height R of ``heights`` that divides nz8 into
+    at most EL_MAX_CLUSTER CTAs, one thread a column (nx128 <=
+    EL_MAX_COLS), and shared memory for 5 field buffers with 2 halo rows
+    and 4 zero columns each side plus the band's 6 media within
+    SMEM_LIMIT; None where no height fits."""
+    if nx128 % 32 or nx128 > EL_MAX_COLS:
+        return None
+    for R in heights:
+        C = nz8 // R
+        smem = 4 * (5 * (R + 4) * (nx128 + 8) + 6 * R * nx128)
+        if nz8 % R == 0 and 1 <= C <= EL_MAX_CLUSTER and smem <= SMEM_LIMIT:
+            return ResidentPlan(C, R, nx128, smem, rows_per_thread=R)
+    return None
+
+
 def elastic_resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     """The resident plan of kernel B3 for an [nz8, nx128] grid, or None
     where it cannot hold the grid (the per-step route runs): nz8 / 8
-    CTAs of EL_ROWS rows (at most EL_MAX_CLUSTER), one thread a column
-    (nx128 <= EL_MAX_COLS), and shared memory for 5 field buffers with 2
-    halo rows and 4 zero columns each side plus the band's 6 media.  At
-    128 x 384 (the marmousi_elastic family) that is 16 CTAs of 384
-    threads and 167,808 B."""
-    C = nz8 // EL_ROWS
-    smem = 4 * (5 * (EL_ROWS + 4) * (nx128 + 8) + 6 * EL_ROWS * nx128)
-    if (nz8 % EL_ROWS or not 1 <= C <= EL_MAX_CLUSTER or nx128 % 32
-            or nx128 > EL_MAX_COLS or smem > SMEM_LIMIT):
-        return None
-    return ResidentPlan(C, EL_ROWS, nx128, smem, rows_per_thread=EL_ROWS)
+    CTAs of EL_ROWS rows (:func:`_band_plan`).  At 128 x 384 (the
+    marmousi_elastic family) that is 16 CTAs of 384 threads and 167,808
+    B."""
+    return _band_plan(nz8, nx128, (EL_ROWS,))
+
+
+def elastic_forward_plan(nz8: int, nx128: int) -> ResidentPlan | None:
+    """The resident plan of the forward sweep alone (the ring forward
+    and B8) for an [nz8, nx128] grid, or None (the per-step or, for B8,
+    the cooperative route runs): the smallest band height of EL_FWD_ROWS
+    that holds the grid (:func:`_band_plan`).  At 128 x 384 B3's plan; at
+    144 x 384 (B8 at marmousi_elastic's shape, seam_elastic) 16 CTAs of
+    9 rows and 184,864 B."""
+    return _band_plan(nz8, nx128, EL_FWD_ROWS)
+
+
+def elastic_forward_max_active_clusters(plan: ResidentPlan, ns: int,
+                                        nz8: int, nx128: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the forward sweep's instance
+    without checkpoints under ``plan`` (the ring forward's and B8's
+    resident route): how many shots run at once (a query; launches
+    nothing)."""
+    import ctypes
+
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    out = ctypes.c_int(0)
+    err = cuda_build.load_library().pbfwi_ring_max_clusters(
+        ns, nz8, nx128, *plan.args(), ctypes.byref(out))
+    cuda_build.check(err, "pbfwi_ring_max_clusters")
+    return out.value
 
 
 def elastic_max_active_clusters(plan: ResidentPlan, ns: int, nz8: int,
@@ -463,32 +504,74 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
     return loss, tuple(gmed.unbind(0))
 
 
-def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx):
-    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+def forward_operands(what, meds, damp, wav, sz, sx, rrow, gain, nt):
+    """The media stacked [5, nz8, nx128] after the checks that the ring
+    forward's and B8's wrappers make before passing pointers."""
     ns = wav.shape[0]
     nz8, nx128 = damp.shape
-    dev = damp.device
     f32, i32 = torch.float32, torch.int32
     med = torch.stack(meds).contiguous()
-    check_tensors("simulate_elastic_ring", dev, (
+    check_tensors(what, damp.device, (
         ("meds", med, f32, (5, nz8, nx128)), ("damp", damp, f32, None),
         ("wavelet", wav, f32, (ns, wav.shape[1])),
         ("src_z", sz, i32, (ns,)), ("src_x", sx, i32, (ns,)),
         ("rcv_row", rrow, i32, (ns,)), ("src_gain", gain, f32, (ns,))))
     if wav.shape[1] < nt:
-        raise ValueError("simulate_elastic_ring: wavelet shorter than nt")
-    lib = cuda_build.load_library()
-    state = torch.empty((ns, 5, nz8, nx128), dtype=f32, device=dev)
-    hist = torch.empty((2, ns, nt, nx128), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.b3_elastic_ring(
-        med.data_ptr(), damp.data_ptr(), wav.data_ptr(), sz.data_ptr(),
-        sx.data_ptr(), rrow.data_ptr(), gain.data_ptr(), state.data_ptr(),
-        hist.data_ptr(), ns, nz8, nx128, nt, wav.shape[1], fs_row, dtx,
-        stream)
-    cuda_build.check(err, "b3_elastic_ring")
-    simulate_elastic_ring.launches += 1
+        raise ValueError(f"{what}: wavelet shorter than nt")
+    return med
+
+
+def forward_launch_args(med, damp, wav, sz, sx, rrow, gain, nt):
+    """(hist [2, ns, nt, nx128] for the receiver rows, the pointers of
+    the inputs, the stream) of a forward launch; the caller holds the
+    inputs until the launch is queued."""
+    ns = wav.shape[0]
+    hist = torch.empty((2, ns, nt, damp.shape[1]), dtype=torch.float32,
+                       device=damp.device)
+    ptrs = [a.data_ptr() for a in (med, damp, wav, sz, sx, rrow, gain)]
+    return hist, ptrs, torch.cuda.current_stream(damp.device).cuda_stream
+
+
+def resident_forward_rows(med, damp, wav, sz, sx, rrow, gain, fs_row, nt,
+                          dtx, plan: ResidentPlan):
+    """Receiver rows (vx, vz), each [ns, nt, nx128], from one launch of
+    the resident forward sweep without checkpoints under ``plan``
+    (``b3_elastic_ring_resident``): the ring forward's resident route,
+    and B8's with ``fs_row`` -1.  A launch the card refuses raises."""
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    hist, ptrs, stream = forward_launch_args(med, damp, wav, sz, sx, rrow,
+                                             gain, nt)
+    nz8, nx128 = damp.shape
+    err = cuda_build.load_library().b3_elastic_ring_resident(
+        *ptrs, hist.data_ptr(), wav.shape[0], nz8, nx128, nt, wav.shape[1],
+        fs_row, *plan.args(), dtx, stream)
+    cuda_build.check(err, "b3_elastic_ring_resident")
     return hist[0], hist[1]
+
+
+def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx,
+               route=None):
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    what = "simulate_elastic_ring"
+    med = forward_operands(what, meds, damp, wav, sz, sx, rrow, gain, nt)
+    ns = wav.shape[0]
+    nz8, nx128 = damp.shape
+    route, plan = pick_route(what, nz8, nx128, route, elastic_forward_plan)
+    if route == "resident":
+        out = resident_forward_rows(med, damp, wav, sz, sx, rrow, gain,
+                                    fs_row, nt, dtx, plan)
+    else:
+        hist, ptrs, stream = forward_launch_args(med, damp, wav, sz, sx,
+                                                 rrow, gain, nt)
+        state = torch.empty((ns, 5, nz8, nx128), dtype=torch.float32,
+                            device=damp.device)
+        err = cuda_build.load_library().b3_elastic_ring(
+            *ptrs, state.data_ptr(), hist.data_ptr(), ns, nz8, nx128, nt,
+            wav.shape[1], fs_row, dtx, stream)
+        cuda_build.check(err, "b3_elastic_ring")
+        out = hist[0], hist[1]
+    count_launch(simulate_elastic_ring, route)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -616,14 +699,18 @@ def simulate_elastic_ring_plain(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
 
 @torch.no_grad()
 def simulate_elastic_ring(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
-                          cfg: ElasticConfig):
+                          cfg: ElasticConfig, *, route=None):
     """Forward traces (vx, vz), each [ns, nt, nr], with the exact
     operator of the fused kernel: synthetic observed data made with it
     give a zero misfit at the true model.
 
-    On a CUDA ``vp`` this launches B3's forward phases
-    (``simulate_elastic_ring.launches`` counts the launches); on a CPU
-    ``vp`` it runs :func:`simulate_elastic_ring_plain`.  Any other
+    On a CUDA ``vp`` this launches B3's forward sweep on the route that
+    ``scalar2.pick_route`` gives ``route`` with
+    :func:`elastic_forward_plan` (by default the resident route where
+    that plan holds the grid; "resident" raises where it does not);
+    ``simulate_elastic_ring.launches`` counts the launches,
+    ``resident_launches`` and ``per_step_launches`` each route's.  On a
+    CPU ``vp`` it runs :func:`simulate_elastic_ring_plain`.  Any other
     device raises.
     """
     if vp.device.type == "cpu":
@@ -632,8 +719,8 @@ def simulate_elastic_ring(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
     if vp.device.type != "cuda":
         raise ValueError(f"simulate_elastic_ring: no kernel for device "
                          f"{vp.device}")
-    return _ring(_rows_cuda, vp, vs, rho, wavelet, src_z, src_x, rcv_z,
-                 rcv_x, cfg)
+    return _ring(partial(_rows_cuda, route=route), vp, vs, rho, wavelet,
+                 src_z, src_x, rcv_z, rcv_x, cfg)
 
 
-simulate_elastic_ring.launches = 0
+reset_launches(simulate_elastic_ring)

@@ -11,15 +11,22 @@ Absorbing tops only: a free surface raises, as in the JAX package.
 
 It is the function of :func:`ops.elastic_fused.simulate_elastic_ring`
 without the free-surface row, so its plain version is that module's
-plain forward scan.  :func:`elastic_forward_pallas` launches the
-hand-written CUDA kernel (``csrc/elastic_fwd.cu::b8_elastic_forward``,
-the whole time loop in one cooperative launch) on CUDA tensors and runs
-:func:`elastic_forward_pallas_plain` on CPU tensors.
+plain forward scan.  On CUDA tensors :func:`elastic_forward_pallas`
+launches one of two hand-written kernels, picked by shape before any
+launch: where :func:`ops.elastic_fused.elastic_forward_plan` holds the
+grid, the ring forward's resident route
+(``csrc/elastic.cu::b3_elastic_ring_resident`` with no free-surface
+row: one thread-block cluster per shot holds its fields in shared
+memory for the whole time loop); elsewhere the cooperative route
+(``csrc/elastic_fwd.cu::b8_elastic_forward``, the whole time loop in
+one cooperative launch, the fields in global memory).  On CPU tensors
+it runs :func:`elastic_forward_pallas_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -28,9 +35,12 @@ from physicsbasedfwi2_tpu_torch.ops.acoustic import edge_pad
 from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig, _pad, _staggered_medium,
 )
-from physicsbasedfwi2_tpu_torch.ops.elastic_fused import _rows_plain
+from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+    _rows_plain, elastic_forward_plan, forward_launch_args,
+    forward_operands, resident_forward_rows,
+)
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-    _kernel_route, _round_up, check_tensors,
+    _kernel_route, _round_up, count_launch, pick_route,
 )
 
 
@@ -89,33 +99,31 @@ def _rows_open_top(meds, damp, wav, sz, sx, rrow, gain, nt, dtx):
     return _rows_plain(meds, damp, wav, sz, sx, rrow, gain, -1, nt, dtx)
 
 
-def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, nt, dtx):
+def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, nt, dtx, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    what = "elastic_forward_pallas"
+    med = forward_operands(what, meds, damp, wav, sz, sx, rrow, gain, nt)
     ns = wav.shape[0]
     nz8, nx128 = damp.shape
-    dev = damp.device
-    f32, i32 = torch.float32, torch.int32
-    med = torch.stack(meds).contiguous()
-    check_tensors("elastic_forward_pallas", dev, (
-        ("meds", med, f32, (5, nz8, nx128)), ("damp", damp, f32, None),
-        ("wavelet", wav, f32, (ns, wav.shape[1])), ("src_z", sz, i32, (ns,)),
-        ("src_x", sx, i32, (ns,)), ("rcv_row", rrow, i32, (ns,)),
-        ("src_gain", gain, f32, (ns,))))
-    if wav.shape[1] < nt:
-        raise ValueError("elastic_forward_pallas: wavelet shorter than nt")
-    lib = cuda_build.load_library()
-    state = torch.empty((ns, 5, nz8, nx128), dtype=f32, device=dev)
-    hist = torch.empty((2, ns, nt, nx128), dtype=f32, device=dev)
-    blocks = ctypes.c_int(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in (med, damp, wav, sz, sx, rrow, gain, state,
-                                   hist)]
-    err = lib.b8_elastic_forward(*ptrs, ctypes.byref(blocks), ns, nz8, nx128,
-                                 nt, wav.shape[1], dtx, stream)
-    cuda_build.check(err, "b8_elastic_forward")
-    elastic_forward_pallas.launches += 1
-    elastic_forward_pallas.grid_blocks = blocks.value
-    return hist[0], hist[1]
+    route, plan = pick_route(what, nz8, nx128, route, elastic_forward_plan,
+                             other="cooperative")
+    if route == "resident":
+        out = resident_forward_rows(med, damp, wav, sz, sx, rrow, gain, -1,
+                                    nt, dtx, plan)
+    else:
+        hist, ptrs, stream = forward_launch_args(med, damp, wav, sz, sx,
+                                                 rrow, gain, nt)
+        state = torch.empty((ns, 5, nz8, nx128), dtype=torch.float32,
+                            device=damp.device)
+        blocks = ctypes.c_int(0)
+        err = cuda_build.load_library().b8_elastic_forward(
+            *ptrs, state.data_ptr(), hist.data_ptr(), ctypes.byref(blocks),
+            ns, nz8, nx128, nt, wav.shape[1], dtx, stream)
+        cuda_build.check(err, "b8_elastic_forward")
+        elastic_forward_pallas.grid_blocks = blocks.value
+        out = hist[0], hist[1]
+    count_launch(elastic_forward_pallas, route)
+    return out
 
 
 def _forward(rows_fn, vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x, cfg):
@@ -148,7 +156,7 @@ def elastic_forward_pallas_plain(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
 
 @torch.no_grad()
 def elastic_forward_pallas(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
-                           cfg: ElasticConfig):
+                           cfg: ElasticConfig, *, route=None):
     """Forward elastic simulation with the contract of
     :func:`ops.elastic.simulate_elastic`: traces (vx, vz), each
     [ns, nt, nr].  A Kosloff sponge instead of the split-field PML, so
@@ -156,18 +164,25 @@ def elastic_forward_pallas(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
     ``simulate_elastic``; receivers of a shot share row ``rcv_z[:, 0]``.
     Raises ``NotImplementedError`` on a free-surface grid.
 
-    On a CUDA ``vp`` this launches kernel B8 once for all shots
-    (``elastic_forward_pallas.launches`` counts the launches,
-    ``.grid_blocks`` holds the last launch's block count); on a CPU
-    ``vp`` it runs :func:`elastic_forward_pallas_plain`.  Any other
-    device raises.
+    On a CUDA ``vp`` this launches kernel B8 once for all shots, on the
+    route that ``scalar2.pick_route`` gives ``route`` with
+    :func:`ops.elastic_fused.elastic_forward_plan`: by default
+    "resident" where that plan holds the grid (raises if asked where it
+    does not) and "cooperative" elsewhere.
+    ``elastic_forward_pallas.launches`` counts the launches,
+    ``resident_launches`` and ``cooperative_launches`` each route's, and
+    ``.grid_blocks`` holds the last cooperative launch's block count.
+    On a CPU ``vp`` it runs :func:`elastic_forward_pallas_plain`.  Any
+    other device raises.
     """
     if not _kernel_route(vp, "elastic_forward_pallas"):
         return elastic_forward_pallas_plain(vp, vs, rho, wavelet, src_z,
                                             src_x, rcv_z, rcv_x, cfg)
-    return _forward(_rows_cuda, vp, vs, rho, wavelet, src_z, src_x, rcv_z,
-                    rcv_x, cfg)
+    return _forward(partial(_rows_cuda, route=route), vp, vs, rho, wavelet,
+                    src_z, src_x, rcv_z, rcv_x, cfg)
 
 
 elastic_forward_pallas.launches = 0
+elastic_forward_pallas.resident_launches = 0
+elastic_forward_pallas.cooperative_launches = 0
 elastic_forward_pallas.grid_blocks = 0

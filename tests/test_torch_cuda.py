@@ -292,18 +292,21 @@ def test_b8_kernel_matches_plain_and_ring(dev):
     wav = ricker(*wargs, device=dev)
     med = tuple(torch.as_tensor(a, device=dev) for a in med)
     geom = tuple(torch.as_tensor(a, device=dev) for a in geom)
-    before = elastic_fwd.elastic_forward_pallas.launches
-    got = elastic_fwd.elastic_forward_pallas(*med, wav, *geom, cfg)
+    b8 = elastic_fwd.elastic_forward_pallas
+    before = b8.launches
+    got = b8(*med, wav, *geom, cfg)
+    coop = b8(*med, wav, *geom, cfg, route="cooperative")
     torch.cuda.synchronize()
-    assert elastic_fwd.elastic_forward_pallas.launches == before + 1
-    assert elastic_fwd.elastic_forward_pallas.grid_blocks >= 1
+    assert b8.launches == before + 2
+    assert b8.grid_blocks >= 1
     ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
-    ring = ef.simulate_elastic_ring(*med, wav, *geom, cfg)
-    for a, b, c in zip(got, ref, ring):
+    ring = ef.simulate_elastic_ring(*med, wav, *geom, cfg, route="per_step")
+    for a, b, c, d in zip(got, ref, ring, coop):
         # FMA contraction and sum order differ: 1e-5 of max over 64 steps
         assert rel_max(a, b) <= 1e-5
         # the ring forward's arithmetic per cell
         assert rel_max(a, c) <= 1e-6
+        assert rel_max(d, c) <= 1e-6
 
 
 def test_b2_wavelet_gradient_matches_plain(case):
@@ -650,3 +653,117 @@ def test_b5_b6_grid_beyond_the_plan_takes_the_per_step_route(dev):
     for fn, args in ((fwd, ()), (bwd, (rows,))):
         with pytest.raises(ValueError, match="no resident plan"):
             fn(vp, wav, *geom, cfg, *args, route="resident")
+
+
+# ---------------------------------------------------------------------------
+# The ring forward's and B8's resident route (B3's forward sweep alone,
+# bands of 8 or 9 rows)
+# ---------------------------------------------------------------------------
+
+# (free surface, rows of the physical grid): 6 x 8 and 7 x 8 bands on the
+# elastic case's grid, 16 x 9 on a taller one (144 x 128 in kernel layout)
+FWD_CASES = [(True, 36, 6, 8), (False, 36, 7, 8), (True, 134, 16, 9),
+             (False, 128, 16, 9)]
+FWD_IDS = ["free_surface-6x8", "absorbing_top-7x8", "free_surface-16x9",
+           "absorbing_top-16x9"]
+
+
+def _fwd_case(dev, free_surface, nz, cluster, rows):
+    """60 steps of 5 shots on an nz x 48 grid whose kernel layout the
+    forward plan cuts into ``cluster`` bands of ``rows`` rows, each shot
+    with its source on one band's edge row and its receivers on the
+    neighbouring band's."""
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        make_elastic_model, make_marmousi_like)
+    grid, cfg, wargs, _, _ = elastic_case(free_surface=free_surface)
+    cfg = torch_elastic(dict(grid, nz=nz, nt=60), cfg)
+    nz8, nx128 = ef._layout(cfg)[4:]
+    plan = ef.elastic_forward_plan(nz8, nx128)
+    assert (plan.cluster, plan.band_rows) == (cluster, rows)
+    med = tuple(torch.as_tensor(a, device=dev) for a in make_elastic_model(
+        make_marmousi_like(nz, 48, seed=0, water_rows=4), water_rows=4))
+    top = 2 if free_surface else 8
+    edges = [k * rows - 1 for k in (2, 3, 4)]
+    src = np.array([edges[0], edges[0] + 1, edges[1], edges[1] + 1,
+                    edges[2]], np.int32)
+    rcv = np.array([edges[0] + 1, edges[0], edges[1] + 1, edges[1],
+                    edges[2] + 1], np.int32)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        src - top, np.linspace(3, 44, 5).astype(np.int32),
+        np.repeat(rcv[:, None] - top, 8, axis=1),
+        np.tile(np.arange(8, dtype=np.int32) * 6 + 2, (5, 1))))
+    return cfg, ricker(wargs[0], 60, wargs[2], device=dev), med, geom
+
+
+@pytest.mark.parametrize("free_surface,nz,cluster,rows", FWD_CASES,
+                         ids=FWD_IDS)
+def test_resident_ring_forward_matches_per_step_and_plain(
+        dev, free_surface, nz, cluster, rows):
+    cfg, wav, med, geom = _fwd_case(dev, free_surface, nz, cluster, rows)
+    fn = ef.simulate_elastic_ring
+    before = _routes(fn)
+    res = fn(*med, wav, *geom, cfg)
+    per = fn(*med, wav, *geom, cfg, route="per_step")
+    torch.cuda.synchronize()
+    assert _routes(fn) == (before[0] + 1, before[1] + 1)
+    # the same per-cell functions on both routes: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(res, per))
+    ref = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    for a, b in zip(res, ref):
+        assert float(a.abs().max()) > 0
+        # FMA contraction and sum order differ: 1e-5 of max over 60 steps
+        assert rel_max(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("nz,cluster,rows", [(36, 7, 8), (128, 16, 9)],
+                         ids=["7x8", "16x9"])
+def test_resident_b8_matches_cooperative_ring_and_plain(dev, nz, cluster,
+                                                        rows):
+    cfg, wav, med, geom = _fwd_case(dev, False, nz, cluster, rows)
+    b8 = elastic_fwd.elastic_forward_pallas
+    before = (b8.resident_launches, b8.cooperative_launches)
+    res = b8(*med, wav, *geom, cfg)
+    coop = b8(*med, wav, *geom, cfg, route="cooperative")
+    ring = ef.simulate_elastic_ring(*med, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert (b8.resident_launches, b8.cooperative_launches) == (
+        before[0] + 1, before[1] + 1)
+    # the ring forward's resident instance with no free-surface row, and
+    # the cooperative kernel's arithmetic per cell
+    assert all(torch.equal(a, b) for a, b in zip(res, ring))
+    assert all(torch.equal(a, b) for a, b in zip(res, coop))
+    ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
+    for a, b in zip(res, ref):
+        assert rel_max(a, b) <= 1e-5
+
+
+def test_forward_grid_beyond_the_plan_takes_the_other_routes(dev):
+    # 48 x 512 in kernel layout: wider than the plan's 384 threads
+    grid = dict(nz=32, nx=400, dx=15.0, nt=24, dt=0.0015, pml_width=8,
+                free_surface=False)
+    cfg = torch_elastic(grid, dict(chunk=16, vmax_pml=4000.0))
+    assert ef._layout(cfg)[4:] == (48, 512)
+    assert ef.elastic_forward_plan(48, 512) is None
+    rng = np.random.default_rng(3)
+    med = tuple(torch.as_tensor(
+        (v * (1.0 + 0.02 * rng.standard_normal((32, 400)))).astype(
+            np.float32), device=dev) for v in (2000.0, 1100.0, 2100.0))
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.array([5, 5], np.int32), np.array([60, 300], np.int32),
+        np.full((2, 8), 5, np.int32),
+        np.tile(np.arange(8, dtype=np.int32) * 48 + 10, (2, 1))))
+    wav = ricker(12.0, 24, 0.0015, device=dev)
+    ring, b8 = ef.simulate_elastic_ring, elastic_fwd.elastic_forward_pallas
+    before = (_routes(ring), b8.resident_launches, b8.cooperative_launches)
+    got = ring(*med, wav, *geom, cfg)
+    got8 = b8(*med, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert (_routes(ring), b8.resident_launches, b8.cooperative_launches) \
+        == ((before[0][0], before[0][1] + 1), before[1], before[2] + 1)
+    ref = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    for a, b, c in zip(got, got8, ref):
+        assert rel_max(a, c) <= 1e-5
+        assert rel_max(b, c) <= 1e-5
+    for fn in (ring, b8):
+        with pytest.raises(ValueError, match="no resident plan"):
+            fn(*med, wav, *geom, cfg, route="resident")

@@ -1,7 +1,9 @@
-"""The launch planner of kernel B3's resident route
-(``ops/elastic_fused.py::elastic_resident_plan``): what it maps each
-grid to, which workloads' grids it holds, and that CPU tensors never
-reach either CUDA route."""
+"""The launch planners of kernel B3's resident route
+(``ops/elastic_fused.py::elastic_resident_plan``) and of the forward
+sweep alone, the ring forward's and B8's
+(``elastic_forward_plan``): what they map each grid to, which
+workloads' grids they hold, and that CPU tensors never reach a CUDA
+route."""
 
 import numpy as np
 import pytest
@@ -10,9 +12,11 @@ import torch
 from physicsbasedfwi2_tpu_torch.engine.config import get_workload
 from physicsbasedfwi2_tpu_torch.geo import Grid2D, ricker
 from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
+from physicsbasedfwi2_tpu_torch.ops import elastic_fwd
 from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
 from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-    EL_MAX_CLUSTER, EL_MAX_COLS, EL_ROWS, elastic_resident_plan,
+    EL_FWD_ROWS, EL_MAX_CLUSTER, EL_MAX_COLS, EL_ROWS, elastic_forward_plan,
+    elastic_resident_plan,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
     SMEM_LIMIT, ResidentPlan, pick_route, reset_launches,
@@ -130,3 +134,146 @@ def test_cpu_tensors_reach_no_route(route):
     assert torch.equal(lk, lp)
     assert all(torch.equal(a, b) for a, b in zip(gk, gp))
     assert float(lk) > 0
+
+
+# ---------------------------------------------------------------------------
+# the forward sweep alone: the ring forward and B8 (bands of 8 or 9 rows)
+# ---------------------------------------------------------------------------
+
+def _fwd_planned(nz8, nx128, other="per_step"):
+    return pick_route("simulate_elastic_ring", nz8, nx128,
+                      plan_fn=elastic_forward_plan, other=other)
+
+
+@pytest.mark.parametrize("nz8,nx128,rows,smem", [
+    (128, 384, 8, 167_808),   # marmousi_elastic's ring forward: B3's plan
+    (144, 384, 9, 184_864),   # B8 at marmousi_elastic's shape, seam_elastic
+])
+def test_forward_plan_fits_shared_memory(nz8, nx128, rows, smem):
+    plan = elastic_forward_plan(nz8, nx128)
+    assert plan == ResidentPlan(cluster=16, band_rows=rows, threads=384,
+                                smem_bytes=smem, rows_per_thread=rows)
+    assert plan.args() == (16, rows, rows, 384, smem)
+    # 5 field buffers with 2 halo rows and 4 zero columns each side, and
+    # the band's 6 media
+    assert smem == 4 * (5 * (rows + 4) * 392 + 6 * rows * 384) <= SMEM_LIMIT
+    assert _fwd_planned(nz8, nx128) == ("resident", plan)
+
+
+def test_forward_plan_takes_b3s_plan_where_it_holds():
+    assert EL_FWD_ROWS == (EL_ROWS, 9)
+    for nz8, nx128 in GRIDS:
+        assert elastic_forward_plan(nz8, nx128) == elastic_resident_plan(
+            nz8, nx128)
+    # B3's own plan is unchanged where only 9-row bands hold the grid
+    assert elastic_resident_plan(144, 384) is None
+    assert elastic_forward_plan(144, 384).band_rows == 9
+
+
+@pytest.mark.parametrize("nz8,nx128", GRIDS + [(144, 384), (144, 128),
+                                               (72, 256)])
+def test_forward_bands_cover_every_row_once(nz8, nx128):
+    plan = elastic_forward_plan(nz8, nx128)
+    bands = plan.bands(nz8)
+    rows = np.concatenate([np.arange(a, b) for a, b in bands])
+    np.testing.assert_array_equal(rows, np.arange(nz8))
+    assert len(bands) == plan.cluster <= EL_MAX_CLUSTER
+    assert all(b - a == plan.band_rows for a, b in bands)
+    # the smallest height that holds the grid, one thread a column
+    assert plan.band_rows == min(R for R in EL_FWD_ROWS
+                                 if nz8 % R == 0
+                                 and nz8 // R <= EL_MAX_CLUSTER)
+    assert plan.threads == nx128 <= EL_MAX_COLS
+    assert plan.rows_per_thread == plan.band_rows
+    assert plan.smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nz8,nx128", [
+    (192, 384),    # real_data: 24 bands of 8, no whole number of 9
+    (136, 128),    # 17 bands of 8
+    (64, 512),     # wider than 384 threads
+    (44, 128),     # neither 8- nor 9-row bands
+])
+def test_forward_grids_beyond_the_plan_take_the_other_routes(nz8, nx128):
+    assert elastic_forward_plan(nz8, nx128) is None
+    assert _fwd_planned(nz8, nx128) == ("per_step", None)
+    assert _fwd_planned(nz8, nx128, "cooperative") == ("cooperative", None)
+    with pytest.raises(ValueError, match="no resident plan"):
+        pick_route("elastic_forward_pallas", nz8, nx128, "resident",
+                   elastic_forward_plan, other="cooperative")
+
+
+@pytest.mark.parametrize("name,free_surface,shape", [
+    ("marmousi_elastic", None, (128, 384)),   # the engine's ring forward
+    ("marmousi_elastic", False, (144, 384)),  # B8's case at that shape
+    ("seam_elastic", None, (144, 384)),
+])
+def test_forward_plan_holds_the_workload_grids(name, free_surface, shape):
+    c = get_workload(name)
+    fs = c.free_surface if free_surface is None else free_surface
+    cfg = ElasticConfig(grid=Grid2D(nz=c.nz, nx=c.nx, dx=c.dx, nt=c.nt,
+                                    dt=c.dt, pml_width=c.pml_width,
+                                    free_surface=fs), chunk=c.chunk)
+    assert ef._layout(cfg)[4:] == shape
+    assert elastic_forward_plan(*shape) is not None
+    if not fs:
+        # B8 pads to the same grid as the ring forward
+        _, _, b8_shape = elastic_fwd._prepare_el(
+            *(torch.full((c.nz, c.nx), v) for v in (2000.0, 1000.0, 2000.0)),
+            cfg)
+        assert b8_shape == shape
+
+
+def test_b8_route_names():
+    assert _fwd_planned(144, 384, "cooperative")[0] == "resident"
+    assert pick_route("b8", 144, 384, "cooperative", elastic_forward_plan,
+                      other="cooperative")[0] == "cooperative"
+    for bad in ("per_step", "cuda"):
+        with pytest.raises(ValueError, match="route must be"):
+            pick_route("b8", 144, 384, bad, elastic_forward_plan,
+                       other="cooperative")
+
+
+def _fwd_cpu_case(free_surface):
+    grid, cfg, wargs, med, geom = elastic_case(free_surface=free_surface)
+    grid = dict(grid, nt=24)
+    return (torch_elastic(grid, cfg), ricker(wargs[0], 24, wargs[2]),
+            tuple(torch.as_tensor(a) for a in med),
+            tuple(torch.as_tensor(a) for a in geom))
+
+
+@pytest.mark.parametrize("route", [None, "resident", "per_step"])
+def test_cpu_tensors_reach_no_ring_forward_route(route):
+    cfg, wav, med, geom = _fwd_cpu_case(True)
+    fn = ef.simulate_elastic_ring
+    saved = (fn.launches, fn.resident_launches, fn.per_step_launches)
+    reset_launches(fn)
+    try:
+        got = fn(*med, wav, *geom, cfg, route=route)
+        assert (fn.launches, fn.resident_launches,
+                fn.per_step_launches) == (0, 0, 0)
+    finally:
+        fn.launches, fn.resident_launches, fn.per_step_launches = saved
+    ref = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert float(got[0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("route", [None, "resident", "cooperative"])
+def test_cpu_tensors_reach_no_b8_route(route):
+    cfg, wav, med, geom = _fwd_cpu_case(False)
+    fn = elastic_fwd.elastic_forward_pallas
+    keys = ("launches", "resident_launches", "cooperative_launches",
+            "grid_blocks")
+    saved = tuple(getattr(fn, k) for k in keys)
+    try:
+        for k in keys:
+            setattr(fn, k, 0)
+        got = fn(*med, wav, *geom, cfg, route=route)
+        assert tuple(getattr(fn, k) for k in keys) == (0, 0, 0, 0)
+    finally:
+        for k, v in zip(keys, saved):
+            setattr(fn, k, v)
+    ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert float(got[0].abs().max()) > 0

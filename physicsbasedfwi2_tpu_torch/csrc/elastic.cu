@@ -8,8 +8,10 @@
 //       b3_elastic_ring_resident,   <- the same file's simulate_elastic_ring
 //       b3_elastic_ring                (a JAX scan of the same scheme,
 //                                      _ring_scan)
-// which B8 (ops/elastic_fwd.py, elastic_forward_pallas) shares on its
-// resident route with no free-surface row.
+// and, with no free-surface row, for
+//   B8  elastic_forward_pallas      <- physicsbasedfwi2_tpu/ops/
+//       (ops/elastic_fwd.py)           pallas_elastic.py _el_kernel
+// on both routes.
 //
 // Scheme: the 5-field Virieux P-SV velocity-stress update with a
 // multiplicative sponge `damp` (which also zeroes a 2-cell ring) and
@@ -94,8 +96,10 @@
 // (chip_smoke.py, routes in turns; PERF.md): 7 clusters resident at both
 // heights; the ring forward 74.8-76.8 ms (22.7 us a step of 35 shots, 5
 // waves of B3's 4.5 us step) against per-step 139.1-139.5, B8 77.0-77.4
-// against cooperative 174.2-174.5 (a 9-row step 1.02x an 8-row one);
-// each bit-equal to its other route, B8 to the ring forward.
+// against a cooperative kernel's 174.2-174.5 (a 9-row step 1.02x an
+// 8-row one); each bit-equal to its other route, B8 to the ring forward.
+// B8's cooperative kernel was then removed: the per-step route below
+// computes the same bits and was no slower (167-168 ms against 172).
 //
 // Per-step route (el_fwd_v, el_fwd_s, el_adj_v, el_adj_s; and the ring
 // forward).  Every phase of a time step is one launch over all shots,

@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
-B2, B4a and B4b; ``elastic.cu``: kernel B3, the ring forward and B8's
-resident route; ``acoustic.cu``: kernels B5 and B6; ``scalar2b.cu``:
-kernels B7a and B7b; ``elastic_fwd.cu``: B8's cooperative route;
-``cluster.cuh``: the helpers of the resident routes, included by
-``scalar2.cu``, ``elastic.cu`` and ``acoustic.cu``) for ``sm_90a``, one
+B2, B4a and B4b; ``elastic.cu``: kernel B3 and the ring forward, which
+B8 runs with no free-surface row; ``acoustic.cu``: kernels B5 and B6;
+``scalar2b.cu``: kernels B7a and B7b; ``cluster.cuh``: the helpers of
+the resident routes, included by ``scalar2.cu``, ``elastic.cu`` and
+``acoustic.cu``) for ``sm_90a``, one
 process per source, all started together, and links the objects into
 one shared library with a plain C interface, which ``ctypes`` loads.
 The build runs at first use, never at import, into
@@ -25,7 +25,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(_CSRC / f for f in ("scalar2.cu", "elastic.cu", "acoustic.cu",
-                                     "scalar2b.cu", "elastic_fwd.cu"))
+                                     "scalar2b.cu"))
 # headers the sources include (the thread-block cluster helpers)
 HEADERS = (_CSRC / "cluster.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -67,9 +67,6 @@ _SIGNATURES = {
     # csrc/scalar2b.cu
     "b7a_forward2b": [_P] * 11 + [_I] * 6 + [_P],
     "b7b_backward2b": [_P] * 17 + [_I] * 5 + [_P],
-    # csrc/elastic_fwd.cu (the grid size comes back through an int*)
-    "b8_elastic_forward": [_P] * 9 + [ctypes.POINTER(_I)] + [_I] * 5
-    + [_F, _P],
 }
 
 _lib = None

@@ -409,9 +409,8 @@ def elastic_resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
 
 def elastic_forward_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     """The resident plan of the forward sweep alone (the ring forward
-    and B8) for an [nz8, nx128] grid, or None (the per-step or, for B8,
-    the cooperative route runs): the smallest band height of EL_FWD_ROWS
-    that holds the grid (:func:`_band_plan`).  At 128 x 384 B3's plan; at
+    and B8) for an [nz8, nx128] grid, or None (the per-step route runs):
+    the smallest band height of EL_FWD_ROWS that holds the grid (:func:`_band_plan`).  At 128 x 384 B3's plan; at
     144 x 384 (B8 at marmousi_elastic's shape, seam_elastic) 16 CTAs of
     9 rows and 184,864 B."""
     return _band_plan(nz8, nx128, EL_FWD_ROWS)
@@ -504,74 +503,47 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
     return loss, tuple(gmed.unbind(0))
 
 
-def forward_operands(what, meds, damp, wav, sz, sx, rrow, gain, nt):
-    """The media stacked [5, nz8, nx128] after the checks that the ring
-    forward's and B8's wrappers make before passing pointers."""
+def forward_rows_cuda(fn, meds, damp, wav, sz, sx, rrow, gain, fs_row, nt,
+                      dtx, route=None):
+    """Receiver rows (vx, vz), each [ns, nt, nx128], from one launch of
+    B3's forward sweep without checkpoints, on the route that
+    ``pick_route`` gives ``route`` with :func:`elastic_forward_plan`:
+    the resident one (``b3_elastic_ring_resident``) or the per-step one
+    (``b3_elastic_ring``).  The launch is counted on ``fn``, the entry
+    point that made it: the ring forward, or B8 with ``fs_row`` -1.  A
+    launch the card refuses raises."""
+    from physicsbasedfwi2_tpu_torch.ops import cuda_build
+    what = fn.__name__
     ns = wav.shape[0]
     nz8, nx128 = damp.shape
+    dev = damp.device
     f32, i32 = torch.float32, torch.int32
     med = torch.stack(meds).contiguous()
-    check_tensors(what, damp.device, (
+    check_tensors(what, dev, (
         ("meds", med, f32, (5, nz8, nx128)), ("damp", damp, f32, None),
         ("wavelet", wav, f32, (ns, wav.shape[1])),
         ("src_z", sz, i32, (ns,)), ("src_x", sx, i32, (ns,)),
         ("rcv_row", rrow, i32, (ns,)), ("src_gain", gain, f32, (ns,))))
     if wav.shape[1] < nt:
         raise ValueError(f"{what}: wavelet shorter than nt")
-    return med
-
-
-def forward_launch_args(med, damp, wav, sz, sx, rrow, gain, nt):
-    """(hist [2, ns, nt, nx128] for the receiver rows, the pointers of
-    the inputs, the stream) of a forward launch; the caller holds the
-    inputs until the launch is queued."""
-    ns = wav.shape[0]
-    hist = torch.empty((2, ns, nt, damp.shape[1]), dtype=torch.float32,
-                       device=damp.device)
-    ptrs = [a.data_ptr() for a in (med, damp, wav, sz, sx, rrow, gain)]
-    return hist, ptrs, torch.cuda.current_stream(damp.device).cuda_stream
-
-
-def resident_forward_rows(med, damp, wav, sz, sx, rrow, gain, fs_row, nt,
-                          dtx, plan: ResidentPlan):
-    """Receiver rows (vx, vz), each [ns, nt, nx128], from one launch of
-    the resident forward sweep without checkpoints under ``plan``
-    (``b3_elastic_ring_resident``): the ring forward's resident route,
-    and B8's with ``fs_row`` -1.  A launch the card refuses raises."""
-    from physicsbasedfwi2_tpu_torch.ops import cuda_build
-    hist, ptrs, stream = forward_launch_args(med, damp, wav, sz, sx, rrow,
-                                             gain, nt)
-    nz8, nx128 = damp.shape
-    err = cuda_build.load_library().b3_elastic_ring_resident(
-        *ptrs, hist.data_ptr(), wav.shape[0], nz8, nx128, nt, wav.shape[1],
-        fs_row, *plan.args(), dtx, stream)
-    cuda_build.check(err, "b3_elastic_ring_resident")
-    return hist[0], hist[1]
-
-
-def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx,
-               route=None):
-    from physicsbasedfwi2_tpu_torch.ops import cuda_build
-    what = "simulate_elastic_ring"
-    med = forward_operands(what, meds, damp, wav, sz, sx, rrow, gain, nt)
-    ns = wav.shape[0]
-    nz8, nx128 = damp.shape
     route, plan = pick_route(what, nz8, nx128, route, elastic_forward_plan)
+    lib = cuda_build.load_library()
+    hist = torch.empty((2, ns, nt, nx128), dtype=f32, device=dev)
+    ptrs = [a.data_ptr() for a in (med, damp, wav, sz, sx, rrow, gain)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "resident":
-        out = resident_forward_rows(med, damp, wav, sz, sx, rrow, gain,
-                                    fs_row, nt, dtx, plan)
+        err = lib.b3_elastic_ring_resident(
+            *ptrs, hist.data_ptr(), ns, nz8, nx128, nt, wav.shape[1], fs_row,
+            *plan.args(), dtx, stream)
+        cuda_build.check(err, "b3_elastic_ring_resident")
     else:
-        hist, ptrs, stream = forward_launch_args(med, damp, wav, sz, sx,
-                                                 rrow, gain, nt)
-        state = torch.empty((ns, 5, nz8, nx128), dtype=torch.float32,
-                            device=damp.device)
-        err = cuda_build.load_library().b3_elastic_ring(
+        state = torch.empty((ns, 5, nz8, nx128), dtype=f32, device=dev)
+        err = lib.b3_elastic_ring(
             *ptrs, state.data_ptr(), hist.data_ptr(), ns, nz8, nx128, nt,
             wav.shape[1], fs_row, dtx, stream)
         cuda_build.check(err, "b3_elastic_ring")
-        out = hist[0], hist[1]
-    count_launch(simulate_elastic_ring, route)
-    return out
+    count_launch(fn, route)
+    return hist[0], hist[1]
 
 
 # ---------------------------------------------------------------------------
@@ -719,8 +691,9 @@ def simulate_elastic_ring(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
     if vp.device.type != "cuda":
         raise ValueError(f"simulate_elastic_ring: no kernel for device "
                          f"{vp.device}")
-    return _ring(partial(_rows_cuda, route=route), vp, vs, rho, wavelet,
-                 src_z, src_x, rcv_z, rcv_x, cfg)
+    return _ring(partial(forward_rows_cuda, simulate_elastic_ring,
+                         route=route),
+                 vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x, cfg)
 
 
 reset_launches(simulate_elastic_ring)

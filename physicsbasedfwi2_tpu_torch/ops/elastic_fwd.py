@@ -11,21 +11,18 @@ Absorbing tops only: a free surface raises, as in the JAX package.
 
 It is the function of :func:`ops.elastic_fused.simulate_elastic_ring`
 without the free-surface row, so its plain version is that module's
-plain forward scan.  On CUDA tensors :func:`elastic_forward_pallas`
-launches one of two hand-written kernels, picked by shape before any
-launch: where :func:`ops.elastic_fused.elastic_forward_plan` holds the
-grid, the ring forward's resident route
-(``csrc/elastic.cu::b3_elastic_ring_resident`` with no free-surface
-row: one thread-block cluster per shot holds its fields in shared
-memory for the whole time loop); elsewhere the cooperative route
-(``csrc/elastic_fwd.cu::b8_elastic_forward``, the whole time loop in
-one cooperative launch, the fields in global memory).  On CPU tensors
-it runs :func:`elastic_forward_pallas_plain`.
+plain forward scan and on CUDA tensors :func:`elastic_forward_pallas`
+launches that function's hand-written kernels
+(:func:`ops.elastic_fused.forward_rows_cuda` with no free-surface row):
+where :func:`ops.elastic_fused.elastic_forward_plan` holds the grid the
+resident route (``csrc/elastic.cu::b3_elastic_ring_resident``, one
+thread-block cluster per shot holds its fields in shared memory for the
+whole time loop), elsewhere the per-step route (``b3_elastic_ring``).
+On CPU tensors it runs :func:`elastic_forward_pallas_plain`.
 """
 
 from __future__ import annotations
 
-import ctypes
 from functools import partial
 
 import torch
@@ -36,11 +33,10 @@ from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig, _pad, _staggered_medium,
 )
 from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-    _rows_plain, elastic_forward_plan, forward_launch_args,
-    forward_operands, resident_forward_rows,
+    _rows_plain, forward_rows_cuda,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-    _kernel_route, _round_up, count_launch, pick_route,
+    _kernel_route, _round_up, reset_launches,
 )
 
 
@@ -100,30 +96,9 @@ def _rows_open_top(meds, damp, wav, sz, sx, rrow, gain, nt, dtx):
 
 
 def _rows_cuda(meds, damp, wav, sz, sx, rrow, gain, nt, dtx, route=None):
-    from physicsbasedfwi2_tpu_torch.ops import cuda_build
-    what = "elastic_forward_pallas"
-    med = forward_operands(what, meds, damp, wav, sz, sx, rrow, gain, nt)
-    ns = wav.shape[0]
-    nz8, nx128 = damp.shape
-    route, plan = pick_route(what, nz8, nx128, route, elastic_forward_plan,
-                             other="cooperative")
-    if route == "resident":
-        out = resident_forward_rows(med, damp, wav, sz, sx, rrow, gain, -1,
-                                    nt, dtx, plan)
-    else:
-        hist, ptrs, stream = forward_launch_args(med, damp, wav, sz, sx,
-                                                 rrow, gain, nt)
-        state = torch.empty((ns, 5, nz8, nx128), dtype=torch.float32,
-                            device=damp.device)
-        blocks = ctypes.c_int(0)
-        err = cuda_build.load_library().b8_elastic_forward(
-            *ptrs, state.data_ptr(), hist.data_ptr(), ctypes.byref(blocks),
-            ns, nz8, nx128, nt, wav.shape[1], dtx, stream)
-        cuda_build.check(err, "b8_elastic_forward")
-        elastic_forward_pallas.grid_blocks = blocks.value
-        out = hist[0], hist[1]
-    count_launch(elastic_forward_pallas, route)
-    return out
+    """The ring forward's kernels with no free-surface row."""
+    return forward_rows_cuda(elastic_forward_pallas, meds, damp, wav, sz, sx,
+                             rrow, gain, -1, nt, dtx, route)
 
 
 def _forward(rows_fn, vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x, cfg):
@@ -164,15 +139,13 @@ def elastic_forward_pallas(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
     ``simulate_elastic``; receivers of a shot share row ``rcv_z[:, 0]``.
     Raises ``NotImplementedError`` on a free-surface grid.
 
-    On a CUDA ``vp`` this launches kernel B8 once for all shots, on the
-    route that ``scalar2.pick_route`` gives ``route`` with
-    :func:`ops.elastic_fused.elastic_forward_plan`: by default
-    "resident" where that plan holds the grid (raises if asked where it
-    does not) and "cooperative" elsewhere.
-    ``elastic_forward_pallas.launches`` counts the launches,
-    ``resident_launches`` and ``cooperative_launches`` each route's, and
-    ``.grid_blocks`` holds the last cooperative launch's block count.
-    On a CPU ``vp`` it runs :func:`elastic_forward_pallas_plain`.  Any
+    On a CUDA ``vp`` this runs the ring forward's kernels for all shots,
+    on the route that ``scalar2.pick_route`` gives ``route`` with
+    :func:`ops.elastic_fused.elastic_forward_plan` (by default the
+    resident route where that plan holds the grid; "resident" raises
+    where it does not); ``elastic_forward_pallas.launches`` counts the
+    launches, ``resident_launches`` and ``per_step_launches`` each
+    route's.  On a CPU ``vp`` it runs :func:`elastic_forward_pallas_plain`.  Any
     other device raises.
     """
     if not _kernel_route(vp, "elastic_forward_pallas"):
@@ -182,7 +155,4 @@ def elastic_forward_pallas(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
                     src_z, src_x, rcv_z, rcv_x, cfg)
 
 
-elastic_forward_pallas.launches = 0
-elastic_forward_pallas.resident_launches = 0
-elastic_forward_pallas.cooperative_launches = 0
-elastic_forward_pallas.grid_blocks = 0
+reset_launches(elastic_forward_pallas)

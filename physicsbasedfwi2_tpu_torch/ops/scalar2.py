@@ -177,6 +177,7 @@ MAX_CLUSTER = 8       # the portable thread-block cluster size
 RES_THREADS = 512     # threads a CTA at most: 128 registers each
 COLS_PER_THREAD = 4   # a thread's columns: one float4
 ROWS_PER_THREAD = 5   # a thread's rows: the kernels' one template instance
+ROUTES = ("resident", "per_step")
 
 
 @dataclass(frozen=True)
@@ -240,19 +241,18 @@ def band_plan(nz8: int, nx128: int, smem_of) -> ResidentPlan | None:
 
 
 def pick_route(what: str, nz8: int, nx128: int, route=None,
-               plan_fn=resident_plan, other: str = "per_step"):
+               plan_fn=resident_plan):
     """(route, plan) for a launch: ``route`` None takes the resident
     route where ``plan_fn`` (the kernel family's planner, by default
-    :func:`resident_plan`) holds the grid and the ``other`` route (B8's
-    is "cooperative") elsewhere; "resident" (raises where no plan holds
-    it) or ``other`` choose."""
-    routes = ("resident", other)
-    if route not in (None, *routes):
-        raise ValueError(f"{what}: route must be one of {routes}, not "
+    :func:`resident_plan`) holds the grid and the per-step route
+    elsewhere; "resident" (raises where no plan holds it) or "per_step"
+    choose."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"{what}: route must be one of {ROUTES}, not "
                          f"{route!r}")
     plan = plan_fn(nz8, nx128)
     if route is None:
-        route = "resident" if plan is not None else other
+        route = "resident" if plan is not None else "per_step"
     if route == "resident" and plan is None:
         raise ValueError(f"{what}: no resident plan holds a {nz8} x "
                          f"{nx128} grid")
@@ -261,11 +261,12 @@ def pick_route(what: str, nz8: int, nx128: int, route=None,
 
 def count_launch(fn, route: str) -> None:
     """Add one launch to ``fn``'s counts: ``launches`` and the route's
-    own (``resident_launches``, ``per_step_launches``, or B8's
-    ``cooperative_launches``)."""
+    own (``resident_launches`` or ``per_step_launches``)."""
     fn.launches += 1
-    key = f"{route}_launches"
-    setattr(fn, key, getattr(fn, key) + 1)
+    if route == "resident":
+        fn.resident_launches += 1
+    else:
+        fn.per_step_launches += 1
 
 
 def reset_launches(*fns) -> None:

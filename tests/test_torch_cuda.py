@@ -295,18 +295,17 @@ def test_b8_kernel_matches_plain_and_ring(dev):
     b8 = elastic_fwd.elastic_forward_pallas
     before = b8.launches
     got = b8(*med, wav, *geom, cfg)
-    coop = b8(*med, wav, *geom, cfg, route="cooperative")
+    per = b8(*med, wav, *geom, cfg, route="per_step")
     torch.cuda.synchronize()
     assert b8.launches == before + 2
-    assert b8.grid_blocks >= 1
     ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
     ring = ef.simulate_elastic_ring(*med, wav, *geom, cfg, route="per_step")
-    for a, b, c, d in zip(got, ref, ring, coop):
+    for a, b, c, d in zip(got, ref, ring, per):
         # FMA contraction and sum order differ: 1e-5 of max over 64 steps
         assert rel_max(a, b) <= 1e-5
-        # the ring forward's arithmetic per cell
-        assert rel_max(a, c) <= 1e-6
-        assert rel_max(d, c) <= 1e-6
+        # the ring forward's kernels with no free-surface row
+        assert torch.equal(d, c)
+        assert torch.equal(a, d)
 
 
 def test_b2_wavelet_gradient_matches_plain(case):
@@ -717,21 +716,20 @@ def test_resident_ring_forward_matches_per_step_and_plain(
 
 @pytest.mark.parametrize("nz,cluster,rows", [(36, 7, 8), (128, 16, 9)],
                          ids=["7x8", "16x9"])
-def test_resident_b8_matches_cooperative_ring_and_plain(dev, nz, cluster,
-                                                        rows):
+def test_resident_b8_matches_per_step_ring_and_plain(dev, nz, cluster,
+                                                     rows):
     cfg, wav, med, geom = _fwd_case(dev, False, nz, cluster, rows)
     b8 = elastic_fwd.elastic_forward_pallas
-    before = (b8.resident_launches, b8.cooperative_launches)
+    before = _routes(b8)
     res = b8(*med, wav, *geom, cfg)
-    coop = b8(*med, wav, *geom, cfg, route="cooperative")
+    per = b8(*med, wav, *geom, cfg, route="per_step")
     ring = ef.simulate_elastic_ring(*med, wav, *geom, cfg)
     torch.cuda.synchronize()
-    assert (b8.resident_launches, b8.cooperative_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert _routes(b8) == (before[0] + 1, before[1] + 1)
     # the ring forward's resident instance with no free-surface row, and
-    # the cooperative kernel's arithmetic per cell
+    # its per-step kernels
     assert all(torch.equal(a, b) for a, b in zip(res, ring))
-    assert all(torch.equal(a, b) for a, b in zip(res, coop))
+    assert all(torch.equal(a, b) for a, b in zip(res, per))
     ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
     for a, b in zip(res, ref):
         assert rel_max(a, b) <= 1e-5
@@ -754,12 +752,12 @@ def test_forward_grid_beyond_the_plan_takes_the_other_routes(dev):
         np.tile(np.arange(8, dtype=np.int32) * 48 + 10, (2, 1))))
     wav = ricker(12.0, 24, 0.0015, device=dev)
     ring, b8 = ef.simulate_elastic_ring, elastic_fwd.elastic_forward_pallas
-    before = (_routes(ring), b8.resident_launches, b8.cooperative_launches)
+    before = (_routes(ring), _routes(b8))
     got = ring(*med, wav, *geom, cfg)
     got8 = b8(*med, wav, *geom, cfg)
     torch.cuda.synchronize()
-    assert (_routes(ring), b8.resident_launches, b8.cooperative_launches) \
-        == ((before[0][0], before[0][1] + 1), before[1], before[2] + 1)
+    assert (_routes(ring), _routes(b8)) == (
+        (before[0][0], before[0][1] + 1), (before[1][0], before[1][1] + 1))
     ref = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
     for a, b, c in zip(got, got8, ref):
         assert rel_max(a, c) <= 1e-5

@@ -140,9 +140,8 @@ def test_cpu_tensors_reach_no_route(route):
 # the forward sweep alone: the ring forward and B8 (bands of 8 or 9 rows)
 # ---------------------------------------------------------------------------
 
-def _fwd_planned(nz8, nx128, other="per_step"):
-    return pick_route("simulate_elastic_ring", nz8, nx128,
-                      plan_fn=elastic_forward_plan, other=other)
+def _fwd_planned(nz8, nx128, what="simulate_elastic_ring"):
+    return pick_route(what, nz8, nx128, plan_fn=elastic_forward_plan)
 
 
 @pytest.mark.parametrize("nz8,nx128,rows,smem", [
@@ -197,10 +196,11 @@ def test_forward_bands_cover_every_row_once(nz8, nx128):
 def test_forward_grids_beyond_the_plan_take_the_other_routes(nz8, nx128):
     assert elastic_forward_plan(nz8, nx128) is None
     assert _fwd_planned(nz8, nx128) == ("per_step", None)
-    assert _fwd_planned(nz8, nx128, "cooperative") == ("cooperative", None)
+    assert _fwd_planned(nz8, nx128, "elastic_forward_pallas") == (
+        "per_step", None)
     with pytest.raises(ValueError, match="no resident plan"):
         pick_route("elastic_forward_pallas", nz8, nx128, "resident",
-                   elastic_forward_plan, other="cooperative")
+                   elastic_forward_plan)
 
 
 @pytest.mark.parametrize("name,free_surface,shape", [
@@ -225,13 +225,15 @@ def test_forward_plan_holds_the_workload_grids(name, free_surface, shape):
 
 
 def test_b8_route_names():
-    assert _fwd_planned(144, 384, "cooperative")[0] == "resident"
-    assert pick_route("b8", 144, 384, "cooperative", elastic_forward_plan,
-                      other="cooperative")[0] == "cooperative"
-    for bad in ("per_step", "cuda"):
+    # B8 runs the ring forward's kernels, so it has the ring forward's
+    # two routes and no other
+    assert _fwd_planned(144, 384, "elastic_forward_pallas")[0] == "resident"
+    assert pick_route("elastic_forward_pallas", 144, 384, "per_step",
+                      elastic_forward_plan)[0] == "per_step"
+    for bad in ("cooperative", "cuda"):
         with pytest.raises(ValueError, match="route must be"):
-            pick_route("b8", 144, 384, bad, elastic_forward_plan,
-                       other="cooperative")
+            pick_route("elastic_forward_pallas", 144, 384, bad,
+                       elastic_forward_plan)
 
 
 def _fwd_cpu_case(free_surface):
@@ -259,21 +261,18 @@ def test_cpu_tensors_reach_no_ring_forward_route(route):
     assert float(got[0].abs().max()) > 0
 
 
-@pytest.mark.parametrize("route", [None, "resident", "cooperative"])
+@pytest.mark.parametrize("route", [None, "resident", "per_step"])
 def test_cpu_tensors_reach_no_b8_route(route):
     cfg, wav, med, geom = _fwd_cpu_case(False)
     fn = elastic_fwd.elastic_forward_pallas
-    keys = ("launches", "resident_launches", "cooperative_launches",
-            "grid_blocks")
-    saved = tuple(getattr(fn, k) for k in keys)
+    saved = (fn.launches, fn.resident_launches, fn.per_step_launches)
+    reset_launches(fn)
     try:
-        for k in keys:
-            setattr(fn, k, 0)
         got = fn(*med, wav, *geom, cfg, route=route)
-        assert tuple(getattr(fn, k) for k in keys) == (0, 0, 0, 0)
+        assert (fn.launches, fn.resident_launches,
+                fn.per_step_launches) == (0, 0, 0)
     finally:
-        for k, v in zip(keys, saved):
-            setattr(fn, k, v)
+        fn.launches, fn.resident_launches, fn.per_step_launches = saved
     ref = elastic_fwd.elastic_forward_pallas_plain(*med, wav, *geom, cfg)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert float(got[0].abs().max()) > 0

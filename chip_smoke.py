@@ -68,13 +68,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. the acoustic engine's non-fused path: ``train(get_workload(
     "marmousi_acoustic", backend="xla"), epochs=1)`` at full width
     (plain PyTorch autograd through ``simulate_acoustic``, no kernel);
-11. kernels B7a (``forward2b``) and B7b (``backward2b``) against B4a/B4b
-    and their plain versions at the acoustic path's shapes (the gradient
-    of a smooth misfit also in float64 at 4 shots, and an odd shot
-    count, 5), timed beside B4a and B4b on the same inputs; then the
-    shot-pair propagator's path: 3 model-pixel FWI iterations of the
-    trace-normalized L1 loss through ``acoustic_pallas2b`` at 18 shots
-    and one at 17;
+11. kernels B7a (``forward2b``) and B7b (``backward2b``) at the acoustic
+    path's shapes: their resident route (B4's resident sweeps with the
+    checkpoints in shot pairs) and per-step route timed in turns on the
+    same inputs and held within 1e-6 of max, each backward route fed
+    the other forward route's checkpoints, resident B7a ``torch.equal``
+    to resident B4a at KC 16 (traces and checkpoints) and resident B7b
+    to the pair-ordered sum of resident B4b's per-shot gradients, both
+    against their plain versions (the gradient of a smooth misfit also
+    in float64 at 4 shots), the clusters resident, a device trace of
+    one call on each route (resident: B7a one ``fwd_resident`` launch,
+    B7b one ``rev_resident`` and one ``sum_pairs``), and an odd shot
+    count, 5, on both routes; then the shot-pair propagator's path: 3
+    model-pixel FWI iterations of the trace-normalized L1 loss through
+    ``acoustic_pallas2b`` at 18 shots and one at 17, every B7 launch on
+    the resident route, with the peak memory;
 12. kernel B8 (``elastic_forward_pallas``) at ``marmousi_elastic``'s
     shape with an absorbing top (35 shots, 144 x 384 in kernel layout):
     its path, one call on the resident route, then its resident
@@ -95,8 +103,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Each path reads its kernels' launch counts, set to 0 just before it.
 The line before the last is a JSON object with each kernel's launches,
-error, times and bound (B1-B6, the ring forward and B8: ``ms`` on the
-resident route, ``per_step_ms`` on the per-step one); the last line is
+error, times and bound (every kernel: ``ms`` on the resident route,
+``per_step_ms`` on the per-step one); the last line is
 the result object.  The
 script never falls back to the CPU or to the plain versions.
 """
@@ -114,7 +122,6 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/scalar2.cu"
 EL_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/elastic.cu"
 AC_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/acoustic.cu"
-PAIR_SOURCE = "physicsbasedfwi2_tpu_torch/csrc/scalar2b.cu"
 NT = 4001  # marmousi_acoustic's time steps
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # HBM bandwidth
@@ -182,13 +189,13 @@ def _flat(out) -> tuple:
 
 def route_turns(name: str, fn, steps: int, repeats: int = 2,
                 exact: bool = False) -> dict:
-    """Time ``fn(route)`` on both routes of B1-B6 in turns
+    """Time ``fn(route)`` on a kernel's two routes in turns
     (per-step, resident, resident, per-step; each turn a warm-up call
     and ``repeats`` timed ones), print each route's ms and us per time
     step (``steps`` of them per call) and how far the two outputs are
     apart, and check that they agree bit for bit (``exact``) or, where
-    FMA contraction differs, within 1e-6 of max.  Returns the resident
-    output and both times."""
+    FMA contraction differs, within 1e-6 of max.  Returns each route's
+    output and time."""
     import torch
     outs, times = {}, {"per_step": [], "resident": []}
     for route in ("per_step", "resident", "resident", "per_step"):
@@ -212,18 +219,24 @@ def route_turns(name: str, fn, steps: int, repeats: int = 2,
           f"disagree")
     check(same or not exact, f"{name}: resident and per-step routes are "
           f"not bit-equal")
-    return {"out": outs["resident"], "ms": ms_r, "per_step_ms": ms_s}
+    return {"out": outs["resident"], "per_step_out": outs["per_step"],
+            "ms": ms_r, "per_step_ms": ms_s}
 
 
-def cluster_report(ns: int) -> None:
+def cluster_report(ns: int, group: int = 1) -> None:
     """The flagship grid's resident plan and how many of its clusters
-    the card keeps resident (cudaOccupancyMaxActiveClusters)."""
+    the card keeps resident (cudaOccupancyMaxActiveClusters), for the
+    sweeps' instance with checkpoints grouped ``group`` shots at a time
+    (1: B1, B2, B4; 2: B7)."""
     from physicsbasedfwi2_tpu_torch.ops import scalar2
     plan = scalar2.resident_plan(192, 256)
-    fwd = scalar2.max_active_clusters(plan, ns, 192, 256)
-    rev = scalar2.max_active_clusters(plan, ns, 192, 256, reverse=True)
-    print(f"resident plan for {ns} shots on 192 x 256: {plan}; clusters "
-          f"resident at once: forward {fwd}, reverse {rev} (of {ns})")
+    fwd = scalar2.max_active_clusters(plan, ns, 192, 256, group=group)
+    rev = scalar2.max_active_clusters(plan, ns, 192, 256, reverse=True,
+                                      group=group)
+    print(f"resident plan for {ns} shots on 192 x 256 (checkpoints in "
+          f"groups of {group}): {plan}; clusters resident at once: forward "
+          f"{fwd}, reverse {rev} (of {ns})")
+    check(min(fwd, rev) >= 1, "the resident sweeps cannot be resident")
 
 
 def ac_cluster_report(ns: int) -> None:
@@ -269,12 +282,15 @@ def fwd_cluster_report(ns: int, nz8: int, nx128: int, what: str) -> None:
 
 
 def _readable(name: str) -> str:
-    """A mangled el_fwd_resident<R, CK> instance as R and checkpoints."""
+    """A mangled el_fwd_resident<R, CK> instance as R and checkpoints,
+    and fwd_resident<P> / rev_resident<P> as their checkpoint group."""
     import re
-    return re.sub(r"el_fwd_residentILi(\d+)ELb([01])E",
+    name = re.sub(r"el_fwd_residentILi(\d+)ELb([01])E",
                   lambda m: f"el_fwd_resident<R {m[1]}, "
                   f"{'checkpoints' if m[2] == '1' else 'no checkpoints'}>",
                   name)
+    return re.sub(r"(fwd|rev)_residentILi(\d+)EE",
+                  lambda m: f"{m[1]}_resident<P {m[2]}>", name)
 
 
 def ptxas_summary(log: str, keys) -> list[str]:
@@ -523,10 +539,11 @@ def kc_turns(kernel, rows, dirs, nt: int) -> None:
     check(max(diffs) <= 1e-6, "B2 at KC 8 and KC 32 disagree")
 
 
-def phase_trace(name: str, fn) -> None:
+def phase_trace(name: str, fn):
     """Device time of one call of ``fn`` by kernel name (torch.profiler,
     CUDA activity only), its span from the first kernel's start to the
-    last one's end, and the busy share of that span."""
+    last one's end, and the busy share of that span; returns the
+    launches by name."""
     import collections
 
     import torch
@@ -555,6 +572,7 @@ def phase_trace(name: str, fn) -> None:
     print(f"{name}, device trace of one call: {parts}; span {span:.3f} ms, "
           f"busy {busy / max(span, 1e-9):.4f}")
     check(busy > 0, f"{name}: the device trace holds no kernel")
+    return n_by
 
 
 def elastic_case(dev, free_surface=None):
@@ -1216,68 +1234,114 @@ def _rel_max(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
+def _b7b_and_b4b_pair_sum(vp, wav, geom, cfg, rows, ckpt):
+    """Resident B7b's dJ/dK [nz8, nx128] from B7a's checkpoints, and the
+    pair-ordered sum (torch adds) of resident B4b's dJ/dK of each padded
+    shot alone from the same checkpoints, put back into the shot layout:
+    the same kernel, so the two must be equal."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import scalar2, scalar2b
+    ops = scalar2b._common(vp, wav, *geom[:3], cfg, scalar2b.KC,
+                           torch.float32)
+    K, dp, dm, w, sz, sx, rr = ops
+    ybar = torch.nn.functional.pad(
+        rows, (0, 0, 0, 0, 0, w.shape[0] - rows.shape[0])).contiguous()
+    gk7 = scalar2b._bwd_cuda(*ops, ybar, ckpt, route="resident")
+    ck = scalar2b._from_pairs(ckpt)
+    one = [slice(s, s + 1) for s in range(w.shape[0])]
+    per = [scalar2._bwd_cuda(K, dp, dm, w[i], sz[i], sx[i], rr[i], ybar[i],
+                             ck[i].contiguous(), w.shape[1],
+                             route="resident") for i in one]
+    return gk7, scalar2b._sum_pairs(torch.stack(per))
+
+
 def phase_b7(dev):
-    """B7a against B4a (at KC 16, the same checkpoints) and its plain
-    version; B7b against B4b and its plain version on the gradient of
-    mean((pred - obs)^2), obs from the true model, at the smooth starting
-    model, in float64 at 4 shots as phase 7; an odd shot count (5); each
-    B7 kernel timed beside its B4 counterpart on the same inputs."""
+    """B7a and B7b at the acoustic path's shapes: their resident and
+    per-step routes in turns on the same inputs (1e-6 of max), each
+    backward route from the other forward route's checkpoints, resident
+    B7a against resident B4a at KC 16 and resident B7b against the
+    pair-ordered sum of resident B4b's per-shot gradients on the same
+    inputs (both torch.equal: the same kernels), both against their
+    plain versions (the gradient of mean((pred - obs)^2), obs from the
+    true model, at the smooth starting model; in float64 at 4 shots as
+    phase 7), the plan's clusters resident, a device trace of one call
+    on each route, and an odd shot count (5, padded to 6) on both
+    routes."""
     import torch
     from physicsbasedfwi2_tpu_torch.ops import scalar2b
     from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
-        backward2, forward2, forward2_ckpt, scatter_rows)
+        _vp_grad, backward2, forward2, forward2_ckpt, scatter_rows)
     cfg, wav, geom, vp, vp0 = flagship_case(dev)
     g = cfg.grid
-    shape = f"[18 shots, nt {g.nt}]"
-    (recs, ckpt), ms_k = timed_ms(lambda: scalar2b.forward2b(vp0, wav, *geom,
-                                                             cfg))
-    (recs4, _), ms_4a = timed_ms(lambda: forward2_ckpt(vp0, wav, *geom, cfg))
-    _, ck16 = forward2_ckpt(vp0, wav, *geom, cfg, KC=16)
+    ns = len(geom[0])
+    shape = f"[{ns} shots, nt {g.nt}]"
+    kc = scalar2b.KC
+    nt_pad = -(-g.nt // kc) * kc
+    cluster_report(ns, group=2)
+
+    def fwd(route, gm=geom):
+        return scalar2b.forward2b(vp0, wav, *gm, cfg, route=route)
+
+    turns_a = route_turns("B7a forward2b", fwd, nt_pad)
+    (recs, ckpt), ms_k = turns_a["out"], turns_a["ms"]
+    ckpt_s = turns_a["per_step_out"][1]
+    (recs4, ck16), ms_4a = timed_ms(lambda: forward2_ckpt(
+        vp0, wav, *geom, cfg, KC=kc, route="resident"))
+    same_a = (torch.equal(recs, recs4)
+              and torch.equal(scalar2b._from_pairs(ckpt), ck16))
     (recs_p, ckpt_p), ms_p = _plain_ms(lambda: scalar2b.forward2b_plain(
         vp0, wav, *geom, cfg))
     scale = float(recs_p.abs().max())
-    vs_b4 = float((recs - recs4).abs().max())
-    vs_b4_ck = _rel_max(scalar2b._from_pairs(ckpt), ck16)
     err = float((recs - recs_p).abs().max())
     err_ck = _rel_max(ckpt, ckpt_p)
-    print(f"B7a forward2b {shape}, ckpt {tuple(ckpt.shape)}: vs B4a max|diff| "
-          f"{vs_b4:.3e} of max {scale:.3e}, checkpoints {vs_b4_ck:.3e} of "
-          f"max (tol 1e-6 of max; bit-equal: "
-          f"{vs_b4 == 0.0 and vs_b4_ck == 0.0}); "
-          f"vs plain max|err| {err:.3e}, checkpoints {err_ck:.3e} of max "
-          f"(tol 1e-5 of max); kernel {ms_k:.2f} ms, B4a {ms_4a:.2f} ms, plain "
-          f"{ms_p:.2f} ms")
+    print(f"B7a forward2b {shape}, ckpt {tuple(ckpt.shape)}: resident "
+          f"torch.equal to resident B4a at KC {kc} (traces and checkpoints) "
+          f"{same_a}; vs plain max|err| {err:.3e} of max {scale:.3e}, "
+          f"checkpoints {err_ck:.3e} of max (tol 1e-5 of max); resident "
+          f"{ms_k:.2f} ms, per-step {turns_a['per_step_ms']:.2f} ms, resident "
+          f"B4a at KC {kc} {ms_4a:.2f} ms, plain {ms_p:.2f} ms")
     check(bool(torch.isfinite(recs).all() and torch.isfinite(ckpt).all()),
           "B7a output not finite")
-    check(vs_b4 <= 1e-6 * scale and vs_b4_ck <= 1e-6,
-          "B7a disagrees with B4a")
+    check(same_a, "resident B7a is not resident B4a at KC 16")
     check(err <= 1e-5 * scale and err_ck <= 1e-5,
           "B7a disagrees with its plain version")
-    b7a = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p}
+    b7a = {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+           "per_step_ms": turns_a["per_step_ms"]}
 
     obs = forward2(vp, wav, *geom, cfg)
 
-    def rows_of(pred, kc=16):
+    def rows_of(pred):
         ybar = 2.0 * (pred - obs[:len(pred)].to(pred.dtype)) / pred.numel()
         return scatter_rows(ybar, geom[3][:len(pred)], nt=g.nt, nx=g.nx,
                             pml_width=g.pml_width, KC=kc)
 
-    def grad_n(fwd, bwd, n, **kw):
+    def grad_n(fwd_fn, bwd_fn, n, **kw):
         gn = tuple(a[:n].contiguous() for a in geom)
-        recs_n, ck_n = fwd(vp0, wav, *gn, cfg, **kw)
-        return bwd(vp0, wav, *gn, cfg, rows_of(recs_n), ck_n, **kw)
+        recs_n, ck_n = fwd_fn(vp0, wav, *gn, cfg, **kw)
+        return bwd_fn(vp0, wav, *gn, cfg, rows_of(recs_n), ck_n, **kw)
 
     rows_k = rows_of(recs)
-    gk, ms_bk = timed_ms(lambda: scalar2b.backward2b(vp0, wav, *geom, cfg,
-                                                     rows_k, ckpt))
-    _, ck32 = forward2_ckpt(vp0, wav, *geom, cfg)
-    rows32 = rows_of(recs, 32)
-    g4, ms_4b = timed_ms(lambda: backward2(vp0, wav, *geom, cfg, rows32,
-                                           ck32))
-    vs_b4b = _rel_max(gk, g4)
-    print(f"B7b backward2b vs B4b {shape}: {vs_b4b:.2e} of max (tol 1e-5: the "
-          f"shot sum in pairs); kernel {ms_bk:.2f} ms, B4b {ms_4b:.2f} ms")
-    check(vs_b4b <= 1e-5, "B7b disagrees with B4b")
+    turns_b = route_turns("B7b backward2b", lambda r: scalar2b.backward2b(
+        vp0, wav, *geom, cfg, rows_k, ckpt, route=r), 2 * nt_pad)
+    gk, ms_bk = turns_b["out"], turns_b["ms"]
+    cross = {route: _rel_max(scalar2b.backward2b(
+        vp0, wav, *geom, cfg, rows_k, ck, route=route), gk)
+        for route, ck in (("resident", ckpt_s), ("per_step", ckpt))}
+    gk7, gk4 = _b7b_and_b4b_pair_sum(vp0, wav, geom, cfg, rows_k, ckpt)
+    same_b = torch.equal(gk7, gk4) and torch.equal(
+        gk, _vp_grad(gk7, vp0, cfg, (g.dt / g.dx) ** 2))
+    _, ms_4b = timed_ms(lambda: backward2(vp0, wav, *geom, cfg, rows_k, ck16,
+                                          route="resident"))
+    print(f"B7b backward2b {shape}: resident dJ/dK torch.equal to the "
+          f"pair-ordered sum of resident B4b's per-shot dJ/dK {same_b}; "
+          f"from the other forward route's checkpoints, resident "
+          f"{cross['resident']:.2e} and per-step {cross['per_step']:.2e} of "
+          f"max from resident (tol 1e-6); resident {ms_bk:.2f} ms, per-step "
+          f"{turns_b['per_step_ms']:.2f} ms, resident B4b at KC {kc} "
+          f"{ms_4b:.2f} ms")
+    check(same_b, "resident B7b is not the pair sum of resident B4b")
+    check(max(cross.values()) <= 1e-6,
+          "B7b disagrees across the routes' checkpoints")
     gp, ms_bp = _plain_ms(lambda: scalar2b.backward2b_plain(
         vp0, wav, *geom, cfg, rows_of(recs_p), ckpt_p))
     grads4 = (grad_n(scalar2b.forward2b, scalar2b.backward2b, ACC_SHOTS),
@@ -1288,26 +1352,61 @@ def phase_b7(dev):
     err_b = _grad_accuracy("B7b backward2b (acoustic_pallas2b)", shape, gk,
                            gp, ms_bk, ms_bp, grads4)
 
+    # one call of each route in a device trace: resident B7a is one
+    # fwd_resident launch, resident B7b one rev_resident and one
+    # sum_pairs.  The resident calls go first: in one run a trace taken
+    # right after the per-step B7b trace (~8,600 records) held 2 kernels.
+    n = {}
+    for route in ("resident", "per_step"):
+        n["B7a", route] = phase_trace(f"B7a ({route} route)",
+                                      lambda: fwd(route))
+        n["B7b", route] = phase_trace(
+            f"B7b ({route} route)", lambda: scalar2b.backward2b(
+                vp0, wav, *geom, cfg, rows_k, ckpt, route=route))
+    res_a, res_b = n["B7a", "resident"], n["B7b", "resident"]
+    print(f"B7 resident, kernel launches of one call in its device trace: "
+          f"B7a fwd_resident {res_a['fwd_resident']} of "
+          f"{sum(res_a.values())}; B7b rev_resident {res_b['rev_resident']}, "
+          f"sum_pairs {res_b['sum_pairs']} of {sum(res_b.values())}")
+    check(res_a["fwd_resident"] == 1,
+          "resident B7a is not one fwd_resident launch")
+    check(res_b["rev_resident"] == 1 and res_b["sum_pairs"] == 1,
+          "resident B7b is not one rev_resident and one sum_pairs launch")
+
     # an odd shot count: the last shot is repeated to make the pairs
     g5 = tuple(a[:5].contiguous() for a in geom)
-    r5, c5 = scalar2b.forward2b(vp0, wav, *g5, cfg)
-    r5p, c5p = scalar2b.forward2b_plain(vp0, wav, *g5, cfg)
-    gk5 = grad_n(scalar2b.forward2b, scalar2b.backward2b, 5)
+    out5 = {r: fwd(r, g5) for r in ("resident", "per_step")}
+    r5, c5 = out5["resident"]
+    r5p, _ = scalar2b.forward2b_plain(vp0, wav, *g5, cfg)
+    r45, c45 = forward2_ckpt(vp0, wav, *g5, cfg, KC=kc, route="resident")
+    rows5 = rows_of(r5)
+    gk75, gk45 = _b7b_and_b4b_pair_sum(vp0, wav, g5, cfg, rows5, c5)
+    same5 = (torch.equal(r5, r45)
+             and torch.equal(scalar2b._from_pairs(c5)[:5], c45)
+             and torch.equal(gk75, gk45))
+    gk5 = {r: grad_n(scalar2b.forward2b, scalar2b.backward2b, 5, route=r)
+           for r in ("resident", "per_step")}
     gp5 = grad_n(scalar2b.forward2b_plain, scalar2b.backward2b_plain, 5)
-    e5, e5g = _rel_max(r5, r5p), _rel_l2(gk5, gp5)
-    print(f"B7 at 5 shots (padded to 6): ckpt {tuple(c5.shape)}, traces "
-          f"{e5:.2e} of max from plain (tol 1e-5), gradient rel L2 {e5g:.2e} "
-          f"(tol 1e-4)")
-    check(tuple(c5.shape[:1]) == (3,) and e5 <= 1e-5 and e5g <= 1e-4,
-          "B7 at an odd shot count disagrees with its plain version")
+    e5r = max(_rel_max(r5, out5["per_step"][0]),
+              _rel_max(c5, out5["per_step"][1]),
+              _rel_max(gk5["per_step"], gk5["resident"]))
+    e5, e5g = _rel_max(r5, r5p), _rel_l2(gk5["resident"], gp5)
+    print(f"B7 at 5 shots (padded to 6): ckpt {tuple(c5.shape)}; resident "
+          f"torch.equal to resident B4a / the pair sum of resident B4b "
+          f"{same5}; routes {e5r:.2e} of max apart (tol 1e-6); resident "
+          f"traces {e5:.2e} of max from plain (tol 1e-5), gradient rel L2 "
+          f"{e5g:.2e} (tol 1e-4)")
+    check(tuple(c5.shape[:1]) == (3,) and same5 and e5r <= 1e-6
+          and e5 <= 1e-5 and e5g <= 1e-4,
+          "B7 at an odd shot count disagrees")
 
-    ns = len(geom[0])
     cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
     planes = 3 * 192 * 256 * 4
     io_a = planes + nbytes(wav, *geom[:3], recs, ckpt)
     io_b = planes + nbytes(wav, *geom[:3], rows_k, ckpt, gk)
     b7a.update(bound(FLOPS_B1 * cells * g.nt, io_a), library_ms=None)
     b7b = {"max_abs_err": err_b, "ms": ms_bk, "plain_ms": ms_bp,
+           "per_step_ms": turns_b["per_step_ms"],
            **bound(FLOPS_B2_ADJ * cells * g.nt, io_b), "library_ms": None}
     return b7a, b7b
 
@@ -1315,14 +1414,16 @@ def phase_b7(dev):
 def phase_slice4_pairs(dev):
     """The shot-pair propagator's path at full width: model-pixel FWI
     iterations of the trace-normalized L1 loss (direct wave subtracted)
-    through acoustic_pallas2b, 3 at 18 shots and 1 at 17."""
+    through acoustic_pallas2b, 3 at 18 shots and 1 at 17, every B7
+    launch on the resident route."""
     import torch
     from physicsbasedfwi2_tpu_torch.ops import (
-        normalized_trace_misfit, scalar2b, trace_normalize)
+        normalized_trace_misfit, scalar2, scalar2b, trace_normalize)
     cfg, wav, geom, vp_true, vp0 = flagship_case(dev)
     prop = scalar2b.acoustic_pallas2b
-    scalar2b.forward2b.launches = 0
-    scalar2b.backward2b.launches = 0
+    counters = {"forward2b": scalar2b.forward2b,
+                "backward2b": scalar2b.backward2b}
+    scalar2.reset_launches(*counters.values())
     torch.cuda.reset_peak_memory_stats(dev)
     const = torch.full_like(vp_true, 1500.0)
     for ns in (18, 17):
@@ -1359,12 +1460,14 @@ def phase_slice4_pairs(dev):
         check(l_true <= 1e-6, f"acoustic_pallas2b ({ns} shots): loss at the "
               f"true model")
         check(all(math.isfinite(x) for x in losses), "acoustic_pallas2b loss")
-    launches = {"forward2b": scalar2b.forward2b.launches,
-                "backward2b": scalar2b.backward2b.launches}
-    print(f"slice 4 pairs: launches {launches}, peak memory "
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_step = {k: fn.per_step_launches for k, fn in counters.items()}
+    print(f"slice 4 pairs: launches {launches}, on the per-step route "
+          f"{per_step}, peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     for k, n in launches.items():
         check(n >= 1, f"{k} was not launched on the slice's path")
+        check(per_step[k] == 0, f"{k} left the resident route")
     return launches
 
 
@@ -1631,10 +1734,10 @@ def main(argv: list[str]) -> int:
          "source": AC_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_adjoint.py:51",
          "launches": launches["acoustic_pallas_backward"], **b6},
-        {"name": "forward2b", "route": "cuda", "source": PAIR_SOURCE,
+        {"name": "forward2b", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2b.py:35",
          "launches": launches["forward2b"], **b7a},
-        {"name": "backward2b", "route": "cuda", "source": PAIR_SOURCE,
+        {"name": "backward2b", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2b.py:105",
          "launches": launches["backward2b"], **b7b},
         # the ring forward's kernels with no free-surface row

@@ -17,6 +17,24 @@
 // B2's phases cost: per step B4a is B1's step plus the checkpoint writes
 // every KC steps, B4b B2's recompute and adjoint steps.
 //
+// The resident route of two more kernels lives here too, because it is
+// B4's own sweeps:
+//   B7a b7a_forward2b_resident   <- pallas_scalar2b.py forward2b /
+//                                   _fwd_kernel
+//   B7b b7b_backward2b_resident  <- pallas_scalar2b.py _backward2b /
+//                                   _bwd_kernel
+// B7 computes per cell and per shot what B4 computes (ops/scalar2b.py).
+// It differs in the checkpoint layout, shots in pairs [ns/2, n_ck, 2, 2,
+// nz, nx] (the sweeps' template parameter P = 2, see ckpt_offset), in the
+// gradient's shot sum, pairs first and then the pairs in order
+// (sum_pairs), and in KC = 16.  Its per-step route is csrc/scalar2b.cu.
+// Predicted before the first timed run, at marmousi_acoustic's shape (18
+// shots, 192 x 256, nt 4001, KC 16; one wave of the 22 clusters resident;
+// H100, 700 W): B7a ~11-13 ms (B4a's resident 10.5-10.9 plus twice B4a's
+// checkpoint writes, 1.78 GB), B7b ~36-40 ms (B4b's resident 36.0-36.8;
+// twice the restores, a 57 MB Laplacian cache), an acoustic_pallas2b
+// FWI iteration ~0.050-0.055 s (from 0.1194-0.1201 on the per-step route).
+//
 // Scheme (K = (vp dt/dx)^2, d+ / d- the sponge factors with a 2-cell zero
 // ring folded into d+):
 //     u1 = d+ (2 u0 - d- u_-1 + K Lap4(u0)),  u1[src] += amp_t K[src]
@@ -333,6 +351,19 @@ __global__ void sum_shots(const float* __restrict__ per_shot, int ns,
   out[q] = acc;
 }
 
+// B7b's order (ops/scalar2b.py::_sum_pairs, the Pallas kernel's): the two
+// shots of a pair first, then the pairs in order,
+//   out = (g0 + g1) + (g2 + g3) + ...;  ns even.
+__global__ void sum_pairs(const float* __restrict__ per_shot, int ns,
+                          long long F, float* __restrict__ out) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= F) return;
+  float acc = per_shot[q] + per_shot[F + q];
+  for (int s = 2; s < ns; s += 2)
+    acc = acc + (per_shot[s * F + q] + per_shot[(s + 1) * F + q]);
+  out[q] = acc;
+}
+
 // ---------------------------------------------------------------------------
 // Resident route: one thread-block cluster per shot (see the note above).
 // Grid (C, ns), cluster (C, 1, 1): CTA r = blockIdx.x of shot blockIdx.y.
@@ -534,6 +565,19 @@ __device__ __forceinline__ void adj_pw(const Band& b, int lr, int lrr,
   for (int m = 0; m < kVec; ++m) w[m] = dp[m] * p[m];
 }
 
+// Offset of shot s's u0 at checkpoint c in a buffer of (u0, u_-1) whose
+// shots are grouped P at a time, [ns/P, n_ck, 2, P, nz, nx] (F = nz nx);
+// its u_-1 sits P F further on.  P = 1 is B2's and B4's [ns, n_ck, 2, nz,
+// nx], P = 2 B7's shot pairs (ops/scalar2b.py::ckpt_offset is the same
+// formula, and tests/test_torch_pair_resident.py holds it to the layout).
+// A template parameter of the sweeps, so that their P = 1 instances are
+// the code they were before B7 shared them; used once per chunk.
+template <int P>
+__device__ __forceinline__ long long ckpt_offset(int s, int c, int n_ck,
+                                                 long long F) {
+  return (((long long)(s / P) * n_ck + c) * 2 * P + s % P) * F;
+}
+
 struct FwdArgs {
   const float* K;
   const float* dp;
@@ -542,11 +586,13 @@ struct FwdArgs {
   float* hist;       // row t of [ns, nt_rows, nx] for t < nt_valid
   const float* dir;  // subtracted from the row (optional)
   int nt_rows, nt_valid;
-  float* ckpt;  // [ns, n_ck, 2, nz, nx] (u0, u_-1) before step c KC, or null
+  float* ckpt;  // (u0, u_-1) before step c KC at ckpt_offset<P>, or null
   int KC, n_ck, nsteps, nz, nx, R;
 };
 
-// Forward sweep of nsteps steps from zero fields: B1, B4a and B2's phase 1.
+// Forward sweep of nsteps steps from zero fields: B1, B4a and B2's phase 1
+// (P = 1), B7a (P = 2: the checkpoints in shot pairs).
+template <int P>
 __global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -568,7 +614,7 @@ __global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
     for (int m = 0; m < kVec; ++m) um1[c][m] = 0.0f;
   for (int t = 0; t < a.nsteps; ++t) {
     if (a.ckpt && t % a.KC == 0) {
-      float* ck = a.ckpt + ((long long)s * a.n_ck + t / a.KC) * 2 * F;
+      float* ck = a.ckpt + ckpt_offset<P>(s, t / a.KC, a.n_ck, F);
       const float* cur = b.buf(t & 1);
 #pragma unroll
       for (int c = 0; c < RPT; ++c) {
@@ -578,7 +624,7 @@ __global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
           float u[kVec];
           ld4(u, cur + b.at(lr));
           st4(ck + g, u);
-          st4(ck + F + g, um1[c]);
+          st4(ck + P * F + g, um1[c]);
         }
       }
     }
@@ -609,7 +655,7 @@ struct RevArgs {
   Geom geo;
   const float* ybar;  // cotangent rows [ns, nt_rows, nx], t < nt_valid
   int nt_rows, nt_valid;
-  const float* ckpt;  // [ns, n_ck, 2, nz, nx]
+  const float* ckpt;  // (u0, u_-1) of chunk c at ckpt_offset<P>
   int n_ck, KC;
   float* lapc;      // [ns, KC, nz, nx] scratch
   float* gk_shots;  // [ns, nz, nx] dJ/dK per shot
@@ -618,7 +664,9 @@ struct RevArgs {
 };
 
 // Reverse sweep, chunk by chunk from the checkpoints (last first): B4b
-// and B2's phase 3.  pb, qb and the shot's dJ/dK stay in registers.
+// and B2's phase 3 (P = 1), B7b (P = 2).  pb, qb and the shot's dJ/dK
+// stay in registers.
+template <int P>
 __global__ void __launch_bounds__(kResThreads, 1) rev_resident(RevArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -639,7 +687,7 @@ __global__ void __launch_bounds__(kResThreads, 1) rev_resident(RevArgs a) {
   for (int ck = a.n_ck - 1; ck >= 0; --ck) {
     cg::this_cluster().sync();
     // restore (u0 with its halo rows, u_-1) from the checkpoint
-    const float* src = a.ckpt + ((long long)s * a.n_ck + ck) * 2 * F;
+    const float* src = a.ckpt + ckpt_offset<P>(s, ck, a.n_ck, F);
     const int per_row = a.nx / kVec;
     for (int q = threadIdx.x; q < (b.rows + 4) * per_row; q += blockDim.x) {
       const int lr = q / per_row - 2, jq = (q % per_row) * kVec;
@@ -655,7 +703,7 @@ __global__ void __launch_bounds__(kResThreads, 1) rev_resident(RevArgs a) {
 #pragma unroll
       for (int m = 0; m < kVec; ++m) um1[c][m] = 0.0f;
       if (lr < b.rows)
-        ld4(um1[c], src + F + (long long)(b.row0 + lr) * a.nx + b.j0);
+        ld4(um1[c], src + P * F + (long long)(b.row0 + lr) * a.nx + b.j0);
     }
     __syncthreads();
     for (int kk = 0; kk < a.KC; ++kk) {
@@ -978,7 +1026,7 @@ int b1_forward2_resident(const float* K, const float* dp, const float* dm,
   RET_IF(check_plan(p, nz, nx));
   const FwdArgs a{K,  dp, dm, Geom{src_z, src_x, rcv_row, wav, nt},
                   hist, nullptr, nt, nt, nullptr, 1, 0, nt, nz, nx, R};
-  return launch_resident(fwd_resident, a, p, ns, (cudaStream_t)stream);
+  return launch_resident(fwd_resident<1>, a, p, ns, (cudaStream_t)stream);
 }
 
 // B4a, resident.  wav [ns, n_ck*KC]; hist [ns, nt, nx];
@@ -995,7 +1043,7 @@ int b4a_forward2_ckpt_resident(const float* K, const float* dp,
   const int nt_pad = n_ck * KC;
   const FwdArgs a{K,    dp,      dm, Geom{src_z, src_x, rcv_row, wav, nt_pad},
                   hist, nullptr, nt, nt, ckpt, KC, n_ck, nt_pad, nz, nx, R};
-  return launch_resident(fwd_resident, a, p, ns, (cudaStream_t)stream);
+  return launch_resident(fwd_resident<1>, a, p, ns, (cudaStream_t)stream);
 }
 
 // B4b, resident.  ybar [ns, n_ck*KC, nx]; ckpt from B4a; gk_shots
@@ -1015,7 +1063,7 @@ int b4b_backward2_resident(const float* K, const float* dp, const float* dm,
   const RevArgs a{K,    dp,   dm,       Geom{src_z, src_x, rcv_row, wav, nt_pad},
                   ybar, nt_pad, nt_pad, ckpt, n_ck, KC, lapc, gk_shots,
                   nullptr, nz, nx, R};
-  RET_IF(launch_resident(rev_resident, a, p, ns, st));
+  RET_IF(launch_resident(rev_resident<1>, a, p, ns, st));
   const long long F = (long long)nz * nx;
   sum_shots<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
                                                         gk_out);
@@ -1042,11 +1090,11 @@ int b2_fwi_l1_loss_grad_resident(
                          st));
   const FwdArgs fa{K,    dp,  dm, geo,  hist,   dir, nt_pad, nt,
                    ckpt, KC, n_ck, nt_pad, nz, nx, R};
-  RET_IF(launch_resident(fwd_resident, fa, p, ns, st));
+  RET_IF(launch_resident(fwd_resident<1>, fa, p, ns, st));
   RET_IF(misfit(hist, obs, rmask, ns, nt_pad, nx, inv_count, loss_part, st));
   const RevArgs ra{K,    dp,   dm,       geo,  hist, nt_pad, nt, ckpt,
                    n_ck, KC,   lapc, gk_shots, gwav, nz, nx, R};
-  RET_IF(launch_resident(rev_resident, ra, p, ns, st));
+  RET_IF(launch_resident(rev_resident<1>, ra, p, ns, st));
   const long long F = (long long)nz * nx;
   sum_shots<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
                                                         gk_out);
@@ -1056,17 +1104,68 @@ int b2_fwi_l1_loss_grad_resident(
   return cudaSuccess;
 }
 
-// How many clusters of a plan the card keeps resident at once
-// (cudaOccupancyMaxActiveClusters) for the forward (reverse = 0) or the
-// reverse kernel, into *out.
-int pbfwi_resident_max_clusters(int reverse, int ns, int nz, int nx, int C,
-                                int R, int rpt, int threads, int smem,
-                                int* out) {
+// B7a, resident: fwd_resident with the checkpoints in shot pairs.
+//   ns = 2 npair shots (the last repeated for an odd count);
+//   wav [ns, n_ck*KC]; hist [ns, nt, nx]; ckpt [npair, n_ck, 2, 2, nz, nx].
+int b7a_forward2b_resident(const float* K, const float* dp, const float* dm,
+                           const float* wav, const int* src_z,
+                           const int* src_x, const int* rcv_row, float* hist,
+                           float* ckpt, int npair, int nz, int nx, int nt,
+                           int n_ck, int KC, int C, int R, int rpt,
+                           int threads, int smem, void* stream) {
   const Plan p{C, R, rpt, threads, smem};
   RET_IF(check_plan(p, nz, nx));
-  if (reverse)
-    return max_active_clusters<RevArgs>(rev_resident, p, ns, out);
-  return max_active_clusters<FwdArgs>(fwd_resident, p, ns, out);
+  const int nt_pad = n_ck * KC;
+  const FwdArgs a{K,    dp,      dm, Geom{src_z, src_x, rcv_row, wav, nt_pad},
+                  hist, nullptr, nt, nt, ckpt, KC, n_ck, nt_pad, nz, nx, R};
+  return launch_resident(fwd_resident<2>, a, p, 2 * npair,
+                         (cudaStream_t)stream);
+}
+
+// B7b, resident: rev_resident from B7a's checkpoints (either route's),
+// every cotangent row of ybar [ns, n_ck*KC, nx] injected as the Pallas
+// kernel injects them; then the per-shot dJ/dK gk_shots [ns, nz, nx]
+// summed in pair order into gk_out [nz, nx].  lapc [ns, KC, nz, nx].
+int b7b_backward2b_resident(const float* K, const float* dp, const float* dm,
+                            const float* wav, const int* src_z,
+                            const int* src_x, const int* rcv_row,
+                            const float* ybar, const float* ckpt,
+                            float* gk_shots, float* lapc, float* gk_out,
+                            int npair, int nz, int nx, int n_ck, int KC,
+                            int C, int R, int rpt, int threads, int smem,
+                            void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  cudaStream_t st = (cudaStream_t)stream;
+  const int ns = 2 * npair;
+  const int nt_pad = n_ck * KC;
+  const RevArgs a{K,    dp,   dm,       Geom{src_z, src_x, rcv_row, wav, nt_pad},
+                  ybar, nt_pad, nt_pad, ckpt, n_ck, KC, lapc, gk_shots,
+                  nullptr, nz, nx, R};
+  RET_IF(launch_resident(rev_resident<2>, a, p, ns, st));
+  const long long F = (long long)nz * nx;
+  sum_pairs<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
+                                                        gk_out);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// How many clusters of a plan the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters) for the forward (reverse = 0) or the
+// reverse kernel, checkpoints grouped `group` shots at a time (1: B1, B2,
+// B4; 2: B7), into *out.
+int pbfwi_resident_max_clusters(int reverse, int group, int ns, int nz,
+                                int nx, int C, int R, int rpt, int threads,
+                                int smem, int* out) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  if (group == 1)
+    return reverse ? max_active_clusters<RevArgs>(rev_resident<1>, p, ns, out)
+                   : max_active_clusters<FwdArgs>(fwd_resident<1>, p, ns, out);
+  if (group == 2)
+    return reverse ? max_active_clusters<RevArgs>(rev_resident<2>, p, ns, out)
+                   : max_active_clusters<FwdArgs>(fwd_resident<2>, p, ns, out);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

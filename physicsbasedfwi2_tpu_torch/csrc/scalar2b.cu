@@ -1,9 +1,19 @@
-// Shot-pair second-order acoustic kernels for Hopper (sm_90a).
+// Shot-pair second-order acoustic kernels for Hopper (sm_90a): the
+// per-step route.
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   B7a b7a_forward2b   <- physicsbasedfwi2_tpu/ops/pallas_scalar2b.py
 //                          forward2b / _fwd_kernel
 //   B7b b7b_backward2b  <- pallas_scalar2b.py _backward2b / _bwd_kernel
+//
+// Routes.  ops/scalar2b.py picks one by shape before any launch, as
+// ops/scalar2.py does for B4.  The default, wherever
+// ops/scalar2.py::resident_plan holds the grid, is the resident route,
+// b7a_forward2b_resident / b7b_backward2b_resident in csrc/scalar2.cu: B4's
+// resident sweeps (one thread-block cluster per shot) with the checkpoints
+// in pairs and the gradient summed in pair order.  The kernels below are
+// the per-step route, for grids no plan holds and for comparison.  Either
+// route's checkpoints feed either route's B7b.
 //
 // They compute what B4a and B4b (csrc/scalar2.cu) compute, with the
 // Pallas kernels' other layout: shots in pairs (B = 2; the wrapper pads

@@ -1,13 +1,14 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
-B2, B4a and B4b; ``elastic.cu``: kernel B3 and the ring forward, which
-B8 runs with no free-surface row; ``acoustic.cu``: kernels B5 and B6;
-``scalar2b.cu``: kernels B7a and B7b; ``cluster.cuh``: the helpers of
-the resident routes, included by ``scalar2.cu``, ``elastic.cu`` and
-``acoustic.cu``) for ``sm_90a``, one
-process per source, all started together, and links the objects into
-one shared library with a plain C interface, which ``ctypes`` loads.
+B2, B4a and B4b, and B7a's and B7b's resident route; ``elastic.cu``:
+kernel B3 and the ring forward, which B8 runs with no free-surface row;
+``acoustic.cu``: kernels B5 and B6; ``scalar2b.cu``: B7a's and B7b's
+per-step route; ``cluster.cuh``: the helpers of the resident routes,
+included by ``scalar2.cu``, ``elastic.cu`` and ``acoustic.cu``) for
+``sm_90a``, one process per source, all started together, and links
+the objects into one shared library with a plain C interface, which
+``ctypes`` loads.
 The build runs at first use, never at import, into
 ``build/torch_kernels/`` at the root of the checkout (git-ignored; ``PBFWI_TORCH_BUILD_DIR``
 overrides it).  The library's file name carries a hash of the sources,
@@ -44,7 +45,10 @@ _SIGNATURES = {
     "b2_fwi_l1_loss_grad_resident": [_P] * 18 + [_I] * 11 + [_F, _P],
     "b4a_forward2_ckpt_resident": [_P] * 9 + [_I] * 11 + [_P],
     "b4b_backward2_resident": [_P] * 12 + [_I] * 10 + [_P],
-    "pbfwi_resident_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
+    # B7a and B7b's resident route: B4's sweeps, checkpoints in pairs
+    "b7a_forward2b_resident": [_P] * 9 + [_I] * 11 + [_P],
+    "b7b_backward2b_resident": [_P] * 12 + [_I] * 10 + [_P],
+    "pbfwi_resident_max_clusters": [_I] * 10 + [ctypes.POINTER(_I)],
     # csrc/elastic.cu
     "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
     "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],
@@ -64,7 +68,7 @@ _SIGNATURES = {
     "b6_checkpoints_resident": [_P] * 8 + [_I] * 10 + [_F, _P],
     "b6_adjoint_resident": [_P] * 15 + [_I] * 10 + [_F, _P],
     "pbfwi_b56_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
-    # csrc/scalar2b.cu
+    # csrc/scalar2b.cu (B7's per-step route)
     "b7a_forward2b": [_P] * 11 + [_I] * 6 + [_P],
     "b7b_backward2b": [_P] * 17 + [_I] * 5 + [_P],
 }

@@ -276,16 +276,17 @@ def reset_launches(*fns) -> None:
 
 
 def max_active_clusters(plan: ResidentPlan, ns: int, nz8: int, nx128: int,
-                        *, reverse: bool = False) -> int:
+                        *, reverse: bool = False, group: int = 1) -> int:
     """cudaOccupancyMaxActiveClusters of the forward (or reverse)
-    resident kernel under ``plan``: how many shots the card runs at
-    once (a query; launches nothing)."""
+    resident kernel under ``plan``, its instance for checkpoints grouped
+    ``group`` shots at a time (1: B1, B2, B4; 2: B7's pairs): how many
+    shots the card runs at once (a query; launches nothing)."""
     import ctypes
 
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     out = ctypes.c_int(0)
     err = cuda_build.load_library().pbfwi_resident_max_clusters(
-        int(reverse), ns, nz8, nx128, *plan.args(), ctypes.byref(out))
+        int(reverse), group, ns, nz8, nx128, *plan.args(), ctypes.byref(out))
     cuda_build.check(err, "pbfwi_resident_max_clusters")
     return out.value
 

@@ -11,13 +11,22 @@ shot), checkpoints of (u0, u_-1) every KC = 16 steps as
 ``[ns_p/B, n_ck, 2, B, nz8, nx128]``, and the gradient summed over the
 two shots of a pair first, then over the pairs in order.
 
-:func:`forward2b` and :func:`backward2b` launch the hand-written CUDA
-kernels (``csrc/scalar2b.cu``) on CUDA tensors and run their plain
-PyTorch versions on CPU tensors: :mod:`scalar2`'s plain sweeps over the
-padded shots, put into the pair layout.
+:func:`forward2b` and :func:`backward2b` launch hand-written CUDA
+kernels on CUDA tensors and run their plain PyTorch versions on CPU
+tensors: :mod:`scalar2`'s plain sweeps over the padded shots, put into
+the pair layout.  The kernels have two routes, chosen by shape before
+any launch as B4's are (:func:`scalar2.pick_route`): the resident one
+(``csrc/scalar2.cu``: B4's resident sweeps, one thread-block cluster per
+shot, with the checkpoints addressed in pairs, :func:`ckpt_offset`, and
+the gradient summed in pair order) wherever :func:`scalar2.resident_plan`
+holds the grid, and the per-step one (``csrc/scalar2b.cu``, a launch per
+time step over all pairs) elsewhere.  Either route's checkpoints feed
+either route's :func:`backward2b`.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +34,8 @@ import torch.nn.functional as F
 from physicsbasedfwi2_tpu_torch.ops.acoustic import AcousticConfig
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
     _bwd_plain_shots, _check_common, _common_padded, _fwd_ckpt_plain,
-    _gather_cols, _kernel_route, _vp_grad, check_tensors, scatter_rows,
+    _gather_cols, _kernel_route, _vp_grad, check_tensors, count_launch,
+    pick_route, reset_launches, resident_plan, scatter_rows,
 )
 
 B = 2    # shots per pair
@@ -66,6 +76,16 @@ def _from_pairs(ckpt):
         npair * B, n_ck, 2, *ckpt.shape[4:])
 
 
+def ckpt_offset(s: int, c: int, n_ck: int, plane: int, P: int = B) -> int:
+    """Offset of shot s's u0 at checkpoint c in a flattened checkpoint
+    buffer whose shots are grouped P at a time, [ns/P, n_ck, 2, P, nz8,
+    nx128] with ``plane`` = nz8 nx128 (P = 2: :func:`_to_pairs`'s
+    layout; P = 1: :mod:`scalar2`'s [ns, n_ck, 2, nz8, nx128]); its u_-1
+    sits P planes further on.  The resident kernels address checkpoints
+    with the same formula (``ckpt_offset<P>`` in ``csrc/scalar2.cu``)."""
+    return (((s // P) * n_ck + c) * 2 * P + s % P) * plane
+
+
 def _sum_pairs(gks):
     """Per-shot dJ/dK [ns_p, ...] summed as the Pallas kernel sums it:
     the two shots of a pair, then the pairs in order."""
@@ -86,7 +106,7 @@ def _bwd_plain(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt):
     return _sum_pairs(gks)
 
 
-def _fwd_cuda(K, dp, dm, wav, sz, sx, rrow, nt, kc):
+def _fwd_cuda(K, dp, dm, wav, sz, sx, rrow, nt, kc, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns_p, nt_pad = wav.shape
     n_ck = nt_pad // kc
@@ -96,23 +116,32 @@ def _fwd_cuda(K, dp, dm, wav, sz, sx, rrow, nt, kc):
     if ns_p % B or n_ck * kc != nt_pad or nt_pad < nt:
         raise ValueError("forward2b: shots must be padded to pairs and the "
                          "wavelet to a multiple of KC >= nt")
+    route, plan = pick_route("forward2b", nz8, nx128, route,
+                             plan_fn=resident_plan)
     lib = cuda_build.load_library()
-    u0 = torch.empty((ns_p, nz8, nx128), dtype=torch.float32, device=dev)
-    um1 = torch.empty_like(u0)
     hist = torch.empty((ns_p, nt, nx128), dtype=torch.float32, device=dev)
     ckpt = torch.empty((ns_p // B, n_ck, 2, B, nz8, nx128),
                        dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, u0, um1,
-                                   hist, ckpt)]
-    err = lib.b7a_forward2b(*ptrs, ns_p // B, nz8, nx128, nt, n_ck, kc,
-                            stream)
-    cuda_build.check(err, "b7a_forward2b")
-    forward2b.launches += 1
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow)]
+    sizes = (ns_p // B, nz8, nx128, nt, n_ck, kc)
+    if route == "resident":
+        err = lib.b7a_forward2b_resident(*ptrs, hist.data_ptr(),
+                                         ckpt.data_ptr(), *sizes,
+                                         *plan.args(), stream)
+        cuda_build.check(err, "b7a_forward2b_resident")
+    else:
+        u0 = torch.empty((ns_p, nz8, nx128), dtype=torch.float32, device=dev)
+        um1 = torch.empty_like(u0)
+        err = lib.b7a_forward2b(*ptrs, u0.data_ptr(), um1.data_ptr(),
+                                hist.data_ptr(), ckpt.data_ptr(), *sizes,
+                                stream)
+        cuda_build.check(err, "b7a_forward2b")
+    count_launch(forward2b, route)
     return hist, ckpt
 
 
-def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt):
+def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, route=None):
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns_p, nt_pad = wav.shape
     npair, n_ck = ckpt.shape[:2]
@@ -125,20 +154,32 @@ def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt):
         ("ckpt", ckpt, torch.float32, (ns_p // B, n_ck, 2, B, nz8, nx128))))
     if ns_p % B or npair * B != ns_p or n_ck * kc != nt_pad:
         raise ValueError("backward2b: checkpoints, rows and shots disagree")
+    route, plan = pick_route("backward2b", nz8, nx128, route,
+                             plan_fn=resident_plan)
     lib = cuda_build.load_library()
-    u0, um1, pb0, pb1, qb, gk_shots = (
-        torch.empty((ns_p, nz8, nx128), dtype=torch.float32, device=dev)
-        for _ in range(6))
-    lapc = torch.empty((kc, ns_p, nz8, nx128), dtype=torch.float32,
-                       device=dev)
-    gk = torch.empty((nz8, nx128), dtype=torch.float32, device=dev)
+
+    def field(*lead):
+        return torch.empty(lead + (nz8, nx128), dtype=torch.float32,
+                           device=dev)
+
+    gk_shots, gk = field(ns_p), field()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt,
-                                   u0, um1, pb0, pb1, qb, gk_shots, lapc,
-                                   gk)]
-    err = lib.b7b_backward2b(*ptrs, npair, nz8, nx128, n_ck, kc, stream)
-    cuda_build.check(err, "b7b_backward2b")
-    backward2b.launches += 1
+    ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt)]
+    if route == "resident":
+        lapc = field(ns_p, kc)
+        err = lib.b7b_backward2b_resident(
+            *ptrs, gk_shots.data_ptr(), lapc.data_ptr(), gk.data_ptr(), npair,
+            nz8, nx128, n_ck, kc, *plan.args(), stream)
+        cuda_build.check(err, "b7b_backward2b_resident")
+    else:
+        scratch = [field(ns_p) for _ in range(5)]  # u0, um1, pb0, pb1, qb
+        lapc = field(kc, ns_p)
+        err = lib.b7b_backward2b(
+            *ptrs, *(a.data_ptr() for a in scratch), gk_shots.data_ptr(),
+            lapc.data_ptr(), gk.data_ptr(), npair, nz8, nx128, n_ck, kc,
+            stream)
+        cuda_build.check(err, "b7b_backward2b")
+    count_launch(backward2b, route)
     return gk
 
 
@@ -163,24 +204,24 @@ def forward2b_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def forward2b(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg: AcousticConfig,
-              *, KC: int = KC):
+              *, KC: int = KC, route=None):
     """Traces [ns, nt, nr] of the second-order forward and the checkpoint
     buffer [ns_p/2, n_ck, 2, 2, nz8, nx128] of (u0, u_-1) every KC steps,
     shots in pairs (ns_p: ns rounded up to even, the last shot
     repeated).
 
-    On a CUDA ``vp`` this launches kernel B7a (``forward2b.launches``
-    counts the launches); on a CPU ``vp`` it runs
+    On a CUDA ``vp`` this launches kernel B7a on the route that
+    :func:`scalar2.pick_route` gives ``route`` (by default the resident
+    route where :func:`scalar2.resident_plan` holds the grid);
+    ``forward2b.launches`` counts the launches, ``resident_launches``
+    and ``per_step_launches`` each route's.  On a CPU ``vp`` it runs
     :func:`forward2b_plain`.  Any other device raises.
     """
     if not _kernel_route(vp, "forward2b"):
         return forward2b_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
                                KC=KC)
-    return _forward2b(_fwd_cuda, vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-                      cfg, KC)
-
-
-forward2b.launches = 0
+    return _forward2b(partial(_fwd_cuda, route=route), vp, wavelet, src_z,
+                      src_x, rcv_z, rcv_x, cfg, KC)
 
 
 def _backward2b(bwd_fn, vp, wavelet, src_z, src_x, rcv_z, cfg, ybar_rows,
@@ -209,25 +250,27 @@ def backward2b_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
 @torch.no_grad()
 def backward2b(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg: AcousticConfig,
-               ybar_rows, ckpt):
+               ybar_rows, ckpt, *, route=None):
     """dJ/dvp [nz, nx] for receiver-row cotangents ``ybar_rows``
     [ns or ns_p, n_ck*KC, nx128] (every row injected) from
-    :func:`forward2b`'s checkpoints: the exact transpose, the chain rule
-    K = (vp dt/dx)^2 and the transpose of the edge padding (port of
-    ``_backward2b``).
+    :func:`forward2b`'s checkpoints (either route's): the exact
+    transpose, the chain rule K = (vp dt/dx)^2 and the transpose of the
+    edge padding (port of ``_backward2b``).
 
-    On a CUDA ``vp`` this launches kernel B7b (``backward2b.launches``
-    counts the launches); on a CPU ``vp`` it runs
+    On a CUDA ``vp`` this launches kernel B7b on the route that
+    :func:`scalar2.pick_route` gives ``route``, counted in
+    ``backward2b``'s ``launches``, ``resident_launches`` and
+    ``per_step_launches``; on a CPU ``vp`` it runs
     :func:`backward2b_plain`.  Any other device raises.
     """
     if not _kernel_route(vp, "backward2b"):
         return backward2b_plain(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
                                 ybar_rows, ckpt)
-    return _backward2b(_bwd_cuda, vp, wavelet, src_z, src_x, rcv_z, cfg,
-                       ybar_rows, ckpt)
+    return _backward2b(partial(_bwd_cuda, route=route), vp, wavelet, src_z,
+                       src_x, rcv_z, cfg, ybar_rows, ckpt)
 
 
-backward2b.launches = 0
+reset_launches(forward2b, backward2b)
 
 
 class _AcousticPallas2b(torch.autograd.Function):
@@ -263,7 +306,8 @@ def acoustic_pallas2b(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
     """Differentiable shot-pair second-order propagator: traces
     [ns, nt, nr] with a gradient w.r.t. ``vp`` (the wavelet's is zero).
     On this package it runs the CUDA kernels B7a forward and B7b
-    backward on a CUDA ``vp``, their plain versions on a CPU one.
+    backward on a CUDA ``vp`` (each on its default route: the resident
+    one where the grid allows), their plain versions on a CPU one.
     Records only row ``rcv_z[:, 0]`` of each shot, as the Pallas kernels
     do."""
     return _AcousticPallas2b.apply(vp, wavelet, src_z, src_x, rcv_z, rcv_x,

@@ -353,8 +353,7 @@ def _edge_geom(dev, ns):
         np.tile(np.arange(8, dtype=np.int32) * 22 + 2, (ns, 1))))
 
 
-@pytest.fixture(scope="module", params=[1, 5], ids=["1_shot", "5_shots"])
-def res_case(dev, request):
+def _res_inputs(dev, ns):
     assert scalar2.resident_plan(88, 256).bands(88) == RES_BANDS
     cfg = torch_acoustic(RES_GRID, dict(chunk=20, vmax_pml=2500.0))
     vp = np.full((64, 176), 1700.0, np.float32)
@@ -362,7 +361,12 @@ def res_case(dev, request):
     vp += np.random.default_rng(9).uniform(-50, 50, vp.shape).astype(
         np.float32)
     return (cfg, ricker(10.0, 180, 0.002, device=dev),
-            torch.as_tensor(vp, device=dev), _edge_geom(dev, request.param))
+            torch.as_tensor(vp, device=dev), _edge_geom(dev, ns))
+
+
+@pytest.fixture(scope="module", params=[1, 5], ids=["1_shot", "5_shots"])
+def res_case(dev, request):
+    return _res_inputs(dev, request.param)
 
 
 def _routes(fn):
@@ -471,6 +475,143 @@ def test_grid_beyond_the_plan_takes_the_per_step_route(dev):
     assert rel_l2(gk, gp) <= 1e-4
     with pytest.raises(ValueError, match="no resident plan"):
         forward2(vp, wav, *geom, cfg, route="resident")
+
+
+# ---------------------------------------------------------------------------
+# The resident route of B7a and B7b: B4's resident sweeps with the
+# checkpoints in shot pairs and the gradient summed in pair order
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[2, 3, 5],
+                ids=["2_shots", "3_shots", "5_shots"])
+def pair_case(dev, request):
+    """res_case's grid and model; each shot's source on a band's edge
+    row and its receivers on the neighbouring band's (an odd count is
+    padded to pairs by repeating the last shot)."""
+    return _res_inputs(dev, request.param)
+
+
+def _pair_operands(case, rows):
+    """B7's kernel operands for ``case`` (shots padded to pairs, KC 16)
+    and the cotangent rows padded with the zero rows of the padded
+    shot, as backward2b passes them."""
+    cfg, wav, vp, geom = case
+    ops = scalar2b._common(vp, wav, *geom[:3], cfg, 16, torch.float32)
+    ybar = torch.nn.functional.pad(
+        rows, (0, 0, 0, 0, 0, ops[3].shape[0] - rows.shape[0]))
+    return ops, ybar.contiguous()
+
+
+def _pair_sum_of_b4b(ops, ybar, ckpt):
+    """Resident B4b's dJ/dK of each padded shot alone, from B7's
+    checkpoints (put back into the shot layout), summed in pair order
+    with torch adds."""
+    K, dp, dm, wav, sz, sx, rr = ops
+    ck = scalar2b._from_pairs(ckpt)
+    one = [slice(s, s + 1) for s in range(wav.shape[0])]
+    return scalar2b._sum_pairs(torch.stack([scalar2._bwd_cuda(
+        K, dp, dm, wav[i], sz[i], sx[i], rr[i], ybar[i], ck[i].contiguous(),
+        wav.shape[1], route="resident") for i in one]))
+
+
+def test_resident_b7a_is_resident_b4a_at_kc16(pair_case):
+    cfg, wav, vp, geom = pair_case
+    ns = len(geom[0])
+    before = _routes(scalar2b.forward2b)
+    recs, ckpt = scalar2b.forward2b(vp, wav, *geom, cfg)
+    torch.cuda.synchronize()
+    assert _routes(scalar2b.forward2b) == (before[0] + 1, before[1])
+    assert ckpt.shape[0] == -(-ns // 2) and float(recs.abs().max()) > 0
+    recs4, ck4 = scalar2.forward2_ckpt(vp, wav, *geom, cfg, KC=16,
+                                       route="resident")
+    # the same kernel; only the checkpoint address differs
+    assert torch.equal(recs, recs4)
+    shots = scalar2b._from_pairs(ckpt)
+    assert torch.equal(shots[:ns], ck4)
+    if ns % 2:   # the padded shot repeats the last one
+        assert torch.equal(shots[ns], ck4[-1])
+
+
+def test_resident_b7b_is_the_pair_sum_of_resident_b4b(pair_case):
+    cfg, wav, vp, geom = pair_case
+    g = cfg.grid
+    rows = _l2_rows(pair_case, scalar2.forward2_plain, 16)
+    _, ckpt = scalar2b.forward2b(vp, wav, *geom, cfg)
+    ops, ybar = _pair_operands(pair_case, rows)
+    gk = scalar2b._bwd_cuda(*ops, ybar, ckpt, route="resident")
+    assert float(gk.abs().max()) > 0
+    assert torch.equal(gk, _pair_sum_of_b4b(ops, ybar, ckpt))
+    # the wrapper: that dJ/dK through the chain rule
+    got = scalar2b.backward2b(vp, wav, *geom, cfg, rows, ckpt)
+    assert torch.equal(got, scalar2._vp_grad(gk, vp, cfg,
+                                             (g.dt / g.dx) ** 2))
+
+
+def test_resident_b7_matches_per_step_cross_routes_and_plain(pair_case):
+    cfg, wav, vp, geom = pair_case
+    fwd, bwd = scalar2b.forward2b, scalar2b.backward2b
+    before = (_routes(fwd), _routes(bwd))
+    ck = {}
+    recs_r, ck["resident"] = fwd(vp, wav, *geom, cfg, route="resident")
+    recs_s, ck["per_step"] = fwd(vp, wav, *geom, cfg, route="per_step")
+    assert rel_max(recs_r, recs_s) <= 1e-6
+    assert rel_max(ck["resident"], ck["per_step"]) <= 1e-6
+    rows = _l2_rows(pair_case, scalar2.forward2_plain, 16)
+    # each backward route from each forward route's checkpoints
+    grads = {(f, b): bwd(vp, wav, *geom, cfg, rows, ck[f], route=b)
+             for f in ck for b in ("resident", "per_step")}
+    torch.cuda.synchronize()
+    assert (_routes(fwd), _routes(bwd)) == (
+        (before[0][0] + 1, before[0][1] + 1),
+        (before[1][0] + 2, before[1][1] + 2))
+    ref_r = grads[("resident", "resident")]
+    for key, got in grads.items():
+        assert rel_max(got, ref_r) <= 1e-6, key
+    recs_p, ck_p = scalar2b.forward2b_plain(vp, wav, *geom, cfg)
+    # FMA contraction and sum order differ: 1e-5 of max over 180 steps
+    assert rel_max(recs_r, recs_p) <= 1e-5
+    assert rel_max(ck["resident"], ck_p) <= 1e-5
+    got = bwd(vp, wav, *geom, cfg, rows, ck_p, route="resident")
+    ref = scalar2b.backward2b_plain(vp, wav, *geom, cfg, rows, ck_p)
+    # float32 rounding in another order: 1e-4 rel L2
+    assert rel_l2(got, ref) <= 1e-4
+
+
+def test_acoustic_pallas2b_launches_resident_b7(pair_case):
+    cfg, wav, vp, geom = pair_case
+    fns = (scalar2b.forward2b, scalar2b.backward2b)
+    before = [_routes(f) for f in fns]
+    v = vp.clone().requires_grad_(True)
+    scalar2b.acoustic_pallas2b(v, wav, *geom, cfg).square().sum().backward()
+    torch.cuda.synchronize()
+    assert [_routes(f) for f in fns] == [(r + 1, s) for r, s in before]
+    assert bool(torch.isfinite(v.grad).all())
+
+
+def test_b7_grid_beyond_the_plan_takes_the_per_step_route(dev):
+    # 72 x 1024 padded, as test_grid_beyond_the_plan_takes_the_per_step_route
+    grid = dict(nz=48, nx=1000, dx=10.0, nt=40, dt=0.002, pml_width=12)
+    cfg = torch_acoustic(grid, dict(chunk=20, vmax_pml=2500.0))
+    wav = ricker(10.0, 40, 0.002, device=dev)
+    vp = torch.full((48, 1000), 1800.0, device=dev)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.array([3, 3, 5], np.int32), np.array([100, 500, 900], np.int32),
+        np.full((3, 8), 3, np.int32),
+        np.tile(np.arange(8, dtype=np.int32) * 120 + 20, (3, 1))))
+    fns = (scalar2b.forward2b, scalar2b.backward2b)
+    before = [_routes(f) for f in fns]
+    recs, ckpt = scalar2b.forward2b(vp, wav, *geom, cfg)
+    rows = scalar2.scatter_rows(recs, geom[3], nt=40, nx=1000, pml_width=12,
+                                KC=16)
+    got = scalar2b.backward2b(vp, wav, *geom, cfg, rows, ckpt)
+    torch.cuda.synchronize()
+    assert [_routes(f) for f in fns] == [(r, s + 1) for r, s in before]
+    recs_p, ck_p = scalar2b.forward2b_plain(vp, wav, *geom, cfg)
+    assert rel_max(recs, recs_p) <= 1e-5
+    ref = scalar2b.backward2b_plain(vp, wav, *geom, cfg, rows, ck_p)
+    assert rel_l2(got, ref) <= 1e-4
+    with pytest.raises(ValueError, match="no resident plan"):
+        scalar2b.forward2b(vp, wav, *geom, cfg, route="resident")
 
 
 # ---------------------------------------------------------------------------

@@ -99,9 +99,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``train(get_workload("marmousi_acoustic_real", stage_max_epochs=2),
     epochs=6)`` across continuation stages, and
     ``train(get_workload("marmousi_acoustic_wav"), epochs=3)`` (AutoWav,
-    30 shots with per-shot wavelets).
+    30 shots with per-shot wavelets);
+15. the robust elastic recipe at full width:
+    ``train(get_workload("marmousi_elastic_robust"), epochs=lstart + 10)``
+    (3 of the 35 shots held out, 30 warmup epochs, 10 physics epochs at
+    2.5 Hz under the step cap, the drift guard's anchor ``loss_H`` at
+    epoch 30 and ``loss_H`` at epoch 40): B3 once a physics epoch and the
+    ring forward at setup and for each ``loss_H``, all on the resident
+    route, a fresh optimizer at epoch 31, each epoch's step-cap scale
+    and uncapped move, the time of a ``loss_H`` evaluation, then a drift-
+    guard revert on the card (``torch.equal``, empty optimizer state, the
+    next epoch at ``lr / guard_lr_ramp``) and ``evaluate`` of the run's
+    ``latest`` checkpoint.
 
-Each path reads its kernels' launch counts, set to 0 just before it.
+Each path reads its kernels' launch counts, set to 0 just before it; a
+kernel's launches in the kernels line are the sum over the paths.
+Device traces count only the records between two marker kernels around
+the call, with host waits inside the trace before and after them, so
+no trace's counts depend on the traces before it.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (every kernel: ``ms`` on the resident route,
 ``per_step_ms`` on the per-step one); the last line is
@@ -433,7 +448,11 @@ def phase_b2(dev):
                         3 * obs_rows.shape[1])
     (lk, gk), ms_k = turns["out"], turns["ms"]
     for route in ("resident", "per_step"):
-        phase_trace(f"B2 ({route} route)", lambda: kernel(off, route=route))
+        n = phase_trace(f"B2 ({route} route)",
+                        lambda: kernel(off, route=route))
+        if route == "resident":
+            check(n["fwd_resident"] == 1 and n["rev_resident"] == 1,
+                  "resident B2 is not one launch a sweep")
     kc_turns(kernel, obs_rows, dir_pad, g.nt)
     (lp, gp), ms_p = timed_ms(lambda: plain(off), repeats=1)
     lr, gr = fwi_l1_loss_grad_plain(vp0, wav, *geom, cfg, off, dir_pad,
@@ -539,33 +558,74 @@ def kc_turns(kernel, rows, dirs, nt: int) -> None:
     check(max(diffs) <= 1e-6, "B2 at KC 8 and KC 32 disagree")
 
 
-def phase_trace(name: str, fn):
-    """Device time of one call of ``fn`` by kernel name (torch.profiler,
-    CUDA activity only), its span from the first kernel's start to the
-    last one's end, and the busy share of that span; returns the
-    launches by name."""
-    import collections
+MARK_CYCLES = 1_000_000  # the trailing marker kernel's spin, ~0.5 ms
+LEAD_MARKS = 1024  # short marker kernels before the call (~1 us each)
+TRACE_WAIT_S = 0.05  # host wait after a trace starts and before it stops
 
+
+def device_records(fn) -> list[tuple[str, int, int]]:
+    """The CUDA records (name, start ns, end ns) of one call of ``fn`` in
+    a device trace (torch.profiler, CUDA activity only), counted between
+    marker kernels (``torch.cuda._sleep``) on the same stream: the last
+    of ``LEAD_MARKS`` short ones launched before the call and a long one
+    launched after it.  So no record from outside the call is counted,
+    and a trace's counts do not depend on the traces taken before it.
+
+    The trace loses records in three ways (``trace_probe.py``): the
+    last ones where it stops right after them (up to a few hundred of a
+    25,000-kernel call, the trailing marker with them); the first ones
+    where its GPU clock runs a few ms ahead of its host clock; and,
+    whatever the waits, its first few, more as the process takes more
+    traces.  The host waits ``TRACE_WAIT_S`` after the trace starts and
+    before it stops, against the first two; the leading markers are
+    spares against the third.  Fails unless the trailing marker is the
+    trace's last record and a leading one is in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        time.sleep(TRACE_WAIT_S)
+        for _ in range(LEAD_MARKS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        fn()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_WAIT_S)
+    records = [(e.name(), e.start_ns(), e.end_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    marks = sorted((t0, t1) for name, t0, t1 in records
+                   if "spin_kernel" in name)
+    last = max((t1 for _, _, t1 in records), default=None)
+    check(len(marks) >= 2 and marks[-1][1] == last,
+          f"the device trace lacks a marker kernel: {len(marks)} of "
+          f"{LEAD_MARKS + 1} in {len(records)} records")
+    if len(marks) < LEAD_MARKS + 1:
+        print(f"  (device trace: {LEAD_MARKS + 1 - len(marks)} of the "
+              f"{LEAD_MARKS} leading marker kernels not recorded)")
+    lo, hi = marks[-2][1], marks[-1][0]
+    return [(name, t0, t1) for name, t0, t1 in records
+            if "spin_kernel" not in name and t0 >= lo and t1 <= hi]
+
+
+def phase_trace(name: str, fn):
+    """Device time of one call of ``fn`` by kernel name (the records
+    between the markers of :func:`device_records`), its span from the
+    first kernel's start to the last one's end, and the busy share of
+    that span; returns the launches by name."""
+    import collections
     ns_by = collections.Counter()
     n_by = collections.Counter()
-    first, last = None, None
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA:
-            continue
-        key = e.name().replace("(anonymous namespace)::", "")
+    records = device_records(fn)
+    for full, t0, t1 in records:
+        key = full.replace("(anonymous namespace)::", "")
         key = key.removeprefix("void ").split("(")[0].split("<")[0]
         key = key.split("::")[-1].strip()[:40]
-        ns_by[key] += e.duration_ns()
+        ns_by[key] += t1 - t0
         n_by[key] += 1
-        first = e.start_ns() if first is None else min(first, e.start_ns())
-        last = e.end_ns() if last is None else max(last, e.end_ns())
-    span = (last - first) / 1e6 if first is not None else 0.0
+    span = ((max(t1 for _, _, t1 in records) - min(t0 for _, t0, _ in records))
+            / 1e6 if records else 0.0)
     busy = sum(ns_by.values()) / 1e6
     parts = ", ".join(f"{k} {v / 1e6:.3f} ms in {n_by[k]}"
                       for k, v in ns_by.most_common())
@@ -641,8 +701,10 @@ def phase_b3(dev):
     ring_turns = route_turns("ring forward", lambda r: simulate_elastic_ring(
         *true, wav, *geom_all, cfg, route=r), g.nt, exact=True)
     (ovx, ovz), ms_rk = ring_turns["out"], ring_turns["ms"]
-    phase_trace("ring forward (resident route)", lambda: simulate_elastic_ring(
-        *true, wav, *geom_all, cfg))
+    n = phase_trace("ring forward (resident route)",
+                    lambda: simulate_elastic_ring(*true, wav, *geom_all, cfg))
+    check(n["el_fwd_resident"] == 1,
+          "the resident ring forward is not one launch a call")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom_all, cfg)
@@ -689,8 +751,11 @@ def phase_b3(dev):
                                                     route=r),
                         steps, exact=True)
     for route in ("resident", "per_step"):
-        phase_trace(f"B3 tnl1 ({route} route)",
-                    lambda: kernel("tnl1", rows["tnl1"], route=route))
+        n = phase_trace(f"B3 tnl1 ({route} route)",
+                        lambda: kernel("tnl1", rows["tnl1"], route=route))
+        if route == "resident":
+            check(n["el_fwd_resident"] == 1 and n["el_rev_resident"] == 1,
+                  "resident B3 is not one launch a sweep")
     fn = fused_elastic_loss_grad_meds
     reset_launches(fn)
 
@@ -866,6 +931,7 @@ def phase_slice2(dev):
         print("epoch", json.dumps(rec))
     warm = [r["epoch_time"] for r in history[:cfg.lstart]]
     phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    PHYSICS_EPOCH_S["marmousi_elastic"] = phys
     print(f"slice 2: engine setup {setup:.2f} s; {epochs} epochs in "
           f"{total:.2f} s; warmup epochs: first {warm[0]:.4f} s, median of "
           f"the rest {sorted(warm[1:])[len(warm[1:]) // 2]:.4f} s; physics "
@@ -907,6 +973,158 @@ def phase_slice2(dev):
 
 
 ACC_SHOTS = 4  # shots of the float64 comparisons of phases 7 and 8
+PHYSICS_EPOCH_S = {}  # physics epoch seconds by workload, this run
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+
+
+def phase_robust(dev):
+    """The robust recipe at full width: ``train(get_workload(
+    "marmousi_elastic_robust"), epochs=lstart + 10)`` on an engine built
+    first: 3 of the 35 shots held out, 30 warmup epochs, then 10 physics
+    epochs on the 2.5 Hz stage under the step cap, with the drift
+    guard's anchor ``loss_H`` at epoch 30 and ``loss_H`` at epoch 40 (the
+    resident ring forward on the 3 held-out shots).  Then, on the card,
+    a revert to a snapshot, and ``evaluate`` of the run's ``latest``
+    checkpoint."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import ElasticDIPEngine
+    from physicsbasedfwi2_tpu_torch.engine.test import evaluate
+    from physicsbasedfwi2_tpu_torch.engine.train import _snapshot, train
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    out_dir = ROOT / "build" / "chip_smoke"
+    cfg = get_workload("marmousi_elastic_robust", save_dir=str(out_dir))
+    print(f"slice 5: marmousi_elastic_robust {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
+          f"{cfg.num_shots} shots ({cfg.holdout_shots} held out, "
+          f"{cfg.shots_per_iter} per iteration), stages {cfg.freq_stages}, "
+          f"step cap {cfg.step_cap} (final stage {cfg.step_cap_final}), "
+          f"guard patience {cfg.guard_patience}, tol {cfg.guard_tol}, lr "
+          f"ramp {cfg.guard_lr_ramp}, loss_H every {cfg.holdout_every}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    b3 = elastic_fused.fused_elastic_loss_grad_meds
+    ring = elastic_fused.simulate_elastic_ring
+    reset_launches(b3, ring)
+    t0 = time.perf_counter()
+    engine = ElasticDIPEngine(cfg, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    # Adam's step count and the step cap after each epoch
+    steps, caps = {}, {}
+    step_fn = engine.optimize_parameters
+
+    def logged(epoch, **kw):
+        out = step_fn(epoch, **kw)
+        steps[epoch] = max(int(s["step"]) for s in engine.opt.state.values())
+        if epoch > cfg.lstart:
+            c = engine.last_step_cap
+            caps[epoch] = (c["cap"], float(c["scale"]), float(c["move"]))
+        return out
+
+    engine.optimize_parameters = logged
+    epochs = cfg.lstart + 10
+    t0 = time.perf_counter()
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"fused_elastic_loss_grad": b3.launches,
+                "simulate_elastic_ring": ring.launches}
+    b3_routes = (b3.resident_launches, b3.per_step_launches)
+    ring_routes = (ring.resident_launches, ring.per_step_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    engine.optimize_parameters = step_fn
+    for rec in history[:1] + history[cfg.lstart - 1:]:
+        print("epoch", json.dumps(rec))
+    warm = [r["epoch_time"] for r in history[:cfg.lstart]]
+    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    print(f"slice 5: engine setup {setup:.2f} s; {epochs} epochs in "
+          f"{total:.2f} s; warmup epochs: first {warm[0]:.4f} s, median of "
+          f"the rest {_median(warm[1:]):.4f} s; physics epochs "
+          f"{', '.join(f'{x:.4f}' for x in phys)} s (median "
+          f"{_median(phys):.4f}); held-out shots "
+          f"{engine._holdout_idx.tolist()}, pool of "
+          f"{len(engine._train_pool)}; launches {launches}, (resident, "
+          f"per-step) B3 {b3_routes}, ring forward {ring_routes}; physics "
+          f"path {engine.physics_path}; peak memory {peak:.2f} GiB")
+    for e, (cap, sc, mv) in sorted(caps.items()):
+        print(f"slice 5 step cap, epoch {e}: cap {cap:g} m/s, uncapped move "
+              f"{mv:.4f} m/s = {mv / cap:.3f} x cap, scale {sc:.4f}")
+    check(engine.physics_path == "fused-cuda",
+          f"physics path {engine.physics_path}")
+    check(engine._holdout_idx.tolist() == [8, 17, 26]
+          and len(engine._train_pool) == 32, "held-out shots")
+    check(b3_routes == (10, 0) and launches["fused_elastic_loss_grad"] == 10,
+          "B3 not launched once per physics epoch on the resident route")
+    check(ring_routes == (3, 0) and launches["simulate_elastic_ring"] == 3,
+          "the ring forward not launched at setup and for the 2 loss_H "
+          "evaluations on the resident route")
+    check(steps[cfg.lstart] == cfg.lstart and steps[cfg.lstart + 1] == 1
+          and steps[epochs] == 10,
+          f"not a fresh optimizer at epoch {cfg.lstart + 1}: {steps}")
+    hs = [(r["epoch"], r["loss_H"]) for r in history if "loss_H" in r]
+    check([e for e, _ in hs] == [cfg.lstart + 10]
+          and all(math.isfinite(h) and h > 0 for _, h in hs),
+          f"loss_H: {hs}")
+    check(sorted(caps) == list(range(cfg.lstart + 1, epochs + 1))
+          and all(math.isfinite(mv) and 0.0 < sc <= 1.0
+                  for _, sc, mv in caps.values()), "step-cap scales")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
+    check(all(r["freq_stage"] == 2.5 for r in history),
+          "not on the 2.5 Hz stage")
+
+    # loss_H alone: the 3-shot resident ring forward plus the misfit
+    _, ms_h = timed_ms(lambda: engine.holdout_misfit(2.5))
+    # the step cap's extra work a physics step: two decodes (no grad)
+    with torch.no_grad():
+        _, ms_dec = timed_ms(engine._decode)
+    ref = PHYSICS_EPOCH_S.get("marmousi_elastic")
+    print(f"slice 5: loss_H evaluation {ms_h:.2f} ms; a decode {ms_dec:.2f} "
+          f"ms (the cap runs two a step); physics epoch median "
+          f"{_median(phys):.4f} s against marmousi_elastic's "
+          + (f"{_median(ref):.4f} s (phase 6, this run)" if ref else
+             "(phase 6 not run)"))
+
+    # the drift guard's revert on the card: bit for bit, a fresh
+    # optimizer, and the next epoch at lr / guard_lr_ramp
+    ref_v = engine.test()[0]["loss_V_MSE"]
+    snap = _snapshot(engine)
+    engine.optimize_parameters(epochs + 1, freq=2.5)
+    moved = any(not torch.equal(v, snap[k])
+                for k, v in engine.net.state_dict().items())
+    engine.guard_revert(snap, epochs + 2)
+    same = all(torch.equal(v, snap[k])
+               for k, v in engine.net.state_dict().items())
+    empty = len(engine.opt.state) == 0
+    engine.optimize_parameters(epochs + 2, freq=2.5)
+    lr = engine.opt.param_groups[0]["lr"]
+    want = engine.lr_policy.lr_for_epoch(epochs + 2) / cfg.guard_lr_ramp
+    if cfg.phase_lr_ramp > 0:
+        want *= min(1.0, (epochs + 2 - cfg.lstart) / cfg.phase_lr_ramp)
+    print(f"slice 5 guard_revert: parameters moved by an epoch {moved}, "
+          f"restored torch.equal {same}, optimizer state empty {empty}; next "
+          f"epoch's lr {lr:.6g} (lr / guard_lr_ramp {want:.6g})")
+    check(moved and same and empty, "guard_revert did not restore the "
+          "snapshot with a fresh optimizer")
+    check(abs(lr - want) <= 1e-12, "the post-revert lr ramp")
+
+    # fwi-test's evaluate of the run's latest checkpoint
+    res = evaluate(cfg, epoch="latest", results_dir=str(out_dir / "results"),
+                   device=dev)
+    model = out_dir / "results" / cfg.name / "epoch_latest" / "model.npy"
+    print(f"slice 5 evaluate(latest): {res} (the trained engine's "
+          f"{ref_v:.9g}), {model.relative_to(ROOT)}")
+    check(model.exists() and math.isfinite(res["loss_V_MSE"])
+          and abs(res["loss_V_MSE"] - ref_v) <= 1e-5 * ref_v,
+          "evaluate of the latest checkpoint")
+    return launches
 
 
 def _grad_accuracy(name, shape, gk, gp, ms_k, ms_p, grads4):
@@ -1354,8 +1572,7 @@ def phase_b7(dev):
 
     # one call of each route in a device trace: resident B7a is one
     # fwd_resident launch, resident B7b one rev_resident and one
-    # sum_pairs.  The resident calls go first: in one run a trace taken
-    # right after the per-step B7b trace (~8,600 records) held 2 kernels.
+    # sum_pairs
     n = {}
     for route in ("resident", "per_step"):
         n["B7a", route] = phase_trace(f"B7a ({route} route)",
@@ -1473,22 +1690,12 @@ def phase_slice4_pairs(dev):
 
 def device_launches(fn, key: str) -> tuple[int, int]:
     """(launches of the kernels whose name holds ``key``, all kernel
-    launches) in a device trace of fn() (torch.profiler, CUDA activity
-    only; memory copies and sets not counted)."""
-    import collections
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    count = collections.Counter()
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() == torch.autograd.DeviceType.CUDA
-                and "mem" not in e.name().lower()):
-            count[key in e.name()] += 1
-    return count[True], count[True] + count[False]
+    launches) of one call of fn() in a device trace (the records between
+    the markers of :func:`device_records`; memory copies and sets not
+    counted)."""
+    names = [name for name, _, _ in device_records(fn)
+             if "mem" not in name.lower()]
+    return sum(key in name for name in names), len(names)
 
 
 def phase_b8(dev):
@@ -1549,9 +1756,8 @@ def phase_b8(dev):
     check(err <= 1e-5 * scale, "B8 disagrees with its plain version")
     check(n_res[0] == 1, "B8's resident route is not one kernel launch a "
           "call")
-    # the per-step route launches 2 kernels a step; a trace of its ~6,800
-    # records may drop a few (one run counted 6,647 of 6,668)
-    check(g.nt <= n_step[0] <= 2 * g.nt, "B8 per-step launch count")
+    # the per-step route launches 2 kernels a step
+    check(n_step[0] == 2 * g.nt, "B8 per-step launch count")
     cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
     # five media and damp on the kernel's grid, the wavelet and geometry
     # in; the two traces out
@@ -1683,16 +1889,19 @@ def main(argv: list[str]) -> int:
                   5: [phase_slice], 6: [phase_slice2], 7: [phase_b4],
                   8: [phase_b56], 9: [phase_slice3], 10: [phase_xla_engine],
                   11: [phase_b7, phase_slice4_pairs], 12: [phase_b8],
-                  13: [phase_b2_wavelet], 14: [phase_engine_paths]}
+                  13: [phase_b2_wavelet], 14: [phase_engine_paths],
+                  15: [phase_robust]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
         print(f"chip_smoke: partial run of phases {sorted(only)} passed")
         return 0
+    import collections
     b1 = phase_b1(dev)
     b2 = phase_b2(dev)
     b3, ring = phase_b3(dev)
-    launches = phase_slice(dev)
+    # each path's launches, summed where two paths run a kernel
+    launches = collections.Counter(phase_slice(dev))
     launches.update(phase_slice2(dev))
     b4a, b4b = phase_b4(dev)
     b5, b6 = phase_b56(dev)
@@ -1700,9 +1909,11 @@ def main(argv: list[str]) -> int:
     phase_xla_engine(dev)
     b7a, b7b = phase_b7(dev)
     launches.update(phase_slice4_pairs(dev))
-    launches["elastic_forward_pallas"], b8 = phase_b8(dev)
+    n_b8, b8 = phase_b8(dev)
+    launches["elastic_forward_pallas"] += n_b8
     b2["gwav_max_abs_err"] = phase_b2_wavelet(dev)
     phase_engine_paths(dev)
+    launches.update(phase_robust(dev))
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",

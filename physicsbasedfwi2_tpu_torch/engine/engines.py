@@ -1,7 +1,8 @@
 """Inversion engines (port of ``physicsbasedfwi2_tpu/engine/engines.py``:
 ``EngineBase``, ``AcousticDIPEngine`` on its fused and "xla" paths,
-``ElasticDIPEngine`` on its fused path, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages``
-and ``create_engine``).
+``ElasticDIPEngine`` on its fused path with held-out shots, the step
+cap and the drift guard's revert, ``LrPolicy``, ``_make_optimizer``,
+``_evict_stale_stages`` and ``create_engine``).
 
 The JAX engines inject the processed physics gradient into the
 generator's autodiff with a ``jax.custom_vjp``; here that is
@@ -432,15 +433,39 @@ def elastic_workload(cfg: ExperimentConfig, device):
         device=device)
 
 
+def holdout_split(n_shots: int, holdout_shots: int):
+    """(held-out, training pool) shot indices as int64 numpy arrays:
+    ``k = min(holdout_shots, max(n_shots - 1, 1))`` evenly spaced
+    interior shots (numpy rounds half to even: 35 shots hold out
+    [8, 17, 26], 5 shots [1, 2, 3]) and the rest; ``(None, all)`` when
+    ``holdout_shots <= 0``."""
+    if holdout_shots <= 0:
+        return None, np.arange(n_shots)
+    k = min(holdout_shots, max(n_shots - 1, 1))
+    hold = np.unique(np.round(np.linspace(0, n_shots - 1, k + 2)[1:-1])
+                     .astype(np.int64))
+    return hold, np.setdiff1d(np.arange(n_shots), hold)
+
+
 class ElasticDIPEngine(EngineBase):
     """Two-branch elastic FWI with frequency continuation, on the fused
     path: kernel B3 (``ops/elastic_fused.py``) on CUDA, its plain
     version on CPU.
 
     Each physics epoch draws a random subset of ``shots_per_iter``
-    shots from an explicit ``torch.Generator`` seeded from
-    ``cfg.seed + 7``; it is not the JAX engine's ``jax.random`` draw, so
-    the two packages pick different shots from the same seed.
+    shots of the training pool from an explicit ``torch.Generator``
+    seeded from ``cfg.seed + 7``; it is not the JAX engine's
+    ``jax.random`` draw, so the two packages pick different shots from
+    the same seed.
+
+    The robust recipe's options (``marmousi_elastic_robust``):
+    ``holdout_shots`` keeps evenly spaced shots out of the pool and logs
+    their misfit as ``loss_H`` every ``holdout_every`` physics epochs
+    (:meth:`holdout_misfit`, through the ring forward); ``step_cap``
+    scales each physics step so the decoded model moves at most that
+    RMS; ``phase_reset_opt`` makes a fresh optimizer at the first
+    physics epoch; :meth:`guard_revert` and ``guard_lr_ramp`` serve the
+    train loop's drift guard.
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None, *,
@@ -451,13 +476,8 @@ class ElasticDIPEngine(EngineBase):
             (bool(cfg.dataroot), "dataroot: ROADMAP Queue A, item 12"),
             (cfg.grad_illum_eps > 0,
              "grad_illum_eps > 0 (EPRECOND): ROADMAP Queue A"),
-            (cfg.grad_smooth > 0, "grad_smooth > 0: ROADMAP Queue A"),
-            (cfg.holdout_shots > 0 or cfg.guard_patience > 0
-             or cfg.guard_lr_ramp > 0 or cfg.step_cap > 0
-             or cfg.phase_reset_opt,
-             "holdout_shots/guard_*/step_cap/phase_reset_opt "
-             "(marmousi_elastic_robust, the next elastic slice): ROADMAP "
-             "Queue A")) if cond]
+            (cfg.grad_smooth > 0, "grad_smooth > 0: ROADMAP Queue A"))
+            if cond]
         if why:
             raise NotImplementedError("not ported yet: " + "; ".join(why))
         self.cfg = cfg
@@ -474,7 +494,12 @@ class ElasticDIPEngine(EngineBase):
             print(f"[{cfg.name}] workload has {self.n_shots} shots; "
                   f"config num_shots={cfg.num_shots} -- using the "
                   f"workload's count")
-        self._train_pool = torch.arange(self.n_shots, device=self.device)
+        # held-out shots never enter the training pool; their misfit
+        # (loss_H) is the unsupervised early-stopping metric
+        hold, pool = holdout_split(self.n_shots, cfg.holdout_shots)
+        self._holdout_idx = (None if hold is None else
+                             torch.as_tensor(hold, device=self.device))
+        self._train_pool = torch.as_tensor(pool, device=self.device)
         acq = self.wl.acq
         single_row = bool((acq.rcv_z == acq.rcv_z[:, :1]).all())
         # the fused tnl1 misfit identifies traces with receiver-row
@@ -541,6 +566,12 @@ class ElasticDIPEngine(EngineBase):
         self._tether_ref = None
         self._tether_stage_i = -1
         self._tether_epoch = 0
+        self._phase_reset_done = False
+        # drift-guard state: the epoch of the last revert, for the
+        # post-revert lr ramp
+        self._guard_ramp_from = None
+        # the last capped step: its cap, scale and uncapped model move
+        self.last_step_cap = None
 
     def _stage_data(self, fc):
         """Per-stage (wavelet_fc, obs_vx_fc, obs_vz_fc), cached.
@@ -587,6 +618,28 @@ class ElasticDIPEngine(EngineBase):
             _evict_stale_stages(self._stage_cache, key[1])
             self._stage_cache[key] = pd
         return self._stage_cache[key]
+
+    def _physics_loss_raw(self, m, shot_idx, pd):
+        """The misfit of m [nz, nx, F] on a shot subset, from the ring
+        forward's traces (not B3: no gradient): ``tnl1`` trace-normalizes
+        both sides and sums ``mean|p - o|`` over vx and vz, ``l2``/``snl2``
+        the raw L2.  ``pd`` holds the stage's wavelet and observed
+        gathers; with F == 2 the density is the low-frequency rho."""
+        wl = self.wl
+        wav = pd["wav"]
+        sz, sx, rz, rx = (a[shot_idx] for a in wl.geom)
+        if wav.ndim == 2:
+            wav = wav[shot_idx]
+        rho = m[..., 2] if self.n_fields == 3 else wl.start["rho"]
+        pvx, pvz = simulate_elastic_ring(m[..., 0], m[..., 1], rho, wav, sz,
+                                         sx, rz, rx, wl.cfg)
+        ovx, ovz = pd["ovx"][shot_idx], pd["ovz"][shot_idx]
+        if self.cfg.misfit == "tnl1":
+            pvx, pvz = trace_normalize(pvx), trace_normalize(pvz)
+            ovx, ovz = trace_normalize(ovx), trace_normalize(ovz)
+            return (torch.mean(torch.abs(pvx - ovx))
+                    + torch.mean(torch.abs(pvz - ovz)))
+        return torch.mean((pvx - ovx) ** 2) + torch.mean((pvz - ovz) ** 2)
 
     def _fused_value_and_grad(self, m, shot_idx, pd, rho=None):
         """(loss, dJ/dm [nz, nx, F]) from the fused kernel on the
@@ -685,11 +738,24 @@ class ElasticDIPEngine(EngineBase):
         perm = torch.randperm(int(pool.shape[0]), generator=self._shot_gen)
         idx = pool[perm[:nsub].to(pool.device)]
         use_physics = epoch > cfg.lstart
+        if (use_physics and cfg.lstart > 0 and cfg.phase_reset_opt
+                and not self._phase_reset_done):
+            # a fresh optimizer at the warmup->physics switch: moments and
+            # step count start from zero, as optax's opt.init does
+            self.opt = _make_optimizer(cfg, self.net.parameters())
+            self._phase_reset_done = True
         if self.lr_policy is not None:
             lr = self.lr_policy.lr_for_epoch(epoch)
             if use_physics and cfg.phase_lr_ramp > 0:
                 # linear lr ramp over the first physics epochs
                 lr *= min(1.0, (epoch - cfg.lstart) / cfg.phase_lr_ramp)
+            if (use_physics and cfg.guard_lr_ramp > 0
+                    and self._guard_ramp_from is not None):
+                # the same ramp after each drift-guard revert (which
+                # made a fresh optimizer)
+                k = epoch - self._guard_ramp_from
+                if k < cfg.guard_lr_ramp:
+                    lr *= (k + 1) / cfg.guard_lr_ramp
             for group in self.opt.param_groups:
                 group["lr"] = lr
         stage_i = (cfg.freq_stages.index(fc)
@@ -727,16 +793,82 @@ class ElasticDIPEngine(EngineBase):
             loss_d = torch.zeros((), device=self.device)
         mse = torch.mean((m - self.true_m) ** 2)
         loss.backward()
-        self.opt.step()
+        if cfg.step_cap > 0 and use_physics:
+            self._capped_step(m.detach(), self._step_cap(stage_i))
+        else:
+            self.opt.step()
         # one device sync for both scalars
         loss_d, mse = torch.stack([loss_d.detach(), mse.detach()]).tolist()
         out = {"loss_D_MSE": loss_d, "loss_M_MSE": mse}
+        if (self._holdout_idx is not None and use_physics
+                and epoch % max(cfg.holdout_every, 1) == 0):
+            out["loss_H"] = self.holdout_misfit(fc)
         if self.lr_policy is not None:
             # the warmup's constant-zero loss_D must not feed the plateau
             # lr controller
             out["lr"] = (self.lr_policy.after_epoch(loss_d) if use_physics
                          else self.lr_policy.lr)
         return out
+
+    def _step_cap(self, stage_i: int) -> float:
+        """The model-move cap of this step: ``step_cap``, or in the final
+        continuation stage ``step_cap_final`` (0: 1e9, uncapped; > 0: that
+        value; -1: keep).  ``stage_i`` is the tether's stage where
+        ``tether_anneal_plateaus`` overrides it, as in the JAX engine."""
+        cfg = self.cfg
+        if cfg.freq_stages and stage_i == len(cfg.freq_stages) - 1:
+            if cfg.step_cap_final == 0:
+                return 1e9
+            if cfg.step_cap_final > 0:
+                return cfg.step_cap_final
+        return cfg.step_cap
+
+    def _capped_step(self, m_old, cap: float):
+        """Adam's step scaled so that the decoded model moves at most
+        ``cap`` RMS (m/s): the update u = p_new - p_old of ``opt.step()``,
+        then two fixed-point rounds ``s = min(1, cap / dm(1))``, ``s *=
+        min(1, cap / dm(s))`` with dm(s) the RMS of decode(p_old + s u) -
+        m_old, and p = p_old + s u.  Adam's moments advance unscaled, as
+        optax's state does.  ``m_old`` is the step's own decoded model."""
+        params = [p for g in self.opt.param_groups for p in g["params"]]
+        old = [p.detach().clone() for p in params]
+        self.opt.step()
+        with torch.no_grad():
+            upd = [p - o for p, o in zip(params, old)]
+
+            def move(s):
+                for p, o, u in zip(params, old, upd):
+                    p.copy_(o + s * u)
+                return torch.sqrt(torch.mean((self._decode() - m_old) ** 2))
+
+            dm1 = move(1.0)
+            s = torch.clamp(cap / (dm1 + 1e-20), max=1.0)
+            s = s * torch.clamp(cap / (move(s) + 1e-20), max=1.0)
+            for p, o, u in zip(params, old, upd):
+                p.copy_(o + s * u)
+        self.last_step_cap = {"cap": cap, "scale": s, "move": dm1}
+
+    def holdout_misfit(self, fc=None) -> float:
+        """``cfg.misfit`` on the held-out shots at continuation stage
+        ``fc``, at the decoder's model: the unsupervised early-stopping
+        metric ``loss_H``.  The ring forward makes the traces (on the
+        card its resident route at marmousi_elastic's grid)."""
+        if self._holdout_idx is None:
+            raise ValueError("holdout_misfit needs cfg.holdout_shots>0")
+        wav, ovx, ovz = self._stage_data(fc)
+        m = self._sample_model()[0]
+        return float(self._physics_loss_raw(
+            m, self._holdout_idx, {"wav": wav, "ovx": ovx, "ovz": ovz}))
+
+    def guard_revert(self, params: dict, epoch: int):
+        """Drift-guard revert (``cfg.guard_patience``, train.py): load the
+        parameter snapshot ``params`` (a state dict of clones), make a
+        fresh optimizer, start the post-revert lr ramp at ``epoch`` and
+        drop the trailing-tether reference."""
+        self.net.load_state_dict(params)
+        self.opt = _make_optimizer(self.cfg, self.net.parameters())
+        self._guard_ramp_from = epoch
+        self._tether_ref = None
 
     def physics_value_and_grad(self, m: torch.Tensor, fc: float = 0.0,
                                rho=None):

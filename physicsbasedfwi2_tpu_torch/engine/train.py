@@ -89,18 +89,21 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     With ``cfg.freq_stages`` each epoch trains at the current stage's
     corner frequency; the stage advances when the plateau detector
     fires on the epoch's ``loss_D_MSE``, never during the ``lstart``
-    warmup.  Profiling, the supervised loop, held-out shots and the
-    drift guard are not ported yet and raise.
+    warmup.
+
+    With held-out shots (``cfg.holdout_shots``) the best final-stage
+    ``loss_H`` epoch is saved as the ``selected`` checkpoint.  The drift
+    guard (``cfg.guard_patience``, engines with ``guard_revert``) keeps
+    the best ``loss_H`` of each stage with a snapshot of the generator's
+    parameters (clones: the parameters change in place) and, after
+    ``guard_patience`` evaluations above ``guard_tol`` x that best,
+    reverts to the snapshot with a fresh optimizer.  Profiling and the
+    supervised loop are not ported yet and raise.
     """
     if cfg.engine == "supervised":
         raise NotImplementedError(
             "the supervised loop is not ported yet (ROADMAP Queue A, "
             "item 11)")
-    if cfg.holdout_shots > 0 or cfg.guard_patience > 0:
-        raise NotImplementedError(
-            "held-out shots (loss_H) and the drift guard are not ported "
-            "yet (marmousi_elastic_robust, the next elastic slice: "
-            "ROADMAP Queue A)")
     if profile_dir:
         raise NotImplementedError(
             "profile_dir is not ported yet (ROADMAP Queue A, slice-1 "
@@ -124,6 +127,17 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
                               mode=cfg.plateau_mode,
                               stage_max_epochs=cfg.stage_max_epochs)
     history = []
+    # unsupervised model selection: the best held-out misfit of the
+    # final stage (loss_H scales jump at stage advances)
+    best_h = float("inf")
+    selected_epoch = None
+    guard_on = (cfg.guard_patience > 0 and cfg.holdout_shots > 0
+                and hasattr(engine, "guard_revert"))
+    guard_best_h = float("inf")
+    guard_snap = None
+    guard_worse = 0
+    guard_stage_i = 0
+    guard_reverts = 0
     for epoch in range(start_epoch, epochs + 1):
         t0 = time.time()
         # ---- validation first (the reference validates at epoch top) ----
@@ -140,6 +154,37 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
                 losses = engine.optimize_parameters(epoch)
             for k, v in losses.items():
                 agg[k] += v / iters_per_epoch
+        # ---- drift guard (before the stage advance: this epoch's
+        # loss_H was taken at the current stage's band) ----
+        guard_fired = None
+        if guard_on and epoch == cfg.lstart:
+            # anchor snapshot at the warmup->physics boundary
+            guard_best_h = engine.holdout_misfit(stages[stage_i])
+            guard_snap = _snapshot(engine)
+            guard_stage_i = stage_i
+        elif guard_on and "loss_H" in agg and epoch > cfg.lstart:
+            h = agg["loss_H"]
+            if stage_i != guard_stage_i:
+                guard_stage_i, guard_worse = stage_i, 0
+                guard_best_h, guard_snap = h, _snapshot(engine)
+            elif h < guard_best_h:
+                guard_best_h, guard_snap = h, _snapshot(engine)
+                guard_worse = 0
+            elif h > cfg.guard_tol * guard_best_h:
+                guard_worse += 1
+                if (guard_worse >= cfg.guard_patience
+                        and guard_snap is not None):
+                    engine.guard_revert(guard_snap, epoch)
+                    guard_worse = 0
+                    guard_reverts += 1
+                    guard_fired = epoch
+                    if not quiet:
+                        print(f"[drift-guard] loss_H {h:.4f} > "
+                              f"{cfg.guard_tol:g} x stage best "
+                              f"{guard_best_h:.4f}: reverted to the "
+                              f"best-loss_H snapshot at epoch {epoch}")
+            else:
+                guard_worse = 0
         # ---- frequency continuation ----
         # (suspended during the lstart warmup: its physics loss is a
         # constant 0, a perfect "plateau" that would race the stage
@@ -164,12 +209,32 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
         rec = {"epoch": epoch, **agg, **val_losses,
                "freq_stage": stages[stage_i],
                "epoch_time": time.time() - t0}
+        if guard_fired is not None:
+            rec["guard_revert"] = guard_fired
+        if ("loss_H" in agg and stage_i == len(stages) - 1
+                and agg["loss_H"] < best_h):
+            best_h = agg["loss_H"]
+            selected_epoch = epoch
+            rec["selected_epoch"] = epoch
+            engine.save_networks("selected")
         history.append(rec)
         viz.log_epoch(rec, model_img=model_img)
         if epoch % cfg.save_epoch_freq == 0 or epoch == epochs:
             engine.save_networks(epoch)
             engine.save_networks("latest")
+    if selected_epoch is not None and not quiet:
+        print(f"[early-stop] selected checkpoint: epoch {selected_epoch} "
+              f"(held-out misfit {best_h:.6f}) -> tag 'selected'")
+    if guard_on and not quiet:
+        print(f"[drift-guard] {guard_reverts} revert(s) over "
+              f"{epochs - start_epoch + 1} epochs")
     return engine, history
+
+
+def _snapshot(engine) -> dict:
+    """The generator's parameters as clones (a reference to the live
+    tensors would follow every later step)."""
+    return {k: v.detach().clone() for k, v in engine.net.state_dict().items()}
 
 
 def main(argv=None):

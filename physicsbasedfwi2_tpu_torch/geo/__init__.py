@@ -8,7 +8,10 @@ from physicsbasedfwi2_tpu_torch.geo.acquisition import (
     seabed_rows,
     surface_line,
 )
-from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
+from physicsbasedfwi2_tpu_torch.geo.filters import (
+    butter_lowpass_coeffs,
+    lowpass_filter_time,
+)
 
 __all__ = [
     "Grid2D",
@@ -19,5 +22,6 @@ __all__ = [
     "elastic_line",
     "seabed_rows",
     "surface_line",
+    "butter_lowpass_coeffs",
     "lowpass_filter_time",
 ]

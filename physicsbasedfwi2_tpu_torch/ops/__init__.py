@@ -18,7 +18,16 @@ from physicsbasedfwi2_tpu_torch.ops.acoustic import (
     simulate_acoustic,
 )
 from physicsbasedfwi2_tpu_torch.ops.adjoint import acoustic_pallas
-from physicsbasedfwi2_tpu_torch.ops.gradproc import depth_weighting, water_mask
+from physicsbasedfwi2_tpu_torch.ops.elastic import (
+    ElasticConfig,
+    simulate_elastic,
+)
+from physicsbasedfwi2_tpu_torch.ops.gradproc import (
+    depth_weighting,
+    rescale_to_model,
+    taper_top,
+    water_mask,
+)
 from physicsbasedfwi2_tpu_torch.ops.misfit import (
     huber_misfit,
     l1_misfit,
@@ -46,8 +55,12 @@ __all__ = [
     "acoustic_gradient",
     "acoustic_pallas",
     "select_acoustic",
+    "simulate_elastic",
+    "ElasticConfig",
     "depth_weighting",
     "water_mask",
+    "taper_top",
+    "rescale_to_model",
     "trace_normalize",
     "l1_misfit",
     "l2_misfit",

@@ -205,15 +205,11 @@ def test_unported_elastic_options_raise(el_run):
     wl = pe.wl
     for kw in (dict(misfit="tnl2"), dict(backend="xla"),
                dict(optimizer="lbfgs"), dict(grad_illum_eps=0.1),
-               dict(grad_smooth=2), dict(holdout_shots=3),
-               dict(guard_patience=2), dict(step_cap=1.0),
-               dict(phase_reset_opt=True)):
+               dict(grad_smooth=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ElasticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticDIPEngine(cfg, workload=wl, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg.replace(holdout_shots=3), engine=pe)
     with pytest.raises(NotImplementedError, match="dropout"):
         ElasticDIPEngine(cfg.replace(netG="AutoElMarMCDIP22", dropout=0.1),
                          workload=wl, device="cpu")

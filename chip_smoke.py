@@ -110,7 +110,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and uncapped move, the time of a ``loss_H`` evaluation, then a drift-
     guard revert on the card (``torch.equal``, empty optimizer state, the
     next epoch at ``lr / guard_lr_ramp``) and ``evaluate`` of the run's
-    ``latest`` checkpoint.
+    ``latest`` checkpoint;
+16. L-BFGS and the non-fused elastic paths at full width:
+    ``train(get_workload("marmousi_elastic_lbfgs"), epochs=lstart + 2)``
+    (35 shots a closure, the ``tnl2`` misfit on the "fast" path: plain
+    autograd through the 5-field sponge propagator, no kernel): the
+    misfit at the true model, the setup, the warmup epochs, each physics
+    epoch's seconds and value-and-gradient evaluations, the seconds of
+    each 35-shot value and gradient, the peak memory, every accepted
+    step's decrease; two L-BFGS epochs of ``marmousi_acoustic`` (B2 once an
+    evaluation, all on the resident route); one ``elastic_gradient``
+    (split PML, autograd) on 5 shots at the elastic grid.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -1127,6 +1137,196 @@ def phase_robust(dev):
     return launches
 
 
+def phase_lbfgs(dev):
+    """Slice 6 at full width: ``marmousi_elastic_lbfgs`` (full-batch
+    L-BFGS, the ``tnl2`` misfit on the "fast" path) for lstart + 2
+    epochs, ``marmousi_acoustic`` with L-BFGS for 2 epochs, and one
+    split-PML ``elastic_gradient`` on 5 shots."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import (
+        AcousticDIPEngine, ElasticDIPEngine)
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops import (
+        elastic_fused, elastic_gradient, fwi_fused, scalar2,
+        simulate_elastic, trace_normalize)
+    out_dir = ROOT / "build" / "chip_smoke"
+    cfg = get_workload("marmousi_elastic_lbfgs", save_dir=str(out_dir))
+    print(f"slice 6: marmousi_elastic_lbfgs {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
+          f"{cfg.num_shots} shots a closure, misfit {cfg.misfit}, optimizer "
+          f"{cfg.optimizer} (memory {cfg.extras.get('lbfgs_memory', 10)}, "
+          f"line search {cfg.extras.get('lbfgs_linesearch', 20)}), chunk "
+          f"{cfg.chunk}, lstart {cfg.lstart}")
+    b3 = elastic_fused.fused_elastic_loss_grad_meds
+    ring = elastic_fused.simulate_elastic_ring
+    scalar2.reset_launches(b3, ring)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    engine = ElasticDIPEngine(cfg, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    print(f"slice 6: physics_path == \"fast\": "
+          f"{engine.physics_path == 'fast'} ({engine.physics_path}); engine "
+          f"setup {setup:.2f} s (the split-PML 35-shot obs of the workload "
+          f"build, then the sponge operator's)")
+    check(engine.physics_path == "fast", f"physics path {engine.physics_path}")
+
+    # the misfit at the true model (true density) on all 35 shots, a
+    # forward: zero, the obs coming from the same operator
+    wl = engine.wl
+    m_true = torch.stack([wl.true["vp"], wl.true["vs"]], -1)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_true = float(engine._physics_loss_raw(
+            m_true, engine._train_pool, engine._stage_pack(0.0),
+            rho=wl.true["rho"]))
+    fwd_s = time.perf_counter() - t0
+    print(f"slice 6: tnl2 misfit at the true model {loss_true:.3e} (tol "
+          f"1e-9), a 35-shot forward and misfit {fwd_s:.3f} s")
+    check(loss_true <= 1e-9, "tnl2 misfit at the true model")
+
+    # the training run; per epoch the value-and-gradient evaluations and
+    # the line search's outcome, and the seconds of every 35-shot value
+    # and gradient (autograd through the sponge propagator)
+    evals, steps, vg_s = {}, {}, []
+    step_fn = engine.optimize_parameters
+    value_and_grad = engine._autograd_value_and_grad
+
+    def timed_value_and_grad(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = value_and_grad(*args, **kw)
+        torch.cuda.synchronize()
+        vg_s.append(time.perf_counter() - t0)
+        return out
+
+    engine._autograd_value_and_grad = timed_value_and_grad
+
+    def logged(epoch, **kw):
+        out = step_fn(epoch, **kw)
+        st = engine.opt.state
+        evals[epoch] = engine.opt.evaluations
+        steps[epoch] = (out["loss_D_MSE"], float(st.value),
+                        float(st.learning_rate),
+                        float(st.info.decrease_error),
+                        float(st.info.curvature_error))
+        return out
+
+    engine.optimize_parameters = logged
+    epochs = cfg.lstart + 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    engine.optimize_parameters = step_fn
+    engine._autograd_value_and_grad = value_and_grad
+    for rec in history[:1] + history[cfg.lstart - 1:]:
+        print("epoch", json.dumps(rec))
+    warm = [r["epoch_time"] for r in history[:cfg.lstart]]
+    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    print(f"slice 6: {epochs} epochs in {total:.2f} s; warmup epochs: first "
+          f"{warm[0]:.4f} s, median of the rest {_median(warm[1:]):.4f} s "
+          f"(evaluations {[evals[e] for e in range(1, cfg.lstart + 1)]}); "
+          f"physics epochs {', '.join(f'{x:.3f}' for x in phys)} s with "
+          f"{[evals[e] for e in range(cfg.lstart + 1, epochs + 1)]} "
+          f"value-and-gradient evaluations; peak memory {peak:.2f} GiB; "
+          f"B3 and ring forward launches {b3.launches}, {ring.launches}")
+    print(f"slice 6: {len(vg_s)} 35-shot values and gradients: "
+          f"{', '.join(f'{x:.3f}' for x in vg_s)} s (median "
+          f"{_median(vg_s):.3f})")
+    check(len(vg_s) == sum(evals[e] for e in range(cfg.lstart + 1,
+                                                   epochs + 1)),
+          "not one autograd value and gradient an evaluation")
+    for e in range(cfg.lstart + 1, epochs + 1):
+        d0, d1, lr, dec, curv = steps[e]
+        print(f"slice 6 epoch {e}: loss_D {d0:.9g} -> accepted {d1:.9g} "
+              f"(step size {lr:.6g}; decrease error {dec:.3g}, curvature "
+              f"error {curv:.3g})")
+        # sufficient decrease: Armijo or the approximate (Hager-Zhang)
+        # test, which admits at most 1e-6 of the value
+        check(d1 <= d0 + 1e-6 * abs(d0) and lr > 0,
+              f"epoch {e}: the accepted step does not decrease the loss")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
+    d = [r["loss_D_MSE"] for r in history[cfg.lstart:]]
+    check(all(x > 0 for x in d) and d[-1] < d[0],
+          f"loss_D does not fall over the physics epochs: {d}")
+    check(b3.launches == 0 and ring.launches == 0,
+          "a fused elastic kernel ran on the fast path")
+
+    # marmousi_acoustic with L-BFGS: B2 once a value-and-gradient
+    acfg = get_workload("marmousi_acoustic", optimizer="lbfgs",
+                        save_dir=str(out_dir))
+    b2 = fwi_fused.fwi_l1_loss_grad
+    scalar2.reset_launches(scalar2.forward2, b2)
+    aevals = []
+    t0 = time.perf_counter()
+    aengine = AcousticDIPEngine(acfg, device=dev)
+    astep = aengine.optimize_parameters
+
+    def alogged(epoch, **kw):
+        out = astep(epoch, **kw)
+        aevals.append(aengine.opt.evaluations)
+        return out
+
+    aengine.optimize_parameters = alogged
+    aengine, ahist = train(acfg, epochs=2, quiet=True, engine=aengine)
+    torch.cuda.synchronize()
+    atotal = time.perf_counter() - t0
+    launches = {"forward2": scalar2.forward2.launches,
+                "fwi_l1_loss_grad": b2.launches}
+    for rec in ahist:
+        print("epoch", json.dumps(rec))
+    secs = ", ".join(f"{r['epoch_time']:.4f}" for r in ahist)
+    print(f"slice 6: marmousi_acoustic L-BFGS, 2 epochs in {atotal:.2f} s "
+          f"(setup included), epochs {secs} s, "
+          f"evaluations {aevals}; B2 launches {b2.launches} (resident "
+          f"{b2.resident_launches}, per-step {b2.per_step_launches}), B1 "
+          f"{scalar2.forward2.launches}")
+    check(aengine.physics_path == "fused-cuda",
+          f"acoustic L-BFGS path {aengine.physics_path}")
+    check(b2.launches == sum(aevals) == b2.resident_launches,
+          "B2 not launched once a value-and-gradient evaluation, resident")
+    for rec in ahist:
+        check(all(math.isfinite(v) for v in rec.values()
+                  if isinstance(v, float)), f"acoustic L-BFGS {rec}")
+
+    # one split-PML elastic_gradient ("xla" backend) on 5 shots
+    geom = tuple(a[:5] for a in wl.geom)
+    with torch.no_grad():
+        obs = simulate_elastic(wl.true["vp"], wl.true["vs"], wl.true["rho"],
+                               wl.wavelet, *geom, wl.cfg)
+    ovx, ovz = trace_normalize(obs[0]), trace_normalize(obs[1])
+
+    def tnl2(pred):
+        return (torch.mean((trace_normalize(pred[0]) - ovx) ** 2)
+                + torch.mean((trace_normalize(pred[1]) - ovz) ** 2))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss, grads = elastic_gradient(wl.start["vp"], wl.start["vs"],
+                                   wl.start["rho"], tnl2, wl.wavelet, *geom,
+                                   wl.cfg)
+    torch.cuda.synchronize()
+    eg_s = time.perf_counter() - t0
+    eg_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"slice 6: elastic_gradient (split PML), 5 shots, "
+          f"{wl.cfg.grid.nz}x{wl.cfg.grid.nx}, nt {wl.cfg.grid.nt}: "
+          f"{eg_s:.3f} s, peak memory {eg_peak:.2f} GiB, loss "
+          f"{float(loss):.6g}, |grad| max "
+          f"{ {k: float(v.abs().max()) for k, v in grads.items()} }")
+    check(set(grads) == {"vp", "vs", "rho"}
+          and all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                  for g in grads.values()) and float(loss) > 0,
+          "elastic_gradient")
+    return launches
+
+
 def _grad_accuracy(name, shape, gk, gp, ms_k, ms_p, grads4):
     """Print and check a kernel gradient at the path's shape against the
     plain float32 version (1e-4 rel L2: float32 rounding in another
@@ -1890,7 +2090,7 @@ def main(argv: list[str]) -> int:
                   8: [phase_b56], 9: [phase_slice3], 10: [phase_xla_engine],
                   11: [phase_b7, phase_slice4_pairs], 12: [phase_b8],
                   13: [phase_b2_wavelet], 14: [phase_engine_paths],
-                  15: [phase_robust]}
+                  15: [phase_robust], 16: [phase_lbfgs]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -1914,6 +2114,7 @@ def main(argv: list[str]) -> int:
     b2["gwav_max_abs_err"] = phase_b2_wavelet(dev)
     phase_engine_paths(dev)
     launches.update(phase_robust(dev))
+    launches.update(phase_lbfgs(dev))
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",

@@ -212,8 +212,10 @@ class SyntheticElasticWorkload:
                  start={"vp": dev(vp_s), "vs": dev(vs_s),
                         "rho": dev(rho_s)},
                  obs_vx=None, obs_vz=None)
-        wl.obs_vx, wl.obs_vz = simulate_elastic(
-            wl.true["vp"], wl.true["vs"], wl.true["rho"], wav, *wl.geom, cfg)
+        with torch.no_grad():
+            wl.obs_vx, wl.obs_vz = simulate_elastic(
+                wl.true["vp"], wl.true["vs"], wl.true["rho"], wav, *wl.geom,
+                cfg)
         return wl
 
     @property

@@ -1,16 +1,17 @@
 """Inversion engines (port of ``physicsbasedfwi2_tpu/engine/engines.py``:
 ``EngineBase``, ``AcousticDIPEngine`` on its fused and "xla" paths,
-``ElasticDIPEngine`` on its fused path with held-out shots, the step
-cap and the drift guard's revert, ``LrPolicy``, ``_make_optimizer``,
-``_evict_stale_stages`` and ``create_engine``).
+``ElasticDIPEngine`` on its fused, "fast" and "xla" paths with held-out
+shots, the step cap and the drift guard's revert, Adam or L-BFGS in
+both, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages`` and
+``create_engine``).
 
 The JAX engines inject the processed physics gradient into the
 generator's autodiff with a ``jax.custom_vjp``; here that is
 :class:`_PhysicsLoss`, a ``torch.autograd.Function`` whose forward runs
 the physics loss+gradient (the fused kernel B2 or B3 on CUDA, their
-plain versions on CPU, or autograd through ``simulate_acoustic``) and
-the engine's gradient processing, and whose backward
-returns the processed gradient.
+plain versions on CPU, or autograd through ``simulate_acoustic``,
+``simulate_elastic_fast`` or ``simulate_elastic``) and the engine's
+gradient processing, and whose backward returns the processed gradient.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from physicsbasedfwi2_tpu_torch.engine.config import ExperimentConfig
 from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
 from physicsbasedfwi2_tpu_torch.models import (
     apply_elastic_output, apply_generator, apply_velocity_output,
-    define_generator,
+    define_generator, pack_output,
 )
 from physicsbasedfwi2_tpu_torch.models.convert import (
     npz_from_state_dict, state_dict_from_npz,
@@ -41,6 +42,8 @@ from physicsbasedfwi2_tpu_torch.ops import (
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
     fwi_l1_loss_grad, scatter_rows,
 )
+from physicsbasedfwi2_tpu_torch.ops.elastic import simulate_elastic
+from physicsbasedfwi2_tpu_torch.ops.elastic_fast import simulate_elastic_fast
 from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
     fused_elastic_loss_grad, scatter_rows_el, simulate_elastic_ring,
 )
@@ -48,6 +51,7 @@ from physicsbasedfwi2_tpu_torch.ops.gradproc import (
     depth_weighting, rescale_to_model, taper_top, water_mask,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
+from physicsbasedfwi2_tpu_torch.optim.lbfgs import lbfgs_wolfe
 from physicsbasedfwi2_tpu_torch.optim.schedules import (
     PlateauController, make_scheduler,
 )
@@ -69,14 +73,76 @@ def _evict_stale_stages(cache: dict, fc: float) -> None:
         del cache[k]
 
 
-def _make_optimizer(cfg: ExperimentConfig, params):
+def _call(net: torch.nn.Module, params, *inputs):
+    """``net(*inputs)``, with its parameters replaced by ``params`` (a
+    dict by name, as ``named_parameters`` gives them) where given."""
+    if params is None:
+        return net(*inputs)
+    return torch.func.functional_call(net, params, inputs)
+
+
+class _Lbfgs:
+    """The engines' L-BFGS (``optimizer="lbfgs"``): :func:`lbfgs_wolfe`
+    over the generator's parameters, and its state.  ``memory_size`` and
+    ``max_linesearch_steps`` come from ``cfg.extras["lbfgs_memory"]``
+    (10, the reference's history) and ``["lbfgs_linesearch"]`` (20)."""
+
+    def __init__(self, cfg: ExperimentConfig, net: torch.nn.Module):
+        self.opt = lbfgs_wolfe(
+            memory_size=int(cfg.extras.get("lbfgs_memory", 10)),
+            max_linesearch_steps=int(cfg.extras.get("lbfgs_linesearch",
+                                                    20)))
+        named = list(net.named_parameters())
+        self.names = [k for k, _ in named]
+        self.params = [p for _, p in named]
+        self.state = self.opt.init(self.params)
+        # value-and-gradient evaluations of the last step: the step's
+        # own and one a line-search probe
+        self.evaluations = 0
+
+    def updates(self, loss_fn):
+        """One L-BFGS iteration of ``loss_fn(params) -> (loss, *aux)``
+        (``params`` None: the generator's own; else replacements by
+        name): the value and gradient at the current parameters, then
+        the line search, whose every probe evaluates the same loss's
+        value and gradient, as the JAX engine's ``value_fn`` does.
+        Returns (``loss_fn``'s outputs at the current parameters, the
+        updates); :meth:`apply` takes the step."""
+        out = loss_fn(None)
+        grads = torch.autograd.grad(out[0], self.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+
+        def value_fn(leaves):
+            return loss_fn(dict(zip(self.names, leaves)))[0]
+
+        upd, self.state = self.opt.update(
+            grads, self.state, self.params, value=out[0].detach(),
+            grad=grads, value_fn=value_fn)
+        self.evaluations = 1 + self.state.info.num_linesearch_steps
+        return out, upd
+
+    @torch.no_grad()
+    def apply(self, upd):
+        for p, u in zip(self.params, upd):
+            p.add_(u)
+
+
+def _make_optimizer(cfg: ExperimentConfig, net: torch.nn.Module):
+    """Adam (a ``torch.optim.Adam``) or L-BFGS (:class:`_Lbfgs`) over the
+    generator ``net``'s parameters."""
     if cfg.optimizer == "adam":
         # the same update as optax.adam(lr, b1, b2=0.999, eps)
-        return torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.beta1, 0.999),
-                                eps=cfg.adam_eps)
-    raise NotImplementedError(
-        f"optimizer={cfg.optimizer!r} is not ported yet (ROADMAP Queue A, "
-        "item 10)")
+        return torch.optim.Adam(net.parameters(), lr=cfg.lr,
+                                betas=(cfg.beta1, 0.999), eps=cfg.adam_eps)
+    if cfg.optimizer == "lbfgs":
+        # the line search picks the step: lr is not used
+        return _Lbfgs(cfg, net)
+    if cfg.optimizer in ("sgld", "sghmc"):
+        raise NotImplementedError(
+            f"optimizer={cfg.optimizer!r} is not ported yet (ROADMAP Queue "
+            "A, item 7: optim/sgmcmc.py)")
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
 class LrPolicy:
@@ -269,7 +335,7 @@ class AcousticDIPEngine(EngineBase):
                 pml_width=cfg.pml_width, freq=cfg.freq,
                 num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
                 seed=cfg.seed + 101, chunk=cfg.chunk, device=self.device)
-        self.opt = _make_optimizer(cfg, self.net.parameters())
+        self.opt = _make_optimizer(cfg, self.net)
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         self._build_physics()
 
@@ -368,9 +434,11 @@ class AcousticDIPEngine(EngineBase):
         return _PhysicsLoss.apply(
             vp, lambda v: self.physics_value_and_grad(v, fc))
 
-    def _total_loss(self, use_physics: bool, fc: float = 0.0):
+    def _total_loss(self, use_physics: bool, fc: float = 0.0, params=None):
+        """(loss, model MSE) of the generator (with its parameters
+        replaced by ``params`` where given)."""
         cfg = self.cfg
-        out = apply_generator(self.net, self.shots_in)
+        out = pack_output(_call(self.net, params, self.shots_in))
         vp = apply_velocity_output(out.field, self.true_b,
                                    water_vel=cfg.water_vel)[0, :, :, 0]
         model_mse = torch.mean((vp - self.wl.vp_true) ** 2)
@@ -391,14 +459,22 @@ class AcousticDIPEngine(EngineBase):
         full band).  ``tether_stage`` is accepted for the train loop's
         sake, as in the JAX engine (the tether is an elastic recipe)."""
         use_physics = epoch > self.cfg.lstart
-        if self.lr_policy is not None:
-            lr = self.lr_policy.lr_for_epoch(epoch)
-            for group in self.opt.param_groups:
-                group["lr"] = lr
-        self.opt.zero_grad(set_to_none=True)
-        loss, model_mse = self._total_loss(use_physics, freq or 0.0)
-        loss.backward()
-        self.opt.step()
+        fc = freq or 0.0
+        if isinstance(self.opt, _Lbfgs):
+            # the line search's probes evaluate the same loss (on the
+            # card kernel B2 once a probe)
+            (loss, model_mse), upd = self.opt.updates(
+                lambda params: self._total_loss(use_physics, fc, params))
+            self.opt.apply(upd)
+        else:
+            if self.lr_policy is not None:
+                lr = self.lr_policy.lr_for_epoch(epoch)
+                for group in self.opt.param_groups:
+                    group["lr"] = lr
+            self.opt.zero_grad(set_to_none=True)
+            loss, model_mse = self._total_loss(use_physics, fc)
+            loss.backward()
+            self.opt.step()
         # one device sync for both scalars
         loss, model_mse = torch.stack([loss.detach(), model_mse.detach()]
                                       ).tolist()
@@ -448,9 +524,18 @@ def holdout_split(n_shots: int, holdout_shots: int):
 
 
 class ElasticDIPEngine(EngineBase):
-    """Two-branch elastic FWI with frequency continuation, on the fused
-    path: kernel B3 (``ops/elastic_fused.py``) on CUDA, its plain
-    version on CPU.
+    """Two-branch elastic FWI with frequency continuation.
+
+    Physics paths, chosen as the JAX engine chooses them: "fused" (kernel
+    B3, ``ops/elastic_fused.py``, on CUDA "fused-cuda", its plain version
+    on CPU "fused-plain") for the ``l2``/``snl2``/``tnl1`` misfits on a
+    single receiver row (``tnl1`` with distinct columns) and ``backend``
+    "auto"/"pallas"; otherwise "fast" (autograd through
+    :func:`simulate_elastic_fast`, the 5-field sponge scheme) for
+    ``backend`` "auto"/"fast"/"pallas", else "xla" (autograd through the
+    split-PML :func:`simulate_elastic`).  Synthetic observed data are
+    regenerated with the path's operator (not on "xla", whose operator
+    made them).
 
     Each physics epoch draws a random subset of ``shots_per_iter``
     shots of the training pool from an explicit ``torch.Generator``
@@ -461,7 +546,7 @@ class ElasticDIPEngine(EngineBase):
     The robust recipe's options (``marmousi_elastic_robust``):
     ``holdout_shots`` keeps evenly spaced shots out of the pool and logs
     their misfit as ``loss_H`` every ``holdout_every`` physics epochs
-    (:meth:`holdout_misfit`, through the ring forward); ``step_cap``
+    (:meth:`holdout_misfit`, through the path's forward); ``step_cap``
     scales each physics step so the decoded model moves at most that
     RMS; ``phase_reset_opt`` makes a fresh optimizer at the first
     physics epoch; :meth:`guard_revert` and ``guard_lr_ramp`` serve the
@@ -475,8 +560,8 @@ class ElasticDIPEngine(EngineBase):
              "mesh (shot sharding): ROADMAP Queue A, item 14"),
             (bool(cfg.dataroot), "dataroot: ROADMAP Queue A, item 12"),
             (cfg.grad_illum_eps > 0,
-             "grad_illum_eps > 0 (EPRECOND): ROADMAP Queue A"),
-            (cfg.grad_smooth > 0, "grad_smooth > 0: ROADMAP Queue A"))
+             "grad_illum_eps > 0 (EPRECOND): ROADMAP Queue A, item 5"),
+            (cfg.grad_smooth > 0, "grad_smooth > 0: ROADMAP Queue A, item 5"))
             if cond]
         if why:
             raise NotImplementedError("not ported yet: " + "; ".join(why))
@@ -514,21 +599,25 @@ class ElasticDIPEngine(EngineBase):
              f"misfit={cfg.misfit}"),
             (cfg.misfit == "tnl1" and not distinct_cols,
              "duplicate receiver columns")) if cond]
-        if why:
-            raise NotImplementedError(
-                "only the fused elastic path is ported (" + ", ".join(why)
-                + "); the fast/xla elastic paths wait in ROADMAP Queue A, "
-                "slice-2 leftovers")
-        self.physics_path = ("fused-cuda" if self.device.type == "cuda"
-                             else "fused-plain")
-        _log_path(cfg.name, "elastic", self.physics_path)
-        if not self.wl.from_disk:
-            # regenerate obs with the fused path's operator so the
-            # misfit is zero at the true model
+        self._use_fused = not why
+        if self._use_fused:
+            self.physics_path = ("fused-cuda" if self.device.type == "cuda"
+                                 else "fused-plain")
+            self._sim = simulate_elastic_ring
+        elif cfg.backend in ("auto", "fast", "pallas"):
+            self.physics_path, self._sim = "fast", simulate_elastic_fast
+        else:
+            self.physics_path, self._sim = "xla", simulate_elastic
+        _log_path(cfg.name, "elastic", self.physics_path,
+                  "fused unavailable: " + ", ".join(why) if why else "")
+        if self.physics_path != "xla" and not self.wl.from_disk:
+            # regenerate obs with the path's operator so the misfit is
+            # zero at the true model
             wl = self.wl
-            wl.obs_vx, wl.obs_vz = simulate_elastic_ring(
-                wl.true["vp"], wl.true["vs"], wl.true["rho"], wl.wavelet,
-                *wl.geom, wl.cfg)
+            with torch.no_grad():
+                wl.obs_vx, wl.obs_vz = self._sim(
+                    wl.true["vp"], wl.true["vs"], wl.true["rho"],
+                    wl.wavelet, *wl.geom, wl.cfg)
         ns, nt, nr = self.wl.obs_vx.shape
         self.net = define_generator(
             cfg.netG, out_shape=(cfg.nz, cfg.nx), in_shape=(nt, nr, ns),
@@ -547,7 +636,7 @@ class ElasticDIPEngine(EngineBase):
         self.field_names = names
         self.lowf = torch.stack([self.wl.start[k] for k in names], -1)[None]
         self.true_m = torch.stack([self.wl.true[k] for k in names], -1)[None]
-        self.opt = _make_optimizer(cfg, self.net.parameters())
+        self.opt = _make_optimizer(cfg, self.net)
         # per-field box constraints; the delta scale is a hard bound for
         # the tanh head, a unit-conditioning gain for the linear head
         default_scale = ((300.0, 200.0, 150.0)
@@ -602,44 +691,59 @@ class ElasticDIPEngine(EngineBase):
         return self._stage_cache[key]
 
     def _stage_pack(self, fc):
-        """Per-stage wavelet, observed gathers and their fused-kernel
-        row layouts (``tnl1`` obs rows are pre-normalized: the kernel
-        normalizes only the predicted side), cached."""
+        """Per-stage wavelet, observed gathers and, on the fused path,
+        their fused-kernel row layouts (``tnl1`` obs rows are
+        pre-normalized: the kernel normalizes only the predicted side),
+        cached."""
         key = ("pack", float(fc or 0.0))
         if key not in self._stage_cache:
             wav, ovx, ovz = self._stage_data(fc)
             pd = {"wav": wav, "ovx": ovx, "ovz": ovz}
-            sx_, sz_ = ovx, ovz
-            if self.cfg.misfit == "tnl1":
-                sx_, sz_ = trace_normalize(sx_), trace_normalize(sz_)
-            rcv_x = self.wl.acq.rcv_x
-            pd["orx"] = scatter_rows_el(sx_, rcv_x, self.wl.cfg, KC=8)
-            pd["orz"] = scatter_rows_el(sz_, rcv_x, self.wl.cfg, KC=8)
+            if self._use_fused:
+                sx_, sz_ = ovx, ovz
+                if self.cfg.misfit == "tnl1":
+                    sx_, sz_ = trace_normalize(sx_), trace_normalize(sz_)
+                rcv_x = self.wl.acq.rcv_x
+                pd["orx"] = scatter_rows_el(sx_, rcv_x, self.wl.cfg, KC=8)
+                pd["orz"] = scatter_rows_el(sz_, rcv_x, self.wl.cfg, KC=8)
             _evict_stale_stages(self._stage_cache, key[1])
             self._stage_cache[key] = pd
         return self._stage_cache[key]
 
-    def _physics_loss_raw(self, m, shot_idx, pd):
-        """The misfit of m [nz, nx, F] on a shot subset, from the ring
-        forward's traces (not B3: no gradient): ``tnl1`` trace-normalizes
-        both sides and sums ``mean|p - o|`` over vx and vz, ``l2``/``snl2``
-        the raw L2.  ``pd`` holds the stage's wavelet and observed
-        gathers; with F == 2 the density is the low-frequency rho."""
+    def _physics_loss_raw(self, m, shot_idx, pd, rho=None):
+        """The misfit of m [nz, nx, F] on a shot subset, from the path's
+        operator (the ring forward on the fused path: no gradient;
+        autograd through the fast or split-PML propagator otherwise):
+        ``tnl2``/``tnl1`` trace-normalize both sides and sum ``mean (p -
+        o)^2`` or ``mean|p - o|`` over vx and vz, ``l2``/``snl2`` the raw
+        L2.  ``pd`` holds the stage's wavelet and observed gathers; with
+        F == 2 the density is the low-frequency rho (or ``rho``)."""
         wl = self.wl
         wav = pd["wav"]
         sz, sx, rz, rx = (a[shot_idx] for a in wl.geom)
         if wav.ndim == 2:
             wav = wav[shot_idx]
-        rho = m[..., 2] if self.n_fields == 3 else wl.start["rho"]
-        pvx, pvz = simulate_elastic_ring(m[..., 0], m[..., 1], rho, wav, sz,
-                                         sx, rz, rx, wl.cfg)
+        if rho is None:
+            rho = m[..., 2] if self.n_fields == 3 else wl.start["rho"]
+        pvx, pvz = self._sim(m[..., 0], m[..., 1], rho, wav, sz, sx, rz, rx,
+                             wl.cfg)
         ovx, ovz = pd["ovx"][shot_idx], pd["ovz"][shot_idx]
-        if self.cfg.misfit == "tnl1":
+        if self.cfg.misfit in ("tnl2", "tnl1"):
             pvx, pvz = trace_normalize(pvx), trace_normalize(pvz)
             ovx, ovz = trace_normalize(ovx), trace_normalize(ovz)
-            return (torch.mean(torch.abs(pvx - ovx))
-                    + torch.mean(torch.abs(pvz - ovz)))
+            if self.cfg.misfit == "tnl1":
+                return (torch.mean(torch.abs(pvx - ovx))
+                        + torch.mean(torch.abs(pvz - ovz)))
         return torch.mean((pvx - ovx) ** 2) + torch.mean((pvz - ovz) ** 2)
+
+    def _autograd_value_and_grad(self, m, shot_idx, pd, rho=None):
+        """(loss, dJ/dm [nz, nx, F]) by autograd through
+        :meth:`_physics_loss_raw` (the "fast" and "xla" paths)."""
+        with torch.enable_grad():
+            mm = m.detach().requires_grad_(True)
+            loss = self._physics_loss_raw(mm, shot_idx, pd, rho)
+            (grad,) = torch.autograd.grad(loss, mm)
+        return loss.detach(), grad
 
     def _fused_value_and_grad(self, m, shot_idx, pd, rho=None):
         """(loss, dJ/dm [nz, nx, F]) from the fused kernel on the
@@ -660,7 +764,8 @@ class ElasticDIPEngine(EngineBase):
         return loss, torch.stack([grads[k] for k in self.field_names], -1)
 
     def _processed_value_and_grad(self, m, shot_idx, pd, rho=None):
-        """(fused loss, processed dJ/dm [nz, nx, F]): per field the
+        """(loss, processed dJ/dm [nz, nx, F]) on the engine's path (B3,
+        or autograd through the path's propagator): per field the
         top-rows taper, depth^p weighting, ``grad_scale`` or the rescale
         to the model, and the field weight ``pd["fw"]``; then the tether
         toward ``pd["lowf_m"]`` with weight ``pd["tw"]`` times the
@@ -668,7 +773,9 @@ class ElasticDIPEngine(EngineBase):
         cfg = self.cfg
         taper_rows = (cfg.grad_taper_rows if cfg.grad_taper_rows
                       is not None else cfg.water_rows)
-        loss, gm = self._fused_value_and_grad(m, shot_idx, pd, rho)
+        value_and_grad = (self._fused_value_and_grad if self._use_fused
+                          else self._autograd_value_and_grad)
+        loss, gm = value_and_grad(m, shot_idx, pd, rho)
         cols = []
         for k in range(self.n_fields):
             g = taper_top(gm[..., k], taper_rows,
@@ -691,7 +798,7 @@ class ElasticDIPEngine(EngineBase):
 
     def _make_physics_loss(self):
         """The differentiable physics loss ``physics_loss(m, shot_idx,
-        pd)`` of m [nz, nx, F]: the fused loss, with the processed
+        pd)`` of m [nz, nx, F]: the path's loss, with the processed
         gradient (:meth:`_processed_value_and_grad`) as its gradient."""
         def physics_loss(m, shot_idx, pd):
             return _PhysicsLoss.apply(
@@ -700,8 +807,10 @@ class ElasticDIPEngine(EngineBase):
 
         return physics_loss
 
-    def _decode(self):
-        deltas, _ = self.net(self.in_vx, self.in_vz)
+    def _decode(self, params=None):
+        """The decoder's model [1, nz, nx, F] (with the generator's
+        parameters replaced by ``params`` where given)."""
+        deltas, _ = _call(self.net, params, self.in_vx, self.in_vz)
         return apply_elastic_output(
             deltas, self.lowf, self.true_m, delta_scale=self.delta_scale,
             clip_min=self.clip_min, clip_max=self.clip_max,
@@ -741,8 +850,9 @@ class ElasticDIPEngine(EngineBase):
         if (use_physics and cfg.lstart > 0 and cfg.phase_reset_opt
                 and not self._phase_reset_done):
             # a fresh optimizer at the warmup->physics switch: moments and
-            # step count start from zero, as optax's opt.init does
-            self.opt = _make_optimizer(cfg, self.net.parameters())
+            # step count (or the L-BFGS memory) start from zero, as optax's
+            # opt.init does
+            self.opt = _make_optimizer(cfg, self.net)
             self._phase_reset_done = True
         if self.lr_policy is not None:
             lr = self.lr_policy.lr_for_epoch(epoch)
@@ -777,26 +887,40 @@ class ElasticDIPEngine(EngineBase):
                 self._tether_stage_i = stage_i
                 self._tether_epoch = epoch
             tether_m = self._tether_ref
-        self.opt.zero_grad(set_to_none=True)
-        m = self._decode()
-        if use_physics:
-            phys = self._phys(fc, epoch, stage_i, tether_m)
-            loss_d = self._make_physics_loss()(m[0], idx, phys)
-            loss = loss_d
-            if cfg.anchor_weight > 0:
-                anchor = torch.mean((m - self.lowf) ** 2)
-                loss = loss + cfg.anchor_weight * anchor * 1e-6
+        phys = self._phys(fc, epoch, stage_i, tether_m) if use_physics else None
+        physics_loss = self._make_physics_loss()
+
+        def total_loss(params):
+            m = self._decode(params)
+            if use_physics:
+                loss_d = physics_loss(m[0], idx, phys)
+                loss = loss_d
+                if cfg.anchor_weight > 0:
+                    anchor = torch.mean((m - self.lowf) ** 2)
+                    loss = loss + cfg.anchor_weight * anchor * 1e-6
+            else:
+                # warmup (epoch <= lstart): anchor regression to the
+                # low-frequency model, no physics
+                loss = torch.mean((m - self.lowf) ** 2)
+                loss_d = torch.zeros((), device=self.device)
+            return loss, loss_d, torch.mean((m - self.true_m) ** 2), m
+
+        if isinstance(self.opt, _Lbfgs):
+            # every line-search probe evaluates the same loss on the same
+            # shots and stage data
+            (loss, loss_d, mse, m), upd = self.opt.updates(total_loss)
+
+            def step():
+                self.opt.apply(upd)
         else:
-            # warmup (epoch <= lstart): anchor regression to the
-            # low-frequency model, no physics
-            loss = torch.mean((m - self.lowf) ** 2)
-            loss_d = torch.zeros((), device=self.device)
-        mse = torch.mean((m - self.true_m) ** 2)
-        loss.backward()
+            self.opt.zero_grad(set_to_none=True)
+            loss, loss_d, mse, m = total_loss(None)
+            loss.backward()
+            step = self.opt.step
         if cfg.step_cap > 0 and use_physics:
-            self._capped_step(m.detach(), self._step_cap(stage_i))
+            self._capped_step(m.detach(), self._step_cap(stage_i), step)
         else:
-            self.opt.step()
+            step()
         # one device sync for both scalars
         loss_d, mse = torch.stack([loss_d.detach(), mse.detach()]).tolist()
         out = {"loss_D_MSE": loss_d, "loss_M_MSE": mse}
@@ -823,16 +947,17 @@ class ElasticDIPEngine(EngineBase):
                 return cfg.step_cap_final
         return cfg.step_cap
 
-    def _capped_step(self, m_old, cap: float):
-        """Adam's step scaled so that the decoded model moves at most
-        ``cap`` RMS (m/s): the update u = p_new - p_old of ``opt.step()``,
-        then two fixed-point rounds ``s = min(1, cap / dm(1))``, ``s *=
-        min(1, cap / dm(s))`` with dm(s) the RMS of decode(p_old + s u) -
-        m_old, and p = p_old + s u.  Adam's moments advance unscaled, as
-        optax's state does.  ``m_old`` is the step's own decoded model."""
-        params = [p for g in self.opt.param_groups for p in g["params"]]
+    def _capped_step(self, m_old, cap: float, step):
+        """The optimizer's step scaled so that the decoded model moves at
+        most ``cap`` RMS (m/s): the update u = p_new - p_old of ``step()``
+        (which updates the parameters in place), then two fixed-point
+        rounds ``s = min(1, cap / dm(1))``, ``s *= min(1, cap / dm(s))``
+        with dm(s) the RMS of decode(p_old + s u) - m_old, and p = p_old +
+        s u.  The optimizer's state advances unscaled, as optax's does.
+        ``m_old`` is the step's own decoded model."""
+        params = list(self.net.parameters())
         old = [p.detach().clone() for p in params]
-        self.opt.step()
+        step()
         with torch.no_grad():
             upd = [p - o for p, o in zip(params, old)]
 
@@ -851,14 +976,16 @@ class ElasticDIPEngine(EngineBase):
     def holdout_misfit(self, fc=None) -> float:
         """``cfg.misfit`` on the held-out shots at continuation stage
         ``fc``, at the decoder's model: the unsupervised early-stopping
-        metric ``loss_H``.  The ring forward makes the traces (on the
-        card its resident route at marmousi_elastic's grid)."""
+        metric ``loss_H``.  The path's forward makes the traces (on the
+        fused path the ring forward, on the card its resident route at
+        marmousi_elastic's grid)."""
         if self._holdout_idx is None:
             raise ValueError("holdout_misfit needs cfg.holdout_shots>0")
         wav, ovx, ovz = self._stage_data(fc)
         m = self._sample_model()[0]
-        return float(self._physics_loss_raw(
-            m, self._holdout_idx, {"wav": wav, "ovx": ovx, "ovz": ovz}))
+        with torch.no_grad():
+            return float(self._physics_loss_raw(
+                m, self._holdout_idx, {"wav": wav, "ovx": ovx, "ovz": ovz}))
 
     def guard_revert(self, params: dict, epoch: int):
         """Drift-guard revert (``cfg.guard_patience``, train.py): load the
@@ -866,7 +993,7 @@ class ElasticDIPEngine(EngineBase):
         fresh optimizer, start the post-revert lr ramp at ``epoch`` and
         drop the trailing-tether reference."""
         self.net.load_state_dict(params)
-        self.opt = _make_optimizer(self.cfg, self.net.parameters())
+        self.opt = _make_optimizer(self.cfg, self.net)
         self._guard_ramp_from = epoch
         self._tether_ref = None
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import time
 
 from physicsbasedfwi2_tpu_torch.engine.config import (
@@ -78,7 +79,8 @@ class PlateauDetector:
 def train(cfg: ExperimentConfig, *, epochs: int | None = None,
           iters_per_epoch: int = 1, workload=None, quiet: bool = False,
           continue_from: str | int | None = None, start_epoch: int = 1,
-          profile_dir: str | None = None, engine=None, device=None):
+          profile_dir: str | None = None, profile_epochs: int = 0,
+          engine=None, device=None):
     """Run the training loop; returns (engine, history).
 
     continue_from: checkpoint tag to resume weights from.
@@ -97,17 +99,19 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     the best ``loss_H`` of each stage with a snapshot of the generator's
     parameters (clones: the parameters change in place) and, after
     ``guard_patience`` evaluations above ``guard_tol`` x that best,
-    reverts to the snapshot with a fresh optimizer.  Profiling and the
-    supervised loop are not ported yet and raise.
+    reverts to the snapshot with a fresh optimizer.
+
+    With ``profile_dir`` and ``profile_epochs > 0`` a ``torch.profiler``
+    trace of the first ``profile_epochs`` epochs is written to
+    ``profile_dir/<name>.pt.trace.json`` (Chrome trace format): device
+    activity only on a CUDA engine (a trace that also records the host
+    did not finish a kernel-heavy epoch loop in 900 s), host activity on
+    the CPU.  The supervised loop is not ported yet and raises.
     """
     if cfg.engine == "supervised":
         raise NotImplementedError(
             "the supervised loop is not ported yet (ROADMAP Queue A, "
             "item 11)")
-    if profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP Queue A, slice-1 "
-            "leftovers)")
     if engine is None:
         kw = {"device": device if device is not None else default_device()}
         if workload is not None:
@@ -138,6 +142,9 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     guard_worse = 0
     guard_stage_i = 0
     guard_reverts = 0
+    prof = None
+    if profile_dir and profile_epochs > 0:
+        prof = _start_profile(engine)
     for epoch in range(start_epoch, epochs + 1):
         t0 = time.time()
         # ---- validation first (the reference validates at epoch top) ----
@@ -219,9 +226,17 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
             engine.save_networks("selected")
         history.append(rec)
         viz.log_epoch(rec, model_img=model_img)
+        if prof is not None and epoch - start_epoch + 1 == profile_epochs:
+            path = _stop_profile(prof, profile_dir, cfg.name)
+            prof = None
+            if not quiet:
+                print(f"profiler trace written to {path}")
         if epoch % cfg.save_epoch_freq == 0 or epoch == epochs:
             engine.save_networks(epoch)
             engine.save_networks("latest")
+    if prof is not None:
+        # fewer epochs than profile_epochs
+        _stop_profile(prof, profile_dir, cfg.name)
     if selected_epoch is not None and not quiet:
         print(f"[early-stop] selected checkpoint: epoch {selected_epoch} "
               f"(held-out misfit {best_h:.6f}) -> tag 'selected'")
@@ -229,6 +244,25 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
         print(f"[drift-guard] {guard_reverts} revert(s) over "
               f"{epochs - start_epoch + 1} epochs")
     return engine, history
+
+
+def _start_profile(engine):
+    """A started ``torch.profiler`` over the engine's device: CUDA
+    activity only on a card, CPU activity on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    on_card = engine.device.type == "cuda"
+    prof = profile(activities=[ProfilerActivity.CUDA if on_card
+                               else ProfilerActivity.CPU])
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, name: str) -> str:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"{name}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def _snapshot(engine) -> dict:
@@ -256,6 +290,10 @@ def main(argv=None):
                    help="resume from --epoch-tag (default latest)")
     p.add_argument("--epoch-tag", default="latest")
     p.add_argument("--start-epoch", type=int, default=1)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the first "
+                        "--profile-epochs epochs here")
+    p.add_argument("--profile-epochs", type=int, default=2)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda:0; fails when no "
                         "CUDA card is visible -- pass cpu to run the "
@@ -288,7 +326,9 @@ def main(argv=None):
     _, history = train(
         cfg, epochs=args.epochs, iters_per_epoch=args.iters_per_epoch,
         continue_from=args.epoch_tag if args.continue_train else None,
-        start_epoch=args.start_epoch, device=args.device)
+        start_epoch=args.start_epoch, profile_dir=args.profile_dir,
+        profile_epochs=args.profile_epochs if args.profile_dir else 0,
+        device=args.device)
     print(json.dumps(history[-1]))
 
 

@@ -7,7 +7,8 @@ forward), :mod:`kernels` (B5, first-order forward) and :mod:`adjoint`
 (B6 and ``acoustic_pallas``), :mod:`scalar2b` (B7a/B7b and
 ``acoustic_pallas2b``) and :mod:`elastic_fwd` (B8,
 ``elastic_forward_pallas``); each holds its CUDA wrapper and plain
-version.
+version.  Plain PyTorch under autograd: :mod:`acoustic`, :mod:`elastic`
+(split PML) and :mod:`elastic_fast` (5 fields, sponge).
 """
 
 import torch
@@ -20,6 +21,7 @@ from physicsbasedfwi2_tpu_torch.ops.acoustic import (
 from physicsbasedfwi2_tpu_torch.ops.adjoint import acoustic_pallas
 from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig,
+    elastic_gradient,
     simulate_elastic,
 )
 from physicsbasedfwi2_tpu_torch.ops.gradproc import (
@@ -56,6 +58,7 @@ __all__ = [
     "acoustic_pallas",
     "select_acoustic",
     "simulate_elastic",
+    "elastic_gradient",
     "ElasticConfig",
     "depth_weighting",
     "water_mask",

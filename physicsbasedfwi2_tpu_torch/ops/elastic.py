@@ -1,13 +1,13 @@
-"""2D P-SV elastic propagator, forward only (port of
+"""Differentiable 2D P-SV elastic propagator (port of
 ``physicsbasedfwi2_tpu/ops/elastic.py``).
 
 Virieux velocity-stress staggered grid (4th-order space, leapfrog time)
 with split-field PML and an optional stress-free top surface, batched
-over shots.  The JAX package differentiates this scheme with autodiff;
-on the ported path it only makes the synthetic workload's observed data
-(which the engine then replaces with the fused kernel's own operator,
-:func:`ops.elastic_fused.simulate_elastic_ring`), so the port runs it
-under ``no_grad`` in plain PyTorch.  It is not a Pallas kernel.
+over shots, time-stepped by :func:`chunked_checkpoint_scan`.  The
+gradient (:func:`elastic_gradient`) is plain autograd through the loop,
+as the JAX package uses autodiff through its scan: the elastic engine's
+``"xla"`` path.  It also makes the synthetic workload's observed data
+(under ``no_grad``).  It is not a Pallas kernel.
 
 Staggering (Virieux 1986):
     sxx, szz at (i, j);  sxz at (i+1/2, j+1/2)
@@ -23,6 +23,7 @@ import torch
 from physicsbasedfwi2_tpu_torch.geo.grid import Grid2D
 from physicsbasedfwi2_tpu_torch.ops import pml
 from physicsbasedfwi2_tpu_torch.ops.acoustic import edge_pad
+from physicsbasedfwi2_tpu_torch.ops.scan_utils import chunked_checkpoint_scan
 from physicsbasedfwi2_tpu_torch.ops.stencil import (
     dx_bwd, dx_fwd, dz_bwd, dz_fwd,
 )
@@ -88,54 +89,106 @@ def _staggered_medium(vp, vs, rho):
     return lam, mu, mu_xz, bx, bz
 
 
-@torch.no_grad()
-def simulate_elastic(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
-                     cfg: ElasticConfig):
-    """Simulate an elastic shot gather.
-
-    Args:
-        vp, vs, rho: [nz, nx] SI medium (row 0 = surface).
-        wavelet: [nt] or [num_shots, nt] source time function.
-        src_z, src_x: [num_shots] integer source cells;
-        rcv_z, rcv_x: [num_shots, nr] integer receiver cells.
-
-    All tensors on one device.  Returns (vx, vz) receiver traces, each
-    [num_shots, nt, nr] float32.
-    """
-    g = cfg.grid
-    dev = vp.device
-    vp, vs, rho = (_pad(a.to(torch.float32), g) for a in (vp, vs, rho))
-    lam, mu, mu_xz, bx, bz = _staggered_medium(vp, vs, rho)
-    ax_f, ax_h, az_f, az_h = _damping(cfg, dev)
+def _geometry(g: Grid2D, src_z, src_x, rcv_z, rcv_x, wavelet, dtype):
+    """Source and receiver cells moved into the padded grid (int64), and
+    the wavelet as [num_shots, nt] of ``dtype``."""
     top, w = g.top_pad, g.pml_width
     src_z = src_z.long() + top
     src_x = src_x.long() + w
     rcv_z = rcv_z.long() + top
     rcv_x = rcv_x.long() + w
-    ns = src_z.shape[0]
     if wavelet.ndim == 1:
-        wavelet = wavelet[None, :].expand(ns, -1)
-    wavelet = wavelet.to(torch.float32)
+        wavelet = wavelet[None, :].expand(src_z.shape[0], -1)
+    return src_z, src_x, rcv_z, rcv_x, wavelet.to(dtype)
+
+
+def _free_surface_row(shape, device) -> torch.Tensor:
+    """[nz, 1] mask of row 0, where a free surface holds szz at 0."""
+    row = torch.zeros((shape[0], 1), dtype=torch.bool, device=device)
+    row[0] = True
+    return row
+
+
+def _flat_cells(z, x, nx: int) -> torch.Tensor:
+    """Cells (z, x) of each shot's padded grid as flat indices
+    [num_shots, k] (``z`` and ``x`` [num_shots] or [num_shots, k])."""
+    idx = z * nx + x
+    return idx[:, None] if idx.ndim == 1 else idx
+
+
+def _inject(f, src, amp) -> torch.Tensor:
+    """f [num_shots, nz, nx] plus each shot's ``amp`` at its source cell
+    (``src`` from :func:`_flat_cells`), out of place.  A scatter-add on
+    the flat grid (and gathers in :func:`_record`), not advanced
+    indexing, whose backward sorts: every op of a step stays capturable
+    in a CUDA graph."""
+    return f.flatten(1).scatter_add(1, src, amp[:, None]).view_as(f)
+
+
+def _record(vx, vz, rcv) -> torch.Tensor:
+    """Receiver samples of one step: [2, num_shots, nr] (vx, vz) at the
+    flat cells ``rcv`` [num_shots, nr]; any receiver rows, repeated
+    cells allowed."""
+    return torch.stack([vx.flatten(1).gather(1, rcv),
+                        vz.flatten(1).gather(1, rcv)])
+
+
+def _traces(recs: torch.Tensor):
+    """[nt, 2, num_shots, nr] step records -> (vx, vz), each
+    [num_shots, nt, nr]."""
+    recs = recs.permute(1, 2, 0, 3)
+    return recs[0].contiguous(), recs[1].contiguous()
+
+
+def simulate_elastic(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
+                     cfg: ElasticConfig):
+    """Simulate an elastic shot gather (differentiable in vp, vs, rho
+    and the wavelet).
+
+    Args:
+        vp, vs, rho: [nz, nx] SI medium (row 0 = surface).
+        wavelet: [nt] or [num_shots, nt] source time function.
+        src_z, src_x: [num_shots] integer source cells;
+        rcv_z, rcv_x: [num_shots, nr] integer receiver cells (any rows;
+            a cell may repeat).
+
+    All tensors on one device.  The time loop runs through
+    :func:`chunked_checkpoint_scan` (``cfg.chunk`` steps a checkpoint),
+    as the JAX package's ``lax.scan`` under remat.  Returns (vx, vz)
+    receiver traces, each [num_shots, nt, nr], float32; a float64 ``vp``
+    runs the whole loop in float64 (a reference for finite-difference
+    checks).
+    """
+    g = cfg.grid
+    dev = vp.device
+    dtype = torch.float64 if vp.dtype == torch.float64 else torch.float32
+    vp, vs, rho = (_pad(a.to(dtype), g) for a in (vp, vs, rho))
+    lam, mu, mu_xz, bx, bz = _staggered_medium(vp, vs, rho)
+    ax_f, ax_h, az_f, az_h = (d.to(dtype) for d in _damping(cfg, dev))
+    src_z, src_x, rcv_z, rcv_x, wavelet = _geometry(
+        g, src_z, src_x, rcv_z, rcv_x, wavelet, dtype)
+    ns = src_z.shape[0]
     dt, inv_dx, order = g.dt, 1.0 / g.dx, cfg.order
     lam2mu = lam + 2.0 * mu
     # moment-source scaling by the P-modulus at the source
     src_gain = dt * inv_dx * inv_dx * lam2mu[src_z, src_x]
-    shot = torch.arange(ns, device=dev)
-    zeros = torch.zeros((ns,) + vp.shape, dtype=torch.float32, device=dev)
-    vxx, vxz, vzx, vzz, sxxx, sxxz, szzx, szzz, sxzx, sxzz = (
-        zeros.clone() for _ in range(10))
-    rvx = torch.empty((ns, g.nt, rcv_x.shape[1]), dtype=torch.float32,
-                      device=dev)
-    rvz = torch.empty_like(rvx)
-    for t in range(g.nt):
+    src = _flat_cells(src_z, src_x, vp.shape[1])
+    rcv = _flat_cells(rcv_z, rcv_x, vp.shape[1])
+    row0 = _free_surface_row(vp.shape, dev) if g.free_surface else None
+
+    def step(carry, x, params):
+        # dt bx, dt bz formed once: the products the JAX step forms
+        lam, lam2mu, mu_xz, dt_bx, dt_bz, src_gain = params
+        vxx, vxz, vzx, vzz, sxxx, sxxz, szzx, szzz, sxzx, sxzz = carry
+        (amp_t,) = x
         sxx = sxxx + sxxz
         szz = szzx + szzz
         sxz = sxzx + sxzz
         # velocity updates
-        vxx = ax_h * (vxx + dt * bx * dx_fwd(sxx, inv_dx, order))
-        vxz = az_f * (vxz + dt * bx * dz_bwd(sxz, inv_dx, order))
-        vzx = ax_f * (vzx + dt * bz * dx_bwd(sxz, inv_dx, order))
-        vzz = az_h * (vzz + dt * bz * dz_fwd(szz, inv_dx, order))
+        vxx = ax_h * (vxx + dt_bx * dx_fwd(sxx, inv_dx, order))
+        vxz = az_f * (vxz + dt_bx * dz_bwd(sxz, inv_dx, order))
+        vzx = ax_f * (vzx + dt_bz * dx_bwd(sxz, inv_dx, order))
+        vzz = az_h * (vzz + dt_bz * dz_fwd(szz, inv_dx, order))
         vx = vxx + vxz
         vz = vzx + vzz
         # stress updates
@@ -147,14 +200,37 @@ def simulate_elastic(vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x,
         szzz = az_f * (szzz + dt * lam2mu * dvzdz)
         sxzx = ax_h * (sxzx + dt * mu_xz * dx_fwd(vz, inv_dx, order))
         sxzz = az_h * (sxzz + dt * mu_xz * dz_fwd(vx, inv_dx, order))
-        # explosive source into the normal stresses
-        amp = wavelet[:, t] * src_gain
-        sxxx[shot, src_z, src_x] += amp
-        szzz[shot, src_z, src_x] += amp
-        if g.free_surface:
+        # explosive source into the normal stresses (out of place:
+        # autograd keeps the fields of every step it recomputes)
+        amp = amp_t * src_gain
+        sxxx = _inject(sxxx, src, amp)
+        szzz = _inject(szzz, src, amp)
+        if row0 is not None:
             # stress-free surface: szz = 0 on row 0
-            szzx[:, 0, :] = 0.0
-            szzz[:, 0, :] = 0.0
-        rvx[:, t] = vx[shot[:, None], rcv_z, rcv_x]
-        rvz[:, t] = vz[shot[:, None], rcv_z, rcv_x]
-    return rvx, rvz
+            szzx = torch.where(row0, 0.0, szzx)
+            szzz = torch.where(row0, 0.0, szzz)
+        carry = (vxx, vxz, vzx, vzz, sxxx, sxxz, szzx, szzz, sxzx, sxzz)
+        return carry, _record(vx, vz, rcv)
+
+    zero = torch.zeros((ns,) + vp.shape, dtype=dtype, device=dev)
+    _, recs = chunked_checkpoint_scan(
+        step, (zero,) * 10, (wavelet.T,), chunk=cfg.chunk,
+        params=(lam, lam2mu, mu_xz, dt * bx, dt * bz, src_gain))
+    return _traces(recs)
+
+
+def elastic_gradient(vp, vs, rho, loss_fn, wavelet, src_z, src_x,
+                     rcv_z, rcv_x, cfg: ElasticConfig,
+                     wrt=("vp", "vs", "rho")):
+    """(loss, {name: dJ/dname}) for a data misfit ``loss_fn((vx, vz))``:
+    one reverse-mode pass through :func:`simulate_elastic` with respect
+    to the fields named in ``wrt``.  Both results are detached."""
+    names = ("vp", "vs", "rho")
+    with torch.enable_grad():
+        fields = [f.detach().requires_grad_(n in wrt)
+                  for n, f in zip(names, (vp, vs, rho))]
+        loss = loss_fn(simulate_elastic(*fields, wavelet, src_z, src_x,
+                                        rcv_z, rcv_x, cfg))
+        want = [f for n, f in zip(names, fields) if n in wrt]
+        grads = torch.autograd.grad(loss, want)
+    return loss.detach(), dict(zip([n for n in names if n in wrt], grads))

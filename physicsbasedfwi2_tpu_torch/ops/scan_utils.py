@@ -24,17 +24,149 @@ def _run_chunk(step, n_carry, *args):
     return (*carry, torch.stack(ys))
 
 
-def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32):
+def _run_chunk_params(step, carry, xs, params):
+    ys = []
+    for k in range(xs[0].shape[0]):
+        carry, y = step(carry, tuple(x[k] for x in xs), params)
+        ys.append(y)
+    return (*carry, torch.stack(ys))
+
+
+class _ChunkGraphs:
+    """CUDA graphs of one scan's chunk, captured at their first use and
+    replayed for every chunk (all chunks have one shape): the forward
+    (:func:`_run_chunk_params`, no autograd) and the backward (the
+    recompute under autograd and ``torch.autograd.grad``).  Replaying a
+    chunk launches its kernels without the host's per-operation dispatch,
+    which bounds the plain propagators on a card.  Each scan makes its
+    own: the graphs read the tensors the step closes over by address."""
+
+    def __init__(self):
+        self.fwd = None
+        self.bwd = None
+
+    @staticmethod
+    def _capture(fn):
+        """(graph, fn's outputs as recorded), after one run of ``fn`` on
+        a side stream (the warm-up a capture needs)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+        return graph, out
+
+    def forward(self, step, carry, xs, params):
+        if self.fwd is None:
+            ins = [a.clone() for a in (*carry, *xs)]
+            n = len(carry)
+            graph, out = self._capture(lambda: _run_chunk_params(
+                step, tuple(ins[:n]), tuple(ins[n:]), params))
+            self.fwd = graph, ins, out
+        graph, ins, out = self.fwd
+        for dst, src in zip(ins, (*carry, *xs)):
+            dst.copy_(src)
+        graph.replay()
+        return tuple(o.clone() for o in out)
+
+    def backward(self, step, n, m, args, grads):
+        if self.bwd is None:
+            # the carry always takes a gradient (the first chunk's zeros
+            # too), so that every chunk replays one graph
+            ins = [a.detach().clone().requires_grad_(a.requires_grad or i < n)
+                   for i, a in enumerate(args)]
+            gs = [g.clone() for g in grads]
+            want = [a for a in ins if a.requires_grad]
+
+            def run():
+                with torch.enable_grad():
+                    outs = _run_chunk_params(step, tuple(ins[:n]),
+                                             tuple(ins[n:n + m]),
+                                             tuple(ins[n + m:]))
+                return torch.autograd.grad(outs, want, gs,
+                                           allow_unused=True)
+
+            graph, out = self._capture(run)
+            self.bwd = graph, ins, gs, out
+        graph, ins, gs, out = self.bwd
+        with torch.no_grad():
+            for dst, src in zip((*ins, *gs), (*args, *grads)):
+                dst.copy_(src)
+        graph.replay()
+        got = iter(None if g is None else g.clone() for g in out)
+        return [next(got) if a.requires_grad else None for a in ins]
+
+
+class _Chunk(torch.autograd.Function):
+    """One chunk of steps whose forward keeps no graph: the backward
+    recomputes the chunk from its saved carry, inputs and parameters
+    (detached, so the recomputed graph is the chunk's own) and returns
+    their gradients.  With ``graphs`` (CUDA tensors) both run as CUDA
+    graph replays."""
+
+    @staticmethod
+    def forward(ctx, step, n_carry, n_xs, graphs, *args):
+        ctx.step, ctx.n_carry, ctx.n_xs, ctx.graphs = (step, n_carry, n_xs,
+                                                       graphs)
+        ctx.save_for_backward(*args)
+        carry, xs = args[:n_carry], args[n_carry:n_carry + n_xs]
+        params = args[n_carry + n_xs:]
+        if graphs is not None:
+            return graphs.forward(step, carry, xs, params)
+        return _run_chunk_params(step, carry, xs, params)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, m = ctx.n_carry, ctx.n_xs
+        if ctx.graphs is not None:
+            got = ctx.graphs.backward(ctx.step, n, m, ctx.saved_tensors,
+                                      grads)
+            return (None, None, None, None, *got)
+        args = [a.detach().requires_grad_(a.requires_grad)
+                for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = _run_chunk_params(ctx.step, tuple(args[:n]),
+                                     tuple(args[n:n + m]),
+                                     tuple(args[n + m:]))
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        want = [a for a in args if a.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True) if pairs and want
+                   else [None] * len(want))
+        return (None, None, None, None,
+                *(next(got) if a.requires_grad else None for a in args))
+
+
+def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
+                            params=None):
     """``carry, ys = scan(step, carry, xs)`` with one checkpoint per
     chunk of steps.
 
     Args:
-        step: ``(carry, x) -> (carry, y)``; ``carry`` a tuple of
-            tensors, ``x`` a tuple of one slice of each of ``xs``,
-            ``y`` one tensor.
+        step: ``(carry, x) -> (carry, y)``, or with ``params``
+            ``(carry, x, params) -> (carry, y)``; ``carry`` a tuple of
+            tensors, ``x`` a tuple of one slice of each of ``xs``, ``y``
+            one tensor.
         carry: tuple of tensors.
         xs: tuple of tensors with equal leading dim nt.
         chunk: steps per checkpointed unit.
+        params: None, or the tuple of every differentiable tensor the
+            step reads besides its carry and inputs.  Each chunk then
+            runs without autograd and is recomputed from its saved
+            carry, inputs and ``params`` in the backward pass
+            (:class:`_Chunk`): no per-step graph and no saved-tensor
+            hooks in the forward pass, about half the host time of
+            ``torch.utils.checkpoint`` (which ``params=None`` uses, and
+            which also follows tensors the step closes over).  On CUDA
+            tensors both passes of a chunk are captured once as CUDA
+            graphs and replayed (:class:`_ChunkGraphs`), so the step must
+            be capturable (no host sync).  With ``params`` a tensor the
+            step closes over gets no gradient.
 
     Returns:
         (carry, ys), ys with leading dim nt.  As in the JAX package, xs
@@ -49,10 +181,20 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32):
                for x in xs)
     n = len(carry)
     use_ckpt = torch.is_grad_enabled()
+    graphs = (_ChunkGraphs() if params is not None and carry[0].is_cuda
+              else None)
     ys = []
     for t0 in range(0, nt + pad, chunk):
         xc = tuple(x[t0: t0 + chunk] for x in xs)
-        if use_ckpt:
+        if params is not None:
+            if use_ckpt:
+                out = _Chunk.apply(step, n, len(xc), graphs, *carry, *xc,
+                                   *params)
+            elif graphs is not None:
+                out = graphs.forward(step, carry, xc, params)
+            else:
+                out = _run_chunk_params(step, carry, xc, params)
+        elif use_ckpt:
             out = checkpoint(_run_chunk, step, n, *carry, *xc,
                              use_reentrant=False)
         else:

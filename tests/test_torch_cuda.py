@@ -906,3 +906,48 @@ def test_forward_grid_beyond_the_plan_takes_the_other_routes(dev):
     for fn in (ring, b8):
         with pytest.raises(ValueError, match="no resident plan"):
             fn(*med, wav, *geom, cfg, route="resident")
+
+
+@pytest.mark.parametrize("scheme", ["fast", "pml"])
+def test_elastic_autograd_on_card_matches_cpu(el_case, scheme, monkeypatch):
+    """The plain elastic propagators under autograd on the card, where
+    each chunk of the scan's forward and backward is replayed as a CUDA
+    graph (captured once a scan), against the same on the CPU: the
+    traces and the trace-normalized L2 gradient w.r.t. vp and vs, with
+    duplicate receiver cells."""
+    from physicsbasedfwi2_tpu_torch.ops import scan_utils
+    from physicsbasedfwi2_tpu_torch.ops.elastic import simulate_elastic
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fast import (
+        simulate_elastic_fast)
+    sim = simulate_elastic_fast if scheme == "fast" else simulate_elastic
+    cfg, wav, med, geom = el_case
+    geom = geom[:3] + (torch.cat([geom[3][:, :5], geom[3][:, :5]], 1),)
+    captures = []
+    capture = scan_utils._ChunkGraphs._capture
+    monkeypatch.setattr(scan_utils._ChunkGraphs, "_capture", staticmethod(
+        lambda fn: captures.append(1) or capture(fn)))
+
+    def run(device):
+        m = [a.to(device) for a in med]
+        g = [a.to(device) for a in geom]
+        w = wav.to(device)
+        with torch.no_grad():
+            obs = sim(m[0] * 1.02, m[1] * 0.98, m[2], w, *g, cfg)
+        vp, vs = (a.clone().requires_grad_(True) for a in m[:2])
+        pred = sim(vp, vs, m[2], w, *g, cfg)
+        loss = sum(torch.mean((trace_normalize(p) - trace_normalize(o)) ** 2)
+                   for p, o in zip(pred, obs))
+        gp, gs = torch.autograd.grad(loss, (vp, vs))
+        return [x.detach().cpu() for x in (*pred, loss, gp, gs)]
+
+    got = run(med[0].device)
+    torch.cuda.synchronize()
+    # the obs forward (no grad), and the forward and backward of the
+    # value and gradient: one capture each
+    assert len(captures) == 3
+    ref = run("cpu")
+    for a, b in zip(got[:2], ref[:2]):
+        assert rel_max(a, b) <= 1e-5
+    assert abs(float(got[2]) - float(ref[2])) <= 1e-5 * float(ref[2])
+    for a, b in zip(got[3:], ref[3:]):
+        assert rel_l2(a, b) <= 1e-4

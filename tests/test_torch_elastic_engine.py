@@ -11,6 +11,7 @@ module-scoped fixture (its interpret-mode physics steps dominate the
 file's time).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -203,9 +204,18 @@ def test_train_cli_without_a_card_fails(tmp_path):
 def test_unported_elastic_options_raise(el_run):
     pe, cfg = el_run["pe"], el_run["cfg"]
     wl = pe.wl
-    for kw in (dict(misfit="tnl2"), dict(backend="xla"),
-               dict(optimizer="lbfgs"), dict(grad_illum_eps=0.1),
-               dict(grad_smooth=2)):
+    # ported since: tnl2 and backend="xla" leave the fused path, and
+    # optimizer="lbfgs" is the port's L-BFGS (each engine on a copy of the
+    # workload: the fast path regenerates its observed data)
+    for kw, path in ((dict(misfit="tnl2"), "fast"),
+                     (dict(backend="xla"), "xla"),
+                     (dict(optimizer="lbfgs"), "fused-plain")):
+        e = ElasticDIPEngine(cfg.replace(**kw), workload=dataclasses.replace(
+            wl), device="cpu")
+        assert e.physics_path == path, kw
+        assert isinstance(e.opt, t_engines._Lbfgs) == ("optimizer" in kw)
+    for kw in (dict(grad_illum_eps=0.1), dict(grad_smooth=2),
+               dict(optimizer="sgld")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ElasticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -328,11 +328,11 @@ def test_test_cli_unported_options_raise(tmp_path):
 # names of the JAX subpackages' __all__ whose modules are not ported yet
 # (ROADMAP Queue A); the set shrinks as the queue lands
 NOT_PORTED = {
-    "ops": {"elastic_gradient", "ssim"},
+    "ops": {"ssim"},
     "geo": {"marmousi_acoustic_acquisition", "marmousi_elastic_acquisition",
             "seam_elastic_acquisition", "model_from_storage",
             "model_to_storage"},
-    "optim": {"lbfgs_wolfe", "LbfgsState", "sgld", "sghmc"},
+    "optim": {"sgld", "sghmc"},
     "engine": {"LatentInversionEngine", "ClassicFWIEngine",
                "SupervisedEngine"},
     "models": {"define_discriminator", "VaeFlowNet", "FlowAutoEncoderNet",

@@ -32,6 +32,7 @@ from physicsbasedfwi2_tpu.engine.train import (
 )
 from physicsbasedfwi2_tpu.models import apply_velocity_output as j_avo
 from physicsbasedfwi2_tpu_torch.engine import config
+from physicsbasedfwi2_tpu_torch.engine import engines as t_engines
 from physicsbasedfwi2_tpu_torch.engine.engines import (
     AcousticDIPEngine, LrPolicy,
 )
@@ -212,16 +213,25 @@ def test_plateau_detector_matches_jax(mode, eps, cap):
             == [b.update(float(x)) for x in losses])
 
 
-def test_unported_options_raise(slice_run):
+def test_unported_options_raise(slice_run, tmp_path):
     wl = port_workload(slice_run["jwl"])
     cfg = slice_run["cfg"]
     # (misfit="l2" and backend="xla" take the ported "xla" path;
-    # freq_stages and wavelet_from_data are ported)
-    for kw in (dict(optimizer="lbfgs"), dict(encoded_shots=2)):
+    # freq_stages and wavelet_from_data are ported; so are L-BFGS and
+    # profile_dir since)
+    engine = AcousticDIPEngine(cfg.replace(optimizer="lbfgs"), workload=wl,
+                               device="cpu")
+    assert engine.physics_path == "fused-plain"
+    assert isinstance(engine.opt, t_engines._Lbfgs)
+    assert engine.lr_policy is None
+    for kw in (dict(encoded_shots=2), dict(optimizer="sghmc")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AcousticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, engine=slice_run["pe"], profile_dir="x")
+    _, hist = train(cfg.replace(save_dir=str(tmp_path)), epochs=1,
+                    engine=engine, quiet=True,
+                    profile_dir=str(tmp_path / "prof"), profile_epochs=1)
+    assert (tmp_path / "prof" / f"{cfg.name}.pt.trace.json").exists()
+    assert engine.opt.evaluations >= 2 and hist[0]["loss_D"] > 0
 
 
 @pytest.fixture(scope="module")

@@ -120,7 +120,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     each 35-shot value and gradient, the peak memory, every accepted
     step's decrease; two L-BFGS epochs of ``marmousi_acoustic`` (B2 once an
     evaluation, all on the resident route); one ``elastic_gradient``
-    (split PML, autograd) on 5 shots at the elastic grid.
+    (split PML, autograd) on 5 shots at the elastic grid;
+17. BASELINE config 5 (SEAM elastic FWI with MC-dropout uncertainty):
+    the ring forward at ``seam_elastic``'s grid (120 x 324, free surface,
+    144 x 384 in kernel layout, nt 2568, 38 shots, sources on row 6,
+    receivers on row 23), its two routes in turns held to bit equality,
+    with the clusters resident and the waves, against the plain version
+    on 4 shots; B3 on those 4 shots on the per-step route (no B3 plan
+    holds 144 rows) against its plain version (residual signs fixed, the
+    real misfit, the loss at the true model), 3 calls timed beside the
+    bound; ``train(get_workload("seam_elastic_robust",
+    holdout_every=3), epochs=lstart + 6)`` (EPRECOND: the illumination
+    once, at the first physics step; B3 per-step once a physics epoch;
+    ``loss_H``; the setup split, the peak memory, every gradient
+    finite); ``train(get_workload("mcdip_uq"), epochs=lstart + 3)`` (B3
+    resident once a physics epoch, dropout masks on every training
+    decode), ``mc_realizations(32)`` timed and its seeds, and
+    ``evaluate(realizations=32)`` of the run's ``latest`` checkpoint
+    (``mc_std`` 0 in the pinned water rows, > 0 below them).
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -129,7 +146,8 @@ the call, with host waits inside the trace before and after them, so
 no trace's counts depend on the traces before it.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (every kernel: ``ms`` on the resident route,
-``per_step_ms`` on the per-step one); the last line is
+``per_step_ms`` on the per-step one; B3 and the ring forward also their
+``seam_*`` times and bounds at SEAM's grid); the last line is
 the result object.  The
 script never falls back to the CPU or to the plain versions.
 """
@@ -645,17 +663,19 @@ def phase_trace(name: str, fn):
     return n_by
 
 
-def elastic_case(dev, free_surface=None):
-    """marmousi_elastic's grid (its free surface unless
-    ``free_surface`` says otherwise), its 35 shots, true and starting
-    media, without the workload's simulation."""
+def elastic_case(dev, free_surface=None, workload="marmousi_elastic"):
+    """An elastic workload's grid (its free surface unless
+    ``free_surface`` says otherwise), its shots on its acquisition rows,
+    true and starting media, without the workload's simulation: by
+    default marmousi_elastic's (35 shots), or seam_elastic's (38 shots,
+    sources on row 6, receivers on row 23)."""
     import torch
     from physicsbasedfwi2_tpu_torch.data.synthetic import (
         make_elastic_model, make_marmousi_like, smooth_model)
     from physicsbasedfwi2_tpu_torch.engine.config import get_workload
     from physicsbasedfwi2_tpu_torch.geo import Grid2D, elastic_line, ricker
     from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
-    c = get_workload("marmousi_elastic")
+    c = get_workload(workload)
     grid = Grid2D(nz=c.nz, nx=c.nx, dx=c.dx, nt=c.nt, dt=c.dt,
                   pml_width=c.pml_width,
                   free_surface=(c.free_surface if free_surface is None
@@ -664,8 +684,10 @@ def elastic_case(dev, free_surface=None):
     vp = make_marmousi_like(c.nz, c.nx, seed=c.seed, water_rows=c.water_rows)
     true = make_elastic_model(vp, water_rows=c.water_rows)
     start = [smooth_model(a, preserve_rows=c.water_rows) for a in true]
-    acq = elastic_line(c.num_shots, c.num_receivers, c.nx, c.nz,
-                       src_row=c.water_rows + 1, rcv_row=c.water_rows + 1)
+    acq = elastic_line(
+        c.num_shots, c.num_receivers, c.nx, c.nz,
+        src_row=c.extras.get("src_depth_row", c.water_rows + 1),
+        rcv_row=c.extras.get("rcv_depth_row", c.water_rows + 1))
     geom = tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
                  for a in (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x))
 
@@ -2060,6 +2082,427 @@ def phase_engine_paths(dev):
                   f"{name}: wavelet not per shot")
 
 
+def _seam_kernels(dev):
+    """B3 and the ring forward at seam_elastic's grid (120 x 324 at dx 30
+    m, free surface, 144 x 384 in kernel layout, nt 2568; sources on row
+    6, receivers on row 23): the ring forward of all 38 shots on its two
+    routes in turns, held to bit equality, with its plan and the clusters
+    resident; then B3 on 4 of the shots (every 10th), as a physics epoch
+    draws them, on the per-step route (no B3 plan holds 144 rows):
+    ``tnl1`` with residual signs fixed against the plain version's own
+    float32 error, the real misfit against the plain version's move
+    under a 1e-7 change, the loss at the true model, and 3 timed calls
+    beside the bound."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import trace_normalize
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+        _layout, elastic_forward_plan, elastic_resident_plan,
+        fused_elastic_loss_grad_meds, fused_elastic_loss_grad_meds_plain,
+        prep_damp, prep_medium, scatter_rows_el, simulate_elastic_ring,
+        simulate_elastic_ring_plain)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    cfg, wav, geom_all, true, start = elastic_case(dev,
+                                                   workload="seam_elastic")
+    g = cfg.grid
+    nz8, nx128 = _layout(cfg)[4:]
+    ns_all = len(geom_all[0])
+    src_row, rcv_row = int(geom_all[0][0]), int(geom_all[2][0, 0])
+    print(f"phase 17: seam_elastic's grid {g.nz} x {g.nx} at dx {g.dx:g} m, "
+          f"free surface {g.free_surface}, kernel layout {nz8} x {nx128}, "
+          f"nt {g.nt}, {ns_all} shots x {geom_all[3].shape[1]} receivers, "
+          f"sources on row {src_row}, receivers on row {rcv_row}; B3 plan "
+          f"{elastic_resident_plan(nz8, nx128)}, forward plan "
+          f"{elastic_forward_plan(nz8, nx128)}")
+    check((nz8, nx128) == (144, 384) and g.free_surface
+          and (src_row, rcv_row) == (6, 23), "SEAM's grid and rows")
+    check(elastic_resident_plan(nz8, nx128) is None,
+          "a B3 resident plan holds SEAM's grid")
+    check(elastic_forward_plan(nz8, nx128).band_rows == 9,
+          "the ring forward's plan at SEAM's grid is not 9-row bands")
+
+    # the ring forward, all 38 shots, as the engine's setup runs it
+    fwd_cluster_report(ns_all, nz8, nx128, "SEAM ring forward")
+    ring_turns = route_turns(
+        "SEAM ring forward", lambda r: simulate_elastic_ring(
+            *true, wav, *geom_all, cfg, route=r), g.nt, exact=True)
+    (ovx, ovz), ms_ring = ring_turns["out"], ring_turns["ms"]
+    check(bool(torch.isfinite(ovx).all() and torch.isfinite(ovz).all()),
+          "SEAM ring forward not finite")
+    pick = torch.arange(0, ns_all, 10, device=dev)
+    geom = tuple(a[pick].contiguous() for a in geom_all)
+    ovx, ovz = ovx[pick], ovz[pick]
+    pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom, cfg)
+    scale = max(float(pvx.abs().max()), float(pvz.abs().max()))
+    err_r = max(float((ovx - pvx).abs().max()), float((ovz - pvz).abs().max()))
+    ns, nr = geom[3].shape
+    print(f"SEAM ring forward, shots {pick.tolist()} against the plain "
+          f"version: max|err| {err_r:.3e} of max {scale:.3e} (tol 1e-4 of "
+          f"max)")
+    check(err_r <= 1e-4 * scale, "SEAM ring forward disagrees with its "
+          "plain version")
+
+    damp = prep_damp(cfg, dev)
+    meds = prep_medium(*start, cfg)
+    rows = tuple(scatter_rows_el(trace_normalize(o), geom[3], cfg, KC=8)
+                 for o in (ovx, ovz))
+    fn = fused_elastic_loss_grad_meds
+    reset_launches(fn)
+
+    def kernel(obs, m=meds):
+        return fn(m, damp, wav, *geom, cfg, *obs, KC=8, misfit="tnl1")
+
+    def plain(obs, dtype=torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused_elastic_loss_grad_meds_plain(
+            meds, damp, wav, *geom, cfg, *obs, KC=8, misfit="tnl1",
+            dtype=dtype)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    shape = f"[{ns} shots x {nr} receivers, nt {g.nt}, per-step route]"
+    names = ("lam", "l2m", "muxz", "bx", "bz")
+
+    def fields(got, ref):
+        return ", ".join(f"{k} {_rel_l2(a.double(), b.double()):.2e}"
+                         for k, a, b in zip(names, got, ref))
+
+    def accuracy(what, obs, timed=False):
+        """The kernel against the plain version in float32 and float64
+        on the observed rows ``obs``: the kernel as accurate as the plain
+        version (its gradients' relative L2 error against float64 at
+        most max(1e-4, 2x the plain float32's)), the loss to 1e-5."""
+        if timed:
+            (lk, gk), ms_k = timed_ms(lambda: kernel(obs), repeats=3)
+        else:
+            (lk, gk), ms_k = kernel(obs), None
+        (lp, gp), ms_p = plain(obs)
+        (lr, gr), _ = plain(obs, torch.float64)
+        lk, lp, lr = float(lk), float(lp), float(lr)
+        err_k, err_p = _rel_meds(gk, gr), _rel_meds(gp, gr)
+        print(f"SEAM B3 tnl1, {what} {shape}: loss {lk:.9g} vs plain "
+              f"{lp:.9g} (rel {abs(lk - lp) / abs(lp):.2e}, tol 1e-5), vs "
+              f"float64 {lr:.9g}; gradient rel L2 vs plain float32: "
+              f"{fields(gk, gp)}; against the plain version in float64: "
+              f"kernel {err_k:.2e} ({fields(gk, gr)}), plain float32 "
+              f"{err_p:.2e} ({fields(gp, gr)}) (tol max(1e-4, 2x plain))")
+        check(math.isfinite(lk) and all(bool(torch.isfinite(a).all())
+                                        for a in gk),
+              f"SEAM B3 {what}: not finite")
+        check(abs(lk - lp) <= 1e-5 * abs(lp), f"SEAM B3 {what}: loss")
+        check(abs(lk - lr) <= 1e-5 * abs(lr),
+              f"SEAM B3 {what}: loss vs float64")
+        check(err_k <= max(1e-4, 2.0 * err_p),
+              f"SEAM B3 {what}: gradient less accurate than the plain "
+              f"version")
+        return gk, gp, ms_k, ms_p
+
+    # residual signs fixed (observed rows + 3), then the real misfit, the
+    # main path's (3 timed calls)
+    gf, gpf, _, _ = accuracy("residual signs fixed",
+                             tuple((r + 3.0).contiguous() for r in rows))
+    err = max(float((a - b).abs().max()) for a, b in zip(gf, gpf))
+    gk, gp, ms_k, ms_p = accuracy("on the real misfit", rows, timed=True)
+    # how far the plain gradient moves under a 1e-7 change of the
+    # observed rows: the misfit's own sensitivity (L1 signs that follow
+    # rounding would show here)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pert = tuple((r * (1.0 + 1e-7 * torch.randn(r.shape, generator=gen,
+                                                 device=dev))).contiguous()
+                 for r in rows)
+    (_, gq), _ = plain(pert)
+    print(f"SEAM B3 tnl1 on the real misfit: the kernel's largest gradient "
+          f"rel L2 vs plain float32 {_rel_meds(gk, gp):.2e}; under a 1e-7 "
+          f"change of its observed rows the plain gradient moves "
+          f"{_rel_meds(gq, gp):.2e}")
+    l_true, _ = kernel(rows, prep_medium(*true, cfg))
+    print(f"SEAM B3 tnl1 loss at the true model: {float(l_true):.3e} (tol "
+          f"1e-9)")
+    check(float(l_true) <= 1e-9, "SEAM B3 loss at the true model")
+    print(f"SEAM B3: {fn.launches} launches, resident "
+          f"{fn.resident_launches}, per-step {fn.per_step_launches}")
+    check(fn.launches > 0 and fn.per_step_launches == fn.launches,
+          "SEAM B3 did not run on the per-step route")
+
+    # free surface: 2 ring rows on top
+    cells = (g.nz + 2 + g.pml_width) * (g.nx + 2 * g.pml_width)
+    b3_io = (11 * damp.numel() * 4 + nbytes(wav, *geom)
+             + 2 * nbytes(rows[0]) + ns * nx128 * 4 + 4)
+    b3_bound = bound((FLOPS_B3 + FLOPS_B3_ADJ) * ns * cells * g.nt, b3_io)
+    ring_io = 6 * damp.numel() * 4 + nbytes(wav, *geom_all) + 2 * (
+        ns_all * g.nt * geom_all[3].shape[1] * 4)
+    ring_bound = bound(FLOPS_B3 * ns_all * cells * g.nt, ring_io)
+    steps = 3 * rows[0].shape[1]  # forward, recompute, adjoint
+    print(f"SEAM B3 {shape}: {ms_k:.2f} ms a call ({ms_k / steps * 1e3:.3f} "
+          f"us a step of {steps}), plain {ms_p:.2f} "
+          f"ms; bound {b3_bound['bound_ms']:.3f} ms ({b3_bound['bound_by']}: "
+          f"{ns} x {cells} cells x {g.nt} steps x "
+          f"{FLOPS_B3 + FLOPS_B3_ADJ} flop); ring forward, {ns_all} shots: "
+          f"resident {ms_ring:.2f} ms, per-step "
+          f"{ring_turns['per_step_ms']:.2f} ms, bound "
+          f"{ring_bound['bound_ms']:.3f} ms ({ring_bound['bound_by']})")
+    return ({"seam_per_step_ms": ms_k, "seam_bound_ms": b3_bound["bound_ms"],
+             "seam_max_abs_err": err},
+            {"seam_ms": ms_ring, "seam_per_step_ms": ring_turns["per_step_ms"],
+             "seam_bound_ms": ring_bound["bound_ms"]})
+
+
+def _seam_train(dev):
+    """``seam_elastic_robust`` at full width for lstart + 6 epochs, a
+    ``loss_H`` every 3rd epoch: the setup split into the workload build,
+    the engine (the ring forward of the observed data) and the EPRECOND
+    illumination (once, at the first physics step), each physics epoch's
+    seconds and B3 launches (one, per-step), every gradient finite, the
+    peak memory, and the misfit at the true model."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine import engines as t_engines
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    out_dir = ROOT / "build" / "chip_smoke"
+    cfg = get_workload("seam_elastic_robust", save_dir=str(out_dir),
+                       holdout_every=3)
+    print(f"phase 17: seam_elastic_robust {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
+          f"{cfg.num_shots} shots ({cfg.holdout_shots} held out, "
+          f"{cfg.shots_per_iter} per iteration), {cfg.netG} filters "
+          f"{cfg.filters}, misfit {cfg.misfit}, stages {cfg.freq_stages}, "
+          f"grad_illum_eps {cfg.grad_illum_eps}, step cap {cfg.step_cap}, "
+          f"loss_H every {cfg.holdout_every}")
+    b3 = elastic_fused.fused_elastic_loss_grad_meds
+    ring = elastic_fused.simulate_elastic_ring
+    reset_launches(b3, ring)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wl = t_engines.elastic_workload(cfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = t_engines.ElasticDIPEngine(cfg, workload=wl, device=dev)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    setup_ring = ring.launches
+    illum_s, finite, b3_by_epoch = [], [], {}
+    real_illum = t_engines.elastic_illumination
+
+    def timed_illum(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_illum(*args, **kw)
+        torch.cuda.synchronize()
+        illum_s.append(time.perf_counter() - t0)
+        return out
+
+    step_fn = engine.optimize_parameters
+    processed = engine._processed_value_and_grad
+
+    def logged(epoch, **kw):
+        before = b3.per_step_launches
+        out = step_fn(epoch, **kw)
+        b3_by_epoch[epoch] = b3.per_step_launches - before
+        return out
+
+    def checked(*args, **kw):
+        loss, gm = processed(*args, **kw)
+        finite.append(math.isfinite(float(loss))
+                      and bool(torch.isfinite(gm).all()))
+        return loss, gm
+
+    t_engines.elastic_illumination = timed_illum
+    engine.optimize_parameters = logged
+    engine._processed_value_and_grad = checked
+    epochs = cfg.lstart + 6
+    try:
+        t0 = time.perf_counter()
+        engine, history = train(cfg, epochs=epochs, quiet=True,
+                                engine=engine)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        t_engines.elastic_illumination = real_illum
+        engine.optimize_parameters = step_fn
+        engine._processed_value_and_grad = processed
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {"fused_elastic_loss_grad": b3.launches,
+                "simulate_elastic_ring": ring.launches}
+    for rec in history[:1] + history[cfg.lstart - 1:]:
+        print("epoch", json.dumps(rec))
+    warm = [r["epoch_time"] for r in history[:cfg.lstart]]
+    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    hs = [(r["epoch"], r["loss_H"]) for r in history if "loss_H" in r]
+    reverts = [r["guard_revert"] for r in history if "guard_revert" in r]
+    print(f"phase 17 seam_elastic_robust: setup {build_s + engine_s:.2f} s = "
+          f"workload build {build_s:.2f} s (split-PML simulate_elastic, "
+          f"{engine.n_shots} shots) + engine {engine_s:.2f} s (ring forward "
+          f"of the observed data, {setup_ring} launch, and the generator), "
+          f"then the illumination {', '.join(f'{x:.2f}' for x in illum_s)} "
+          f"s at the first physics step; {epochs} epochs in {total:.2f} s; "
+          f"warmup epochs: first {warm[0]:.4f} s, median of the rest "
+          f"{_median(warm[1:]):.4f} s; physics epochs "
+          f"{', '.join(f'{x:.4f}' for x in phys)} s (median "
+          f"{_median(phys):.4f}) with B3 per-step launches "
+          f"{[b3_by_epoch[e] for e in range(cfg.lstart + 1, epochs + 1)]}; "
+          f"loss_H {hs}; guard reverts at {reverts}; held-out shots "
+          f"{engine._holdout_idx.tolist()}, pool of "
+          f"{len(engine._train_pool)}; launches {launches} (B3 resident "
+          f"{b3.resident_launches}, per-step {b3.per_step_launches}; ring "
+          f"forward resident {ring.resident_launches}, per-step "
+          f"{ring.per_step_launches}); peak memory {peak:.2f} GiB")
+    check(engine.physics_path == "fused-cuda",
+          f"physics path {engine.physics_path}")
+    check(len(illum_s) == 1, f"the illumination ran {len(illum_s)} times")
+    check(all(b3_by_epoch[e] == 0 for e in range(1, cfg.lstart + 1))
+          and all(b3_by_epoch[e] == 1
+                  for e in range(cfg.lstart + 1, epochs + 1)),
+          "B3 not launched once a physics epoch")
+    check(b3.launches == b3.per_step_launches == 6,
+          "SEAM's B3 did not take the per-step route on every epoch")
+    check(len(finite) == 6 and all(finite), f"gradients finite: {finite}")
+    check(ring.per_step_launches == 0
+          and ring.launches == 2 + len(hs),
+          "the ring forward not launched resident at setup, for the "
+          "guard's anchor and each loss_H")
+    check(len(hs) >= 1 and all(math.isfinite(h) and h > 0 for _, h in hs),
+          f"loss_H: {hs}")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
+    # the engine's own data fit at the true model, true density
+    # included, on the training pool (B3, per-step)
+    loss_true, grad = engine.physics_value_and_grad(
+        engine.true_m, fc=0.0, rho=engine.wl.true["rho"])
+    print(f"phase 17 seam_elastic_robust: misfit at the true model "
+          f"{float(loss_true):.3e} (tol 1e-9), {len(engine._train_pool)} "
+          f"shots")
+    check(float(loss_true) <= 1e-9, "SEAM engine misfit at the true model")
+    check(bool(torch.isfinite(grad).all()), "SEAM engine gradient")
+    return launches
+
+
+def _mcdip_train(dev):
+    """``mcdip_uq`` at full width for lstart + 3 epochs (B3 resident on
+    each physics epoch, dropout masks on every training decode), then
+    ``mc_realizations(32)`` timed, the same seed twice and another seed,
+    and ``evaluate(realizations=32)`` of the run's ``latest``
+    checkpoint."""
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.test import evaluate
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.models import blocks
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    out_dir = ROOT / "build" / "chip_smoke"
+    cfg = get_workload("mcdip_uq", save_dir=str(out_dir))
+    print(f"phase 17: mcdip_uq {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
+          f"{cfg.num_shots} shots ({cfg.shots_per_iter} per iteration), "
+          f"{cfg.netG} filters {cfg.filters}, dropout {cfg.dropout}")
+    b3 = elastic_fused.fused_elastic_loss_grad_meds
+    ring = elastic_fused.simulate_elastic_ring
+    reset_launches(b3, ring)
+    draws = []
+    real_mask = blocks.dropout_mask
+
+    def counted(x, keep, generator):
+        draws.append(x.shape[0])
+        return real_mask(x, keep, generator)
+
+    blocks.dropout_mask = counted
+    epochs = cfg.lstart + 3
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        t0 = time.perf_counter()
+        engine, history = train(cfg, epochs=epochs, quiet=True, device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        blocks.dropout_mask = real_mask
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {"fused_elastic_loss_grad": b3.launches,
+                "simulate_elastic_ring": ring.launches}
+    for rec in history[:1] + history[cfg.lstart - 1:]:
+        print("epoch", json.dumps(rec))
+    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    print(f"phase 17 mcdip_uq: {epochs} epochs in {total:.2f} s (setup "
+          f"included); physics epochs {', '.join(f'{x:.4f}' for x in phys)} "
+          f"s; dropout masks drawn {len(draws)} (6 sites x {epochs} training "
+          f"decodes); launches {launches} (B3 resident "
+          f"{b3.resident_launches}, per-step {b3.per_step_launches}); peak "
+          f"memory {peak:.2f} GiB")
+    check(engine.physics_path == "fused-cuda",
+          f"physics path {engine.physics_path}")
+    check(b3.launches == b3.resident_launches == 3,
+          "mcdip_uq's B3 not resident once a physics epoch")
+    check(ring.launches >= 1 and ring.per_step_launches == 0,
+          "mcdip_uq's ring forward not resident")
+    check(len(draws) == 6 * epochs and set(draws) == {1},
+          "not one set of masks a training decode")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, ms_mc = timed_ms(lambda: engine.mc_realizations(32), repeats=3)
+    mc_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    a = engine.mc_realizations(32, seed=0)
+    b = engine.mc_realizations(32, seed=0)
+    c = engine.mc_realizations(32, seed=1)
+    print(f"phase 17 mc_realizations(32): {ms_mc:.2f} ms (one batched "
+          f"decoder pass, to numpy), peak memory {mc_peak:.2f} GiB; shape "
+          f"{a.shape}; seed 0 twice equal {np.array_equal(a, b)}, seeds 0 "
+          f"and 1 differ {not np.array_equal(a, c)}")
+    check(a.shape == (32, cfg.nz, cfg.nx, 2) and np.isfinite(a).all(),
+          "mc_realizations shape")
+    check(np.array_equal(a, b) and not np.array_equal(a, c),
+          "mc_realizations: one seed, one ensemble; two seeds, two")
+
+    res = evaluate(cfg, epoch="latest", realizations=32,
+                   results_dir=str(out_dir / "results"), device=dev)
+    res_dir = out_dir / "results" / cfg.name / "epoch_latest"
+    std = np.load(res_dir / "mc_std.npy")
+    mean = np.load(res_dir / "mc_mean.npy")
+    w = cfg.water_rows
+    pinned = bool(np.all(std[:w] == 0))
+    # below the pinned rows a cell keeps one value in every sample only
+    # where every sample sits on the field's physical bound (the clip)
+    flat = [(k, z, x) for z, x, k in zip(*np.nonzero(std[w:] == 0))]
+    on_bound = [bool(mean[w + z, x, k] in (engine.clip_min[k],
+                                           engine.clip_max[k]))
+                for k, z, x in flat]
+    by_field = [sum(k == f for k, _, _ in flat) for f in range(2)]
+    print(f"phase 17 evaluate(latest, realizations=32): {res}; mc_std "
+          f"{std.shape}: 0 in the {w} pinned rows {pinned}; below them "
+          f"> 0 in {float((std[w:] > 0).mean()):.6f} of the cells, 0 in "
+          f"{len(flat)} (vp {by_field[0]}, vs {by_field[1]}; rows "
+          f"{sorted({w + z for _, z, _ in flat})[:12]}), {sum(on_bound)} of "
+          f"them on a clip bound in every sample; mean "
+          f"{float(std[w:].mean()):.4f}, max {float(std.max()):.4f}")
+    check(set(res) == {"realizations", "mc_std_mean", "loss_V_MSE"}
+          and res["realizations"] == 32, "evaluate's metrics")
+    check(pinned and all(on_bound) and len(flat) < 0.01 * std[w:].size,
+          "mc_std is not 0 in the pinned rows and > 0 below them (but on "
+          "the clip bounds)")
+    check(not (res_dir / "model.npy").exists(),
+          "evaluate wrote a model with realizations")
+    return launches
+
+
+def phase_config5(dev):
+    """BASELINE config 5 (SEAM elastic FWI, MC-dropout uncertainty): B3
+    and the ring forward at SEAM's grid, ``seam_elastic_robust`` and
+    ``mcdip_uq`` at full width.  Returns the paths' launches and the
+    kernels' SEAM numbers."""
+    import collections
+    b3, ring = _seam_kernels(dev)
+    launches = collections.Counter(_seam_train(dev))
+    launches.update(_mcdip_train(dev))
+    return launches, b3, ring
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -2090,7 +2533,8 @@ def main(argv: list[str]) -> int:
                   8: [phase_b56], 9: [phase_slice3], 10: [phase_xla_engine],
                   11: [phase_b7, phase_slice4_pairs], 12: [phase_b8],
                   13: [phase_b2_wavelet], 14: [phase_engine_paths],
-                  15: [phase_robust], 16: [phase_lbfgs]}
+                  15: [phase_robust], 16: [phase_lbfgs],
+                  17: [phase_config5]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -2115,6 +2559,10 @@ def main(argv: list[str]) -> int:
     phase_engine_paths(dev)
     launches.update(phase_robust(dev))
     launches.update(phase_lbfgs(dev))
+    seam_launches, b3_seam, ring_seam = phase_config5(dev)
+    launches.update(seam_launches)
+    b3.update(b3_seam)
+    ring.update(ring_seam)
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",

@@ -1,7 +1,8 @@
 """Inversion engines (port of ``physicsbasedfwi2_tpu/engine/engines.py``:
 ``EngineBase``, ``AcousticDIPEngine`` on its fused and "xla" paths,
 ``ElasticDIPEngine`` on its fused, "fast" and "xla" paths with held-out
-shots, the step cap and the drift guard's revert, Adam or L-BFGS in
+shots, the step cap, the drift guard's revert, illumination
+preconditioning, gradient smoothing and MC dropout, Adam or L-BFGS in
 both, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages`` and
 ``create_engine``).
 
@@ -43,12 +44,14 @@ from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
     fwi_l1_loss_grad, scatter_rows,
 )
 from physicsbasedfwi2_tpu_torch.ops.elastic import simulate_elastic
-from physicsbasedfwi2_tpu_torch.ops.elastic_fast import simulate_elastic_fast
+from physicsbasedfwi2_tpu_torch.ops.elastic_fast import (
+    elastic_illumination, simulate_elastic_fast,
+)
 from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
     fused_elastic_loss_grad, scatter_rows_el, simulate_elastic_ring,
 )
 from physicsbasedfwi2_tpu_torch.ops.gradproc import (
-    depth_weighting, rescale_to_model, taper_top, water_mask,
+    depth_weighting, rescale_to_model, smooth_spatial, taper_top, water_mask,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
 from physicsbasedfwi2_tpu_torch.optim.lbfgs import lbfgs_wolfe
@@ -73,12 +76,41 @@ def _evict_stale_stages(cache: dict, fc: float) -> None:
         del cache[k]
 
 
-def _call(net: torch.nn.Module, params, *inputs):
+def _call(net: torch.nn.Module, params, *inputs, generator=None):
     """``net(*inputs)``, with its parameters replaced by ``params`` (a
-    dict by name, as ``named_parameters`` gives them) where given."""
+    dict by name, as ``named_parameters`` gives them) where given;
+    dropout draws its masks from ``generator``, and without one the net
+    is deterministic."""
+    kw = {"deterministic": generator is None, "generator": generator}
     if params is None:
-        return net(*inputs)
-    return torch.func.functional_call(net, params, inputs)
+        return net(*inputs, **kw)
+    return torch.func.functional_call(net, params, inputs, kw)
+
+
+def _dropout_generator(cfg: ExperimentConfig, device):
+    """The engine's dropout generator: a ``torch.Generator`` on
+    ``device`` seeded from ``cfg.seed``, apart from the generators of the
+    weights and the shot draw (None without dropout)."""
+    if cfg.dropout <= 0:
+        return None
+    return torch.Generator(device=device).manual_seed(cfg.seed)
+
+
+def _step_masks(gen):
+    """A function returning ``gen`` rewound to its state at this call
+    (None for None): every training decode of one optimizer step, an
+    L-BFGS step's line-search probes included, draws the same dropout
+    masks, as the JAX engines' step reuses one key; the next step draws
+    new ones."""
+    if gen is None:
+        return lambda: None
+    state = gen.get_state()
+
+    def rewound():
+        gen.set_state(state)
+        return gen
+
+    return rewound
 
 
 class _Lbfgs:
@@ -241,14 +273,14 @@ class AcousticDIPEngine(EngineBase):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (shot sharding) is not ported yet (ROADMAP Queue A, "
-                "item 14)")
+                "item 13)")
         if cfg.dataroot:
             raise NotImplementedError(
                 "dataroot workloads are not ported yet (ROADMAP Queue A, "
-                "item 12)")
+                "item 10)")
         if cfg.encoded_shots > 0:
             raise NotImplementedError(
-                "encoded_shots is not ported yet (ROADMAP Queue A, item 11)")
+                "encoded_shots is not ported yet (ROADMAP Queue A, item 9)")
         self.cfg = cfg
         if device is None:
             device = (workload.device if workload is not None
@@ -337,6 +369,7 @@ class AcousticDIPEngine(EngineBase):
                 seed=cfg.seed + 101, chunk=cfg.chunk, device=self.device)
         self.opt = _make_optimizer(cfg, self.net)
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
+        self._drop_gen = _dropout_generator(cfg, self.device)
         self._build_physics()
 
     def _kernel_rows(self, pd, dir_rows):
@@ -434,11 +467,14 @@ class AcousticDIPEngine(EngineBase):
         return _PhysicsLoss.apply(
             vp, lambda v: self.physics_value_and_grad(v, fc))
 
-    def _total_loss(self, use_physics: bool, fc: float = 0.0, params=None):
+    def _total_loss(self, use_physics: bool, fc: float = 0.0, params=None,
+                    generator=None):
         """(loss, model MSE) of the generator (with its parameters
-        replaced by ``params`` where given)."""
+        replaced by ``params`` where given, dropout masks from
+        ``generator``)."""
         cfg = self.cfg
-        out = pack_output(_call(self.net, params, self.shots_in))
+        out = pack_output(_call(self.net, params, self.shots_in,
+                                generator=generator))
         vp = apply_velocity_output(out.field, self.true_b,
                                    water_vel=cfg.water_vel)[0, :, :, 0]
         model_mse = torch.mean((vp - self.wl.vp_true) ** 2)
@@ -460,11 +496,13 @@ class AcousticDIPEngine(EngineBase):
         sake, as in the JAX engine (the tether is an elastic recipe)."""
         use_physics = epoch > self.cfg.lstart
         fc = freq or 0.0
+        masks = _step_masks(self._drop_gen)
         if isinstance(self.opt, _Lbfgs):
             # the line search's probes evaluate the same loss (on the
             # card kernel B2 once a probe)
             (loss, model_mse), upd = self.opt.updates(
-                lambda params: self._total_loss(use_physics, fc, params))
+                lambda params: self._total_loss(use_physics, fc, params,
+                                                masks()))
             self.opt.apply(upd)
         else:
             if self.lr_policy is not None:
@@ -472,7 +510,8 @@ class AcousticDIPEngine(EngineBase):
                 for group in self.opt.param_groups:
                     group["lr"] = lr
             self.opt.zero_grad(set_to_none=True)
-            loss, model_mse = self._total_loss(use_physics, fc)
+            loss, model_mse = self._total_loss(use_physics, fc, None,
+                                               masks())
             loss.backward()
             self.opt.step()
         # one device sync for both scalars
@@ -551,17 +590,23 @@ class ElasticDIPEngine(EngineBase):
     RMS; ``phase_reset_opt`` makes a fresh optimizer at the first
     physics epoch; :meth:`guard_revert` and ``guard_lr_ramp`` serve the
     train loop's drift guard.
+
+    ``grad_illum_eps > 0`` (DENISE's EPRECOND, ``seam_elastic_robust``)
+    divides the gradient by the starting model's source illumination
+    (:meth:`_illum_weight`, computed once, at the first physics step);
+    ``grad_smooth`` smooths it (:func:`smooth_spatial`).  With
+    ``dropout > 0`` (``mcdip_uq``) every training decode samples dropout
+    masks from a generator of its own on the engine's device, seeded from
+    ``cfg.seed``; every other decode is deterministic, and
+    :meth:`mc_realizations` draws the MC-dropout ensemble.
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None, *,
                  device=None):
         why = [w for cond, w in (
             (mesh is not None,
-             "mesh (shot sharding): ROADMAP Queue A, item 14"),
-            (bool(cfg.dataroot), "dataroot: ROADMAP Queue A, item 12"),
-            (cfg.grad_illum_eps > 0,
-             "grad_illum_eps > 0 (EPRECOND): ROADMAP Queue A, item 5"),
-            (cfg.grad_smooth > 0, "grad_smooth > 0: ROADMAP Queue A, item 5"))
+             "mesh (shot sharding): ROADMAP Queue A, item 13"),
+            (bool(cfg.dataroot), "dataroot: ROADMAP Queue A, item 10"))
             if cond]
         if why:
             raise NotImplementedError("not ported yet: " + "; ".join(why))
@@ -650,6 +695,8 @@ class ElasticDIPEngine(EngineBase):
             cfg.clip_max or (4700.0, 2700.0, 3000.0))[: self.n_fields]
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         self._shot_gen = torch.Generator().manual_seed(cfg.seed + 7)
+        self._drop_gen = _dropout_generator(cfg, self.device)
+        self._ilw = None  # the EPRECOND weight, at the first physics step
         self._stage_cache = {}
         # trailing-tether state (cfg.tether_mode="stage")
         self._tether_ref = None
@@ -763,13 +810,29 @@ class ElasticDIPEngine(EngineBase):
             misfit="l2" if self.cfg.misfit == "snl2" else self.cfg.misfit)
         return loss, torch.stack([grads[k] for k in self.field_names], -1)
 
+    def _illum_weight(self):
+        """DENISE's EPRECOND weight [nz, nx]: 1 / (il + grad_illum_eps),
+        il the source illumination of the starting model over all shots
+        (:func:`elastic_illumination`) over its maximum.  Computed once,
+        on the engine's device, the first time a step needs it: an engine
+        built only to evaluate never pays for it."""
+        if self._ilw is None:
+            wl = self.wl
+            il = elastic_illumination(
+                wl.start["vp"], wl.start["vs"], wl.start["rho"], wl.wavelet,
+                *wl.geom[:2], wl.cfg)
+            self._ilw = 1.0 / (il / torch.amax(il) + self.cfg.grad_illum_eps)
+        return self._ilw
+
     def _processed_value_and_grad(self, m, shot_idx, pd, rho=None):
         """(loss, processed dJ/dm [nz, nx, F]) on the engine's path (B3,
         or autograd through the path's propagator): per field the
-        top-rows taper, depth^p weighting, ``grad_scale`` or the rescale
-        to the model, and the field weight ``pd["fw"]``; then the tether
-        toward ``pd["lowf_m"]`` with weight ``pd["tw"]`` times the
-        gradient's RMS."""
+        top-rows taper, the EPRECOND weight ``pd["ilw"]`` (with
+        ``grad_illum_eps > 0``), ``grad_smooth`` binomial passes,
+        depth^p weighting (only without EPRECOND, which replaces it),
+        ``grad_scale`` or the rescale to the model, and the field weight
+        ``pd["fw"]``; then the tether toward ``pd["lowf_m"]`` with weight
+        ``pd["tw"]`` times the gradient's RMS."""
         cfg = self.cfg
         taper_rows = (cfg.grad_taper_rows if cfg.grad_taper_rows
                       is not None else cfg.water_rows)
@@ -780,7 +843,13 @@ class ElasticDIPEngine(EngineBase):
         for k in range(self.n_fields):
             g = taper_top(gm[..., k], taper_rows,
                           smooth=cfg.grad_taper_smooth)
-            if cfg.grad_depth_power > 0:
+            if cfg.grad_illum_eps > 0:
+                g = g * pd["ilw"]
+            if cfg.grad_smooth > 0:
+                g = smooth_spatial(g, cfg.grad_smooth)
+            if cfg.grad_depth_power > 0 and cfg.grad_illum_eps <= 0:
+                # the illumination weight replaces the depth ramp: both
+                # would boost deep cells by ~z^p / eps
                 g = depth_weighting(g, cfg.grad_depth_power)
             if cfg.grad_rescale == "max":
                 g = rescale_to_model(g, m[..., k])
@@ -807,10 +876,16 @@ class ElasticDIPEngine(EngineBase):
 
         return physics_loss
 
-    def _decode(self, params=None):
+    def _decode(self, params=None, generator=None):
         """The decoder's model [1, nz, nx, F] (with the generator's
-        parameters replaced by ``params`` where given)."""
-        deltas, _ = _call(self.net, params, self.in_vx, self.in_vz)
+        parameters replaced by ``params`` where given; dropout masks from
+        ``generator``, deterministic without one)."""
+        deltas, _ = _call(self.net, params, self.in_vx, self.in_vz,
+                          generator=generator)
+        return self._model(deltas)
+
+    def _model(self, deltas):
+        """The model [B, nz, nx, F] of the decoder's ``deltas``."""
         return apply_elastic_output(
             deltas, self.lowf, self.true_m, delta_scale=self.delta_scale,
             clip_min=self.clip_min, clip_max=self.clip_max,
@@ -832,9 +907,12 @@ class ElasticDIPEngine(EngineBase):
 
     def _phys(self, fc, epoch: int, stage_i: int, tether_m):
         cfg = self.cfg
-        return dict(self._stage_pack(fc), fw=self._field_weights(epoch),
-                    tw=cfg.tether_weight * cfg.tether_decay ** stage_i,
-                    lowf_m=tether_m)
+        pd = dict(self._stage_pack(fc), fw=self._field_weights(epoch),
+                  tw=cfg.tether_weight * cfg.tether_decay ** stage_i,
+                  lowf_m=tether_m)
+        if cfg.grad_illum_eps > 0:
+            pd["ilw"] = self._illum_weight()
+        return pd
 
     def optimize_parameters(self, epoch: int, freq: float | None = None,
                             tether_stage: int | None = None):
@@ -889,9 +967,10 @@ class ElasticDIPEngine(EngineBase):
             tether_m = self._tether_ref
         phys = self._phys(fc, epoch, stage_i, tether_m) if use_physics else None
         physics_loss = self._make_physics_loss()
+        masks = _step_masks(self._drop_gen)
 
         def total_loss(params):
-            m = self._decode(params)
+            m = self._decode(params, masks())
             if use_physics:
                 loss_d = physics_loss(m[0], idx, phys)
                 loss = loss_d
@@ -918,7 +997,11 @@ class ElasticDIPEngine(EngineBase):
             loss.backward()
             step = self.opt.step
         if cfg.step_cap > 0 and use_physics:
-            self._capped_step(m.detach(), self._step_cap(stage_i), step)
+            # the cap measures deterministic decodes: under dropout the
+            # step's own model is a masked one
+            m_old = m.detach() if self._drop_gen is None else \
+                self._sample_model()
+            self._capped_step(m_old, self._step_cap(stage_i), step)
         else:
             step()
         # one device sync for both scalars
@@ -954,7 +1037,7 @@ class ElasticDIPEngine(EngineBase):
         rounds ``s = min(1, cap / dm(1))``, ``s *= min(1, cap / dm(s))``
         with dm(s) the RMS of decode(p_old + s u) - m_old, and p = p_old +
         s u.  The optimizer's state advances unscaled, as optax's does.
-        ``m_old`` is the step's own decoded model."""
+        ``m_old`` is the deterministic decode before the step."""
         params = list(self.net.parameters())
         old = [p.detach().clone() for p in params]
         step()
@@ -1021,6 +1104,19 @@ class ElasticDIPEngine(EngineBase):
         mse = torch.mean((m - self.true_m) ** 2)
         return {"loss_V_MSE": float(mse)}, m[0].cpu().numpy()
 
+    @torch.no_grad()
+    def mc_realizations(self, n: int, seed: int = 0) -> np.ndarray:
+        """MC-dropout posterior samples, numpy [n, nz, nx, F]: the latent
+        of the observed gathers (the encoder has no dropout) repeated n
+        times through one batched decoder pass, each copy with its own
+        masks from a generator seeded with ``seed`` (GroupNorm is per
+        sample, so the batch does not mix the copies)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        z = self.net.encode(self.in_vx, self.in_vz)
+        deltas = self.net.decode(z.expand(n, -1), deterministic=False,
+                                 generator=gen)
+        return self._model(deltas).cpu().numpy()
+
 
 _ENGINES: dict[str, Any] = {
     "acoustic_dip": AcousticDIPEngine,
@@ -1033,5 +1129,5 @@ def create_engine(cfg: ExperimentConfig, **kw):
     if cfg.engine not in _ENGINES:
         raise NotImplementedError(
             f"engine {cfg.engine!r} is not ported yet (ROADMAP Queue A, "
-            "items 9 and 11)")
+            "item 9)")
     return _ENGINES[cfg.engine](cfg, **kw)

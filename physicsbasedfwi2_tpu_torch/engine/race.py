@@ -108,7 +108,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.dataroot:
         raise NotImplementedError(
-            "--dataroot is not ported yet (ROADMAP Queue A, item 12)")
+            "--dataroot is not ported yet (ROADMAP Queue A, item 10)")
     try:
         cfg = get_workload(args.workload,
                            **parse_set_overrides(args.overrides))

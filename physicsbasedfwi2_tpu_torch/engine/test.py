@@ -3,13 +3,15 @@
 
 Load a checkpoint into a new engine, decode its model and write
 ``model.npy`` and ``metrics.json`` (the validation losses) under
-``results/<name>/epoch_<tag>/``.  Run it as
+``results/<name>/epoch_<tag>/``; with ``--realization N > 1`` on an
+elastic engine, the MC-dropout ensemble's ``mc_mean.npy`` and
+``mc_std.npy`` instead of ``model.npy``.  Run it as
 
     python -m physicsbasedfwi2_tpu_torch.engine.test \\
         --workload marmousi_elastic_robust --epoch selected
 
-on the first CUDA card, or with ``--device cpu``.  MC-dropout sampling
-(``--realization > 1``) and ``--dataroot`` are not ported yet and raise.
+on the first CUDA card, or with ``--device cpu``.  ``--dataroot`` is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -32,12 +34,12 @@ def evaluate(cfg, *, epoch="latest", realizations: int = 1,
              results_dir: str = "./results", workload=None, device=None):
     """Decode the checkpoint ``epoch`` (a fresh engine where there is
     none) and write its model and validation metrics; returns the
-    metrics.  ``device``: where the engine runs (default: the first CUDA
-    card; raises when there is none)."""
-    if realizations > 1:
-        raise NotImplementedError(
-            "realizations > 1 (MC-dropout sampling) is not ported yet "
-            "(ROADMAP Queue A, MC dropout)")
+    metrics.  With ``realizations > 1`` on an engine with
+    ``mc_realizations``, write the ensemble's mean and standard
+    deviation (numpy's, ddof 0) instead of the model, and add
+    ``realizations`` and ``mc_std_mean`` to the metrics.  ``device``:
+    where the engine runs (default: the first CUDA card; raises when
+    there is none)."""
     kw = {"device": device if device is not None else default_device()}
     if workload is not None:
         kw["workload"] = workload
@@ -48,9 +50,18 @@ def evaluate(cfg, *, epoch="latest", realizations: int = 1,
         pass  # a fresh engine (e.g. smoke tests)
     outdir = os.path.join(results_dir, cfg.name, f"epoch_{epoch}")
     os.makedirs(outdir, exist_ok=True)
-    losses, img = engine.test()
-    np.save(os.path.join(outdir, "model.npy"), img)
-    result = dict(losses)
+    if realizations > 1 and hasattr(engine, "mc_realizations"):
+        samples = engine.mc_realizations(realizations)
+        std = samples.std(0)
+        np.save(os.path.join(outdir, "mc_mean.npy"), samples.mean(0))
+        np.save(os.path.join(outdir, "mc_std.npy"), std)
+        losses, _ = engine.test()
+        result = {"realizations": realizations,
+                  "mc_std_mean": float(std.mean()), **losses}
+    else:
+        losses, img = engine.test()
+        np.save(os.path.join(outdir, "model.npy"), img)
+        result = dict(losses)
     with open(os.path.join(outdir, "metrics.json"), "w") as f:
         json.dump(result, f)
     return result
@@ -79,7 +90,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.dataroot:
         raise NotImplementedError(
-            "--dataroot is not ported yet (ROADMAP Queue A, item 12)")
+            "--dataroot is not ported yet (ROADMAP Queue A, item 10)")
     # the train CLI's precedence: dedicated flags, then --set, then --name
     overrides = {}
     if args.save_dir:

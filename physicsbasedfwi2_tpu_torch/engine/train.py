@@ -111,7 +111,7 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     if cfg.engine == "supervised":
         raise NotImplementedError(
             "the supervised loop is not ported yet (ROADMAP Queue A, "
-            "item 11)")
+            "item 9)")
     if engine is None:
         kw = {"device": device if device is not None else default_device()}
         if workload is not None:

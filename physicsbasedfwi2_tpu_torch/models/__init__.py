@@ -33,7 +33,7 @@ def define_generator(name: str, out_shape: tuple[int, int] | None = None,
     if key not in _GENERATORS:
         raise KeyError(
             f"unknown generator {name!r}; ported: {sorted(_GENERATORS)} "
-            f"(the other families wait in ROADMAP Queue A, item 11)")
+            f"(the other families wait in ROADMAP Queue A, item 8)")
     factory, defaults = _GENERATORS[key]
     kwargs = dict(defaults)
     kwargs.update(overrides)
@@ -58,7 +58,7 @@ register_generator("AutoElFullRhoMar22", ElasticAutoEncoderNet, n_fields=3)
 # the reference's AutoElMarmousiMarZp22_Net is the rho-inversion net
 # under a vestigial "Zp" label (three plain vp/vs/rho heads)
 register_generator("AutoElMarZp22", ElasticAutoEncoderNet, n_fields=3)
-# MC dropout: raises until dropout is ported (ROADMAP Queue A)
+# MC dropout (BASELINE config 5, mcdip_uq): dropout in each decoder block
 register_generator("AutoElMarMCDIP22", ElasticAutoEncoderNet, n_fields=2,
                    dropout=0.1)
 

@@ -43,7 +43,9 @@ def _encoded_hw(nt: int, nr: int, time_decimation: int,
 
 class Decoder2D(nn.Module):
     """latent -> [B, nz, nx, out_channels] (NHWC), through a final
-    ``sigmoid`` (in [0, 1]), ``tanh`` or no activation (``none``)."""
+    ``sigmoid`` (in [0, 1]), ``tanh`` or no activation (``none``).  Each
+    up block ends in dropout at ``dropout`` (masks from ``generator``
+    unless ``deterministic``)."""
 
     def __init__(self, out_shape: tuple[int, int], out_channels: int = 1,
                  filters: Sequence[int] = (16, 32, 64, 128),
@@ -63,11 +65,12 @@ class Decoder2D(nn.Module):
             Up(cin, cout, norm, dropout) for cin, cout in zip(chans, chans[1:]))
         self.head = nn.Conv2d(filters[0], out_channels, 1)
 
-    def forward(self, z):
+    def forward(self, z, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         x = self.fc(z).reshape(-1, self.h0, self.w0, self.top)
         x = x.permute(0, 3, 1, 2)
         for up in self.ups:
-            x = up(x)
+            x = up(x, deterministic=deterministic, generator=generator)
         nz, nx = self.out_shape
         x = self.head(x[:, :, :nz, :nx])
         if self.final_activation == "sigmoid":
@@ -108,7 +111,8 @@ class AutoEncoderNet(nn.Module):
 
     ``in_shape`` is one sample's (nt, nr, num_shots): PyTorch sizes the
     encoder's Dense layer at construction, where Flax infers it at
-    init.  Returns (field01 [B, nz, nx, C], latent [B, latent_dim]).
+    init.  Returns (field01 [B, nz, nx, C], latent [B, latent_dim]);
+    ``deterministic`` and ``generator`` go to the decoder's dropout.
     """
 
     def __init__(self, out_shape: tuple[int, int],
@@ -122,7 +126,7 @@ class AutoEncoderNet(nn.Module):
         if use_cbam:
             raise NotImplementedError(
                 "use_cbam (Auto22CBAM) is not ported yet (ROADMAP Queue A, "
-                "item 11)")
+                "item 8)")
         self.encoder = Encoder2D(in_shape, latent_dim, filters,
                                  time_decimation, norm)
         self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
@@ -130,9 +134,11 @@ class AutoEncoderNet(nn.Module):
         if generator is not None:
             init_flax_like(self, generator)
 
-    def forward(self, shots):
+    def forward(self, shots, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         z = self.encoder(shots)
-        return self.decoder(z), z
+        return self.decoder(z, deterministic=deterministic,
+                            generator=generator), z
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -149,7 +155,9 @@ class ElasticAutoEncoderNet(nn.Module):
     head="linear": the decoder's raw output is the delta (no final
     activation); head="tanh": deltas in [-1, 1].  ``in_shape`` is one
     sample's (nt, nr, num_shots).  Returns (deltas [B, nz, nx,
-    n_fields], latent [B, latent_dim]).
+    n_fields], latent [B, latent_dim]).  Only the decoders carry dropout
+    (``deterministic`` and ``generator`` go to them): :meth:`decode` of
+    one latent repeated n times draws n independent dropout samples.
     """
 
     def __init__(self, out_shape: tuple[int, int],
@@ -176,12 +184,24 @@ class ElasticAutoEncoderNet(nn.Module):
         if generator is not None:
             init_flax_like(self, generator)
 
-    def forward(self, shots_vx, shots_vz):
+    def encode(self, shots_vx, shots_vz):
+        """The latent [B, latent_dim] of the vx and vz gathers."""
         x = torch.cat([_conv_nhwc(self.combine_vx, shots_vx),
                        _conv_nhwc(self.combine_vz, shots_vz)], dim=-1)
-        z = self.encoder(x)
-        return torch.cat([getattr(self, n)(z) for n in self.field_names],
-                         dim=-1), z
+        return self.encoder(x)
+
+    def decode(self, z, *, deterministic: bool = True,
+               generator: torch.Generator | None = None):
+        """The deltas [B, nz, nx, n_fields] of the latents ``z``."""
+        return torch.cat([getattr(self, n)(z, deterministic=deterministic,
+                                           generator=generator)
+                          for n in self.field_names], dim=-1)
+
+    def forward(self, shots_vx, shots_vz, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        z = self.encode(shots_vx, shots_vz)
+        return self.decode(z, deterministic=deterministic,
+                           generator=generator), z
 
 
 class _ClipSTE(torch.autograd.Function):

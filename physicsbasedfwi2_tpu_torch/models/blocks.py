@@ -5,8 +5,11 @@ The modules here work in NCHW, PyTorch's layout; the nets in
 :mod:`autoencoders` take and return NHWC at their public interface,
 as the Flax nets do.  Matching Flax: GroupNorm eps 1e-6, LeakyReLU
 slope 0.1, SAME 3x3 convolutions, floor 2x2 average pooling, bilinear
-2x resize with half-pixel centres, and lecun-normal (truncated normal,
-fan-in) kernels with zero biases from an explicit generator.
+2x resize with half-pixel centres, lecun-normal (truncated normal,
+fan-in) kernels with zero biases from an explicit generator, and
+``nn.Dropout``'s semantics (keep with probability 1 - rate, kept values
+scaled by 1 / (1 - rate)) with the mask drawn from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -61,28 +64,55 @@ def _norm(norm: str, features: int) -> nn.Module:
     if norm == "none":
         return nn.Identity()
     raise NotImplementedError(
-        f"norm={norm!r} is not ported yet (ROADMAP Queue A, item 11)")
+        f"norm={norm!r} is not ported yet (ROADMAP Queue A, item 8)")
+
+
+def dropout_mask(x: torch.Tensor, keep: float,
+                 generator: torch.Generator) -> torch.Tensor:
+    """A boolean mask of ``x``'s shape, each element True with
+    probability ``keep``, drawn from ``generator`` (on ``x``'s device)."""
+    return torch.rand(x.shape, generator=generator, dtype=x.dtype,
+                      device=x.device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, *, deterministic: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: ``x`` itself when ``deterministic`` or
+    ``rate`` is 0, zeros at rate 1, else each element kept with
+    probability 1 - rate (:func:`dropout_mask`) and scaled by
+    1 / (1 - rate)."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    return torch.where(dropout_mask(x, keep, generator), x / keep,
+                       torch.zeros_like(x))
 
 
 class ConvBlock(nn.Module):
-    """Two SAME 3x3 convs, each with norm + LeakyReLU(0.1)."""
+    """Two SAME 3x3 convs, each with norm + LeakyReLU(0.1), then dropout
+    at ``dropout`` (a mask from ``generator`` unless ``deterministic``)."""
 
     def __init__(self, in_channels: int, features: int, norm: str = "group",
                  dropout: float = 0.0):
         super().__init__()
-        if dropout > 0:
-            raise NotImplementedError(
-                "dropout > 0 is not ported yet (ROADMAP Queue A, item 11)")
+        self.dropout = dropout
         self.convs = nn.ModuleList([
             nn.Conv2d(in_channels, features, 3, padding=1),
             nn.Conv2d(features, features, 3, padding=1)])
         self.norms = nn.ModuleList([_norm(norm, features),
                                     _norm(norm, features)])
 
-    def forward(self, x):
+    def forward(self, x, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         for conv, norm in zip(self.convs, self.norms):
             x = F.leaky_relu(norm(conv(x)), LEAKY_SLOPE)
-        return x
+        return dropout(x, self.dropout, deterministic=deterministic,
+                       generator=generator)
 
 
 class Down(nn.Module):
@@ -112,8 +142,10 @@ class Up(nn.Module):
         super().__init__()
         self.block = ConvBlock(in_channels, features, norm, dropout)
 
-    def forward(self, x):
-        return self.block(resize_2x(x))
+    def forward(self, x, *, deterministic: bool = True,
+                generator: torch.Generator | None = None):
+        return self.block(resize_2x(x), deterministic=deterministic,
+                          generator=generator)
 
 
 def scale_to_range(x01: torch.Tensor, vmin, vmax) -> torch.Tensor:

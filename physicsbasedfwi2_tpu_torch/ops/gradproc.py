@@ -1,7 +1,8 @@
 """Gradient post-processing for FWI model gradients (port of
 ``physicsbasedfwi2_tpu/ops/gradproc.py``, the slice the acoustic and
 elastic engines use): depth^2 weighting, the water mask, the top-rows
-taper and the per-field rescale to the model magnitude."""
+taper, the per-field rescale to the model magnitude and the binomial
+spatial smoothing."""
 
 from __future__ import annotations
 
@@ -44,3 +45,16 @@ def rescale_to_model(grad: torch.Tensor, model: torch.Tensor,
     step)."""
     r = torch.amax(torch.abs(model)) / (torch.amax(torch.abs(grad)) + eps)
     return grad * r
+
+
+def smooth_spatial(grad: torch.Tensor, iters: int) -> torch.Tensor:
+    """Separable binomial [1/4, 1/2, 1/4] smoothing of a [nz, nx]
+    gradient, ``iters`` passes per axis, edge rows and columns replicated
+    (DENISE's spatial gradient filter, for the point singularities at the
+    source and receiver cells)."""
+    for _ in range(iters):
+        p = torch.cat([grad[:1], grad, grad[-1:]], 0)
+        grad = 0.25 * p[:-2] + 0.5 * p[1:-1] + 0.25 * p[2:]
+        p = torch.cat([grad[:, :1], grad, grad[:, -1:]], 1)
+        grad = 0.25 * p[:, :-2] + 0.5 * p[:, 1:-1] + 0.25 * p[:, 2:]
+    return grad

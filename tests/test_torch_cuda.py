@@ -876,6 +876,62 @@ def test_resident_b8_matches_per_step_ring_and_plain(dev, nz, cluster,
         assert rel_max(a, b) <= 1e-5
 
 
+@pytest.mark.parametrize("misfit", ["l2", "tnl1"])
+def test_seam_rows_b3_per_step_and_ring_forward(dev, misfit):
+    """seam_elastic's layout at a small width: a free surface and 144
+    rows in kernel layout (134 + 2 ring rows + PML 8), which no B3 plan
+    holds (the per-step route) and the forward plan cuts into 9-row
+    bands; sources on row 6 (in band 0), receivers on row 23 (band 2)."""
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        make_elastic_model, make_marmousi_like)
+    grid, cfg, wargs, _, _ = elastic_case(free_surface=True)
+    cfg = torch_elastic(dict(grid, nz=134, nt=60), cfg)
+    nz8, nx128 = ef._layout(cfg)[4:]
+    assert (nz8, nx128) == (144, 128)
+    assert ef.elastic_resident_plan(nz8, nx128) is None
+    assert ef.elastic_forward_plan(nz8, nx128).band_rows == 9
+    med = tuple(torch.as_tensor(a, device=dev) for a in make_elastic_model(
+        make_marmousi_like(134, 48, seed=0, water_rows=4), water_rows=4))
+    ns = 3
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.full(ns, 6, np.int32), np.array([4, 24, 43], np.int32),
+        np.full((ns, 8), 23, np.int32),
+        np.tile(np.arange(8, dtype=np.int32) * 6 + 2, (ns, 1))))
+    wav = ricker(wargs[0], 60, wargs[2], device=dev)
+    ring = ef.simulate_elastic_ring
+    before = _routes(ring)
+    obs = ring(*med, wav, *geom, cfg)
+    per = ring(*med, wav, *geom, cfg, route="per_step")
+    torch.cuda.synchronize()
+    assert _routes(ring) == (before[0] + 1, before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(obs, per))
+    for a, b in zip(obs, ef.simulate_elastic_ring_plain(*med, wav, *geom,
+                                                         cfg)):
+        assert float(a.abs().max()) > 0
+        assert rel_max(a, b) <= 1e-5
+    if misfit == "tnl1":
+        obs = tuple(trace_normalize(o) for o in obs)
+    rows = [ef.scatter_rows_el(o, geom[3], cfg, KC=8) for o in obs]
+    damp = ef.prep_damp(cfg, dev)
+    fn = ef.fused_elastic_loss_grad_meds
+    before = _routes(fn)
+    l_true, _ = fn(ef.prep_medium(*med, cfg), damp, wav, *geom, cfg, *rows,
+                   KC=8, misfit=misfit)
+    args = (ef.prep_medium(med[0] * 0.95, med[1], med[2], cfg), damp, wav,
+            *geom, cfg, *rows)
+    lk, gk = fn(*args, KC=8, misfit=misfit)
+    torch.cuda.synchronize()
+    assert _routes(fn) == (before[0], before[1] + 2)
+    # the ring forward's traces are B3's forward: zero misfit at the truth
+    assert float(l_true) <= 1e-9
+    lp, gp = ef.fused_elastic_loss_grad_meds_plain(*args, KC=8,
+                                                   misfit=misfit)
+    np.testing.assert_allclose(float(lk), float(lp), rtol=1e-5)
+    for a, b in zip(gk, gp):
+        assert float(a.abs().max()) > 0
+        assert rel_l2(a, b) <= 1e-4
+
+
 def test_forward_grid_beyond_the_plan_takes_the_other_routes(dev):
     # 48 x 512 in kernel layout: wider than the plan's 384 threads
     grid = dict(nz=32, nx=400, dx=15.0, nt=24, dt=0.0015, pml_width=8,

@@ -424,5 +424,10 @@ def test_elastic_registry():
         f, _ = net(torch.zeros(1, 64, 16, 3) + 0.1,
                    torch.zeros(1, 64, 16, 3) - 0.1)
         assert f.shape == (1, 20, 24, nf)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        define_generator("AutoElMarMCDIP22", **kw)
+    # MC dropout: the decoders' blocks drop at 0.1, the encoder's do not
+    net = define_generator("AutoElMarMCDIP22", head="linear", **kw)
+    assert isinstance(net, ElasticAutoEncoderNet) and net.n_fields == 2
+    rates = {name.split(".")[0]: m.dropout for name, m in net.named_modules()
+             if type(m).__name__ == "ConvBlock"}
+    assert rates == {"encoder": 0.0, "decoder_field0": 0.1,
+                     "decoder_field1": 0.1}

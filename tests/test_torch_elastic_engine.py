@@ -163,15 +163,25 @@ def test_train_cli_elastic_small_runs_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("name", ["marmousi_elastic_real",
                                   "marmousi_elastic_parity",
-                                  "marmousi_elastic_rho"])
+                                  "marmousi_elastic_rho",
+                                  "marmousi_elastic_zp",
+                                  "seam_elastic", "seam_elastic_seabed",
+                                  "seam_elastic_robust", "mcdip_uq",
+                                  "mcdip_uq_robust"])
 def test_elastic_variants_train_on_cpu(tmp_path, name):
-    """The untethered, the strict-parity (raw L2, per-field rescale) and
-    the density-inversion recipes, at the CLI's small size."""
+    """The untethered, the strict-parity (raw L2, per-field rescale), the
+    density-inversion (rho, Zp) recipes, the SEAM family (sources on row
+    6, receivers on row 23 or following the seabed; EPRECOND in the
+    robust recipe) and MC dropout, at the CLI's small size."""
     cfg = config.get_workload(name, save_dir=str(tmp_path)).replace(
         nz=40, nx=48, nt=120, num_shots=3, num_receivers=16,
         filters=(4, 8, 16), water_rows=6, lstart=1)
     engine, hist = train(cfg, epochs=3, quiet=True, device="cpu")
-    assert engine.n_fields == (3 if name.endswith("rho") else 2)
+    assert engine.n_fields == (3 if name.endswith(("rho", "zp")) else 2)
+    # the seabed-following receivers are multi-row: the "fast" path
+    assert engine.physics_path == ("fast" if name.endswith("seabed")
+                                   else "fused-plain")
+    assert (engine._ilw is not None) == (cfg.grad_illum_eps > 0)
     assert hist[0]["loss_D_MSE"] == 0.0
     assert all(r["loss_D_MSE"] > 0.0 for r in hist[1:])
     assert hist[-1]["freq_stage"] == cfg.freq_stages[0]
@@ -214,15 +224,20 @@ def test_unported_elastic_options_raise(el_run):
             wl), device="cpu")
         assert e.physics_path == path, kw
         assert isinstance(e.opt, t_engines._Lbfgs) == ("optimizer" in kw)
+    # ported since: EPRECOND (its weight waits for the first physics
+    # step), gradient smoothing and MC dropout (a dropout generator of
+    # its own)
     for kw in (dict(grad_illum_eps=0.1), dict(grad_smooth=2),
-               dict(optimizer="sgld")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ElasticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")
+               dict(netG="AutoElMarMCDIP22", dropout=0.1)):
+        e = ElasticDIPEngine(cfg.replace(**kw), workload=dataclasses.replace(
+            wl), device="cpu")
+        assert e.physics_path == "fused-plain" and e._ilw is None, kw
+        assert (e._drop_gen is not None) == ("dropout" in kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ElasticDIPEngine(cfg.replace(optimizer="sgld"), workload=wl,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticDIPEngine(cfg, workload=wl, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ElasticDIPEngine(cfg.replace(netG="AutoElMarMCDIP22", dropout=0.1),
-                         workload=wl, device="cpu")
     assert t_engines._ENGINES["elastic_dip"] is ElasticDIPEngine
     assert isinstance(create_engine(cfg, workload=wl, device="cpu"),
                       ElasticDIPEngine)

@@ -318,8 +318,15 @@ def test_test_cli_on_cpu(tmp_path, capsys):
 
 def test_test_cli_unported_options_raise(tmp_path):
     cfg = _small(tmp_path, "t_unported")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        t_test.evaluate(cfg, realizations=4, device="cpu")
+    # realizations > 1 is ported: without dropout the ensemble's samples
+    # are all the deterministic model, so its spread is 0
+    got = t_test.evaluate(cfg, realizations=4, device="cpu",
+                          results_dir=str(tmp_path / "res"))
+    out = tmp_path / "res" / "t_unported" / "epoch_latest"
+    assert set(got) == {"realizations", "mc_std_mean", "loss_V_MSE"}
+    assert got["realizations"] == 4 and got["mc_std_mean"] == 0.0
+    assert sorted(os.listdir(out)) == ["mc_mean.npy", "mc_std.npy",
+                                       "metrics.json"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
         t_test.main(["--workload", "marmousi_elastic", "--dataroot",
                      str(tmp_path), "--device", "cpu"])

@@ -137,7 +137,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
     resident once a physics epoch, dropout masks on every training
     decode), ``mc_realizations(32)`` timed and its seeds, and
     ``evaluate(realizations=32)`` of the run's ``latest`` checkpoint
-    (``mc_std`` 0 in the pinned water rows, > 0 below them).
+    (``mc_std`` 0 in the pinned water rows, > 0 below them);
+18. BASELINE config 2 and the acoustic generator zoo: ``marmousi_acoustic``'s
+    workload and validation twin built once, each engine on a copy:
+    ``marmousi_acoustic_unet`` (Unet22 at full resolution, 3 epochs; one
+    generator forward and one forward + backward timed), ``_vae``, ``_nf``
+    and ``_vaeflow`` (3 epochs each; a VAE's two training decodes differ,
+    its two ``test()`` calls are equal), ``marmousi_acoustic`` with
+    ``netG="Auto22CBAM"`` and with ``optimizer="sgld"`` (2 epochs each),
+    B2 resident once an epoch on every one; ``mcdip_uq`` under
+    ``optimizer="sghmc"`` (lstart + 2 epochs, B3 and the ring forward
+    resident); one SGLD and one SGHMC step's noise statistics on 1e6
+    elements on the card.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -2503,6 +2514,320 @@ def phase_config5(dev):
     return launches, b3, ring
 
 
+# the acoustic engine's grid and acquisition fields: the five phase-18
+# configs share marmousi_acoustic's values of each
+ACOUSTIC_BUILD = ("nz", "nx", "dx", "nt", "dt", "pml_width", "freq",
+                  "num_shots", "num_receivers", "seed", "chunk")
+
+
+def _vae_logvar(engine):
+    """The VAE engine's encoder logvar [1, latent] of its input."""
+    import torch
+    with torch.no_grad():
+        return engine.net.encoder(engine.shots_in).chunk(2, dim=-1)[1]
+
+
+def _acoustic_run(dev, wl, twin, name, epochs, **overrides):
+    """``train(get_workload(name, **overrides), epochs=epochs)`` on a
+    copy of the shared workload ``wl`` (validated on ``twin``): prints the
+    epochs, the peak memory and B1's and B2's launches, checks the fused
+    path, B2 resident once an epoch, B1 resident and every number finite.
+    A VAE engine's latent draws are checked before it trains
+    (:func:`_vae_draws`), and its encoder logvar is read after every step:
+    the registered VAE recipe's first Adam step (lr 0.01, a step of lr *
+    sign(gradient) in every weight) moves the logvar through the encoder's
+    Dense over ~95k features by ~100 or more, in the JAX package as here
+    (tests/test_torch_acoustic_zoo.py), and exp(logvar / 2) then
+    overflows float32 downstream.  So a VAE's epochs after the first may
+    be non-finite, but only after such a move.
+    Returns (engine, history, launches)."""
+    import dataclasses
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import AcousticDIPEngine
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops import fwi_fused, scalar2
+    cfg = get_workload(name, save_dir=str(ROOT / "build" / "chip_smoke"),
+                       **overrides)
+    base = get_workload("marmousi_acoustic")
+    check(all(getattr(cfg, f) == getattr(base, f) for f in ACOUSTIC_BUILD),
+          f"{name}: not marmousi_acoustic's grid and acquisition")
+    b1, b2 = scalar2.forward2, fwi_fused.fwi_l1_loss_grad
+    scalar2.reset_launches(b1, b2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    engine = AcousticDIPEngine(cfg, workload=dataclasses.replace(wl),
+                               val_workload=twin, device=dev)
+    what = name + "".join(f" {k}={v}" for k, v in overrides.items())
+    moves = []
+    if engine.is_vae:
+        _vae_draws(engine, what)
+        step = engine.optimize_parameters
+        lv0 = _vae_logvar(engine)
+
+        def logged(epoch, **kw):
+            out = step(epoch, **kw)
+            moves.append(float((_vae_logvar(engine) - lv0).abs().max()))
+            return out
+
+        engine.optimize_parameters = logged
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {"forward2": b1.launches, "fwi_l1_loss_grad": b2.launches}
+    for rec in history:
+        print("epoch", json.dumps(rec))
+    secs = ", ".join(f"{r['epoch_time']:.4f}" for r in history)
+    print(f"phase 18 {what}: {cfg.netG}, optimizer {cfg.optimizer}; "
+          f"{total:.2f} s in all (engine setup included), epochs {secs} s; "
+          f"peak memory {peak:.2f} GiB; launches {launches} (B1 resident "
+          f"{b1.resident_launches}, B2 resident {b2.resident_launches})")
+    check(engine.physics_path == "fused-cuda",
+          f"{what}: physics path {engine.physics_path}")
+    check(b2.launches == b2.resident_launches == epochs,
+          f"{what}: B2 not resident once an epoch")
+    check(b1.launches >= 2 and b1.per_step_launches == 0,
+          f"{what}: B1 not resident for obs + direct")
+    if moves:
+        print(f"phase 18 {what}: max |logvar - logvar at the start| after "
+              f"each step {[f'{m:.4g}' for m in moves]}")
+    for rec in history:
+        bad = [k for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        recipe = bool(moves) and rec["epoch"] > 1 and moves[0] > 100
+        check(not bad or recipe, f"{what} epoch {rec['epoch']}: non-finite "
+              f"{bad}")
+        if bad:
+            print(f"phase 18 {what} epoch {rec['epoch']}: non-finite {bad} "
+                  f"after the first step moved the logvar by "
+                  f"{moves[0]:.4g} (the recipe's overflow)")
+    return engine, history, launches
+
+
+def _vae_draws(engine, what: str) -> None:
+    """Two training decodes of a VAE engine from the same weights differ
+    (latent noise from its generator on the card); two ``test()`` calls
+    (z = mu) are equal.  (The draws advance the engine's latent
+    generator.)"""
+    import numpy as np
+    import torch
+    gen = engine._latent_gen
+    with torch.no_grad():
+        a, b = (engine.net(engine.shots_in, deterministic=False,
+                           generator=gen)[0] for _ in range(2))
+    (va, ma), (vb, mb) = engine.test(), engine.test()
+    print(f"phase 18 {what}: latent generator on {gen.device}; two "
+          f"training decodes differ by {float((a - b).abs().max()):.3e} "
+          f"(max); two test() calls equal {np.array_equal(ma, mb)}, "
+          f"loss_V_MSE {va['loss_V_MSE']:.6g}")
+    check(gen.device.type == "cuda", f"{what}: latent noise not on the card")
+    check(not torch.equal(a, b), f"{what}: training decodes equal")
+    check(np.array_equal(ma, mb) and va == vb,
+          f"{what}: test() is not deterministic")
+
+
+def _unet_net_timing(engine) -> None:
+    """One Unet22 forward, and one forward + backward, at full width (the
+    engine's [1, 4001, 200, 18] input), timed with CUDA events."""
+    import torch
+    net, x = engine.net, engine.shots_in
+    w = torch.randn(1, engine.cfg.nz, engine.cfg.nx, 1, device=x.device,
+                    generator=torch.Generator(device=x.device).manual_seed(0))
+
+    def forward():
+        with torch.no_grad():
+            return net(x)[0]
+
+    def forward_backward():
+        net.zero_grad(set_to_none=True)
+        (net(x)[0] * w).sum().backward()
+
+    field, ms_f = timed_ms(forward, repeats=5)
+    torch.cuda.reset_peak_memory_stats(x.device)
+    _, ms_fb = timed_ms(forward_backward, repeats=5)
+    peak = torch.cuda.max_memory_allocated(x.device) / 2**30
+    n_par = sum(p.numel() for p in net.parameters())
+    print(f"phase 18 Unet22 generator at full width, input "
+          f"{tuple(x.shape)}, {n_par} weights: forward {ms_f:.2f} ms, "
+          f"forward + backward {ms_fb:.2f} ms, peak memory "
+          f"{peak:.2f} GiB; field {tuple(field.shape)}")
+    check(tuple(field.shape) == (1, engine.cfg.nz, engine.cfg.nx, 1)
+          and bool(torch.isfinite(field).all()), "Unet22 field")
+    net.zero_grad(set_to_none=True)
+
+
+def _sgmcmc_noise(dev) -> None:
+    """One SGLD and one SGHMC step on a 1e6-element parameter on the card
+    with a zero gradient: the update is the noise alone, so its sample
+    std is sqrt(2 lr T) (SGHMC: sqrt(2 a lr T)) within 1 %, its mean
+    within 3 sigma / sqrt(n) of 0; a parameter without a gradient moves
+    the same way."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.optim import sghmc, sgld
+    n, lr = 10**6, 1e-3
+    for name, make, sigma in (
+            ("SGLD", lambda p: sgld([p], lr, seed=0), math.sqrt(2 * lr)),
+            ("SGHMC", lambda p: sghmc([p], lr, seed=0),
+             math.sqrt(2 * 0.05 * lr))):
+        p = torch.nn.Parameter(torch.zeros(n, device=dev))
+        p.grad = torch.zeros_like(p)
+        opt = make(p)
+        opt.step()
+        q = torch.nn.Parameter(torch.zeros(n, device=dev))  # .grad None
+        make(q).step()
+        std, mean = float(p.detach().std()), float(p.detach().mean())
+        print(f"phase 18 {name} step, {n} elements on "
+              f"{opt.generator.device}: update std {std:.6e} against "
+              f"{sigma:.6e} ({std / sigma - 1:+.2e}), mean {mean:+.3e} "
+              f"(3 sigma / sqrt(n) = {3 * sigma / math.sqrt(n):.3e}); "
+              f"without a gradient equal {torch.equal(p, q)}")
+        check(opt.generator.device.type == "cuda",
+              f"{name}: generator not on the card")
+        check(abs(std / sigma - 1) < 0.01, f"{name}: noise std {std}")
+        check(abs(mean) < 3 * sigma / math.sqrt(n), f"{name}: mean {mean}")
+        check(torch.equal(p, q), f"{name}: a parameter without a gradient "
+              "does not move as one with a zero gradient")
+
+
+def _mcdip_sghmc(dev):
+    """``mcdip_uq`` under SGHMC for lstart + 2 epochs: B3 resident once a
+    physics epoch, the ring forward resident at setup.  SGHMC at
+    temperature 1 and the recipe's lr 1e-3 random-walks the weights (noise
+    std sqrt(2 a lr) = 0.01 a step, carried by the momentum), and the
+    decoded model lands on its clip bounds within the warmup.  The clips
+    are per field, so a training decode (its dropout masks included) can
+    put vs above sqrt(3/4) vp in a few cells, where the bulk modulus is
+    negative and the explicit scheme blows up: B3's loss is then not
+    finite.  Each physics epoch whose loss is not finite is run again, on
+    the same model, shots and data, through B3's plain version on the
+    card: the plain version must give a non-finite loss there too, and a
+    gradient as finite as the kernel's."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import ElasticDIPEngine
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    from physicsbasedfwi2_tpu_torch.optim import SGHMC
+    cfg = get_workload("mcdip_uq", optimizer="sghmc",
+                       save_dir=str(ROOT / "build" / "chip_smoke"))
+    b3 = elastic_fused.fused_elastic_loss_grad_meds
+    ring = elastic_fused.simulate_elastic_ring
+    reset_launches(b3, ring)
+    epochs = cfg.lstart + 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    engine = ElasticDIPEngine(cfg, device=dev)
+    kernel_vg = engine._fused_value_and_grad
+    nonfinite = []
+
+    def recorded(m, shot_idx, pd, rho=None):
+        loss, grad = kernel_vg(m, shot_idx, pd, rho)
+        if not math.isfinite(float(loss)):
+            nonfinite.append((m.clone(), shot_idx.clone(), pd, grad))
+        return loss, grad
+
+    engine._fused_value_and_grad = recorded
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {"fused_elastic_loss_grad": b3.launches,
+                "simulate_elastic_ring": ring.launches}
+    for rec in history[:1] + history[cfg.lstart - 1:]:
+        print("epoch", json.dumps(rec))
+    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
+    print(f"phase 18 mcdip_uq optimizer=sghmc: {epochs} epochs in "
+          f"{total:.2f} s (setup included); physics epochs "
+          f"{', '.join(f'{x:.4f}' for x in phys)} s; launches {launches} "
+          f"(B3 resident {b3.resident_launches}, ring forward resident "
+          f"{ring.resident_launches}); peak memory {peak:.2f} GiB")
+    check(isinstance(engine.opt, SGHMC)
+          and engine.opt.generator.device.type == "cuda",
+          "mcdip_uq: not SGHMC with its noise on the card")
+    check(engine.physics_path == "fused-cuda",
+          f"physics path {engine.physics_path}")
+    check(b3.launches == b3.resident_launches == 2,
+          "mcdip_uq under SGHMC: B3 not resident once a physics epoch")
+    check(ring.launches >= 1 and ring.per_step_launches == 0,
+          "mcdip_uq under SGHMC: ring forward not resident")
+    n_bad = 0
+    for rec in history:
+        bad = [k for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        check(bad in ([], ["loss_D_MSE"]) and (not bad
+                                               or rec["epoch"] > cfg.lstart),
+              f"mcdip_uq under SGHMC epoch {rec['epoch']}: non-finite {bad}")
+        n_bad += bool(bad)
+    check(len(nonfinite) == n_bad, "non-finite losses not all recorded")
+    kernel = elastic_fused.fused_elastic_loss_grad_meds
+    for m, idx, pd, grad in nonfinite:
+        elastic_fused.fused_elastic_loss_grad_meds = \
+            elastic_fused.fused_elastic_loss_grad_meds_plain
+        try:
+            lp, gp = kernel_vg(m, idx, pd)
+        finally:
+            elastic_fused.fused_elastic_loss_grad_meds = kernel
+        fk, fp = bool(torch.isfinite(grad).all()), bool(
+            torch.isfinite(gp).all())
+        vp, vs = m[..., 0], m[..., 1]
+        print(f"phase 18 mcdip_uq under SGHMC: a non-finite B3 loss on a "
+              f"model with vp {float(vp.min()):.0f}-{float(vp.max()):.0f}, "
+              f"vs {float(vs.min()):.0f}-{float(vs.max()):.0f} m/s and "
+              f"{int((3 * vp**2 < 4 * vs**2).sum())} cells with vs > "
+              f"sqrt(3/4) vp; the plain version's loss {float(lp)}; "
+              f"gradient finite: kernel {fk}, plain {fp}")
+        check(not math.isfinite(float(lp)) and fk == fp,
+              "B3's non-finite loss is not its plain version's")
+    return launches
+
+
+def phase_config2(dev):
+    """BASELINE config 2 (Unet22) and the acoustic generator zoo at full
+    width on one shared workload, then SGLD and SGHMC.  Returns the
+    paths' launches."""
+    import collections
+    import torch
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticAcousticWorkload)
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    base = get_workload("marmousi_acoustic")
+    kw = {f: getattr(base, f) for f in ACOUSTIC_BUILD if f != "seed"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wl = SyntheticAcousticWorkload.build(**kw, seed=base.seed, device=dev)
+    # the engines' validation twin (validate_on_twin), built once too
+    twin = SyntheticAcousticWorkload.build(**kw, seed=base.seed + 101,
+                                           device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 18: marmousi_acoustic's workload and its twin "
+          f"{base.nz}x{base.nx}, nt {base.nt}, {base.num_shots} shots x "
+          f"{base.num_receivers} receivers, built once in "
+          f"{time.perf_counter() - t0:.2f} s for the acoustic engines")
+    launches = collections.Counter()
+
+    engine, hist, n = _acoustic_run(dev, wl, twin, "marmousi_acoustic_unet",
+                                    3)
+    launches.update(n)
+    losses = [r["loss_D"] for r in hist]
+    check(losses[-1] <= 1.01 * losses[0],
+          f"Unet22: loss_D neither falls nor stays level: {losses}")
+    _unet_net_timing(engine)
+    del engine
+    for name in ("marmousi_acoustic_vae", "marmousi_acoustic_nf",
+                 "marmousi_acoustic_vaeflow"):
+        _, _, n = _acoustic_run(dev, wl, twin, name, 3)
+        launches.update(n)
+    for overrides in ({"netG": "Auto22CBAM"}, {"optimizer": "sgld"}):
+        _, _, n = _acoustic_run(dev, wl, twin, "marmousi_acoustic", 2,
+                                **overrides)
+        launches.update(n)
+    launches.update(_mcdip_sghmc(dev))
+    _sgmcmc_noise(dev)
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -2534,7 +2859,7 @@ def main(argv: list[str]) -> int:
                   11: [phase_b7, phase_slice4_pairs], 12: [phase_b8],
                   13: [phase_b2_wavelet], 14: [phase_engine_paths],
                   15: [phase_robust], 16: [phase_lbfgs],
-                  17: [phase_config5]}
+                  17: [phase_config5], 18: [phase_config2]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -2563,6 +2888,7 @@ def main(argv: list[str]) -> int:
     launches.update(seam_launches)
     b3.update(b3_seam)
     ring.update(ring_seam)
+    launches.update(phase_config2(dev))
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",

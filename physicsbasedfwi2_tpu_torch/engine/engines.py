@@ -3,7 +3,8 @@
 ``ElasticDIPEngine`` on its fused, "fast" and "xla" paths with held-out
 shots, the step cap, the drift guard's revert, illumination
 preconditioning, gradient smoothing and MC dropout, Adam or L-BFGS in
-both, ``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages`` and
+both, SGLD or SGHMC in both, the VAE and flow generators' loss terms,
+``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages`` and
 ``create_engine``).
 
 The JAX engines inject the processed physics gradient into the
@@ -31,7 +32,7 @@ from physicsbasedfwi2_tpu_torch.engine.config import ExperimentConfig
 from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
 from physicsbasedfwi2_tpu_torch.models import (
     apply_elastic_output, apply_generator, apply_velocity_output,
-    define_generator, pack_output,
+    define_generator, kl_divergence, pack_output,
 )
 from physicsbasedfwi2_tpu_torch.models.convert import (
     npz_from_state_dict, state_dict_from_npz,
@@ -58,6 +59,13 @@ from physicsbasedfwi2_tpu_torch.optim.lbfgs import lbfgs_wolfe
 from physicsbasedfwi2_tpu_torch.optim.schedules import (
     PlateauController, make_scheduler,
 )
+from physicsbasedfwi2_tpu_torch.optim.sgmcmc import sghmc, sgld
+
+# Offsets from cfg.seed of the engines' generators on the device, apart
+# so that no two draw from one Philox stream: dropout masks (0), a VAE's
+# latent noise (1), SG-MCMC noise (2).  The weights' generator (cfg.seed)
+# and the elastic shot draw's (cfg.seed + 7) are on the CPU.
+_LATENT_SEED, _SGMCMC_SEED = 1, 2
 
 
 def _resolve_device(device) -> torch.device:
@@ -96,12 +104,22 @@ def _dropout_generator(cfg: ExperimentConfig, device):
     return torch.Generator(device=device).manual_seed(cfg.seed)
 
 
+def _latent_generator(cfg: ExperimentConfig, device, is_vae: bool):
+    """A VAE engine's latent-noise generator on ``device`` (None for
+    other generators): every training decode samples its latent from it.
+    The JAX engine draws the noise from each step's key, so the two
+    packages sample different latents from the same seed."""
+    if not is_vae:
+        return None
+    return torch.Generator(device=device).manual_seed(cfg.seed + _LATENT_SEED)
+
+
 def _step_masks(gen):
     """A function returning ``gen`` rewound to its state at this call
     (None for None): every training decode of one optimizer step, an
     L-BFGS step's line-search probes included, draws the same dropout
-    masks, as the JAX engines' step reuses one key; the next step draws
-    new ones."""
+    masks (or VAE latent noise), as the JAX engines' step reuses one key;
+    the next step draws new ones."""
     if gen is None:
         return lambda: None
     state = gen.get_state()
@@ -161,8 +179,11 @@ class _Lbfgs:
 
 
 def _make_optimizer(cfg: ExperimentConfig, net: torch.nn.Module):
-    """Adam (a ``torch.optim.Adam``) or L-BFGS (:class:`_Lbfgs`) over the
-    generator ``net``'s parameters."""
+    """Adam (a ``torch.optim.Adam``), L-BFGS (:class:`_Lbfgs`), SGLD or
+    SGHMC (``optim.sgmcmc``, lr ``cfg.lr``, friction 0.05, temperature 1)
+    over the generator ``net``'s parameters.  A new SG-MCMC optimizer
+    restarts its noise stream from its seed, as optax's ``init`` resets
+    the key (the drift guard's and ``phase_reset_opt``'s fresh ones)."""
     if cfg.optimizer == "adam":
         # the same update as optax.adam(lr, b1, b2=0.999, eps)
         return torch.optim.Adam(net.parameters(), lr=cfg.lr,
@@ -171,9 +192,9 @@ def _make_optimizer(cfg: ExperimentConfig, net: torch.nn.Module):
         # the line search picks the step: lr is not used
         return _Lbfgs(cfg, net)
     if cfg.optimizer in ("sgld", "sghmc"):
-        raise NotImplementedError(
-            f"optimizer={cfg.optimizer!r} is not ported yet (ROADMAP Queue "
-            "A, item 7: optim/sgmcmc.py)")
+        sampler = sgld if cfg.optimizer == "sgld" else sghmc
+        return sampler(net.parameters(), cfg.lr,
+                       seed=cfg.seed + _SGMCMC_SEED)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
@@ -222,7 +243,8 @@ class EngineBase:
         package's keys (loads in either package; no pickle)."""
         os.makedirs(self._dir(), exist_ok=True)
         path = os.path.join(self._dir(), f"{tag}_net_G.npz")
-        np.savez(path, **npz_from_state_dict(self.net.state_dict()))
+        np.savez(path, **npz_from_state_dict(self.net.state_dict(),
+                                             self.net))
         return path
 
     def load_networks(self, tag: str | int):
@@ -266,6 +288,14 @@ class AcousticDIPEngine(EngineBase):
     Frequency continuation swaps the physics data per stage
     (:meth:`_stage_data`); ``wavelet_from_data`` (AutoWav) on a synthetic
     workload gives every shot its own copy of the wavelet.
+
+    A VAE generator (``netG`` starting with "vae") samples its latent on
+    every training decode from a generator of its own on the engine's
+    device (every other decode takes z = mu), and the loss gains
+    ``kl_weight`` times the KL term (minus the mean flow log-det for the
+    planar-flow VAEs); a generator with a flow log-det and no KL term
+    (AutoNF) adds ``flow_weight`` times the latent's negative
+    log-likelihood 0.5 |z|^2 - log|det|.
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None,
@@ -357,6 +387,7 @@ class AcousticDIPEngine(EngineBase):
             time_decimation=cfg.time_decimation, dropout=cfg.dropout,
             generator=torch.Generator().manual_seed(cfg.seed),
         ).to(self.device)
+        self.is_vae = cfg.netG.lower().startswith("vae")
         # net input: [1, nt, nr, ns] (NHWC, as the JAX engine feeds it)
         self.shots_in = self.wl.obs.permute(1, 2, 0)[None].contiguous()
         self.true_b = self.wl.vp_true[None, :, :, None]
@@ -370,6 +401,7 @@ class AcousticDIPEngine(EngineBase):
         self.opt = _make_optimizer(cfg, self.net)
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         self._drop_gen = _dropout_generator(cfg, self.device)
+        self._latent_gen = _latent_generator(cfg, self.device, self.is_vae)
         self._build_physics()
 
     def _kernel_rows(self, pd, dir_rows):
@@ -470,8 +502,8 @@ class AcousticDIPEngine(EngineBase):
     def _total_loss(self, use_physics: bool, fc: float = 0.0, params=None,
                     generator=None):
         """(loss, model MSE) of the generator (with its parameters
-        replaced by ``params`` where given, dropout masks from
-        ``generator``)."""
+        replaced by ``params`` where given; its random draws, a VAE's
+        latent noise or dropout masks, from ``generator``)."""
         cfg = self.cfg
         out = pack_output(_call(self.net, params, self.shots_in,
                                 generator=generator))
@@ -487,6 +519,17 @@ class AcousticDIPEngine(EngineBase):
         elif cfg.lstart != 0 and not use_physics:
             # warmup phase trains on the model-MSE oracle
             loss = loss + model_mse
+        if out.mu is not None and cfg.kl_weight > 0:
+            kl = kl_divergence(out.mu, out.logvar)
+            if out.logdet is not None:
+                # flow-sharpened posterior: KL(q0 || N) - E[logdet]
+                kl = kl - torch.mean(out.logdet)
+            loss = loss + cfg.kl_weight * kl
+        elif out.logdet is not None:
+            # invertible latent (AutoNF): 0.5 |z|^2 - log|det J|
+            nll = (0.5 * torch.mean(torch.sum(out.latent ** 2, dim=-1))
+                   - torch.mean(out.logdet))
+            loss = loss + cfg.flow_weight * nll
         return loss, model_mse
 
     def optimize_parameters(self, epoch: int, freq: float | None = None,
@@ -496,13 +539,16 @@ class AcousticDIPEngine(EngineBase):
         sake, as in the JAX engine (the tether is an elastic recipe)."""
         use_physics = epoch > self.cfg.lstart
         fc = freq or 0.0
-        masks = _step_masks(self._drop_gen)
+        # a VAE draws latent noise, as the JAX engine's "latent" rng;
+        # other generators dropout masks
+        draws = _step_masks(self._latent_gen if self.is_vae
+                            else self._drop_gen)
         if isinstance(self.opt, _Lbfgs):
             # the line search's probes evaluate the same loss (on the
-            # card kernel B2 once a probe)
+            # card kernel B2 once a probe) with the same draws
             (loss, model_mse), upd = self.opt.updates(
                 lambda params: self._total_loss(use_physics, fc, params,
-                                                masks()))
+                                                draws()))
             self.opt.apply(upd)
         else:
             if self.lr_policy is not None:
@@ -511,7 +557,7 @@ class AcousticDIPEngine(EngineBase):
                     group["lr"] = lr
             self.opt.zero_grad(set_to_none=True)
             loss, model_mse = self._total_loss(use_physics, fc, None,
-                                               masks())
+                                               draws())
             loss.backward()
             self.opt.step()
         # one device sync for both scalars

@@ -1,9 +1,12 @@
-"""Generator registry (port of ``physicsbasedfwi2_tpu/models/__init__.py``,
-the AutoEncoderNet and ElasticAutoEncoderNet names).
+"""Generator registry (port of ``physicsbasedfwi2_tpu/models/__init__.py``:
+the AutoEncoderNet, ElasticAutoEncoderNet, UNet, VAE and flow names).
 
 ``define_generator`` maps a reference generator name to a configured
 module; keyword arguments the module does not take are dropped, as
-the JAX registry drops fields its Flax module lacks.
+the JAX registry drops fields its Flax module lacks.  The nets that
+size their layers from the input take ``in_shape``, one sample's (H, W,
+C); a net that needs only its channel count (UNet) gets ``in_channels``
+from it.
 """
 
 from __future__ import annotations
@@ -14,8 +17,16 @@ from typing import Any, NamedTuple
 from physicsbasedfwi2_tpu_torch.models.autoencoders import (
     AutoEncoderNet,
     ElasticAutoEncoderNet,
+    FlowAutoEncoderNet,
     apply_elastic_output,
     apply_velocity_output,
+)
+from physicsbasedfwi2_tpu_torch.models.flows import (
+    LatentFlow, PlanarFlowStack,
+)
+from physicsbasedfwi2_tpu_torch.models.unets import UNet
+from physicsbasedfwi2_tpu_torch.models.vae import (
+    ModelVae, VaeFlowNet, VaeNet, kl_divergence,
 )
 
 # name -> (factory, default kwargs)
@@ -33,13 +44,17 @@ def define_generator(name: str, out_shape: tuple[int, int] | None = None,
     if key not in _GENERATORS:
         raise KeyError(
             f"unknown generator {name!r}; ported: {sorted(_GENERATORS)} "
-            f"(the other families wait in ROADMAP Queue A, item 8)")
+            f"(the supervised engine's nets wait in ROADMAP Queue A, "
+            f"item 9)")
     factory, defaults = _GENERATORS[key]
     kwargs = dict(defaults)
     kwargs.update(overrides)
     if out_shape is not None:
         kwargs["out_shape"] = out_shape
     accepted = set(inspect.signature(factory).parameters)
+    if ("in_channels" in accepted and "in_channels" not in kwargs
+            and kwargs.get("in_shape") is not None):
+        kwargs["in_channels"] = kwargs["in_shape"][-1]
     kwargs = {k: v for k, v in kwargs.items() if k in accepted}
     return factory(**kwargs)
 
@@ -61,6 +76,24 @@ register_generator("AutoElMarZp22", ElasticAutoEncoderNet, n_fields=3)
 # MC dropout (BASELINE config 5, mcdip_uq): dropout in each decoder block
 register_generator("AutoElMarMCDIP22", ElasticAutoEncoderNet, n_fields=2,
                    dropout=0.1)
+
+# --- U-Nets (seismic in, velocity out with out_shape) ---
+for _n in ["Unet", "UnetPre", "Unet22", "classic", "NewU", "unet_128",
+           "unet_256"]:
+    register_generator(_n, UNet)
+register_generator("Att", UNet, use_attention=True)
+
+# --- VAEs ---
+for _n in ["Vae", "Vae2", "Vae3", "VaeLatentNoPhy", "VaeLatent2NoPhy"]:
+    register_generator(_n, VaeNet)
+for _n in ["VaeNoPhy", "Vaevel"]:
+    register_generator(_n, ModelVae)
+# planar-flow VAEs
+for _n in ["VaeNormalizing", "VaeNormalizingPhy"]:
+    register_generator(_n, VaeFlowNet)
+
+# --- invertible latent head ---
+register_generator("AutoNF", FlowAutoEncoderNet)
 
 
 class GenOut(NamedTuple):
@@ -105,6 +138,14 @@ __all__ = [
     "apply_generator",
     "AutoEncoderNet",
     "ElasticAutoEncoderNet",
+    "FlowAutoEncoderNet",
+    "UNet",
+    "VaeNet",
+    "VaeFlowNet",
+    "ModelVae",
+    "kl_divergence",
+    "LatentFlow",
+    "PlanarFlowStack",
     "apply_elastic_output",
     "apply_velocity_output",
 ]

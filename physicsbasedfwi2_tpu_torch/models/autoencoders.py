@@ -1,8 +1,8 @@
 """Deep-image-prior autoencoder generators (port of
 ``physicsbasedfwi2_tpu/models/autoencoders.py``: ``AutoEncoderNet``, the
-Auto22 family, ``ElasticAutoEncoderNet``, the AutoElMar22 family, and
-the output transforms ``apply_velocity_output`` and
-``apply_elastic_output``).
+Auto22 family with its CBAM variant, ``FlowAutoEncoderNet`` (AutoNF),
+``ElasticAutoEncoderNet``, the AutoElMar22 family, and the output
+transforms ``apply_velocity_output`` and ``apply_elastic_output``).
 
 Public interfaces are NHWC, as in the Flax nets: the encoder takes
 shot gathers [B, nt, nr, num_shots] and the net returns the field
@@ -21,8 +21,9 @@ import torch
 from torch import nn
 
 from physicsbasedfwi2_tpu_torch.models.blocks import (
-    Down, Up, init_flax_like, pin_water, scale_to_range,
+    CBAM, Down, Up, init_flax_like, pin_water, scale_to_range,
 )
+from physicsbasedfwi2_tpu_torch.models.flows import LatentFlow
 
 
 def _decode_start(out_hw: tuple[int, int], n_up: int) -> tuple[int, int]:
@@ -45,12 +46,13 @@ class Decoder2D(nn.Module):
     """latent -> [B, nz, nx, out_channels] (NHWC), through a final
     ``sigmoid`` (in [0, 1]), ``tanh`` or no activation (``none``).  Each
     up block ends in dropout at ``dropout`` (masks from ``generator``
-    unless ``deterministic``)."""
+    unless ``deterministic``), then :class:`CBAM` with ``use_cbam``."""
 
     def __init__(self, out_shape: tuple[int, int], out_channels: int = 1,
                  filters: Sequence[int] = (16, 32, 64, 128),
                  latent_dim: int = 8, dropout: float = 0.0,
-                 norm: str = "group", final_activation: str = "sigmoid"):
+                 norm: str = "group", final_activation: str = "sigmoid",
+                 use_cbam: bool = False):
         super().__init__()
         if final_activation not in ("sigmoid", "tanh", "none"):
             raise ValueError(f"final_activation {final_activation!r}")
@@ -63,14 +65,18 @@ class Decoder2D(nn.Module):
         chans = [filters[-1], *reversed(filters[:-1])]
         self.ups = nn.ModuleList(
             Up(cin, cout, norm, dropout) for cin, cout in zip(chans, chans[1:]))
+        self.cbams = (nn.ModuleList(CBAM(c) for c in chans[1:]) if use_cbam
+                      else None)
         self.head = nn.Conv2d(filters[0], out_channels, 1)
 
     def forward(self, z, *, deterministic: bool = True,
                 generator: torch.Generator | None = None):
         x = self.fc(z).reshape(-1, self.h0, self.w0, self.top)
         x = x.permute(0, 3, 1, 2)
-        for up in self.ups:
+        for i, up in enumerate(self.ups):
             x = up(x, deterministic=deterministic, generator=generator)
+            if self.cbams is not None:
+                x = self.cbams[i](x)
         nz, nx = self.out_shape
         x = self.head(x[:, :, :nz, :nx])
         if self.final_activation == "sigmoid":
@@ -112,7 +118,8 @@ class AutoEncoderNet(nn.Module):
     ``in_shape`` is one sample's (nt, nr, num_shots): PyTorch sizes the
     encoder's Dense layer at construction, where Flax infers it at
     init.  Returns (field01 [B, nz, nx, C], latent [B, latent_dim]);
-    ``deterministic`` and ``generator`` go to the decoder's dropout.
+    ``deterministic`` and ``generator`` go to the decoder's dropout;
+    ``use_cbam`` (Auto22CBAM) puts CBAM after each decoder up block.
     """
 
     def __init__(self, out_shape: tuple[int, int],
@@ -123,14 +130,10 @@ class AutoEncoderNet(nn.Module):
                  dropout: float = 0.0, norm: str = "group",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if use_cbam:
-            raise NotImplementedError(
-                "use_cbam (Auto22CBAM) is not ported yet (ROADMAP Queue A, "
-                "item 8)")
         self.encoder = Encoder2D(in_shape, latent_dim, filters,
                                  time_decimation, norm)
         self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
-                                 dropout, norm)
+                                 dropout, norm, use_cbam=use_cbam)
         if generator is not None:
             init_flax_like(self, generator)
 
@@ -139,6 +142,38 @@ class AutoEncoderNet(nn.Module):
         z = self.encoder(shots)
         return self.decoder(z, deterministic=deterministic,
                             generator=generator), z
+
+
+class FlowAutoEncoderNet(nn.Module):
+    """Autoencoder with an invertible head on the latent (AutoNF): the
+    encoder's latent passes through :class:`LatentFlow` (4 affine
+    couplings) before the decoder.  ``in_shape`` is one sample's (nt, nr,
+    num_shots).  Returns (field01 [B, nz, nx, C], z_flow [B, latent_dim],
+    log|det| [B]); ``reverse=True`` runs the flow inverted."""
+
+    def __init__(self, out_shape: tuple[int, int],
+                 in_shape: tuple[int, int, int], out_channels: int = 1,
+                 latent_dim: int = 8,
+                 filters: Sequence[int] = (16, 32, 64, 128),
+                 time_decimation: int = 4, n_flow_blocks: int = 4,
+                 norm: str = "group",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.encoder = Encoder2D(in_shape, latent_dim, filters,
+                                 time_decimation, norm)
+        self.flow = LatentFlow(latent_dim, n_flow_blocks)
+        self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
+                                 norm=norm)
+        if generator is not None:
+            init_flax_like(self, generator)
+
+    def forward(self, shots, *, deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                reverse: bool = False):
+        z, logdet = self.flow(self.encoder(shots), reverse=reverse)
+        out = self.decoder(z, deterministic=deterministic,
+                           generator=generator)
+        return out, z, logdet
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Building blocks of the generator (port of
-``physicsbasedfwi2_tpu/models/blocks.py``, the Auto22 slice).
+``physicsbasedfwi2_tpu/models/blocks.py``: the conv blocks, the U-Net
+decoder stage ``UpCat`` with ``match_spatial`` and ``fit_to_shape``, and
+CBAM attention).
 
 The modules here work in NCHW, PyTorch's layout; the nets in
-:mod:`autoencoders` take and return NHWC at their public interface,
-as the Flax nets do.  Matching Flax: GroupNorm eps 1e-6, LeakyReLU
-slope 0.1, SAME 3x3 convolutions, floor 2x2 average pooling, bilinear
-2x resize with half-pixel centres, lecun-normal (truncated normal,
+:mod:`autoencoders`, :mod:`unets` and :mod:`vae` take and return NHWC at
+their public interface, as the Flax nets do.  Matching Flax: GroupNorm
+and LayerNorm eps 1e-6 (LayerNorm over the channels alone), LeakyReLU
+slope 0.1, SAME convolutions, floor 2x2 average pooling, bilinear
+upsampling with half-pixel centres, lecun-normal (truncated normal,
 fan-in) kernels with zero biases from an explicit generator, and
 ``nn.Dropout``'s semantics (keep with probability 1 - rate, kept values
 scaled by 1 / (1 - rate)) with the mask drawn from an explicit
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-GROUPNORM_EPS = 1e-6  # flax.linen.GroupNorm's default
+NORM_EPS = 1e-6  # flax.linen.GroupNorm's and LayerNorm's default
 LEAKY_SLOPE = 0.1
 # std of a standard normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -57,14 +60,33 @@ def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+class ChannelLayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm()`` on an NHWC tensor, applied to NCHW:
+    each pixel normalized over its channels (dim 1) with eps 1e-6, then
+    a per-channel scale (``weight``) and ``bias``.  (``nn.LayerNorm(C)``
+    on NCHW would normalize over the last axis, the width.)"""
+
+    def __init__(self, features: int, eps: float = NORM_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        y = F.layer_norm(x.permute(0, 2, 3, 1), self.weight.shape,
+                         self.weight, self.bias, self.eps)
+        return y.permute(0, 3, 1, 2)
+
+
 def _norm(norm: str, features: int) -> nn.Module:
     if norm == "group":
         return nn.GroupNorm(num_groups_for(features), features,
-                            eps=GROUPNORM_EPS)
+                            eps=NORM_EPS)
+    if norm == "layer":
+        return ChannelLayerNorm(features)
     if norm == "none":
         return nn.Identity()
-    raise NotImplementedError(
-        f"norm={norm!r} is not ported yet (ROADMAP Queue A, item 8)")
+    raise ValueError(f"unknown norm {norm!r}")
 
 
 def dropout_mask(x: torch.Tensor, keep: float,
@@ -146,6 +168,99 @@ class Up(nn.Module):
                 generator: torch.Generator | None = None):
         return self.block(resize_2x(x), deterministic=deterministic,
                           generator=generator)
+
+
+def match_spatial(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Center pad (with zeros) or crop NCHW ``x`` to (h, w), each axis on
+    its own.  A 2x-upsampled decoder tensor meets its encoder skip here:
+    with odd sizes the pooled-then-doubled size lands on either side of
+    the skip's (nt 4001: 4000 against the skip's 4001, padded)."""
+    dh, dw = h - x.shape[2], w - x.shape[3]
+    if dh > 0 or dw > 0:
+        ph, pw = max(dh, 0), max(dw, 0)
+        x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    if dh < 0 or dw < 0:
+        oh, ow = max(-dh, 0) // 2, max(-dw, 0) // 2
+        x = x[:, :, oh:oh + h, ow:ow + w]
+    return x
+
+
+def fit_to_shape(x: torch.Tensor, out_shape) -> torch.Tensor:
+    """Map NCHW decoder output to the model grid ``out_shape`` (nz, nx):
+    bilinear-upscale any axis that is too small (few-receiver inputs),
+    then crop from the top-left.  The resize only ever enlarges or keeps
+    an axis, where ``F.interpolate(..., align_corners=False)`` is
+    ``jax.image.resize``'s bilinear; JAX antialiases when it shrinks an
+    axis, which this function never asks of it."""
+    h, w = x.shape[2], x.shape[3]
+    nz, nx = out_shape
+    if h < nz or w < nx:
+        x = F.interpolate(x, size=(max(h, nz), max(w, nx)),
+                          mode="bilinear", align_corners=False)
+    return x[:, :, :nz, :nx]
+
+
+class UpCat(nn.Module):
+    """U-Net decoder stage: bilinear 2x upsample, a SAME 3x3 conv to
+    ``features``, :func:`match_spatial` to the skip, concatenation
+    [skip, x] along the channels, and a ConvBlock."""
+
+    def __init__(self, in_channels: int, skip_channels: int, features: int,
+                 norm: str = "group"):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, features, 3, padding=1)
+        self.block = ConvBlock(skip_channels + features, features, norm)
+
+    def forward(self, x, skip):
+        x = self.conv(resize_2x(x))
+        x = match_spatial(x, skip.shape[2], skip.shape[3])
+        return self.block(torch.cat([skip, x], dim=1))
+
+
+class ChannelGate(nn.Module):
+    """CBAM channel attention: one MLP (channels -> channels //
+    reduction, at least 1 -> channels) shared by the spatial mean and the
+    spatial max; the sigmoid of their sum scales each channel."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.mlp = nn.Sequential(nn.Linear(channels, hidden), nn.ReLU(),
+                                 nn.Linear(hidden, channels))
+
+    def forward(self, x):
+        gate = torch.sigmoid(self.mlp(x.mean(dim=(2, 3)))
+                             + self.mlp(x.amax(dim=(2, 3))))
+        return x * gate[:, :, None, None]
+
+
+class SpatialGate(nn.Module):
+    """CBAM spatial attention: a SAME 7x7 conv over the channel max and
+    mean; its sigmoid scales each pixel."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(2, 1, 7, padding=3)
+
+    def forward(self, x):
+        pooled = torch.cat([x.amax(dim=1, keepdim=True),
+                            x.mean(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.conv(pooled))
+
+
+class CBAM(nn.Module):
+    """Convolutional block attention: the channel gate, then (unless
+    ``no_spatial``) the spatial gate."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 no_spatial: bool = False):
+        super().__init__()
+        self.channel = ChannelGate(channels, reduction)
+        self.spatial = None if no_spatial else SpatialGate()
+
+    def forward(self, x):
+        x = self.channel(x)
+        return x if self.spatial is None else self.spatial(x)
 
 
 def scale_to_range(x01: torch.Tensor, vmin, vmax) -> torch.Tensor:

@@ -1,17 +1,32 @@
 """Carry generator weights between the Flax and PyTorch packages.
 
-``params_from_flax`` maps a Flax ``AutoEncoderNet`` or
-``ElasticAutoEncoderNet`` params tree (nested dicts of arrays, with or
-without the top ``'params'`` level) to this package's ``state_dict``;
-``params_to_flax`` is its inverse.  The elastic net's named submodules
-(``combine_vx``, ``combine_vz``, ``decoder_field{k}``) keep their names
-on both sides.  Layouts:
+``params_from_flax`` maps a Flax params tree (nested dicts of arrays,
+with or without the top ``'params'`` level) of any ported generator to
+this package's ``state_dict``; ``params_to_flax`` is its inverse.  The
+port's attribute names follow the Flax submodules':
 
-- conv kernels HWIO <-> OIHW;
-- Dense kernels [in, out] <-> Linear weights [out, in] (the port
-  flattens and unflattens in NHWC order, so no permutation of rows is
-  needed);
-- GroupNorm ``scale``/``bias`` <-> ``weight``/``bias``.
+- ``@nn.compact`` nets name a submodule by type and index:
+  ``Encoder2D_0`` <-> ``encoder``, ``Down_i`` <-> ``downs.i``,
+  ``UpCat_i`` <-> ``upcats.i``, ``CBAM_i`` <-> ``cbams.i``,
+  ``AffineCoupling_i`` <-> ``couplings.i``, a U-Net's ``ConvBlock_k``
+  <-> ``blocks.k`` (a ``ConvBlock_0`` inside a stage <-> ``block``),
+  ``Conv_j`` <-> ``convs.j`` in a ConvBlock, ``conv`` in an UpCat or a
+  SpatialGate, else ``head``; ``Dense_k`` <-> ``mlp.{2k}`` in a
+  ChannelGate or an AffineCoupling (ReLUs between), else ``fc``;
+- ``setup()`` nets (``VaeNet``, ``VaeFlowNet``, ``ModelVae``) name them by
+  attribute (``encoder``, ``decoder``, ``flows``), as do the elastic
+  net's ``combine_vx``/``combine_vz``/``decoder_field{k}`` and the
+  planar flows' ``flow{i}``; those names are kept on both sides.
+
+Layouts: conv kernels HWIO <-> OIHW; Dense kernels [in, out] <-> Linear
+weights [out, in] (the port flattens and unflattens in NHWC order, so no
+permutation of rows is needed); GroupNorm and LayerNorm ``scale``/
+``bias`` <-> ``weight``/``bias``; the planar flows' ``u``, ``w``, ``b`` as
+they are.
+
+A state dict alone does not say whether its net is a ``setup()`` VAE or
+which norm it uses, so the torch -> Flax direction takes the ``net``;
+without one it reads an Auto or elastic net with GroupNorm.
 
 ``npz_from_state_dict`` / ``state_dict_from_npz`` use the JAX package's
 checkpoint keys (``jax.tree_util.keystr`` paths such as
@@ -26,22 +41,35 @@ import re
 import numpy as np
 import torch
 
-# Flax submodule name -> torch attribute path, per path component
+from physicsbasedfwi2_tpu_torch.models.blocks import ChannelLayerNorm
+from physicsbasedfwi2_tpu_torch.models.vae import ModelVae, VaeFlowNet, VaeNet
+
+# Flax submodule name -> torch attribute path, per path component (the
+# context-dependent ConvBlock_*, Conv_* and Dense_* in _torch_name)
 _TO_TORCH = [
-    (re.compile(r"Encoder2D_0$"), "encoder"),
-    (re.compile(r"Decoder2D_0$"), "decoder"),
-    (re.compile(r"Down_(\d+)$"), r"downs.\1"),
-    (re.compile(r"Up_(\d+)$"), r"ups.\1"),
-    (re.compile(r"ConvBlock_0$"), "block"),
-    (re.compile(r"GroupNorm_(\d+)$"), r"norms.\1"),
-    (re.compile(r"Dense_0$"), "fc"),
-    (re.compile(r"(combine_v[xz]|decoder_field\d+)$"), r"\1"),
+    (re.compile(r"Encoder2D_0|encoder"), "encoder"),
+    (re.compile(r"Decoder2D_0|decoder"), "decoder"),
+    (re.compile(r"LatentFlow_0"), "flow"),
+    (re.compile(r"AffineCoupling_(\d+)"), r"couplings.\1"),
+    (re.compile(r"Down_(\d+)"), r"downs.\1"),
+    (re.compile(r"Up_(\d+)"), r"ups.\1"),
+    (re.compile(r"UpCat_(\d+)"), r"upcats.\1"),
+    (re.compile(r"CBAM_(\d+)"), r"cbams.\1"),
+    (re.compile(r"ChannelGate_0"), "channel"),
+    (re.compile(r"SpatialGate_0"), "spatial"),
+    (re.compile(r"(?:Group|Layer)Norm_(\d+)"), r"norms.\1"),
+    (re.compile(r"(combine_v[xz]|decoder_field\d+|flows|flow\d+)"), r"\1"),
 ]
-_TO_FLAX = {"encoder": "Encoder2D_0", "decoder": "Decoder2D_0",
-            "downs": "Down", "ups": "Up", "block": "ConvBlock_0",
-            "norms": "GroupNorm", "convs": "Conv", "fc": "Dense_0",
-            "head": "Conv_0"}
-_NAMED = re.compile(r"combine_v[xz]|decoder_field\d+")
+# torch module lists -> Flax type names (index appended)
+_LISTS = {"downs": "Down", "ups": "Up", "upcats": "UpCat", "cbams": "CBAM",
+          "couplings": "AffineCoupling", "convs": "Conv",
+          "blocks": "ConvBlock"}
+_SINGLE = {"block": "ConvBlock_0", "channel": "ChannelGate_0",
+           "spatial": "SpatialGate_0", "conv": "Conv_0", "head": "Conv_0",
+           "fc": "Dense_0", "flow": "LatentFlow_0"}
+_NAMED = re.compile(r"combine_v[xz]|decoder_field\d+|flows|flow\d+")
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "u": "u", "w": "w", "b": "b"}
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
@@ -56,11 +84,20 @@ def _flat(tree, prefix=()):
 def _torch_name(path: tuple[str, ...]) -> str:
     parts = []
     for i, comp in enumerate(path[:-1]):
-        m = re.fullmatch(r"Conv_(\d+)", comp)
+        parent = path[i - 1] if i else ""
+        m = re.fullmatch(r"(ConvBlock|Conv|Dense)_(\d+)", comp)
         if m:
-            # convs inside a ConvBlock; the decoder's own 1x1 head
-            parts.append(f"convs.{m.group(1)}"
-                         if i and path[i - 1] == "ConvBlock_0" else "head")
+            kind, k = m.groups()
+            if kind == "ConvBlock":
+                parts.append(f"blocks.{k}" if i == 0 else "block")
+            elif kind == "Conv":
+                parts.append(
+                    f"convs.{k}" if parent.startswith("ConvBlock_") else
+                    "conv" if re.match(r"UpCat_|SpatialGate_", parent) else
+                    "head")
+            else:
+                parts.append(f"mlp.{2 * int(k)}" if re.match(
+                    r"ChannelGate_|AffineCoupling_", parent) else "fc")
             continue
         for pat, rep in _TO_TORCH:
             if pat.fullmatch(comp):
@@ -68,30 +105,37 @@ def _torch_name(path: tuple[str, ...]) -> str:
                 break
         else:
             raise KeyError(f"no torch counterpart for Flax path {path}")
-    leaf = {"kernel": "weight", "scale": "weight", "bias": "bias"}[path[-1]]
-    return ".".join(parts + [leaf])
+    return ".".join(parts + [_LEAVES[path[-1]]])
 
 
-def _flax_path(name: str) -> tuple[str, ...]:
+def _flax_path(name: str, net=None) -> tuple[str, ...]:
     comps = name.split(".")
+    setup = isinstance(net, (VaeNet, VaeFlowNet, ModelVae))
     path = []
     i = 0
     while i < len(comps) - 1:
         c = comps[i]
-        if _NAMED.fullmatch(c):
+        if i == 0 and c in ("encoder", "decoder"):
+            path.append(c if setup else f"{c.capitalize()}2D_0")
+        elif _NAMED.fullmatch(c):
             path.append(c)
+        elif c == "mlp":
+            path.append(f"Dense_{int(comps[i + 1]) // 2}")
             i += 1
-            continue
-        base = _TO_FLAX[c]
-        if c in ("downs", "ups", "norms", "convs"):
-            path.append(f"{base}_{comps[i + 1]}")
-            i += 2
+        elif c == "norms":
+            layer = net is not None and isinstance(
+                net.get_submodule(".".join(comps[:i + 2])), ChannelLayerNorm)
+            path.append(f"{'Layer' if layer else 'Group'}Norm_{comps[i + 1]}")
+            i += 1
+        elif c in _LISTS:
+            path.append(f"{_LISTS[c]}_{comps[i + 1]}")
+            i += 1
         else:
-            path.append(base)
-            i += 1
+            path.append(_SINGLE[c])
+        i += 1
     leaf = comps[-1]
     if leaf == "weight":
-        leaf = "scale" if path[-1].startswith("GroupNorm") else "kernel"
+        leaf = "scale" if re.search(r"Norm_\d+$", path[-1]) else "kernel"
     return tuple(path) + (leaf,)
 
 
@@ -108,25 +152,28 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
     return out
 
 
-def params_to_flax(state_dict) -> dict:
+def params_to_flax(state_dict, net=None) -> dict:
     """PyTorch state_dict -> Flax params tree ``{'params': {...}}`` of
-    float32 numpy arrays."""
+    float32 numpy arrays.  ``net`` is the module the state dict belongs
+    to (None: an Auto or elastic net with GroupNorm)."""
     tree: dict = {}
     for name, t in state_dict.items():
         a = t.detach().cpu().numpy().astype(np.float32)
-        path = _flax_path(name)
+        path = _flax_path(name, net)
         if path[-1] == "kernel":
-            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0) if a.ndim == 4
+                                     else a.T)
         node = tree
         for comp in path[:-1]:
             node = node.setdefault(comp, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+        node[path[-1]] = a
     return {"params": tree}
 
 
-def npz_from_state_dict(state_dict) -> dict[str, np.ndarray]:
-    """State dict -> {keystr path: array}, the JAX package's npz keys."""
-    flat = _flat(params_to_flax(state_dict))
+def npz_from_state_dict(state_dict, net=None) -> dict[str, np.ndarray]:
+    """State dict -> {keystr path: array}, the JAX package's npz keys
+    (``net`` as for :func:`params_to_flax`)."""
+    flat = _flat(params_to_flax(state_dict, net))
     return {"".join(f"['{k}']" for k in path): a for path, a in flat}
 
 

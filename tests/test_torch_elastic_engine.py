@@ -35,6 +35,7 @@ from physicsbasedfwi2_tpu_torch.engine.engines import (
 )
 from physicsbasedfwi2_tpu_torch.engine.train import train
 from physicsbasedfwi2_tpu_torch.models.convert import params_from_flax
+from physicsbasedfwi2_tpu_torch.optim import SGHMC, SGLD
 
 from torch_parity import n, port_elastic_workload, rel_l2, rel_max, t
 
@@ -233,9 +234,13 @@ def test_unported_elastic_options_raise(el_run):
             wl), device="cpu")
         assert e.physics_path == "fused-plain" and e._ilw is None, kw
         assert (e._drop_gen is not None) == ("dropout" in kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ElasticDIPEngine(cfg.replace(optimizer="sgld"), workload=wl,
-                         device="cpu")
+    # ported since: SG-MCMC (each sampler with its noise generator on the
+    # engine's device)
+    for kind, cls in (("sgld", SGLD), ("sghmc", SGHMC)):
+        e = ElasticDIPEngine(cfg.replace(optimizer=kind),
+                             workload=dataclasses.replace(wl), device="cpu")
+        assert isinstance(e.opt, cls) and e.lr_policy is None
+        assert e.opt.generator.device == e.device
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticDIPEngine(cfg, workload=wl, mesh=object(), device="cpu")
     assert t_engines._ENGINES["elastic_dip"] is ElasticDIPEngine

@@ -339,17 +339,15 @@ NOT_PORTED = {
     "geo": {"marmousi_acoustic_acquisition", "marmousi_elastic_acquisition",
             "seam_elastic_acquisition", "model_from_storage",
             "model_to_storage"},
-    "optim": {"sgld", "sghmc"},
+    "optim": set(),
     "engine": {"LatentInversionEngine", "ClassicFWIEngine",
                "SupervisedEngine"},
-    "models": {"define_discriminator", "VaeFlowNet", "FlowAutoEncoderNet",
-               "ModelParamNet", "VaeNet", "ModelVae", "kl_divergence",
-               "UNet", "ASPPUNet", "ResUNetPlusPlus", "UNet3Plus",
-               "MultiScaleUNet", "R2UNet", "ResnetGenerator",
-               "NLayerDiscriminator", "PixelDiscriminator", "gan_loss",
-               "gradient_penalty", "ImagePool", "FNO2d", "SpectralConv1d",
-               "SpectralConv2d", "lp_loss", "LatentFlow",
-               "PlanarFlowStack"},
+    "models": {"define_discriminator", "ModelParamNet", "ASPPUNet",
+               "ResUNetPlusPlus", "UNet3Plus", "MultiScaleUNet", "R2UNet",
+               "ResnetGenerator", "NLayerDiscriminator",
+               "PixelDiscriminator", "gan_loss", "gradient_penalty",
+               "ImagePool", "FNO2d", "SpectralConv1d", "SpectralConv2d",
+               "lp_loss"},
     "data": {"NpyDictDataset", "create_dataset", "register_dataset",
              "acoustic_workload_from_disk", "elastic_workload_from_disk"},
 }

@@ -39,6 +39,7 @@ from physicsbasedfwi2_tpu_torch.engine.engines import (
 from physicsbasedfwi2_tpu_torch.engine.train import PlateauDetector, train
 from physicsbasedfwi2_tpu_torch.models import apply_velocity_output
 from physicsbasedfwi2_tpu_torch.models.convert import params_from_flax
+from physicsbasedfwi2_tpu_torch.optim import SGHMC, SGLD
 
 from torch_parity import n, port_workload, rel_l2, rel_max, t
 
@@ -224,9 +225,14 @@ def test_unported_options_raise(slice_run, tmp_path):
     assert engine.physics_path == "fused-plain"
     assert isinstance(engine.opt, t_engines._Lbfgs)
     assert engine.lr_policy is None
-    for kw in (dict(encoded_shots=2), dict(optimizer="sghmc")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            AcousticDIPEngine(cfg.replace(**kw), workload=wl, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        AcousticDIPEngine(cfg.replace(encoded_shots=2), workload=wl,
+                          device="cpu")
+    # SG-MCMC is ported since: no lr policy, as in the JAX engine
+    for kind, cls in (("sghmc", SGHMC), ("sgld", SGLD)):
+        e = AcousticDIPEngine(cfg.replace(optimizer=kind), workload=wl,
+                              device="cpu")
+        assert isinstance(e.opt, cls) and e.lr_policy is None
     _, hist = train(cfg.replace(save_dir=str(tmp_path)), epochs=1,
                     engine=engine, quiet=True,
                     profile_dir=str(tmp_path / "prof"), profile_epochs=1)

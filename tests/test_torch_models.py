@@ -14,7 +14,8 @@ from physicsbasedfwi2_tpu.models import (
 )
 from physicsbasedfwi2_tpu.models.blocks import resize_2x as j_resize_2x
 from physicsbasedfwi2_tpu_torch.models import (
-    AutoEncoderNet, apply_velocity_output, define_generator, pack_output,
+    AutoEncoderNet, UNet, apply_velocity_output, define_generator,
+    pack_output,
 )
 from physicsbasedfwi2_tpu_torch.models.blocks import (
     num_groups_for, resize_2x,
@@ -111,10 +112,16 @@ def test_define_generator_filters_kwargs_and_names():
         assert isinstance(define_generator(
             name, out_shape=OUT, in_shape=IN[1:], filters=FILTERS),
             AutoEncoderNet)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_generator("Auto22CBAM", out_shape=OUT, in_shape=IN[1:])
-    with pytest.raises(KeyError):
-        define_generator("Unet22", out_shape=OUT, in_shape=IN[1:])
+    # Auto22CBAM and Unet22 build; a name still unported raises, naming
+    # the roadmap item
+    net = define_generator("Auto22CBAM", out_shape=OUT, in_shape=IN[1:],
+                           filters=FILTERS)
+    assert isinstance(net, AutoEncoderNet) and net.decoder.cbams is not None
+    assert isinstance(define_generator("Unet22", out_shape=OUT,
+                                       in_shape=IN[1:], filters=FILTERS),
+                      UNet)
+    with pytest.raises(KeyError, match="ROADMAP Queue A, item 9"):
+        define_generator("FNO", out_shape=OUT, in_shape=IN[1:])
     out = pack_output((torch.zeros(1), torch.ones(1)))
     assert out.latent is not None and out.mu is None
 

@@ -146,22 +146,22 @@ class AutoEncoderNet(nn.Module):
 
 class FlowAutoEncoderNet(nn.Module):
     """Autoencoder with an invertible head on the latent (AutoNF): the
-    encoder's latent passes through :class:`LatentFlow` (4 affine
-    couplings) before the decoder.  ``in_shape`` is one sample's (nt, nr,
-    num_shots).  Returns (field01 [B, nz, nx, C], z_flow [B, latent_dim],
-    log|det| [B]); ``reverse=True`` runs the flow inverted."""
+    encoder's latent passes through :class:`LatentFlow`
+    (``LATENT_FLOW_BLOCKS`` affine couplings) before the decoder.
+    ``in_shape`` is one sample's (nt, nr, num_shots).  Returns (field01
+    [B, nz, nx, C], z_flow [B, latent_dim], log|det| [B]);
+    ``reverse=True`` runs the flow inverted."""
 
     def __init__(self, out_shape: tuple[int, int],
                  in_shape: tuple[int, int, int], out_channels: int = 1,
                  latent_dim: int = 8,
                  filters: Sequence[int] = (16, 32, 64, 128),
-                 time_decimation: int = 4, n_flow_blocks: int = 4,
-                 norm: str = "group",
+                 time_decimation: int = 4, norm: str = "group",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.encoder = Encoder2D(in_shape, latent_dim, filters,
                                  time_decimation, norm)
-        self.flow = LatentFlow(latent_dim, n_flow_blocks)
+        self.flow = LatentFlow(latent_dim)
         self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
                                  norm=norm)
         if generator is not None:

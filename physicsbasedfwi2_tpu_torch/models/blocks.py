@@ -217,14 +217,17 @@ class UpCat(nn.Module):
         return self.block(torch.cat([skip, x], dim=1))
 
 
+CBAM_REDUCTION = 16  # the channel gate's MLP narrows channels by this
+
+
 class ChannelGate(nn.Module):
     """CBAM channel attention: one MLP (channels -> channels //
-    reduction, at least 1 -> channels) shared by the spatial mean and the
-    spatial max; the sigmoid of their sum scales each channel."""
+    CBAM_REDUCTION, at least 1 -> channels) shared by the spatial mean and
+    the spatial max; the sigmoid of their sum scales each channel."""
 
-    def __init__(self, channels: int, reduction: int = 16):
+    def __init__(self, channels: int):
         super().__init__()
-        hidden = max(channels // reduction, 1)
+        hidden = max(channels // CBAM_REDUCTION, 1)
         self.mlp = nn.Sequential(nn.Linear(channels, hidden), nn.ReLU(),
                                  nn.Linear(hidden, channels))
 
@@ -249,18 +252,16 @@ class SpatialGate(nn.Module):
 
 
 class CBAM(nn.Module):
-    """Convolutional block attention: the channel gate, then (unless
-    ``no_spatial``) the spatial gate."""
+    """Convolutional block attention: the channel gate, then the spatial
+    gate."""
 
-    def __init__(self, channels: int, reduction: int = 16,
-                 no_spatial: bool = False):
+    def __init__(self, channels: int):
         super().__init__()
-        self.channel = ChannelGate(channels, reduction)
-        self.spatial = None if no_spatial else SpatialGate()
+        self.channel = ChannelGate(channels)
+        self.spatial = SpatialGate()
 
     def forward(self, x):
-        x = self.channel(x)
-        return x if self.spatial is None else self.spatial(x)
+        return self.spatial(self.channel(x))
 
 
 def scale_to_range(x01: torch.Tensor, vmin, vmax) -> torch.Tensor:

@@ -25,8 +25,7 @@ permutation of rows is needed); GroupNorm and LayerNorm ``scale``/
 they are.
 
 A state dict alone does not say whether its net is a ``setup()`` VAE or
-which norm it uses, so the torch -> Flax direction takes the ``net``;
-without one it reads an Auto or elastic net with GroupNorm.
+which norm it uses, so the torch -> Flax direction takes the ``net``.
 
 ``npz_from_state_dict`` / ``state_dict_from_npz`` use the JAX package's
 checkpoint keys (``jax.tree_util.keystr`` paths such as
@@ -108,7 +107,7 @@ def _torch_name(path: tuple[str, ...]) -> str:
     return ".".join(parts + [_LEAVES[path[-1]]])
 
 
-def _flax_path(name: str, net=None) -> tuple[str, ...]:
+def _flax_path(name: str, net: torch.nn.Module) -> tuple[str, ...]:
     comps = name.split(".")
     setup = isinstance(net, (VaeNet, VaeFlowNet, ModelVae))
     path = []
@@ -123,8 +122,8 @@ def _flax_path(name: str, net=None) -> tuple[str, ...]:
             path.append(f"Dense_{int(comps[i + 1]) // 2}")
             i += 1
         elif c == "norms":
-            layer = net is not None and isinstance(
-                net.get_submodule(".".join(comps[:i + 2])), ChannelLayerNorm)
+            layer = isinstance(net.get_submodule(".".join(comps[:i + 2])),
+                               ChannelLayerNorm)
             path.append(f"{'Layer' if layer else 'Group'}Norm_{comps[i + 1]}")
             i += 1
         elif c in _LISTS:
@@ -152,10 +151,10 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
     return out
 
 
-def params_to_flax(state_dict, net=None) -> dict:
+def params_to_flax(state_dict, net: torch.nn.Module) -> dict:
     """PyTorch state_dict -> Flax params tree ``{'params': {...}}`` of
     float32 numpy arrays.  ``net`` is the module the state dict belongs
-    to (None: an Auto or elastic net with GroupNorm)."""
+    to."""
     tree: dict = {}
     for name, t in state_dict.items():
         a = t.detach().cpu().numpy().astype(np.float32)
@@ -170,7 +169,8 @@ def params_to_flax(state_dict, net=None) -> dict:
     return {"params": tree}
 
 
-def npz_from_state_dict(state_dict, net=None) -> dict[str, np.ndarray]:
+def npz_from_state_dict(state_dict,
+                        net: torch.nn.Module) -> dict[str, np.ndarray]:
     """State dict -> {keystr path: array}, the JAX package's npz keys
     (``net`` as for :func:`params_to_flax`)."""
     flat = _flat(params_to_flax(state_dict, net))

@@ -11,30 +11,35 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+COUPLING_HIDDEN = 64     # width of each affine coupling's MLP
+COUPLING_CLAMP = 2.0     # the log-scale is soft-clamped to +-this
+LATENT_FLOW_BLOCKS = 4   # affine couplings in a LatentFlow
+PLANAR_FLOWS = 8         # planar flows in a PlanarFlowStack
+
 
 class AffineCoupling(nn.Module):
     """GLOW-style affine coupling on a latent of size ``dim``: one half
     (``za``) predicts a soft-clamped log-scale and a shift of the other
     (``zb``); ``swap`` exchanges the halves' roles.  The MLP is
-    ``dim // 2`` (or the rest) -> hidden -> hidden -> 2 * |zb|, with ReLU
-    between."""
+    ``dim // 2`` (or the rest) -> COUPLING_HIDDEN -> COUPLING_HIDDEN ->
+    2 * |zb|, with ReLU between."""
 
-    def __init__(self, dim: int, hidden: int = 64, swap: bool = False,
-                 clamp: float = 2.0):
+    def __init__(self, dim: int, swap: bool = False):
         super().__init__()
         d = dim // 2
         n_a, n_b = (dim - d, d) if swap else (d, dim - d)
-        self.swap, self.clamp = swap, clamp
+        self.swap = swap
+        h = COUPLING_HIDDEN
         self.mlp = nn.Sequential(
-            nn.Linear(n_a, hidden), nn.ReLU(), nn.Linear(hidden, hidden),
-            nn.ReLU(), nn.Linear(hidden, 2 * n_b))
+            nn.Linear(n_a, h), nn.ReLU(), nn.Linear(h, h), nn.ReLU(),
+            nn.Linear(h, 2 * n_b))
 
     def forward(self, z, *, reverse: bool = False):
         d = z.shape[-1] // 2
         za, zb = ((z[..., d:], z[..., :d]) if self.swap
                   else (z[..., :d], z[..., d:]))
         s_raw, t = self.mlp(za).chunk(2, dim=-1)
-        log_s = self.clamp * torch.tanh(s_raw / self.clamp)
+        log_s = COUPLING_CLAMP * torch.tanh(s_raw / COUPLING_CLAMP)
         if reverse:
             zb = (zb - t) * torch.exp(-log_s)
             logdet = -torch.sum(log_s, dim=-1)
@@ -46,15 +51,16 @@ class AffineCoupling(nn.Module):
 
 
 class LatentFlow(nn.Module):
-    """``n_blocks`` affine couplings, alternating which half conditions
-    the other; ``reverse=True`` inverts the stack (the blocks in reverse
-    order, each inverted) and returns the inverse's log-determinant."""
+    """``LATENT_FLOW_BLOCKS`` affine couplings, alternating which half
+    conditions the other; ``reverse=True`` inverts the stack (the blocks in
+    reverse order, each inverted) and returns the inverse's
+    log-determinant."""
 
-    def __init__(self, dim: int, n_blocks: int = 4, hidden: int = 64):
+    def __init__(self, dim: int):
         super().__init__()
         self.couplings = nn.ModuleList(
-            AffineCoupling(dim, hidden, swap=bool(i % 2))
-            for i in range(n_blocks))
+            AffineCoupling(dim, swap=bool(i % 2))
+            for i in range(LATENT_FLOW_BLOCKS))
 
     def forward(self, z, *, reverse: bool = False):
         total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
@@ -90,19 +96,17 @@ class PlanarFlow(nn.Module):
 
 
 class PlanarFlowStack(nn.Module):
-    """``n_flows`` planar flows (attributes ``flow0``, ``flow1``, ...,
-    the Flax submodule names); returns (z_K, the summed log-det)."""
+    """``PLANAR_FLOWS`` planar flows (attributes ``flow0``, ``flow1``,
+    ..., the Flax submodule names); returns (z_K, the summed log-det)."""
 
-    def __init__(self, dim: int, n_flows: int = 8,
-                 generator: torch.Generator | None = None):
+    def __init__(self, dim: int, generator: torch.Generator | None = None):
         super().__init__()
-        self.n_flows = n_flows
-        for i in range(n_flows):
+        for i in range(PLANAR_FLOWS):
             setattr(self, f"flow{i}", PlanarFlow(dim, generator))
 
     def forward(self, z):
         total = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-        for i in range(self.n_flows):
+        for i in range(PLANAR_FLOWS):
             z, ld = getattr(self, f"flow{i}")(z)
             total = total + ld
         return z, total

@@ -120,7 +120,7 @@ class ModelVae(nn.Module):
 
 
 class VaeFlowNet(nn.Module):
-    """VAE whose posterior sample z0 passes through ``n_flows`` planar
+    """VAE whose posterior sample z0 passes through ``PLANAR_FLOWS`` planar
     flows (VaeNormalizing, VaeNormalizingPhy): returns (field01, mu,
     logvar, z_K, log|det| [B]); the ELBO's KL term becomes KL(q0 ||
     N(0, 1)) - E[logdet]."""
@@ -129,13 +129,12 @@ class VaeFlowNet(nn.Module):
                  in_shape: tuple[int, int, int], out_channels: int = 1,
                  latent_dim: int = 8,
                  filters: Sequence[int] = (16, 32, 64, 128),
-                 time_decimation: int = 4, n_flows: int = 8,
-                 norm: str = "group",
+                 time_decimation: int = 4, norm: str = "group",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.encoder = Encoder2D(in_shape, 2 * latent_dim, filters,
                                  time_decimation, norm)
-        self.flows = PlanarFlowStack(latent_dim, n_flows, generator)
+        self.flows = PlanarFlowStack(latent_dim, generator)
         self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
                                  norm=norm)
         if generator is not None:

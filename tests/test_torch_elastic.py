@@ -374,7 +374,7 @@ def test_elastic_net_matches_flax(el_nets):
 
 def test_elastic_npz_checkpoint_round_trip(el_nets):
     _, params, net, _, _ = el_nets
-    arrays = npz_from_state_dict(net.state_dict())
+    arrays = npz_from_state_dict(net.state_dict(), net)
     assert "['params']['decoder_field1']['Conv_0']['kernel']" in arrays
     assert "['params']['combine_vz']['kernel']" in arrays
     flat = dict(jax.tree_util.tree_flatten_with_path(params)[0])

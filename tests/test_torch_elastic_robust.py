@@ -283,7 +283,7 @@ def test_evaluate_matches_jax(robust_run, tmp_path):
     # the trained port weights, under the JAX package's keys
     os.makedirs(tmp_path / "ck" / "t_eval")
     np.savez(tmp_path / "ck" / "t_eval" / "latest_net_G.npz",
-             **npz_from_state_dict(pe.net.state_dict()))
+             **npz_from_state_dict(pe.net.state_dict(), pe.net))
     got = t_test.evaluate(cfg, epoch="latest",
                           results_dir=str(tmp_path / "torch"),
                           workload=robust_run["pwl"], device="cpu")

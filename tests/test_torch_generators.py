@@ -54,6 +54,8 @@ KEY = jax.random.PRNGKey(5)
 # case -> (registry name, net overrides, input shape, call keywords)
 CASES = {
     "Unet22": ("Unet22", {}, SHOTS, {}),
+    "Unet22-tanh": ("Unet22", {"final_activation": "tanh"}, SHOTS, {}),
+    "Unet22-none": ("Unet22", {"final_activation": "none"}, SHOTS, {}),
     "Att": ("Att", {}, SHOTS, {}),
     "Vae2": ("Vae2", {}, SHOTS, {"deterministic": False}),
     "VaeNormalizingPhy": ("VaeNormalizingPhy", {}, SHOTS,
@@ -236,7 +238,7 @@ def test_planar_flow_stack_matches_jax():
     # a strong b so that tanh saturates in places
     params["params"]["flow1"]["b"] = np.float32(1.5)
     jz, jld = jstack.apply(params, jnp.asarray(z))
-    stack = PlanarFlowStack(LATENT, 8)
+    stack = PlanarFlowStack(LATENT)
     stack.load_state_dict({f"{k}.{leaf}": torch.tensor(np.asarray(v))
                            for k, d in params["params"].items()
                            for leaf, v in d.items()})
@@ -249,8 +251,8 @@ def test_planar_flow_stack_matches_jax():
 
 
 def test_planar_flow_init_from_generator():
-    a = PlanarFlowStack(LATENT, 8, torch.Generator().manual_seed(0))
-    b = PlanarFlowStack(LATENT, 8, torch.Generator().manual_seed(0))
+    a = PlanarFlowStack(LATENT, torch.Generator().manual_seed(0))
+    b = PlanarFlowStack(LATENT, torch.Generator().manual_seed(0))
     for k, v in a.state_dict().items():
         assert torch.equal(v, b.state_dict()[k]), k
     u = torch.stack([a.get_submodule(f"flow{i}").u.detach()

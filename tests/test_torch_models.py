@@ -87,7 +87,7 @@ def test_auto22_vjp_matches_flax(nets):
 
 def test_converter_round_trip_and_npz_keys(nets):
     _, params, net, _ = nets
-    back = params_to_flax(params_from_flax(params))
+    back = params_to_flax(params_from_flax(params), net)
     flat_ref = {jax.tree_util.keystr(k): v for k, v in
                 jax.tree_util.tree_leaves_with_path(params)}
     flat_back = {jax.tree_util.keystr(k): v for k, v in
@@ -95,7 +95,7 @@ def test_converter_round_trip_and_npz_keys(nets):
     assert flat_ref.keys() == flat_back.keys()
     for k in flat_ref:
         np.testing.assert_array_equal(flat_back[k], flat_ref[k])
-    npz = npz_from_state_dict(net.state_dict())
+    npz = npz_from_state_dict(net.state_dict(), net)
     assert npz.keys() == flat_ref.keys()
     sd = state_dict_from_npz(npz)
     for k, v in net.state_dict().items():

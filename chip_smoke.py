@@ -146,8 +146,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     its two ``test()`` calls are equal), ``marmousi_acoustic`` with
     ``netG="Auto22CBAM"`` and with ``optimizer="sgld"`` (2 epochs each),
     B2 resident once an epoch on every one; ``mcdip_uq`` under
-    ``optimizer="sghmc"`` (lstart + 2 epochs, B3 and the ring forward
-    resident); one SGLD and one SGHMC step's noise statistics on 1e6
+    ``optimizer="sghmc"`` (the warmup cut to 2 epochs, then 2 physics
+    epochs; B3 and the ring forward resident; a non-finite B3 loss in the
+    last one held to its plain version's); one SGLD and one SGHMC step's noise statistics on 1e6
     elements on the card.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
@@ -2519,6 +2520,7 @@ def phase_config5(dev):
 # configs share marmousi_acoustic's values of each
 ACOUSTIC_BUILD = ("nz", "nx", "dx", "nt", "dt", "pml_width", "freq",
                   "num_shots", "num_receivers", "seed", "chunk")
+SGHMC_LSTART = 2  # mcdip_uq's warmup epochs under SGHMC (the recipe: 30)
 
 
 def _vae_logvar(engine):
@@ -2694,18 +2696,21 @@ def _sgmcmc_noise(dev) -> None:
 
 
 def _mcdip_sghmc(dev):
-    """``mcdip_uq`` under SGHMC for lstart + 2 epochs: B3 resident once a
-    physics epoch, the ring forward resident at setup.  SGHMC at
-    temperature 1 and the recipe's lr 1e-3 random-walks the weights (noise
-    std sqrt(2 a lr) = 0.01 a step, carried by the momentum), and the
-    decoded model lands on its clip bounds within the warmup.  The clips
-    are per field, so a training decode (its dropout masks included) can
-    put vs above vp in a few cells, where the 2D bulk modulus lambda + mu
-    = rho (vp^2 - vs^2) is negative and the explicit scheme blows up: B3's
-    loss is then not finite.  Each physics epoch whose loss is not finite
-    is run again, on the same model, shots and data, through B3's plain
-    version on the card: the plain version must give a non-finite loss
-    there too, and a gradient as finite as the kernel's."""
+    """``mcdip_uq`` under SGHMC with its warmup cut to ``SGHMC_LSTART``
+    epochs, then 2 physics epochs: B3 resident once a physics epoch, the
+    ring forward resident at setup.  SGHMC at the recipe's lr 1e-3 does
+    not normalise the step as Adam does, and temperature 1 adds noise of
+    std sqrt(2 a lr) = 0.01 a step: the first physics step, and over the
+    recipe's 30 warmup epochs the noise alone, throw the decoded model
+    onto its clip bounds (vp 1500-4700, vs 0-2700 m/s, the same in both
+    packages).  There a decode can put vs above vp in a few cells, where
+    the 2D bulk modulus lambda + mu = rho (vp^2 - vs^2) is negative and
+    the explicit scheme blows up.  With the warmup cut, every epoch up to
+    the first physics one decodes from a model near its start and must be
+    finite.  The last epoch's B3 loss may be non-finite only where that
+    epoch's model has cells with vs > vp and B3's plain version, run again
+    on the card on the same model, shots and data, is non-finite too; the
+    model and validation losses must stay finite."""
     import torch
     from physicsbasedfwi2_tpu_torch.engine.config import get_workload
     from physicsbasedfwi2_tpu_torch.engine.engines import ElasticDIPEngine
@@ -2713,7 +2718,7 @@ def _mcdip_sghmc(dev):
     from physicsbasedfwi2_tpu_torch.ops import elastic_fused
     from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
     from physicsbasedfwi2_tpu_torch.optim import SGHMC
-    cfg = get_workload("mcdip_uq", optimizer="sghmc",
+    cfg = get_workload("mcdip_uq", optimizer="sghmc", lstart=SGHMC_LSTART,
                        save_dir=str(ROOT / "build" / "chip_smoke"))
     b3 = elastic_fused.fused_elastic_loss_grad_meds
     ring = elastic_fused.simulate_elastic_ring
@@ -2723,12 +2728,11 @@ def _mcdip_sghmc(dev):
     t0 = time.perf_counter()
     engine = ElasticDIPEngine(cfg, device=dev)
     kernel_vg = engine._fused_value_and_grad
-    nonfinite = []
+    calls = []  # per physics epoch: (model, shots, data, loss)
 
     def recorded(m, shot_idx, pd, rho=None):
         loss, grad = kernel_vg(m, shot_idx, pd, rho)
-        if not math.isfinite(float(loss)):
-            nonfinite.append((m.clone(), shot_idx.clone(), pd, grad))
+        calls.append((m.clone(), shot_idx.clone(), pd, float(loss)))
         return loss, grad
 
     engine._fused_value_and_grad = recorded
@@ -2738,51 +2742,47 @@ def _mcdip_sghmc(dev):
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     launches = {"fused_elastic_loss_grad": b3.launches,
                 "simulate_elastic_ring": ring.launches}
-    for rec in history[:1] + history[cfg.lstart - 1:]:
+    for rec in history:
         print("epoch", json.dumps(rec))
     phys = [r["epoch_time"] for r in history[cfg.lstart:]]
-    print(f"phase 18 mcdip_uq optimizer=sghmc: {epochs} epochs in "
-          f"{total:.2f} s (setup included); physics epochs "
-          f"{', '.join(f'{x:.4f}' for x in phys)} s; launches {launches} "
-          f"(B3 resident {b3.resident_launches}, ring forward resident "
-          f"{ring.resident_launches}); peak memory {peak:.2f} GiB")
+    n_vs_vp = [int((m[..., 1] > m[..., 0]).sum()) for m, *_ in calls]
+    print(f"phase 18 mcdip_uq optimizer=sghmc, warmup cut to {cfg.lstart} "
+          f"epochs: {epochs} epochs in {total:.2f} s (setup included); "
+          f"physics epochs {', '.join(f'{x:.4f}' for x in phys)} s; "
+          f"cells with vs > vp in each physics decode {n_vs_vp}; launches "
+          f"{launches} (B3 resident {b3.resident_launches}, ring forward "
+          f"resident {ring.resident_launches}); peak memory {peak:.2f} GiB")
     check(isinstance(engine.opt, SGHMC)
           and engine.opt.generator.device.type == "cuda",
           "mcdip_uq: not SGHMC with its noise on the card")
     check(engine.physics_path == "fused-cuda",
           f"physics path {engine.physics_path}")
-    check(b3.launches == b3.resident_launches == 2,
+    check(b3.launches == b3.resident_launches == 2 and len(calls) == 2,
           "mcdip_uq under SGHMC: B3 not resident once a physics epoch")
     check(ring.launches >= 1 and ring.per_step_launches == 0,
           "mcdip_uq under SGHMC: ring forward not resident")
-    n_bad = 0
     for rec in history:
         bad = [k for k, v in rec.items()
                if isinstance(v, float) and not math.isfinite(v)]
-        check(bad in ([], ["loss_D_MSE"]) and (not bad
-                                               or rec["epoch"] > cfg.lstart),
+        check(not bad or (bad == ["loss_D_MSE"] and rec["epoch"] == epochs),
               f"mcdip_uq under SGHMC epoch {rec['epoch']}: non-finite {bad}")
-        n_bad += bool(bad)
-    check(len(nonfinite) == n_bad, "non-finite losses not all recorded")
-    kernel = elastic_fused.fused_elastic_loss_grad_meds
-    for m, idx, pd, grad in nonfinite:
+    m, idx, pd, loss = calls[-1]
+    if not math.isfinite(loss):
+        kernel = elastic_fused.fused_elastic_loss_grad_meds
         elastic_fused.fused_elastic_loss_grad_meds = \
             elastic_fused.fused_elastic_loss_grad_meds_plain
         try:
-            lp, gp = kernel_vg(m, idx, pd)
+            lp, _ = kernel_vg(m, idx, pd)
         finally:
             elastic_fused.fused_elastic_loss_grad_meds = kernel
-        fk, fp = bool(torch.isfinite(grad).all()), bool(
-            torch.isfinite(gp).all())
-        vp, vs = m[..., 0], m[..., 1]
-        print(f"phase 18 mcdip_uq under SGHMC: a non-finite B3 loss on a "
-              f"model with vp {float(vp.min()):.0f}-{float(vp.max()):.0f}, "
-              f"vs {float(vs.min()):.0f}-{float(vs.max()):.0f} m/s and "
-              f"{int((vs > vp).sum())} cells with vs > vp; the plain "
-              f"version's loss {float(lp)}; "
-              f"gradient finite: kernel {fk}, plain {fp}")
-        check(not math.isfinite(float(lp)) and fk == fp,
-              "B3's non-finite loss is not its plain version's")
+        print(f"phase 18 mcdip_uq under SGHMC: the last epoch's B3 loss "
+              f"{loss} on a model with vp {float(m[..., 0].min()):.0f}-"
+              f"{float(m[..., 0].max()):.0f}, vs {float(m[..., 1].min()):.0f}"
+              f"-{float(m[..., 1].max()):.0f} m/s and {n_vs_vp[-1]} cells "
+              f"with vs > vp; its plain version's loss {float(lp)}")
+        check(n_vs_vp[-1] > 0 and not math.isfinite(float(lp)),
+              "B3's non-finite loss is not its plain version's, or has no "
+              "cell with vs > vp")
     return launches
 
 

@@ -112,7 +112,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     next epoch at ``lr / guard_lr_ramp``) and ``evaluate`` of the run's
     ``latest`` checkpoint;
 16. L-BFGS and the non-fused elastic paths at full width:
-    ``train(get_workload("marmousi_elastic_lbfgs"), epochs=lstart + 2)``
+    ``train(get_workload("marmousi_elastic_lbfgs"), epochs=lstart + 1)``
     (35 shots a closure, the ``tnl2`` misfit on the "fast" path: plain
     autograd through the 5-field sponge propagator, no kernel): the
     misfit at the true model, the setup, the warmup epochs, each physics
@@ -149,7 +149,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``optimizer="sghmc"`` (the warmup cut to 2 epochs, then 2 physics
     epochs; B3 and the ring forward resident; a non-finite B3 loss in the
     last one held to its plain version's); one SGLD and one SGHMC step's noise statistics on 1e6
-    elements on the card.
+    elements on the card;
+19. BASELINE config 4 and the rest of the physics engines at full width,
+    each on its own workload, every kernel's launch count 0 across the
+    phase (they run plain PyTorch, as the JAX package runs XLA there):
+    the VAE pretraining on ``make_model_bank(48)`` at 151 x 201 (30 of
+    the recipe's 300 epochs; the recon loss falls), ``latent_inversion``
+    (10 shots x 150 receivers, nt 800) for 5 epochs through the frozen
+    decoder (``loss_D_MSE`` falls below epoch 1's), ``evaluate`` of its
+    ``latest`` checkpoint (``z`` restored), 3 GanFWI SGLD steps over the
+    decoder; ``classic_fwi_acoustic`` (151 x 200, nt 4001, 18 shots) 1
+    epoch; ``classic_fwi_elastic`` (100 x 300, nt 3334, 5 of 35 shots a
+    step, the "fast" path) 2 epochs, vs live; ``marmousi_impedance`` 3
+    epochs, then ``save_engine``/``restore_engine`` on the card;
+    ``marmousi_acoustic_encoded`` (4 super-shots) 2 epochs on the
+    "encoded" path; ``acoustic_dip_multi`` on ``marmousi_acoustic``, 2
+    samples, 1 warmup epoch then 1 physics epoch.  Each prints its setup
+    and epoch seconds, peak memory and physics path.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -367,15 +383,20 @@ def ptxas_summary(log: str, keys) -> list[str]:
     return out
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_card():
     import torch
 
     import physicsbasedfwi2_tpu_torch  # noqa: F401  (turns TF32 off)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    print(smi[0])
+    print(card_line())
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} "
@@ -1174,7 +1195,7 @@ def phase_robust(dev):
 
 def phase_lbfgs(dev):
     """Slice 6 at full width: ``marmousi_elastic_lbfgs`` (full-batch
-    L-BFGS, the ``tnl2`` misfit on the "fast" path) for lstart + 2
+    L-BFGS, the ``tnl2`` misfit on the "fast" path) for lstart + 1
     epochs, ``marmousi_acoustic`` with L-BFGS for 2 epochs, and one
     split-PML ``elastic_gradient`` on 5 shots."""
     import torch
@@ -1248,7 +1269,7 @@ def phase_lbfgs(dev):
         return out
 
     engine.optimize_parameters = logged
-    epochs = cfg.lstart + 2
+    epochs = cfg.lstart + 1
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
@@ -1287,9 +1308,11 @@ def phase_lbfgs(dev):
         for k, v in rec.items():
             if isinstance(v, float):
                 check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
-    d = [r["loss_D_MSE"] for r in history[cfg.lstart:]]
-    check(all(x > 0 for x in d) and d[-1] < d[0],
-          f"loss_D does not fall over the physics epochs: {d}")
+    # the physics loss falls: the accepted step's full-batch loss (the
+    # next epoch's loss_D) below the physics epoch's
+    d0, d1 = steps[epochs][:2]
+    check(history[-1]["loss_D_MSE"] > 0 and d1 < d0,
+          f"loss_D does not fall over the physics epoch: {d0} -> {d1}")
     check(b3.launches == 0 and ring.launches == 0,
           "a fused elastic kernel ran on the fast path")
 
@@ -2521,6 +2544,16 @@ def phase_config5(dev):
 ACOUSTIC_BUILD = ("nz", "nx", "dx", "nt", "dt", "pml_width", "freq",
                   "num_shots", "num_receivers", "seed", "chunk")
 SGHMC_LSTART = 2  # mcdip_uq's warmup epochs under SGHMC (the recipe: 30)
+# phase 19's depth: epochs of each engine (the registered recipes run
+# hundreds to thousands), the pretraining's (the recipe: 300), GanFWI's
+# sampler steps
+PRETRAIN_EPOCHS = 30
+LATENT_EPOCHS = 5
+CLASSIC_AC_EPOCHS = 1
+CLASSIC_EL_EPOCHS = 2
+IMPEDANCE_EPOCHS = 3
+ENCODED_EPOCHS = 2
+GAN_STEPS = 3
 
 
 def _vae_logvar(engine):
@@ -2831,6 +2864,266 @@ def phase_config2(dev):
     return launches
 
 
+
+def _all_kernels() -> dict:
+    """Every kernel wrapper with a launch counter, by the kernels line's
+    names."""
+    from physicsbasedfwi2_tpu_torch.ops import (
+        adjoint, elastic_fused, elastic_fwd, fwi_fused, kernels, scalar2,
+        scalar2b)
+    return {"forward2": scalar2.forward2,
+            "fwi_l1_loss_grad": fwi_fused.fwi_l1_loss_grad,
+            "fused_elastic_loss_grad":
+                elastic_fused.fused_elastic_loss_grad_meds,
+            "simulate_elastic_ring": elastic_fused.simulate_elastic_ring,
+            "forward2_ckpt": scalar2.forward2_ckpt,
+            "backward2": scalar2.backward2,
+            "acoustic_forward_pallas": kernels.acoustic_forward_pallas,
+            "acoustic_pallas_backward": adjoint.acoustic_pallas_backward,
+            "forward2b": scalar2b.forward2b,
+            "backward2b": scalar2b.backward2b,
+            "elastic_forward_pallas": elastic_fwd.elastic_forward_pallas}
+
+
+def _train19(dev, what, cfg, epochs, build):
+    """``train(cfg, epochs=epochs, engine=build())`` on the card: prints
+    the engine's setup seconds, each epoch's seconds and record, the peak
+    memory and the physics path, and checks that every number is finite.
+    Returns (engine, history)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = build()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    check(engine.device == dev, f"{what}: engine on {engine.device}")
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for rec in history:
+        print("epoch", json.dumps(rec))
+    secs = ", ".join(f"{r['epoch_time']:.4f}" for r in history)
+    print(f"phase 19 {what}: {cfg.nz}x{cfg.nx}, nt {cfg.nt}, "
+          f"{cfg.num_shots} shots x {cfg.num_receivers} receivers; physics "
+          f"path {engine.physics_path}; setup {setup:.2f} s; epochs {secs} "
+          f"s; peak memory {peak:.2f} GiB")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"{what} epoch {rec['epoch']}: "
+                      f"{k}={v}")
+    return engine, history
+
+
+def _config4(dev, out_dir):
+    """BASELINE config 4 at its registered size, the recipe of
+    benchmarks/run_latent_flagship.py with the pretraining's epochs cut
+    from 300 to ``PRETRAIN_EPOCHS``: the VAE pretraining on a 48-model
+    bank, the latent inversion through the frozen decoder, ``evaluate`` of
+    its ``latest`` checkpoint, then GanFWI's SGLD over the same decoder
+    and workload."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import (
+        LatentInversionEngine)
+    from physicsbasedfwi2_tpu_torch.engine.ganfwi import GanFWI
+    from physicsbasedfwi2_tpu_torch.engine.pretrain import (
+        make_model_bank, pretrain_model_vae)
+    from physicsbasedfwi2_tpu_torch.engine.test import evaluate
+    from physicsbasedfwi2_tpu_torch.models import apply_velocity_output
+    cfg = get_workload("latent_inversion", save_dir=str(out_dir))
+    bank = make_model_bank(48, cfg.nz, cfg.nx, water_rows=6, seed=3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net, norm, hist = pretrain_model_vae(
+        bank, latent_dim=cfg.latent_dim, filters=cfg.filters,
+        epochs=PRETRAIN_EPOCHS, batch_size=8, lr=2e-3, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase 19 config 4 pretraining: ModelVae {cfg.nz}x{cfg.nx}, "
+          f"filters {cfg.filters}, latent {cfg.latent_dim}, 48 models, "
+          f"batch 8, {PRETRAIN_EPOCHS} epochs in {secs:.2f} s "
+          f"({secs / PRETRAIN_EPOCHS:.4f} s an epoch of 6 steps); recon "
+          f"loss {hist[0]:.6f} -> {hist[-1]:.6f}; norm {norm}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(all(math.isfinite(h) for h in hist) and hist[-1] < hist[0],
+          f"pretraining's recon loss does not fall: {hist[0]} -> {hist[-1]}")
+
+    def latent():
+        return LatentInversionEngine(cfg, decoder_net=net,
+                                     decoder_norm=norm, device=dev)
+
+    engine, history = _train19(dev, "latent_inversion", cfg,
+                               LATENT_EPOCHS, latent)
+    losses = [r["loss_D_MSE"] for r in history]
+    check(min(losses[1:]) < losses[0],
+          f"latent_inversion: loss_D_MSE does not fall below epoch 1's: "
+          f"{losses}")
+    z = engine.params["z"].detach().clone()
+    fresh = latent()
+    res = evaluate(cfg, epoch="latest", results_dir=str(out_dir / "results"),
+                   engine=fresh)
+    same = torch.equal(fresh.params["z"], z)
+    print(f"phase 19 latent_inversion evaluate(latest): {res}; z restored "
+          f"{same}: {z.cpu().numpy().round(5).tolist()}")
+    check(same and math.isfinite(res["loss_V_MSE"]),
+          "evaluate did not restore z")
+
+    wl = engine.wl
+    true_b = wl.vp_true[None, :, :, None]
+
+    def decode(zz):
+        return apply_velocity_output(net.decode(zz), true_b, vmin=norm[0],
+                                     vmax=norm[1],
+                                     water_vel=cfg.water_vel)[0, :, :, 0]
+
+    gan = GanFWI(decode, cfg.latent_dim, wl, sampler="sgld", lr=1e-3,
+                 seed=cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_losses, samples = gan.sample(GAN_STEPS, burn_in=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"phase 19 GanFWI (SGLD, lr 1e-3) over the pretrained decoder: "
+          f"{GAN_STEPS} steps in {secs:.2f} s; losses "
+          f"{[f'{x:.6g}' for x in g_losses]}; samples {samples.shape}; "
+          f"noise generator on {gan.opt.generator.device}")
+    check(all(math.isfinite(x) for x in g_losses)
+          and samples.shape == (GAN_STEPS - 1, cfg.nz, cfg.nx),
+          "GanFWI: a loss not finite or the samples' shape")
+
+
+def _round_trip19(dev, engine, path) -> None:
+    """save_engine / restore_engine on the card: a fresh engine of the
+    same config restores the weights and the optimizer state to the bit."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.checkpoint import (
+        restore_engine, save_engine)
+    from physicsbasedfwi2_tpu_torch.engine.engines import create_engine
+    save_engine(engine, str(path), epoch=3)
+    fresh = create_engine(engine.cfg, device=dev)
+    epoch = restore_engine(fresh, str(path))
+    a, b = engine.weights.state_dict(), fresh.weights.state_dict()
+    weights = a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                           for k in a)
+    sa, sb = engine.opt.state_dict(), fresh.opt.state_dict()
+    moments = [torch.equal(x[k], y[k]) for x, y in
+               zip(sa["state"].values(), sb["state"].values()) for k in x]
+    print(f"phase 19 save_engine/restore_engine ({engine.cfg.name}, "
+          f"{type(engine.opt).__name__}): epoch {epoch}; {len(a)} weight "
+          f"tensors equal {weights}; {len(moments)} optimizer state tensors "
+          f"equal {all(moments)}; lr {sb['param_groups'][0]['lr']}; "
+          f"{path.stat().st_size} bytes")
+    check(epoch == 3 and weights and moments and all(moments)
+          and sa["param_groups"] == sb["param_groups"],
+          "the checkpoint round trip changed the state")
+
+
+def phase_other_engines(dev):
+    """BASELINE config 4 and the rest of the physics engines at full
+    width (plain PyTorch: no kernel launch); the three acoustic engines
+    on marmousi_acoustic's grid each on a copy of one workload (and the
+    encoded engine on one validation twin), built once."""
+    import dataclasses
+    import torch
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticAcousticWorkload)
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import (
+        AcousticDIPEngine, ClassicFWIEngine, ImpedanceDIPEngine,
+        MultiSampleAcousticDIPEngine)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    out_dir = ROOT / "build" / "chip_smoke"
+    counters = _all_kernels()
+    reset_launches(*counters.values())
+    print(f"phase 19 on {card_line()}")
+    t_phase = time.perf_counter()
+    # config 4's checks read a trajectory (the recon loss, the latent
+    # misfit against epoch 1's): cuDNN's deterministic algorithms (no
+    # atomics in the convolutions' backward) take out one source of its
+    # run-to-run spread, not all (PERF.md §6)
+    cudnn = torch.backends.cudnn
+    deterministic = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        _config4(dev, out_dir)
+    finally:
+        cudnn.deterministic = deterministic
+
+    base = get_workload("marmousi_acoustic")
+    kw = {f: getattr(base, f) for f in ACOUSTIC_BUILD if f != "seed"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wl = SyntheticAcousticWorkload.build(**kw, seed=base.seed, device=dev)
+    twin = SyntheticAcousticWorkload.build(**kw, seed=base.seed + 101,
+                                           device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 19: marmousi_acoustic's workload and its twin built once "
+          f"in {time.perf_counter() - t0:.2f} s for classic_fwi_acoustic, "
+          f"marmousi_acoustic_encoded and acoustic_dip_multi's sample 0")
+
+    cfg = get_workload("classic_fwi_acoustic", save_dir=str(out_dir))
+    check(all(getattr(cfg, f) == getattr(base, f) for f in ACOUSTIC_BUILD),
+          "classic_fwi_acoustic: not marmousi_acoustic's grid")
+    _train19(dev, "classic_fwi_acoustic", cfg, CLASSIC_AC_EPOCHS,
+             lambda: ClassicFWIEngine(cfg, workload=dataclasses.replace(wl),
+                                      device=dev))
+
+    cfg = get_workload("classic_fwi_elastic", save_dir=str(out_dir))
+    holder = {}
+
+    def classic_el():
+        holder["e"] = ClassicFWIEngine(cfg, device=dev)
+        holder["vs0"] = holder["e"].params["vs"].detach().clone()
+        return holder["e"]
+
+    engine, _ = _train19(dev, "classic_fwi_elastic", cfg, CLASSIC_EL_EPOCHS,
+                         classic_el)
+    moved = float((engine.params["vs"].detach() - holder["vs0"]).abs().max())
+    print(f"phase 19 classic_fwi_elastic: {cfg.shots_per_iter} of "
+          f"{engine.n_shots} shots a step; vs moved by up to {moved:.4f} m/s")
+    check(engine.physics_path == "fast" and moved > 0,
+          "classic_fwi_elastic: not the fast path, or vs did not move")
+
+    cfg = get_workload("marmousi_impedance", save_dir=str(out_dir))
+    engine, _ = _train19(dev, "marmousi_impedance", cfg, IMPEDANCE_EPOCHS,
+                         lambda: ImpedanceDIPEngine(cfg, device=dev))
+    _round_trip19(dev, engine, out_dir / "impedance_state.pt")
+
+    cfg = get_workload("marmousi_acoustic_encoded", save_dir=str(out_dir))
+    check(all(getattr(cfg, f) == getattr(base, f) for f in ACOUSTIC_BUILD),
+          "marmousi_acoustic_encoded: not marmousi_acoustic's grid")
+    engine, _ = _train19(dev, "marmousi_acoustic_encoded", cfg,
+                         ENCODED_EPOCHS,
+                         lambda: AcousticDIPEngine(
+                             cfg, workload=dataclasses.replace(wl),
+                             val_workload=twin, device=dev))
+    check(engine.physics_path == "encoded",
+          f"encoded: physics path {engine.physics_path}")
+
+    cfg = get_workload("marmousi_acoustic", save_dir=str(out_dir),
+                       engine="acoustic_dip_multi", lstart=1)
+    engine, hist = _train19(
+        dev, "acoustic_dip_multi (marmousi_acoustic, 2 samples, lstart 1)",
+        cfg, 2, lambda: MultiSampleAcousticDIPEngine(
+            cfg, workloads=[dataclasses.replace(wl),
+                            SyntheticAcousticWorkload.build(
+                                **kw, seed=base.seed + 1, device=dev)],
+            device=dev))
+    check("loss_M" in hist[0] and "loss_D" in hist[1],
+          "multi-sample: not loss_M then loss_D")
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    torch.cuda.synchronize()
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s; kernel "
+          f"launches {launches}")
+    check(not any(launches.values()),
+          f"phase 19 launched kernels: {launches}")
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -2862,7 +3155,8 @@ def main(argv: list[str]) -> int:
                   11: [phase_b7, phase_slice4_pairs], 12: [phase_b8],
                   13: [phase_b2_wavelet], 14: [phase_engine_paths],
                   15: [phase_robust], 16: [phase_lbfgs],
-                  17: [phase_config5], 18: [phase_config2]}
+                  17: [phase_config5], 18: [phase_config2],
+                  19: [phase_other_engines]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -2892,6 +3186,7 @@ def main(argv: list[str]) -> int:
     b3.update(b3_seam)
     ring.update(ring_seam)
     launches.update(phase_config2(dev))
+    phase_other_engines(dev)
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",

@@ -4,7 +4,9 @@ from physicsbasedfwi2_tpu_torch.engine.config import (
     ExperimentConfig, get_workload, list_workloads, register_workload,
 )
 from physicsbasedfwi2_tpu_torch.engine.engines import (
-    AcousticDIPEngine, ElasticDIPEngine, create_engine, default_device,
+    AcousticDIPEngine, ClassicFWIEngine, ElasticDIPEngine,
+    ImpedanceDIPEngine, LatentInversionEngine, MultiSampleAcousticDIPEngine,
+    create_engine, default_device,
 )
 
 __all__ = [
@@ -14,6 +16,10 @@ __all__ = [
     "register_workload",
     "AcousticDIPEngine",
     "ElasticDIPEngine",
+    "LatentInversionEngine",
+    "ClassicFWIEngine",
+    "MultiSampleAcousticDIPEngine",
+    "ImpedanceDIPEngine",
     "create_engine",
     "default_device",
     "race",

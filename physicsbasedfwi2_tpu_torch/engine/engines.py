@@ -1,11 +1,12 @@
 """Inversion engines (port of ``physicsbasedfwi2_tpu/engine/engines.py``:
-``EngineBase``, ``AcousticDIPEngine`` on its fused and "xla" paths,
-``ElasticDIPEngine`` on its fused, "fast" and "xla" paths with held-out
-shots, the step cap, the drift guard's revert, illumination
+``EngineBase``, ``AcousticDIPEngine`` on its fused, "xla" and "encoded"
+paths, ``ElasticDIPEngine`` on its fused, "fast" and "xla" paths with
+held-out shots, the step cap, the drift guard's revert, illumination
 preconditioning, gradient smoothing and MC dropout, Adam or L-BFGS in
-both, SGLD or SGHMC in both, the VAE and flow generators' loss terms,
-``LrPolicy``, ``_make_optimizer``, ``_evict_stale_stages`` and
-``create_engine``).
+both, SGLD or SGHMC in both, the VAE and flow generators' loss terms;
+``MultiSampleAcousticDIPEngine``, ``ClassicFWIEngine``,
+``LatentInversionEngine`` and ``ImpedanceDIPEngine``; ``LrPolicy``,
+``_make_optimizer``, ``_evict_stale_stages`` and ``create_engine``).
 
 The JAX engines inject the processed physics gradient into the
 generator's autodiff with a ``jax.custom_vjp``; here that is
@@ -18,6 +19,7 @@ gradient processing, and whose backward returns the processed gradient.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any
 
@@ -37,9 +39,10 @@ from physicsbasedfwi2_tpu_torch.models import (
 from physicsbasedfwi2_tpu_torch.models.convert import (
     npz_from_state_dict, state_dict_from_npz,
 )
+from physicsbasedfwi2_tpu_torch.models.vae import VaeNet
 from physicsbasedfwi2_tpu_torch.ops import (
-    acoustic_gradient, normalized_trace_misfit, simulate_acoustic,
-    trace_normalize,
+    acoustic_gradient, l1_misfit, l2_misfit, normalized_trace_misfit,
+    simulate_acoustic, trace_normalize,
 )
 from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
     fwi_l1_loss_grad, scatter_rows,
@@ -51,9 +54,13 @@ from physicsbasedfwi2_tpu_torch.ops.elastic_fast import (
 from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
     fused_elastic_loss_grad, scatter_rows_el, simulate_elastic_ring,
 )
+from physicsbasedfwi2_tpu_torch.ops.encoding import (
+    encode_shots, encoded_fwi_gradient,
+)
 from physicsbasedfwi2_tpu_torch.ops.gradproc import (
     depth_weighting, rescale_to_model, smooth_spatial, taper_top, water_mask,
 )
+from physicsbasedfwi2_tpu_torch.ops.impedance import impedance_synthetic
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
 from physicsbasedfwi2_tpu_torch.optim.lbfgs import lbfgs_wolfe
 from physicsbasedfwi2_tpu_torch.optim.schedules import (
@@ -64,8 +71,12 @@ from physicsbasedfwi2_tpu_torch.optim.sgmcmc import sghmc, sgld
 # Offsets from cfg.seed of the engines' generators on the device, apart
 # so that no two draw from one Philox stream: dropout masks (0), a VAE's
 # latent noise (1), SG-MCMC noise (2).  The weights' generator (cfg.seed)
-# and the elastic shot draw's (cfg.seed + 7) are on the CPU.
+# is on the CPU.
 _LATENT_SEED, _SGMCMC_SEED = 1, 2
+# Offsets of CPU generators, as the JAX engines offset their keys: the
+# elastic engine's shot draw (7), classic FWI's (11), the super-shot
+# encoding (77)
+_SHOT_SEED, _CLASSIC_SHOT_SEED, _ENCODING_SEED = 7, 11, 77
 
 
 def _resolve_device(device) -> torch.device:
@@ -73,6 +84,29 @@ def _resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _engine_device(device, workload) -> torch.device:
+    """The device an engine runs on: ``device``, else its workload's,
+    else :func:`default_device` (the card; raises without one)."""
+    if device is None:
+        device = (workload.device if workload is not None
+                  else default_device())
+    dev = _resolve_device(device)
+    if workload is not None and workload.device != dev:
+        raise ValueError(f"workload lives on {workload.device}, engine "
+                         f"on {dev}")
+    return dev
+
+
+def _not_ported(mesh=None, dataroot=None) -> None:
+    """Raise for the options the port does not take yet: ``mesh`` (shot
+    sharding) and ``dataroot`` (workloads from disk)."""
+    why = [w for cond, w in (
+        (mesh is not None, "mesh (shot sharding): ROADMAP Queue A, item 13"),
+        (bool(dataroot), "dataroot: ROADMAP Queue A, item 10")) if cond]
+    if why:
+        raise NotImplementedError("not ported yet: " + "; ".join(why))
 
 
 def _evict_stale_stages(cache: dict, fc: float) -> None:
@@ -150,18 +184,22 @@ class _Lbfgs:
         # own and one a line-search probe
         self.evaluations = 0
 
-    def updates(self, loss_fn):
+    def updates(self, loss_fn, process=None):
         """One L-BFGS iteration of ``loss_fn(params) -> (loss, *aux)``
         (``params`` None: the generator's own; else replacements by
         name): the value and gradient at the current parameters, then
         the line search, whose every probe evaluates the same loss's
         value and gradient, as the JAX engine's ``value_fn`` does.
-        Returns (``loss_fn``'s outputs at the current parameters, the
-        updates); :meth:`apply` takes the step."""
+        ``process`` maps the gradient list before it sets the direction
+        (classic FWI's gradient processing; the probes' gradients stay
+        raw, as in the JAX engine).  Returns (``loss_fn``'s outputs at the
+        current parameters, the updates); :meth:`apply` takes the step."""
         out = loss_fn(None)
         grads = torch.autograd.grad(out[0], self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
+        if process is not None:
+            grads = process(grads)
 
         def value_fn(leaves):
             return loss_fn(dict(zip(self.names, leaves)))[0]
@@ -233,31 +271,66 @@ def _log_path(name: str, physics: str, path: str, why: str = ""):
 
 
 class EngineBase:
-    """Checkpoint plumbing shared by the engines."""
+    """Checkpoint plumbing shared by the engines.
+
+    :attr:`weights` is the module whose parameters the optimizer trains:
+    the generator ``net``, or for the engines without one (classic FWI,
+    latent inversion) ``params``, an ``nn.ParameterDict`` of their
+    tensors by name."""
 
     cfg: ExperimentConfig
     net: torch.nn.Module
 
+    @property
+    def weights(self) -> torch.nn.Module:
+        return self.net
+
     def save_networks(self, tag: str | int):
-        """Save the generator as ``<tag>_net_G.npz`` with the JAX
+        """Save the trained weights as ``<tag>_net_G.npz`` with the JAX
         package's keys (loads in either package; no pickle)."""
         os.makedirs(self._dir(), exist_ok=True)
         path = os.path.join(self._dir(), f"{tag}_net_G.npz")
-        np.savez(path, **npz_from_state_dict(self.net.state_dict(),
-                                             self.net))
+        np.savez(path, **self._npz_arrays())
         return path
 
     def load_networks(self, tag: str | int):
         """Restore weights saved by :meth:`save_networks` (by either
-        package) into the engine's generator."""
+        package) into the engine."""
         path = os.path.join(self._dir(), f"{tag}_net_G.npz")
         with np.load(path) as z:
-            sd = state_dict_from_npz({k: z[k] for k in z.files})
-        self.net.load_state_dict(sd)  # raises on a missing key or shape
+            self._load_npz_arrays({k: z[k] for k in z.files})
         return path
+
+    def _npz_arrays(self) -> dict:
+        return npz_from_state_dict(self.net.state_dict(), self.net)
+
+    def _load_npz_arrays(self, arrays: dict) -> None:
+        # raises on a missing key or shape
+        self.net.load_state_dict(state_dict_from_npz(arrays))
 
     def _dir(self):
         return os.path.join(self.cfg.save_dir, self.cfg.name)
+
+
+class _ParamsEngine(EngineBase):
+    """An engine whose trained state is ``params``, an
+    ``nn.ParameterDict`` (the JAX engine's ``params`` dict): its npz keys
+    are ``['<name>']``, as ``jax.tree_util.keystr`` writes them."""
+
+    params: torch.nn.ParameterDict
+
+    @property
+    def weights(self) -> torch.nn.Module:
+        return self.params
+
+    def _npz_arrays(self) -> dict:
+        return {f"['{k}']": v.detach().cpu().numpy()
+                for k, v in self.params.items()}
+
+    def _load_npz_arrays(self, arrays: dict) -> None:
+        # raises on a missing key or shape
+        self.params.load_state_dict({k: torch.as_tensor(arrays[f"['{k}']"])
+                                     for k in self.params})
 
 
 class _PhysicsLoss(torch.autograd.Function):
@@ -283,9 +356,14 @@ class AcousticDIPEngine(EngineBase):
     ``device`` holds the generator, the workload and the physics.  On
     the fused second-order path (``backend`` "auto"/"pallas", ``l1``
     misfit, single-row receivers) the physics runs kernels B1/B2 on
-    CUDA and their plain versions on CPU; otherwise it takes the JAX
-    engine's "xla" path, autograd through :func:`simulate_acoustic`.
-    Frequency continuation swaps the physics data per stage
+    CUDA and their plain versions on CPU; with ``encoded_shots`` > 0 the
+    "encoded" path: every step a fresh random-polarity encoding of the
+    shots into that many super-shots (:meth:`encoding`, from a CPU
+    generator seeded ``cfg.seed + 77``), the misfit of the raw
+    super-gathers (``ops/encoding.py``), receivers common to all shots
+    required; otherwise the JAX engine's "xla" path, autograd through
+    :func:`simulate_acoustic`.  Frequency continuation swaps the physics
+    data per stage
     (:meth:`_stage_data`); ``wavelet_from_data`` (AutoWav) on a synthetic
     workload gives every shot its own copy of the wavelet.
 
@@ -300,31 +378,15 @@ class AcousticDIPEngine(EngineBase):
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None,
                  val_workload=None, *, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (shot sharding) is not ported yet (ROADMAP Queue A, "
-                "item 13)")
-        if cfg.dataroot:
-            raise NotImplementedError(
-                "dataroot workloads are not ported yet (ROADMAP Queue A, "
-                "item 10)")
-        if cfg.encoded_shots > 0:
-            raise NotImplementedError(
-                "encoded_shots is not ported yet (ROADMAP Queue A, item 9)")
+        _not_ported(mesh, cfg.dataroot)
         self.cfg = cfg
-        if device is None:
-            device = (workload.device if workload is not None
-                      else default_device())
-        self.device = _resolve_device(device)
+        self.device = _engine_device(device, workload)
         # (water_rows is not passed, as in the JAX engine: ROADMAP Queue C)
         self.wl = workload or SyntheticAcousticWorkload.build(
             nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
             pml_width=cfg.pml_width, freq=cfg.freq,
             num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
             seed=cfg.seed, chunk=cfg.chunk, device=self.device)
-        if self.wl.device != self.device:
-            raise ValueError(f"workload lives on {self.wl.device}, engine "
-                             f"on {self.device}")
         if cfg.wavelet_from_data and self.wl.wavelet.ndim == 1:
             # AutoWav on a synthetic workload: the per-shot wavelet array
             # [ns, nt] that stored data would carry
@@ -333,18 +395,34 @@ class AcousticDIPEngine(EngineBase):
                 ns, -1).contiguous()
         acq = self.wl.acq
         single_row = bool((acq.rcv_z == acq.rcv_z[:, :1]).all())
+        self._encoded = cfg.encoded_shots > 0
+        if self._encoded and not ((acq.rcv_z == acq.rcv_z[:1]).all()
+                                  and (acq.rcv_x == acq.rcv_x[:1]).all()):
+            # every super-shot records on shot 0's spread
+            # (encoded_fwi_gradient): a per-shot layout would get a wrong
+            # gradient
+            raise ValueError(
+                "encoded_shots>0 requires an identical receiver spread "
+                "(rcv_z/rcv_x) across all shots; this workload's geometry "
+                "varies per shot")
         why = [w for cond, w in (
             (cfg.backend not in ("pallas", "auto"),
              f"backend={cfg.backend}"),
             (cfg.misfit != "l1", f"misfit={cfg.misfit}"),
-            (not single_row, "multi-row receivers")) if cond]
+            (not single_row, "multi-row receivers"),
+            (self._encoded, "encoded_shots")) if cond]
         # the fused path runs kernel B2 on the card and its plain version
-        # on the CPU; otherwise the JAX engine's "xla" path: autograd
-        # through simulate_acoustic, plain PyTorch on either device
+        # on the CPU; otherwise the JAX engine's "xla" path (autograd
+        # through simulate_acoustic) or, with encoded_shots, its "encoded"
+        # path (super-shots, ops/encoding.py): plain PyTorch on either
+        # device
         self._use_fused = not why
         if self._use_fused:
             self.physics_path = ("fused-cuda" if self.device.type == "cuda"
                                  else "fused-plain")
+            _log_path(cfg.name, "acoustic", self.physics_path)
+        elif self._encoded:
+            self.physics_path = "encoded"
             _log_path(cfg.name, "acoustic", self.physics_path)
         else:
             self.physics_path = "xla"
@@ -402,6 +480,11 @@ class AcousticDIPEngine(EngineBase):
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         self._drop_gen = _dropout_generator(cfg, self.device)
         self._latent_gen = _latent_generator(cfg, self.device, self.is_vae)
+        # encoded_shots: a fresh encoding every step (the JAX engine's key
+        # comes from its step rng, so the packages encode differently)
+        self._enc_gen = (
+            torch.Generator().manual_seed(cfg.seed + _ENCODING_SEED)
+            if self._encoded else None)
         self._build_physics()
 
     def _kernel_rows(self, pd, dir_rows):
@@ -427,6 +510,9 @@ class AcousticDIPEngine(EngineBase):
         wl = self.wl
         self._phys = {"wav": wl.wavelet, "obs_norm": wl.obs_norm,
                       "direct": self._direct}
+        if self._encoded:
+            # the super-gathers combine the raw per-shot gathers linearly
+            self._phys["obs"] = wl.obs
         if self._use_fused:
             self._kernel_rows(self._phys, self._dir_rows)
         self._stage_cache = {}
@@ -455,8 +541,10 @@ class AcousticDIPEngine(EngineBase):
             dt, wl = self.cfg.dt, self.wl
             pd = dict(self._phys)
             pd["wav"] = lowpass_filter_time(wl.wavelet, key, dt, axis=-1)
-            pd["obs_norm"] = trace_normalize(
-                lowpass_filter_time(wl.obs, key, dt, axis=1))
+            obs = lowpass_filter_time(wl.obs, key, dt, axis=1)
+            pd["obs_norm"] = trace_normalize(obs)
+            if self._encoded:
+                pd["obs"] = obs
             if self._direct is not None:
                 pd["direct"] = lowpass_filter_time(self._direct, key, dt,
                                                    axis=1)
@@ -469,14 +557,27 @@ class AcousticDIPEngine(EngineBase):
             self._stage_cache[key] = pd
         return self._stage_cache[key]
 
-    def physics_value_and_grad(self, vp: torch.Tensor, fc: float = 0.0):
+    def encoding(self):
+        """A fresh super-shot encoding (groups, polarities) from the
+        engine's generator (``encoded_shots > 0``)."""
+        return encode_shots(int(self.wl.acq.src_z.shape[0]),
+                            self.cfg.encoded_shots, self._enc_gen)
+
+    def physics_value_and_grad(self, vp: torch.Tensor, fc: float = 0.0,
+                               encoding=None):
         """(loss, processed dJ/dvp) at stage ``fc`` (0 = full band): the
-        fused loss+gradient (B2) or, on the "xla" path, autograd through
-        :func:`simulate_acoustic`; then depth^2 weighting, the water mask
-        and ``grad_scale``."""
+        fused loss+gradient (B2), on the "encoded" path the super-shots'
+        (``encoding``, else a fresh one), or on the "xla" path autograd
+        through :func:`simulate_acoustic`; then depth^2 weighting, the
+        water mask and ``grad_scale``."""
         cfg, wl = self.cfg, self.wl
         pd = self._stage_data(fc)
-        if self._use_fused:
+        if self._encoded:
+            groups, pol = encoding or self.encoding()
+            loss, grad = encoded_fwi_gradient(
+                vp, pd["obs"], pd["wav"], *self._geom, wl.cfg,
+                cfg.encoded_shots, groups=groups, pol=pol, misfit=cfg.misfit)
+        elif self._use_fused:
             loss, grad = fwi_l1_loss_grad(vp, pd["wav"], *self._geom,
                                           wl.cfg, pd["obs_rows"],
                                           pd["dir_rows"])
@@ -494,16 +595,18 @@ class AcousticDIPEngine(EngineBase):
         grad = water_mask(grad, wl.vp_true, cfg.water_vel)
         return loss, grad * cfg.grad_scale
 
-    def physics_loss(self, vp: torch.Tensor, fc: float = 0.0) -> torch.Tensor:
+    def physics_loss(self, vp: torch.Tensor, fc: float = 0.0,
+                     encoding=None) -> torch.Tensor:
         """Differentiable physics loss of vp [nz, nx] at stage ``fc``."""
         return _PhysicsLoss.apply(
-            vp, lambda v: self.physics_value_and_grad(v, fc))
+            vp, lambda v: self.physics_value_and_grad(v, fc, encoding))
 
     def _total_loss(self, use_physics: bool, fc: float = 0.0, params=None,
-                    generator=None):
+                    generator=None, encoding=None):
         """(loss, model MSE) of the generator (with its parameters
         replaced by ``params`` where given; its random draws, a VAE's
-        latent noise or dropout masks, from ``generator``)."""
+        latent noise or dropout masks, from ``generator``; the
+        super-shot ``encoding`` of the step)."""
         cfg = self.cfg
         out = pack_output(_call(self.net, params, self.shots_in,
                                 generator=generator))
@@ -511,7 +614,7 @@ class AcousticDIPEngine(EngineBase):
                                    water_vel=cfg.water_vel)[0, :, :, 0]
         model_mse = torch.mean((vp - self.wl.vp_true) ** 2)
         if use_physics:
-            loss = self.physics_loss(vp, fc)
+            loss = self.physics_loss(vp, fc, encoding)
         else:
             loss = torch.zeros((), device=self.device)
         if cfg.supervised_weight > 0:
@@ -543,21 +646,21 @@ class AcousticDIPEngine(EngineBase):
         # other generators dropout masks
         draws = _step_masks(self._latent_gen if self.is_vae
                             else self._drop_gen)
+        # every step draws a new encoding, as the JAX engine splits a key
+        enc = self.encoding() if self._encoded else None
         if isinstance(self.opt, _Lbfgs):
             # the line search's probes evaluate the same loss (on the
-            # card kernel B2 once a probe) with the same draws
+            # card kernel B2 once a probe) with the same draws and
+            # encoding
             (loss, model_mse), upd = self.opt.updates(
                 lambda params: self._total_loss(use_physics, fc, params,
-                                                draws()))
+                                                draws(), enc))
             self.opt.apply(upd)
         else:
-            if self.lr_policy is not None:
-                lr = self.lr_policy.lr_for_epoch(epoch)
-                for group in self.opt.param_groups:
-                    group["lr"] = lr
+            _set_lr(self, epoch)
             self.opt.zero_grad(set_to_none=True)
             loss, model_mse = self._total_loss(use_physics, fc, None,
-                                               draws())
+                                               draws(), enc)
             loss.backward()
             self.opt.step()
         # one device sync for both scalars
@@ -649,22 +752,10 @@ class ElasticDIPEngine(EngineBase):
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None, *,
                  device=None):
-        why = [w for cond, w in (
-            (mesh is not None,
-             "mesh (shot sharding): ROADMAP Queue A, item 13"),
-            (bool(cfg.dataroot), "dataroot: ROADMAP Queue A, item 10"))
-            if cond]
-        if why:
-            raise NotImplementedError("not ported yet: " + "; ".join(why))
+        _not_ported(mesh, cfg.dataroot)
         self.cfg = cfg
-        if device is None:
-            device = (workload.device if workload is not None
-                      else default_device())
-        self.device = _resolve_device(device)
+        self.device = _engine_device(device, workload)
         self.wl = workload or elastic_workload(cfg, self.device)
-        if self.wl.device != self.device:
-            raise ValueError(f"workload lives on {self.wl.device}, engine "
-                             f"on {self.device}")
         self.n_shots = int(self.wl.acq.num_shots)
         if self.n_shots != cfg.num_shots:
             print(f"[{cfg.name}] workload has {self.n_shots} shots; "
@@ -740,7 +831,7 @@ class ElasticDIPEngine(EngineBase):
         self.clip_max = tuple(
             cfg.clip_max or (4700.0, 2700.0, 3000.0))[: self.n_fields]
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
-        self._shot_gen = torch.Generator().manual_seed(cfg.seed + 7)
+        self._shot_gen = torch.Generator().manual_seed(cfg.seed + _SHOT_SEED)
         self._drop_gen = _dropout_generator(cfg, self.device)
         self._ilw = None  # the EPRECOND weight, at the first physics step
         self._stage_cache = {}
@@ -1164,9 +1255,441 @@ class ElasticDIPEngine(EngineBase):
         return self._model(deltas).cpu().numpy()
 
 
+def _first_order_optimizer(cfg: ExperimentConfig, weights: torch.nn.Module,
+                           what: str):
+    """:func:`_make_optimizer` for an engine whose JAX step hands the
+    optimizer no loss value (Adam, SGLD, SGHMC): L-BFGS needs one."""
+    if cfg.optimizer == "lbfgs":
+        raise ValueError(f"{what} takes adam, sgld or sghmc, not lbfgs")
+    return _make_optimizer(cfg, weights)
+
+
+def _step(opt, loss: torch.Tensor) -> None:
+    """One first-order step of ``opt`` on ``loss``."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+
+
+def _epoch_record(engine, losses: dict) -> dict:
+    """``losses`` (0-d tensors) as floats, one device sync for all, with
+    the lr policy's ``lr`` after the first loss where the engine has one."""
+    vals = torch.stack([v.detach() for v in losses.values()]).tolist()
+    out = dict(zip(losses, vals))
+    if engine.lr_policy is not None:
+        out["lr"] = engine.lr_policy.after_epoch(vals[0])
+    return out
+
+
+def _set_lr(engine, epoch: int) -> None:
+    """The lr policy's lr for ``epoch`` into every param group."""
+    if engine.lr_policy is not None:
+        lr = engine.lr_policy.lr_for_epoch(epoch)
+        for group in engine.opt.param_groups:
+            group["lr"] = lr
+
+
+class MultiSampleAcousticDIPEngine(EngineBase):
+    """One generator trained on a batch of acoustic FWI samples
+    (``engine="acoustic_dip_multi"``): the generator runs over the batch,
+    and the physics is a loop over the samples (the JAX engine's vmap;
+    its {sample, shot} mesh is not ported): each sample's trace-normalized
+    misfit by autograd through :func:`simulate_acoustic`, their mean the
+    loss.  Each sample's dJ/dvp gets depth^2 weighting and its own water
+    mask, times ``grad_scale``, through :class:`_PhysicsLoss`.
+
+    One direct wave (the constant water model is the same for every
+    sample) is subtracted from every prediction and from the gathers of
+    the synthetic samples.  The observed batch [S, ns, nt, nr] is
+    trace-normalized over its axis 1, the shots, as the JAX engine does
+    (ROADMAP Queue C).  Epochs up to ``lstart`` train on the model MSE.
+    """
+
+    def __init__(self, cfg: ExperimentConfig, workloads=None, mesh=None,
+                 n_samples: int = 2, *, device=None):
+        _not_ported(mesh)
+        self.cfg = cfg
+        self.device = _engine_device(device,
+                                     workloads[0] if workloads else None)
+        if workloads is None:
+            workloads = [SyntheticAcousticWorkload.build(
+                nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+                pml_width=cfg.pml_width, freq=cfg.freq,
+                num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
+                seed=cfg.seed + i, chunk=cfg.chunk, device=self.device)
+                for i in range(n_samples)]
+        for w in workloads:
+            _engine_device(self.device, w)  # raises off the engine's device
+        self.wls = workloads
+        wl0 = workloads[0]
+        self._geom, self._wcfg, self._wav = wl0.geom, wl0.cfg, wl0.wavelet
+        self.vp_true = torch.stack([w.vp_true for w in workloads])
+        obs = torch.stack([w.obs for w in workloads])
+        self._direct = None
+        if cfg.direct_wave:
+            const = torch.full_like(wl0.vp_true, cfg.water_vel)
+            with torch.no_grad():
+                self._direct = simulate_acoustic(const, self._wav,
+                                                 *self._geom, self._wcfg)
+            # stored gathers lack the direct arrival; synthetic ones lose
+            # it here, per sample
+            synth = torch.tensor([0.0 if w.from_disk else 1.0
+                                  for w in workloads], device=self.device)
+            obs = obs - synth[:, None, None, None] * self._direct[None]
+        self.obs = obs
+        self.obs_norm = trace_normalize(obs)
+        self.shots_in = obs.permute(0, 2, 3, 1).contiguous()
+        self.true_b = self.vp_true[..., None]
+        ns, nt, nr = obs.shape[1:]
+        self.net = define_generator(
+            cfg.netG, out_shape=(cfg.nz, cfg.nx), in_shape=(nt, nr, ns),
+            latent_dim=cfg.latent_dim, filters=cfg.filters,
+            time_decimation=cfg.time_decimation,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        ).to(self.device)
+        self.opt = _first_order_optimizer(cfg, self.net,
+                                          "the multi-sample engine")
+        self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
+        self.physics_path = "xla-loop"
+        _log_path(cfg.name, "multi-sample acoustic", self.physics_path)
+
+    def physics_value_and_grad(self, vps: torch.Tensor):
+        """(mean over the samples of each one's misfit, processed dJ/dvps
+        [S, nz, nx]) at the models ``vps``."""
+        cfg = self.cfg
+        mis = l1_misfit if cfg.misfit == "l1" else l2_misfit
+        # the mean's cotangent of each sample's loss
+        ct = torch.tensor(1.0 / vps.shape[0], device=vps.device)
+        losses, grads = [], []
+        for vp, obs_norm, true in zip(vps, self.obs_norm, self.vp_true):
+            with torch.enable_grad():
+                v = vp.detach().requires_grad_(True)
+                pred = simulate_acoustic(v, self._wav, *self._geom,
+                                         self._wcfg)
+                if self._direct is not None:
+                    pred = pred - self._direct
+                loss = mis(trace_normalize(pred), obs_norm)
+                (g,) = torch.autograd.grad(loss, v, ct)
+            losses.append(loss.detach())
+            grads.append(water_mask(depth_weighting(g, 2.0), true,
+                                    cfg.water_vel))
+        return (torch.mean(torch.stack(losses)),
+                torch.stack(grads) * cfg.grad_scale)
+
+    def _decode(self):
+        out = pack_output(self.net(self.shots_in))
+        return apply_velocity_output(out.field, self.true_b,
+                                     water_vel=self.cfg.water_vel)[..., 0]
+
+    def optimize_parameters(self, epoch: int):
+        _set_lr(self, epoch)
+        use_physics = epoch > self.cfg.lstart
+        vps = self._decode()
+        mse = torch.mean((vps - self.vp_true) ** 2)
+        # up to lstart the model-MSE oracle, as the single-sample engine
+        loss = (_PhysicsLoss.apply(vps, self.physics_value_and_grad)
+                if use_physics else mse)
+        _step(self.opt, loss)
+        return _epoch_record(self, {"loss_D" if use_physics else "loss_M":
+                                    loss, "loss_M_MSE": mse})
+
+    @torch.no_grad()
+    def test(self):
+        vps = self._decode()
+        mse = torch.mean((vps - self.vp_true) ** 2)
+        return {"loss_V_MSE": float(mse)}, vps.cpu().numpy()
+
+
+class ClassicFWIEngine(_ParamsEngine):
+    """Classic FWI: the model grids are the parameters (``params``).
+
+    Acoustic workloads invert vp: the trace-normalized ``l1``/``l2``
+    misfit of :func:`simulate_acoustic` (plain autograd, the JAX engine's
+    XLA path, neither B2's nor B5/B6's scheme), the gradient water-masked
+    and depth^2-weighted, vp clipped to [1490, 4700] after each step.
+
+    Elastic workloads (``dataset_mode`` ending in "El") invert vp and vs
+    from the low-frequency model with rho held there: the raw L2 of the
+    vx and vz gathers on ``shots_per_iter`` shots a step, drawn from a
+    ``torch.Generator`` seeded ``cfg.seed + 11`` (the JAX engine's
+    ``jax.random`` key of that seed draws other shots), through
+    :func:`simulate_elastic_fast` (``backend`` "auto"/"fast", the obs
+    regenerated with it) or the split-PML :func:`simulate_elastic`; each
+    gradient's water rows tapered and the gradient rescaled to its
+    field's magnitude, vp clipped to [1490, 4700] and vs to [0, 2700].
+
+    Adam, SGLD, SGHMC or L-BFGS; L-BFGS takes its direction from the
+    processed gradient and its line-search probes re-evaluate the raw
+    loss on the step's shots, as the JAX engine's ``value_fn`` does.
+    """
+
+    def __init__(self, cfg: ExperimentConfig, workload=None, *,
+                 device=None):
+        self.cfg = cfg
+        self.is_elastic = cfg.dataset_mode.lower().endswith("el")
+        if self.is_elastic and workload is None:
+            _not_ported(dataroot=cfg.dataroot)
+        self.device = _engine_device(device, workload)
+        self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
+        if self.is_elastic:
+            self._init_elastic(workload)
+        else:
+            self._init_acoustic(workload)
+        self._geom = self.wl.geom
+        self.opt = _make_optimizer(cfg, self.params)
+
+    def _init_acoustic(self, workload):
+        cfg = self.cfg
+        self.wl = workload or SyntheticAcousticWorkload.build(
+            nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+            pml_width=cfg.pml_width, freq=cfg.freq,
+            num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
+            seed=cfg.seed, chunk=cfg.chunk, device=self.device)
+        self.physics_path = "xla"
+        self.params = torch.nn.ParameterDict(
+            {"vp": self.wl.vp_start.clone()})
+
+    def _init_elastic(self, workload):
+        cfg = self.cfg
+        self.wl = wl = workload or SyntheticElasticWorkload.build(
+            nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+            pml_width=cfg.pml_width, freq=cfg.freq,
+            num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
+            seed=cfg.seed, chunk=cfg.chunk, free_surface=cfg.free_surface,
+            water_rows=cfg.water_rows, device=self.device)
+        if cfg.backend in ("auto", "fast"):
+            self.physics_path, self._sim = "fast", simulate_elastic_fast
+            if not wl.from_disk:
+                with torch.no_grad():
+                    wl.obs_vx, wl.obs_vz = self._sim(
+                        wl.true["vp"], wl.true["vs"], wl.true["rho"],
+                        wl.wavelet, *wl.geom, wl.cfg)
+        else:
+            self.physics_path, self._sim = "xla", simulate_elastic
+        self.params = torch.nn.ParameterDict(
+            {"vp": wl.start["vp"].clone(), "vs": wl.start["vs"].clone()})
+        self.n_shots = int(wl.acq.src_z.shape[0])
+        self._nsub = cfg.shots_per_iter or self.n_shots
+        self._shot_gen = torch.Generator().manual_seed(
+            cfg.seed + _CLASSIC_SHOT_SEED)
+
+    def _draw_shots(self) -> torch.Tensor:
+        """This step's shot subset (``shots_per_iter`` of the shots)."""
+        perm = torch.randperm(self.n_shots, generator=self._shot_gen)
+        return perm[: self._nsub].to(self.device)
+
+    def _loss(self, params=None, shot_idx=None):
+        """(the data misfit,) at ``params`` (by name; None: the
+        engine's), on ``shot_idx`` for an elastic workload."""
+        p = self.params if params is None else params
+        wl = self.wl
+        if not self.is_elastic:
+            pred = simulate_acoustic(p["vp"], wl.wavelet, *self._geom, wl.cfg)
+            mis = l1_misfit if self.cfg.misfit == "l1" else l2_misfit
+            return (mis(trace_normalize(pred), wl.obs_norm),)
+        sz, sx, rz, rx = (a[shot_idx] for a in self._geom)
+        pvx, pvz = self._sim(p["vp"], p["vs"], wl.start["rho"], wl.wavelet,
+                             sz, sx, rz, rx, wl.cfg)
+        return (torch.mean((pvx - wl.obs_vx[shot_idx]) ** 2)
+                + torch.mean((pvz - wl.obs_vz[shot_idx]) ** 2),)
+
+    def _process(self, grads: list) -> list:
+        """The JAX engine's gradient processing: acoustic, the water mask
+        then depth^2; elastic, per field the water-row taper then the
+        rescale to the field's magnitude."""
+        cfg = self.cfg
+        if not self.is_elastic:
+            g = water_mask(grads[0], self.wl.vp_true, cfg.water_vel)
+            return [depth_weighting(g, 2.0)]
+        return [rescale_to_model(taper_top(g, cfg.water_rows), p.detach())
+                for g, p in zip(grads, self.params.values())]
+
+    def optimize_parameters(self, epoch: int, freq: float | None = None,
+                            tether_stage: int | None = None):
+        """One step.  ``freq`` and ``tether_stage`` are accepted for the
+        train loop's sake and not used, as in the JAX engine."""
+        _set_lr(self, epoch)
+        idx = self._draw_shots() if self.is_elastic else None
+
+        def loss_fn(params):
+            return self._loss(params, idx)
+
+        if isinstance(self.opt, _Lbfgs):
+            (loss,), upd = self.opt.updates(loss_fn, self._process)
+            self.opt.apply(upd)
+        else:
+            (loss,) = loss_fn(None)
+            weights = list(self.params.values())
+            grads = torch.autograd.grad(loss, weights)
+            for p, g in zip(weights, self._process(list(grads))):
+                p.grad = g
+            self.opt.step()
+        with torch.no_grad():
+            self.params["vp"].clamp_(1490.0, 4700.0)
+            if self.is_elastic:
+                self.params["vs"].clamp_(0.0, 2700.0)
+        return _epoch_record(self, {"loss_D_MSE": loss,
+                                    "loss_M_MSE": self._model_mse()})
+
+    @torch.no_grad()
+    def _model_mse(self) -> torch.Tensor:
+        if not self.is_elastic:
+            return torch.mean((self.params["vp"] - self.wl.vp_true) ** 2)
+        return sum(torch.mean((self.params[k] - self.wl.true[k]) ** 2)
+                   for k in ("vp", "vs"))
+
+    def test(self):
+        mse = float(self._model_mse())
+        if self.is_elastic:
+            m = torch.stack([self.params["vp"], self.params["vs"]], -1)
+            return {"loss_V_MSE": mse}, m.detach().cpu().numpy()
+        return {"loss_V_MSE": mse}, self.params["vp"].detach().cpu().numpy()
+
+
+class LatentInversionEngine(_ParamsEngine):
+    """Latent-space inversion (BASELINE config 4): a frozen decoder, and
+    the latent ``z`` [1, latent_dim] (``params["z"]``, zeros at the start)
+    the only parameter, optimized through decoder, velocity map and
+    :func:`simulate_acoustic` by plain autograd: the ``l1``/``l2`` misfit
+    of the trace-normalized prediction.
+
+    ``decoder_net`` is a pretrained model-domain VAE
+    (:func:`engine.pretrain.pretrain_model_vae`; moved to the engine's
+    device and frozen in place) with ``decoder_norm`` = (vmin, vmax)
+    mapping its [0, 1] output to velocities; without one a fresh
+    :class:`VaeNet` for the observed gathers, seeded ``cfg.seed``, with
+    the true model's range.
+
+    The JAX engine has no ``params``, so its ``save_networks`` raises
+    (ROADMAP Queue C); here ``save_networks``/``load_networks`` write and
+    read ``z`` under the key ``['z']``, the one the JAX save would write
+    for ``params = {"z": z}``.
+    """
+
+    def __init__(self, cfg: ExperimentConfig, workload=None,
+                 decoder_net: torch.nn.Module | None = None,
+                 decoder_norm: tuple[float, float] | None = None, *,
+                 device=None):
+        if workload is None:
+            _not_ported(dataroot=cfg.dataroot)
+        self.cfg = cfg
+        self.device = _engine_device(device, workload)
+        self.wl = wl = workload or SyntheticAcousticWorkload.build(
+            nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+            pml_width=cfg.pml_width, freq=cfg.freq,
+            num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
+            seed=cfg.seed, chunk=cfg.chunk, device=self.device)
+        # [1, nt, nr, ns], the fresh decoder's input shape
+        self.shots_in = wl.obs.permute(1, 2, 0)[None].contiguous()
+        if decoder_net is None:
+            decoder_net = VaeNet(
+                out_shape=(cfg.nz, cfg.nx), in_shape=self.shots_in.shape[1:],
+                latent_dim=cfg.latent_dim, filters=cfg.filters,
+                generator=torch.Generator().manual_seed(cfg.seed))
+        self.net = decoder_net.to(self.device).requires_grad_(False)
+        self.decoder_norm = decoder_norm
+        latent_dim = getattr(self.net, "latent_dim", cfg.latent_dim)
+        self.params = torch.nn.ParameterDict(
+            {"z": torch.zeros((1, latent_dim), device=self.device)})
+        self.opt = _first_order_optimizer(cfg, self.params,
+                                          "the latent engine")
+        self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
+        self.physics_path = "xla"
+        self._geom = wl.geom
+        self._true_b = wl.vp_true[None, :, :, None]
+
+    def _velocity(self, **kw) -> torch.Tensor:
+        """The decoded velocity model [nz, nx] of ``z``."""
+        vmin, vmax = self.decoder_norm or (None, None)
+        f01 = self.net.decode(self.params["z"])
+        return apply_velocity_output(f01, self._true_b, vmin=vmin,
+                                     vmax=vmax, **kw)[0, :, :, 0]
+
+    def optimize_parameters(self, epoch: int):
+        _set_lr(self, epoch)
+        wl = self.wl
+        vp = self._velocity(water_vel=self.cfg.water_vel)
+        pred = simulate_acoustic(vp, wl.wavelet, *self._geom, wl.cfg)
+        mis = l1_misfit if self.cfg.misfit == "l1" else l2_misfit
+        loss = mis(trace_normalize(pred), wl.obs_norm)
+        _step(self.opt, loss)
+        mse = torch.mean((vp.detach() - wl.vp_true) ** 2)
+        return _epoch_record(self, {"loss_D_MSE": loss, "loss_M_MSE": mse})
+
+    @torch.no_grad()
+    def test(self):
+        # without water_vel, as the JAX engine's test (its default 1500)
+        vp = self._velocity()
+        mse = torch.mean((vp - self.wl.vp_true) ** 2)
+        return {"loss_V_MSE": float(mse)}, vp.cpu().numpy()
+
+
+class ImpedanceDIPEngine(EngineBase):
+    """Deep-image-prior inversion through the impedance convolutional
+    model (BASELINE config 1's Auto2 recipe, ``marmousi_impedance``): the
+    generator (time decimation 1) maps the observed post-stack section
+    [1, nz, nx, 1], the impedance synthetic of the true model, to a
+    velocity model; its impedance synthetic against the section, ``l1``
+    or ``l2``.  Plain autograd: a conv1d and elementwise ops.  The
+    wavelet: ``extras`` ``impedance_freq`` (20 Hz), ``impedance_dt`` (2
+    ms), ``impedance_nwav`` (100 samples)."""
+
+    def __init__(self, cfg: ExperimentConfig, workload=None, *,
+                 device=None):
+        self.cfg = cfg
+        self.device = _engine_device(device, workload)
+        self.wl = workload or SyntheticAcousticWorkload.build(
+            nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=max(cfg.nt, 64), dt=cfg.dt,
+            pml_width=cfg.pml_width, freq=cfg.freq,
+            num_shots=max(cfg.num_shots, 1),
+            num_receivers=cfg.num_receivers, seed=cfg.seed,
+            chunk=cfg.chunk, device=self.device)
+        self._synth = functools.partial(
+            impedance_synthetic, freq=cfg.extras.get("impedance_freq", 20.0),
+            n_wavelet=cfg.extras.get("impedance_nwav", 100),
+            dt=cfg.extras.get("impedance_dt", 2e-3), axis=-2)
+        self.true_b = self.wl.vp_true[None, :, :, None]
+        self.obs_stack = self._synth(self.true_b)
+        self.net = define_generator(
+            cfg.netG, out_shape=(cfg.nz, cfg.nx),
+            in_shape=tuple(self.obs_stack.shape[1:]),
+            latent_dim=cfg.latent_dim, filters=cfg.filters,
+            time_decimation=1,
+            generator=torch.Generator().manual_seed(cfg.seed),
+        ).to(self.device)
+        self.opt = _first_order_optimizer(cfg, self.net,
+                                          "the impedance engine")
+        self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
+        self.physics_path = "impedance"
+
+    def _decode(self):
+        out = pack_output(self.net(self.obs_stack))
+        return apply_velocity_output(out.field, self.true_b,
+                                     water_vel=self.cfg.water_vel)
+
+    def optimize_parameters(self, epoch: int):
+        _set_lr(self, epoch)
+        vp = self._decode()
+        mis = l1_misfit if self.cfg.misfit == "l1" else l2_misfit
+        loss = mis(self._synth(vp), self.obs_stack)
+        mse = torch.mean((vp[0, :, :, 0] - self.wl.vp_true) ** 2)
+        _step(self.opt, loss)
+        return _epoch_record(self, {"loss_D_MSE": loss, "loss_M_MSE": mse})
+
+    @torch.no_grad()
+    def test(self):
+        vp = self._decode()[0, :, :, 0]
+        mse = torch.mean((vp - self.wl.vp_true) ** 2)
+        return {"loss_V_MSE": float(mse)}, vp.cpu().numpy()
+
+
 _ENGINES: dict[str, Any] = {
     "acoustic_dip": AcousticDIPEngine,
+    "acoustic_dip_multi": MultiSampleAcousticDIPEngine,
     "elastic_dip": ElasticDIPEngine,
+    "classic_fwi": ClassicFWIEngine,
+    "latent_inversion": LatentInversionEngine,
+    "impedance_dip": ImpedanceDIPEngine,
 }
 
 
@@ -1174,6 +1697,6 @@ def create_engine(cfg: ExperimentConfig, **kw):
     """Factory by ``cfg.engine``."""
     if cfg.engine not in _ENGINES:
         raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported yet (ROADMAP Queue A, "
-            "item 9)")
+            f"engine {cfg.engine!r} is not ported yet (the supervised/GAN "
+            "family: ROADMAP Queue A, item 9)")
     return _ENGINES[cfg.engine](cfg, **kw)

@@ -31,7 +31,8 @@ from physicsbasedfwi2_tpu_torch.engine.engines import (
 
 
 def evaluate(cfg, *, epoch="latest", realizations: int = 1,
-             results_dir: str = "./results", workload=None, device=None):
+             results_dir: str = "./results", workload=None, device=None,
+             engine=None):
     """Decode the checkpoint ``epoch`` (a fresh engine where there is
     none) and write its model and validation metrics; returns the
     metrics.  With ``realizations > 1`` on an engine with
@@ -39,11 +40,14 @@ def evaluate(cfg, *, epoch="latest", realizations: int = 1,
     deviation (numpy's, ddof 0) instead of the model, and add
     ``realizations`` and ``mc_std_mean`` to the metrics.  ``device``:
     where the engine runs (default: the first CUDA card; raises when
-    there is none)."""
-    kw = {"device": device if device is not None else default_device()}
-    if workload is not None:
-        kw["workload"] = workload
-    engine = create_engine(cfg, **kw)
+    there is none).  ``engine``: load the checkpoint into a pre-built
+    engine instead of ``create_engine(cfg)`` (a latent engine with its
+    pretrained decoder, which the checkpoint does not hold)."""
+    if engine is None:
+        kw = {"device": device if device is not None else default_device()}
+        if workload is not None:
+            kw["workload"] = workload
+        engine = create_engine(cfg, **kw)
     try:
         engine.load_networks(epoch)
     except FileNotFoundError:

@@ -53,6 +53,7 @@ class VaeNet(nn.Module):
                  time_decimation: int = 4, norm: str = "group",
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.latent_dim = latent_dim
         self.encoder = Encoder2D(in_shape, 2 * latent_dim, filters,
                                  time_decimation, norm)
         self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
@@ -103,6 +104,7 @@ class ModelVae(nn.Module):
                  norm: str = "group",
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.latent_dim = latent_dim
         self.encoder = _ImgEncoder(in_shape, latent_dim, filters, norm)
         self.decoder = Decoder2D(out_shape, out_channels, filters, latent_dim,
                                  norm=norm)

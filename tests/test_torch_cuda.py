@@ -1007,3 +1007,76 @@ def test_elastic_autograd_on_card_matches_cpu(el_case, scheme, monkeypatch):
     assert abs(float(got[2]) - float(ref[2])) <= 1e-5 * float(ref[2])
     for a, b in zip(got[3:], ref[3:]):
         assert rel_l2(a, b) <= 1e-4
+
+
+def test_encoded_autograd_on_card_matches_cpu(case, monkeypatch):
+    """The super-shot propagator (``ops/encoding.py``) under autograd on
+    the card, each chunk replayed as a CUDA graph, against the same on the
+    CPU: the traces, the L2 loss and dJ/dvp of an encoded gradient."""
+    from physicsbasedfwi2_tpu_torch.ops import encoding, scan_utils
+    cfg, wav, vp, geom = case
+    captures = []
+    capture = scan_utils._ChunkGraphs._capture
+    monkeypatch.setattr(scan_utils._ChunkGraphs, "_capture", staticmethod(
+        lambda fn: captures.append(1) or capture(fn)))
+    groups = torch.tensor([[1], [0]])
+    pol = torch.tensor([[1.0], [-1.0]])
+
+    def run(device):
+        v = vp.to(device)
+        g = [a.to(device) for a in geom]
+        w = wav.to(device)
+        with torch.no_grad():
+            # each shot alone: the per-shot observed gathers
+            obs = encoding.simulate_acoustic_encoded(
+                v * 1.03, w, g[0][:, None], g[1][:, None],
+                torch.ones((2, 1), device=device), g[2], g[3], cfg)
+        loss, grad = encoding.encoded_fwi_gradient(
+            v, obs, w, *g, cfg, 2, groups=groups, pol=pol)
+        return [x.detach().cpu() for x in (obs, loss, grad)]
+
+    got = run(vp.device)
+    torch.cuda.synchronize()
+    # the obs forward (no grad), then the forward and backward of the
+    # gradient: one capture each
+    assert len(captures) == 3
+    ref = run("cpu")
+    assert rel_max(got[0], ref[0]) <= 1e-5
+    assert abs(float(got[1]) - float(ref[1])) <= 1e-5 * float(ref[1])
+    assert rel_l2(got[2], ref[2]) <= 1e-4
+
+
+# every wrapper with a launch counter: the engines of the last slice run
+# plain PyTorch (the JAX package's XLA paths) and launch none of them
+KERNELS = (scalar2.forward2, fwi_l1_loss_grad, ef.fused_elastic_loss_grad_meds,
+           ef.simulate_elastic_ring, scalar2.forward2_ckpt, scalar2.backward2,
+           kernels.acoustic_forward_pallas, adjoint.acoustic_pallas_backward,
+           scalar2b.forward2b, scalar2b.backward2b,
+           elastic_fwd.elastic_forward_pallas)
+SMALL = dict(nz=40, nx=48, nt=200, dt=0.001, num_shots=4, num_receivers=24,
+             filters=(4, 8, 16), chunk=25, water_rows=6, pml_width=12,
+             validate_on_twin=False)
+
+
+@pytest.mark.parametrize("name,over", [
+    ("latent_inversion", {}),
+    ("classic_fwi_acoustic", {}),
+    ("classic_fwi_elastic", {"dt": 0.0015, "shots_per_iter": 2,
+                             "water_rows": 4, "lstart": 0}),
+    ("marmousi_impedance", {}),
+    ("marmousi_acoustic_encoded", {"encoded_shots": 2}),
+    ("marmousi_acoustic", {"engine": "acoustic_dip_multi"}),
+], ids=["latent", "classic_acoustic", "classic_elastic", "impedance",
+        "encoded", "multi"])
+def test_new_engines_run_on_the_card_by_default(dev, tmp_path, name, over):
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import create_engine
+    cfg = get_workload(name, **{**SMALL, **over}, save_dir=str(tmp_path))
+    scalar2.reset_launches(*KERNELS)
+    engine = create_engine(cfg)  # no device: the first card
+    assert engine.device == dev
+    assert all(p.device == dev for p in engine.weights.parameters())
+    rec = engine.optimize_parameters(1)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(v) for v in rec.values())
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)

@@ -340,8 +340,7 @@ NOT_PORTED = {
             "seam_elastic_acquisition", "model_from_storage",
             "model_to_storage"},
     "optim": set(),
-    "engine": {"LatentInversionEngine", "ClassicFWIEngine",
-               "SupervisedEngine"},
+    "engine": {"SupervisedEngine"},
     "models": {"define_discriminator", "ModelParamNet", "ASPPUNet",
                "ResUNetPlusPlus", "UNet3Plus", "MultiScaleUNet", "R2UNet",
                "ResnetGenerator", "NLayerDiscriminator",

@@ -225,9 +225,12 @@ def test_unported_options_raise(slice_run, tmp_path):
     assert engine.physics_path == "fused-plain"
     assert isinstance(engine.opt, t_engines._Lbfgs)
     assert engine.lr_policy is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AcousticDIPEngine(cfg.replace(encoded_shots=2), workload=wl,
+    # encoded_shots is ported since: the "encoded" path, never fused
+    e = AcousticDIPEngine(cfg.replace(encoded_shots=2), workload=wl,
                           device="cpu")
+    assert e.physics_path == "encoded" and not e._use_fused
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        AcousticDIPEngine(cfg, workload=wl, mesh=object(), device="cpu")
     # SG-MCMC is ported since: no lr policy, as in the JAX engine
     for kind, cls in (("sghmc", SGHMC), ("sgld", SGLD)):
         e = AcousticDIPEngine(cfg.replace(optimizer=kind), workload=wl,

@@ -8,9 +8,10 @@ phases named, and prints neither the kernels line nor the result line.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. the card (``nvidia-smi`` name and power limit), versions, TF32
-   settings, and the build of ``physicsbasedfwi2_tpu_torch/csrc`` with
-   ``nvcc`` into ``build/torch_kernels/`` (registers and spills);
+1. the card (``nvidia-smi`` name and power limit), versions, TF32 and
+   cuDNN determinism settings, and the build of
+   ``physicsbasedfwi2_tpu_torch/csrc`` with ``nvcc`` into
+   ``build/torch_kernels/`` (registers and spills);
 2. kernel B1 (``forward2``) against its plain PyTorch version at the
    acoustic path's shapes (151 x 200, PML 20, 18 shots x 200
    receivers, nt 4001), its resident route (one thread-block cluster
@@ -153,8 +154,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 19. BASELINE config 4 and the rest of the physics engines at full width,
     each on its own workload, every kernel's launch count 0 across the
     phase (they run plain PyTorch, as the JAX package runs XLA there):
+    first the ops that ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` names on one pretraining epoch and on one forward +
+    backward of Unet22, Auto22 (``marmousi_acoustic``'s [1, 4001, 200,
+    18] input) and AutoElMar22 (``marmousi_elastic``'s), and each net's
+    weight gradients taken twice, held to ``torch.equal``; then
     the VAE pretraining on ``make_model_bank(48)`` at 151 x 201 (30 of
-    the recipe's 300 epochs; the recon loss falls), ``latent_inversion``
+    the recipe's 300 epochs; the recon loss falls), run twice from one
+    seed with the recon-loss histories and weights held equal,
+    ``latent_inversion``
     (10 shots x 150 receivers, nt 800) for 5 epochs through the frozen
     decoder (``loss_D_MSE`` falls below epoch 1's), ``evaluate`` of its
     ``latest`` checkpoint (``z`` restored), 3 GanFWI SGLD steps over the
@@ -165,7 +173,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``marmousi_acoustic_encoded`` (4 super-shots) 2 epochs on the
     "encoded" path; ``acoustic_dip_multi`` on ``marmousi_acoustic``, 2
     samples, 1 warmup epoch then 1 physics epoch.  Each prints its setup
-    and epoch seconds, peak memory and physics path.
+    and epoch seconds, peak memory and physics path;
+20. training from a dataroot at full width, the trees under a temporary
+    directory removed at the end: the canonical Marmousi 751 x 2301
+    written as SEG-Y; ``prep --physics acoustic`` (resampled to 151 x
+    200, 18 shots x 200 receivers, nt 4001, train and test trees, B1
+    resident for the direct wave and both trees), the native npy loader
+    built, taken and equal to numpy on the tree; ``marmousi_acoustic``
+    3 epochs from it (B2 resident once an epoch, the validation twin the
+    tree's ``test`` sample, the misfit at the true model <= 1e-6);
+    ``prep --physics elastic`` at 100 x 300 (35 shots, nt 3334, the ring
+    forward resident once) and ``marmousi_elastic`` lstart + 3 epochs
+    from it (B3 resident once a physics epoch, the misfit at the true
+    model <= 1e-9); ``real_data`` (150 x 300 at dx 30 m, nt 2001, 12
+    shots x 280 receivers, absorbing top): a model inside its clip
+    bounds, its SU gathers from the ring forward (per-step: 192 x 384
+    fits no plan), ingested with ``prep --su-obs`` beside a starting
+    model (no trainB, as field data) through the native SU reader, B3's
+    per-step route against its plain version on 2 shots and timed on a
+    physics epoch's 4, then lstart + 3 epochs, every B3 launch per-step;
+    ``fwi-test --dataroot`` of the acoustic run and ``fwi-race
+    --dataroot`` (``marmousi_elastic_robust``, 2 seeds, 2-epoch probes).
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -175,7 +203,8 @@ no trace's counts depend on the traces before it.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (every kernel: ``ms`` on the resident route,
 ``per_step_ms`` on the per-step one; B3 and the ring forward also their
-``seam_*`` times and bounds at SEAM's grid); the last line is
+``seam_*`` times and bounds at SEAM's grid, B3 its ``real_data_*`` ones
+at real_data's); the last line is
 the result object.  The
 script never falls back to the CPU or to the plain versions.
 """
@@ -401,10 +430,14 @@ def phase_card():
           f"CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} "
           f"(sm_{''.join(map(str, torch.cuda.get_device_capability(0)))})")
+    cudnn = torch.backends.cudnn
     print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn {torch.backends.cudnn.allow_tf32}")
+          f"cudnn {cudnn.allow_tf32}; cudnn deterministic "
+          f"{cudnn.deterministic}, benchmark {cudnn.benchmark}")
     check(not torch.backends.cuda.matmul.allow_tf32
-          and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
+          and not cudnn.allow_tf32, "TF32 must be off")
+    check(cudnn.deterministic and not cudnn.benchmark,
+          "cuDNN must be deterministic, without autotuning")
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     path, secs, log = cuda_build.build()
     print(f"kernel build: {secs:.1f} s -> {path.relative_to(ROOT)}")
@@ -2917,6 +2950,95 @@ def _train19(dev, what, cfg, epochs, build):
     return engine, history
 
 
+def _nondeterministic_ops(fn) -> list[str]:
+    """The ops that ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` names while ``fn()`` runs: each warning's first
+    sentence, once."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(". ")[0][:200] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def _weight_grads(dev, cfg, in_shape, n_inputs=1):
+    """(net, grads): ``cfg.netG`` built as its engine builds it for inputs
+    [1, *in_shape] (``n_inputs`` of them, random, from a seeded generator
+    on the card), and a function that returns the weight gradients of one
+    forward + backward of a fixed random projection of its output."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.models import define_generator
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.randn(1, *in_shape, device=dev, generator=gen)
+          for _ in range(n_inputs)]
+    net = define_generator(
+        cfg.netG, out_shape=(cfg.nz, cfg.nx), in_shape=in_shape,
+        latent_dim=cfg.latent_dim, filters=cfg.filters,
+        time_decimation=cfg.time_decimation, dropout=0.0,
+        head=cfg.elastic_head,
+        generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    with torch.no_grad():
+        w = torch.randn(net(*xs)[0].shape, device=dev, generator=gen)
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        (net(*xs)[0] * w).sum().backward()
+        return [p.grad.clone() for p in net.parameters()]
+
+    return net, grads
+
+
+def _generator_determinism(dev) -> None:
+    """The generators' and the pretraining's backward repeat on the card:
+    the ops that the deterministic-algorithms check names on them (one
+    pretraining epoch of config 4's ModelVae, then one forward + backward
+    of Unet22 and Auto22 at ``marmousi_acoustic``'s [1, 4001, 200, 18]
+    and of AutoElMar22 at ``marmousi_elastic``'s two [1, 3334, 298, 35]
+    inputs), and each net's weight gradients taken twice on the same
+    inputs, held to ``torch.equal``."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.pretrain import (
+        make_model_bank, pretrain_model_vae)
+    ac = get_workload("marmousi_acoustic")
+    el = get_workload("marmousi_elastic")
+    lat = get_workload("latent_inversion")
+    ac_in = (ac.nt, ac.num_receivers, ac.num_shots)
+    nets = {
+        "Unet22": _weight_grads(dev, get_workload("marmousi_acoustic_unet"),
+                                ac_in),
+        ac.netG: _weight_grads(dev, ac, ac_in),
+        el.netG: _weight_grads(dev, el, (el.nt, el.num_receivers,
+                                         el.num_shots), n_inputs=2)}
+    bank = make_model_bank(16, lat.nz, lat.nx, water_rows=6, seed=3)
+
+    def run():
+        pretrain_model_vae(bank, latent_dim=lat.latent_dim,
+                           filters=lat.filters, epochs=1, batch_size=8,
+                           lr=2e-3, device=dev)
+        for _, grads in nets.values():
+            grads()
+
+    named = _nondeterministic_ops(run)
+    print(f"phase 19 ops named by torch.use_deterministic_algorithms(True, "
+          f"warn_only=True) on the pretraining and the generators' forward "
+          f"+ backward: {named or 'none'}")
+    for name, (net, grads) in nets.items():
+        a, b = grads(), grads()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"phase 19 {name}: {len(a)} weight gradients taken twice on "
+              f"the same inputs, torch.equal: {same}")
+        check(same, f"{name}: the weight gradients do not repeat")
+        net.zero_grad(set_to_none=True)
+
+
 def _config4(dev, out_dir):
     """BASELINE config 4 at its registered size, the recipe of
     benchmarks/run_latent_flagship.py with the pretraining's epochs cut
@@ -2936,13 +3058,24 @@ def _config4(dev, out_dir):
     cfg = get_workload("latent_inversion", save_dir=str(out_dir))
     bank = make_model_bank(48, cfg.nz, cfg.nx, water_rows=6, seed=3)
     torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    net, norm, hist = pretrain_model_vae(
-        bank, latent_dim=cfg.latent_dim, filters=cfg.filters,
-        epochs=PRETRAIN_EPOCHS, batch_size=8, lr=2e-3, device=dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(pretrain_model_vae(
+            bank, latent_dim=cfg.latent_dim, filters=cfg.filters,
+            epochs=PRETRAIN_EPOCHS, batch_size=8, lr=2e-3, device=dev))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    (net, norm, hist), (net2, _, hist2) = runs
+    sd, sd2 = net.state_dict(), net2.state_dict()
+    weights = all(torch.equal(sd[k], sd2[k]) for k in sd)
+    print(f"phase 19 config 4 pretraining run twice from seed 0: recon-loss "
+          f"histories equal {hist == hist2}, weights torch.equal {weights}; "
+          f"first {[f'{h:.9g}' for h in hist[-3:]]}, second "
+          f"{[f'{h:.9g}' for h in hist2[-3:]]} (last 3 epochs)")
+    check(hist == hist2 and weights,
+          "two pretrainings from one seed differ")
     print(f"phase 19 config 4 pretraining: ModelVae {cfg.nz}x{cfg.nx}, "
           f"filters {cfg.filters}, latent {cfg.latent_dim}, 48 models, "
           f"batch 8, {PRETRAIN_EPOCHS} epochs in {secs:.2f} s "
@@ -3041,17 +3174,8 @@ def phase_other_engines(dev):
     reset_launches(*counters.values())
     print(f"phase 19 on {card_line()}")
     t_phase = time.perf_counter()
-    # config 4's checks read a trajectory (the recon loss, the latent
-    # misfit against epoch 1's): cuDNN's deterministic algorithms (no
-    # atomics in the convolutions' backward) take out one source of its
-    # run-to-run spread, not all (PERF.md §6)
-    cudnn = torch.backends.cudnn
-    deterministic = cudnn.deterministic
-    cudnn.deterministic = True
-    try:
-        _config4(dev, out_dir)
-    finally:
-        cudnn.deterministic = deterministic
+    _generator_determinism(dev)
+    _config4(dev, out_dir)
 
     base = get_workload("marmousi_acoustic")
     kw = {f: getattr(base, f) for f in ACOUSTIC_BUILD if f != "seed"}
@@ -3124,6 +3248,365 @@ def phase_other_engines(dev):
           f"phase 19 launched kernels: {launches}")
 
 
+def _write_su(path, traces: "np.ndarray", dt_s: float) -> None:
+    """One Seismic-Unix shot file, little-endian: per trace [ns] of
+    ``traces`` [ntraces, ns] a 240-byte header (ns at byte 114, dt in
+    microseconds at byte 116) and the float32 samples."""
+    import numpy as np
+    ntr, ns = traces.shape
+    hdr = np.zeros((ntr, 240), np.uint8)
+    hdr[:, 114:116] = np.frombuffer(np.array([ns], "<u2").tobytes(), np.uint8)
+    hdr[:, 116:118] = np.frombuffer(
+        np.array([round(dt_s * 1e6)], "<u2").tobytes(), np.uint8)
+    body = np.ascontiguousarray(traces, "<f4").view(np.uint8)
+    with open(path, "wb") as f:
+        f.write(np.concatenate([hdr, body], axis=1).tobytes())
+
+
+def _train20(dev, what, cfg, epochs):
+    """``train(cfg, epochs=epochs)`` from ``cfg.dataroot`` on the card:
+    prints the engine's setup seconds, the epochs and the peak memory,
+    and checks that every number is finite and the path is fused.
+    Returns (engine, history)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.engines import create_engine
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = create_engine(cfg, device=dev)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for rec in history[:2] + history[-3:]:
+        print("epoch", json.dumps(rec))
+    secs = [r["epoch_time"] for r in history]
+    print(f"phase 20 {what} from {cfg.dataroot}: physics path "
+          f"{engine.physics_path}; engine setup {setup:.2f} s (the tree "
+          f"read, no simulation of the observed data); epochs: first "
+          f"{secs[0]:.4f} s, last {len(secs[-3:])} "
+          f"{', '.join(f'{x:.4f}' for x in secs[-3:])} s; peak memory "
+          f"{peak:.2f} GiB")
+    check(engine.physics_path == "fused-cuda" and engine.wl.from_disk,
+          f"{what}: path {engine.physics_path}, from disk "
+          f"{engine.wl.from_disk}")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"{what} epoch {rec['epoch']}: "
+                      f"{k}={v}")
+    return engine, history
+
+
+def _real_data_model(cfg):
+    """real_data's true model inside its clip bounds: the canonical
+    Marmousi-structured vp at 150 x 300 mapped linearly from [1500, 4700]
+    onto [3000, 6000] m/s (no water below clip_min), vs and rho pinned at
+    881 and 1010 as the config's bounds pin them; and its starting model
+    (vp smoothed)."""
+    import numpy as np
+    from physicsbasedfwi2_tpu_torch.data.marmousi import canonical_marmousi_vp
+    from physicsbasedfwi2_tpu_torch.data.synthetic import smooth_model
+    (v0, vs, rho), (v1, _, _) = cfg.clip_min, cfg.clip_max
+    vp = canonical_marmousi_vp(cfg.nz, cfg.nx)
+    vp = (v0 + (vp - 1500.0) * (v1 - v0) / 3200.0).astype(np.float32)
+    true = (vp, np.full_like(vp, vs), np.full_like(vp, rho))
+    start = (smooth_model(vp), true[1], true[2])
+    return true, start
+
+
+def _real_data_b3(dev, engine, true):
+    """B3 at real_data's grid (150 x 300 at dx 30 m, absorbing top, 192 x
+    384 in kernel layout, nt 2001), on its per-step route (no B3 plan
+    holds 192 rows), against its plain version on 2 of the shots from the
+    prepped tree, before training: the loss and gradient on the real
+    misfit at the starting model against the plain version in float32
+    and float64, and the loss at the true model.  Then 3 timed calls on
+    the engine's 4 shots a physics epoch.  Returns the kernels line's
+    ``real_data_*`` fields (comparison launches, not counted)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import trace_normalize
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+        _layout, elastic_resident_plan, fused_elastic_loss_grad_meds,
+        fused_elastic_loss_grad_meds_plain, prep_damp, prep_medium,
+        scatter_rows_el)
+    wl, cfg = engine.wl, engine.wl.cfg
+    g = cfg.grid
+    nz8, nx128 = _layout(cfg)[4:]
+    check((nz8, nx128) == (192, 384) and not g.free_surface,
+          "real_data's kernel layout")
+    check(elastic_resident_plan(nz8, nx128) is None,
+          "a B3 resident plan holds real_data's grid")
+    damp = prep_damp(cfg, dev)
+    start = prep_medium(*(wl.start[k] for k in ("vp", "vs", "rho")), cfg)
+    fn = fused_elastic_loss_grad_meds
+
+    def case(pick):
+        geom = tuple(a[pick].contiguous() for a in wl.geom)
+        rows = tuple(scatter_rows_el(trace_normalize(o[pick]), geom[3], cfg,
+                                     KC=8) for o in (wl.obs_vx, wl.obs_vz))
+        return geom, rows
+
+    geom, rows = case(torch.tensor([0, 6], device=dev))
+
+    def kernel(m, geom=geom, rows=rows):
+        return fn(m, damp, wl.wavelet, *geom, cfg, *rows, KC=8,
+                  misfit=engine.cfg.misfit)
+
+    def plain(dtype):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused_elastic_loss_grad_meds_plain(
+            start, damp, wl.wavelet, *geom, cfg, *rows, KC=8,
+            misfit=engine.cfg.misfit, dtype=dtype)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    lk, gk = kernel(start)
+    (lp, gp), ms_p = plain(torch.float32)
+    (lr, gr), _ = plain(torch.float64)
+    lk, lp, lr = float(lk), float(lp), float(lr)
+    err_k, err_p = _rel_meds(gk, gr), _rel_meds(gp, gr)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    l_true, _ = kernel(prep_medium(*(torch.as_tensor(a, device=dev)
+                                     for a in true), cfg))
+    print(f"phase 20 real_data B3 {engine.cfg.misfit}, 2 shots x "
+          f"{geom[3].shape[1]} receivers, nt {g.nt}, per-step route: loss "
+          f"{lk:.9g} vs plain {lp:.9g} (rel {abs(lk - lp) / abs(lp):.2e}, "
+          f"tol 1e-5), float64 {lr:.9g}; gradient rel L2 against float64: "
+          f"kernel {err_k:.2e}, plain float32 {err_p:.2e} (tol max(1e-4, 2x "
+          f"plain)); max|kernel - plain| {err:.3e}; loss at the true model "
+          f"{float(l_true):.3e} (tol 1e-9); plain {ms_p:.2f} ms")
+    check(math.isfinite(lk) and all(bool(torch.isfinite(a).all())
+                                    for a in gk), "real_data B3: not finite")
+    check(abs(lk - lp) <= 1e-5 * abs(lp) and abs(lk - lr) <= 1e-5 * abs(lr),
+          "real_data B3: loss")
+    check(err_k <= max(1e-4, 2.0 * err_p), "real_data B3: gradient less "
+          "accurate than the plain version")
+    check(float(l_true) <= 1e-9, "real_data B3: loss at the true model")
+    check(fn.resident_launches == 0, "real_data B3 took a resident route")
+
+    # the engine's call: shots_per_iter shots of the pool
+    geom4, rows4 = case(torch.arange(engine.cfg.shots_per_iter, device=dev))
+    _, ms_k = timed_ms(lambda: kernel(start, geom4, rows4), repeats=3)
+    ns = geom4[0].shape[0]
+    cells = (g.nz + 2 * g.pml_width) * (g.nx + 2 * g.pml_width)
+    io = (11 * damp.numel() * 4 + nbytes(wl.wavelet, *geom4)
+          + 2 * nbytes(rows4[0]) + ns * nx128 * 4 + 4)
+    b = bound((FLOPS_B3 + FLOPS_B3_ADJ) * ns * cells * g.nt, io)
+    print(f"phase 20 real_data B3 per-step, {ns} shots (a physics epoch's "
+          f"call): {ms_k:.2f} ms a call; bound {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}: {ns} x {cells} cells x {g.nt} steps x "
+          f"{FLOPS_B3 + FLOPS_B3_ADJ} flop)")
+    return {"real_data_per_step_ms": ms_k,
+            "real_data_bound_ms": b["bound_ms"],
+            "real_data_plain_ms_2_shots": ms_p,
+            "real_data_max_abs_err": err}
+
+
+def phase_dataroot(dev):
+    """Training from a dataroot at full width (see the module docstring,
+    phase 20).  Returns (launches by kernel, each launched kernel's
+    launches by route, B3's real_data fields)."""
+    import collections
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.data import native_loader, native_su, prep
+    from physicsbasedfwi2_tpu_torch.data.marmousi import (
+        canonical_marmousi_vp, write_segy_grid)
+    from physicsbasedfwi2_tpu_torch.engine.race import main as race_main
+    from physicsbasedfwi2_tpu_torch.engine import test as t_test
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.geo import elastic_line, ricker
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D
+    from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+        simulate_elastic_ring)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    counters = _all_kernels()
+    launches = collections.Counter()
+    routes = collections.defaultdict(collections.Counter)
+
+    def path(what, fn):
+        """Run ``fn()`` with every count set to 0 just before it, add its
+        launches to the phase's, and return (its result, its counts)."""
+        reset_launches(*counters.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: (fn.launches, fn.resident_launches,
+                      fn.per_step_launches) for k, fn in counters.items()}
+        launches.update({k: c[0] for k, c in counts.items()})
+        for k, (_, res, per) in counts.items():
+            routes[k].update(resident=res, per_step=per)
+        ran = {k: c for k, c in counts.items() if c[0]}
+        print(f"phase 20 {what}: {secs:.2f} s; launches (all, resident, "
+              f"per-step) {ran}")
+        return out, counts
+
+    print(f"phase 20 on {card_line()}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dataroot_"))
+    out_dir = ROOT / "build" / "chip_smoke"
+    try:
+        t0 = time.perf_counter()
+        segy = tmp / "marm751x2301.segy"
+        write_segy_grid(str(segy), canonical_marmousi_vp(751, 2301))
+        print(f"phase 20: canonical Marmousi 751 x 2301 written as SEG-Y in "
+              f"{time.perf_counter() - t0:.2f} s ({segy.stat().st_size} "
+              f"bytes)")
+
+        # the acoustic tree through B1, then marmousi_acoustic from it
+        ac = tmp / "marm_acoustic"
+        _, n = path("prep --physics acoustic (151 x 200, 18 shots x 200 "
+                    "receivers, nt 4001: train and test trees)",
+                    lambda: prep.main(["--grid", str(segy), "--out", str(ac),
+                                       "--physics", "acoustic"]))
+        check(n["forward2"] == (3, 3, 0), f"acoustic prep: B1 {n['forward2']}"
+              f" (want the direct wave, train and test, all resident)")
+        files = sorted(str(p) for p in ac.glob("*/0.npy"))
+        loader = native_loader.PrefetchNpyLoader(files, n_threads=2)
+        same = [np.array_equal(a, np.load(f)) for a, f in zip(loader, files)]
+        native = loader._h is not None
+        loader.close()
+        print(f"phase 20: native npy loader built {native_loader.native_available()}"
+              f", taken {native}; {len(files)} files of the tree equal to "
+              f"numpy's {all(same)}")
+        check(native and len(same) == 6 and all(same),
+              "the native npy loader was not built, taken or equal")
+        cfg = get_workload("marmousi_acoustic", dataroot=str(ac),
+                           save_dir=str(out_dir), name="dataroot_acoustic")
+        (engine, hist), n = path(
+            "marmousi_acoustic, 3 epochs from the acoustic tree",
+            lambda: _train20(dev, "marmousi_acoustic", cfg, 3))
+        check(n["fwi_l1_loss_grad"] == (3, 3, 0),
+              f"marmousi_acoustic from disk: B2 {n['fwi_l1_loss_grad']}")
+        twin = engine.val_wl
+        check(twin is not None and twin.from_disk
+              and not torch.equal(twin.vp_true, engine.wl.vp_true),
+              "the validation twin is not the tree's test sample")
+        (loss_true, _), _ = path(
+            "marmousi_acoustic misfit at the true model",
+            lambda: engine.physics_value_and_grad(engine.wl.vp_true))
+        print(f"phase 20 marmousi_acoustic from disk: misfit at the true "
+              f"model {float(loss_true):.3e} (tol 1e-6); twin loss_V_MSE "
+              f"{hist[-1]['loss_V_MSE']:.6g}")
+        check(float(loss_true) <= 1e-6, "acoustic misfit at the true model")
+
+        # the elastic tree through the ring forward, then marmousi_elastic
+        el = tmp / "marm_elastic"
+        _, n = path("prep --physics elastic (100 x 300, 35 shots x 298 "
+                    "receivers, nt 3334)",
+                    lambda: prep.main(["--grid", str(segy), "--out", str(el),
+                                       "--physics", "elastic", "--nz", "100",
+                                       "--nx", "300"]))
+        check(n["simulate_elastic_ring"] == (1, 1, 0),
+              f"elastic prep: ring forward {n['simulate_elastic_ring']}")
+        cfg = get_workload("marmousi_elastic", dataroot=str(el),
+                           save_dir=str(out_dir), name="dataroot_elastic")
+        (engine, _), n = path(
+            f"marmousi_elastic, lstart {cfg.lstart} + 3 epochs from the "
+            f"elastic tree",
+            lambda: _train20(dev, "marmousi_elastic", cfg, cfg.lstart + 3))
+        check(n["fused_elastic_loss_grad"] == (3, 3, 0)
+              and n["simulate_elastic_ring"][0] == 0,
+              f"marmousi_elastic from disk: B3 "
+              f"{n['fused_elastic_loss_grad']}, ring forward "
+              f"{n['simulate_elastic_ring']}")
+        (loss_true, _), _ = path(
+            "marmousi_elastic misfit at the true model (35 shots)",
+            lambda: engine.physics_value_and_grad(
+                engine.true_m, fc=0.0, rho=engine.wl.true["rho"]))
+        print(f"phase 20 marmousi_elastic from disk: misfit at the true "
+              f"model {float(loss_true):.3e} (tol 1e-9)")
+        check(float(loss_true) <= 1e-9, "elastic misfit at the true model")
+
+        # real_data: SU gathers from the ring forward, ingested, trained
+        rcfg = get_workload("real_data", save_dir=str(out_dir))
+        true, start = _real_data_model(rcfg)
+        grid = Grid2D(nz=rcfg.nz, nx=rcfg.nx, dx=rcfg.dx, nt=rcfg.nt,
+                      dt=rcfg.dt, pml_width=rcfg.pml_width,
+                      free_surface=rcfg.free_surface)
+        ecfg = ElasticConfig(grid=grid, chunk=rcfg.chunk, vmax_pml=5000.0)
+        acq = elastic_line(rcfg.num_shots, rcfg.num_receivers, rcfg.nx,
+                           rcfg.nz, src_row=rcfg.extras["src_depth_row"],
+                           rcv_row=rcfg.extras["rcv_depth_row"])
+        su = tmp / "su"
+        su.mkdir()
+
+        def write_gathers():
+            geom = tuple(torch.as_tensor(a, dtype=torch.int32, device=dev)
+                         for a in (acq.src_z, acq.src_x, acq.rcv_z,
+                                   acq.rcv_x))
+            vx, vz = simulate_elastic_ring(
+                *(torch.as_tensor(a, device=dev) for a in true),
+                ricker(rcfg.freq, rcfg.nt, rcfg.dt, device=dev), *geom, ecfg)
+            for comp, gathers in (("x", vx), ("y", vz)):
+                for k, gth in enumerate(gathers.cpu().numpy(), 1):
+                    _write_su(su / f"seis_{comp}.su.shot{k}", gth.T, rcfg.dt)
+
+        _, n = path(f"real_data SU gathers ({rcfg.num_shots} shots x "
+                    f"{rcfg.num_receivers} receivers, nt {rcfg.nt}, absorbing "
+                    f"top) from the ring forward", write_gathers)
+        check(n["simulate_elastic_ring"] == (1, 0, 1),
+              f"real_data gathers: ring forward {n['simulate_elastic_ring']}"
+              f" (192 x 384 fits no resident plan)")
+        rd = tmp / "real_data"
+        (rd / "trainC").mkdir(parents=True)
+        np.save(rd / "trainC" / "0.npy", np.stack(start) / 100.0)
+        reads = native_su.native_reads
+        path("prep --su-obs (no trainB: field data)",
+             lambda: prep.main(["--su-obs", str(su), "--out", str(rd)]))
+        reads = native_su.native_reads - reads
+        print(f"phase 20: native SU reader built "
+              f"{native_su.native_available()}, read {reads} of "
+              f"{2 * rcfg.num_shots} files")
+        check(reads == 2 * rcfg.num_shots, "the native SU reader was not "
+              "taken")
+        rcfg = rcfg.replace(dataroot=str(rd), name="dataroot_real_data")
+        from physicsbasedfwi2_tpu_torch.engine.engines import create_engine
+        b3_real = _real_data_b3(dev, create_engine(rcfg, device=dev), true)
+        (engine, hist), n = path(
+            f"real_data, lstart {rcfg.lstart} + 3 epochs from the SU tree",
+            lambda: _train20(dev, "real_data", rcfg, rcfg.lstart + 3))
+        check(n["fused_elastic_loss_grad"] == (3, 0, 3),
+              f"real_data: B3 {n['fused_elastic_loss_grad']} (want every "
+              f"launch per-step)")
+        check(all(math.isfinite(r["loss_D_MSE"]) for r in hist),
+              "real_data: a loss is not finite")
+
+        # fwi-test and fwi-race from the trees
+        res, _ = path("fwi-test --dataroot (marmousi_acoustic, latest)",
+                      lambda: t_test.main([
+                          "--workload", "marmousi_acoustic", "--name",
+                          "dataroot_acoustic", "--save-dir", str(out_dir),
+                          "--results-dir", str(tmp / "results"),
+                          "--dataroot", str(ac)]))
+        metrics = json.loads((tmp / "results" / "dataroot_acoustic"
+                              / "epoch_latest" / "metrics.json").read_text())
+        check(math.isfinite(metrics["loss_V_MSE"]), "fwi-test's metrics")
+        path("fwi-race --dataroot (marmousi_elastic_robust, seeds 0 and 1, "
+             "probes of 2 epochs, 3 in all)",
+             lambda: race_main([
+                 "--workload", "marmousi_elastic_robust", "--dataroot",
+                 str(el), "--seeds", "0,1", "--probe-epochs", "2",
+                 "--epochs", "3", "--save-dir", str(out_dir),
+                 "--set", "lstart=1", "--set", "holdout_every=1",
+                 "--set", "freq_stages=(2.5,)"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    routes = {k: dict(routes[k]) for k in launches if launches[k]}
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{dict(launches)}, by route {routes}")
+    return launches, routes, b3_real
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -3156,7 +3639,7 @@ def main(argv: list[str]) -> int:
                   13: [phase_b2_wavelet], 14: [phase_engine_paths],
                   15: [phase_robust], 16: [phase_lbfgs],
                   17: [phase_config5], 18: [phase_config2],
-                  19: [phase_other_engines]}
+                  19: [phase_other_engines], 20: [phase_dataroot]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -3187,6 +3670,14 @@ def main(argv: list[str]) -> int:
     ring.update(ring_seam)
     launches.update(phase_config2(dev))
     phase_other_engines(dev)
+    dataroot_launches, dataroot_routes, b3_real = phase_dataroot(dev)
+    launches.update(dataroot_launches)
+    b3.update(b3_real)
+    # phase 20's launches of each kernel it ran, by route
+    for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
+                         ("fused_elastic_loss_grad", b3),
+                         ("simulate_elastic_ring", ring)):
+        fields["dataroot_launches"] = dataroot_routes.get(name, {})
     kernels = [
         {"name": "forward2", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_scalar2.py:91",

@@ -11,12 +11,16 @@ first CUDA card unless the caller asks for the CPU.
 This package imports neither JAX nor the JAX package.
 
 Importing it turns TF32 off for matmuls and cuDNN convolutions, so the
-generator runs in full float32 as the reference does.
+generator runs in full float32 as the reference does, and makes cuDNN
+pick deterministic algorithms (no autotuning), so that a fixed seed
+repeats a run on the card.
 """
 
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 __version__ = "0.1.0"

@@ -5,7 +5,10 @@ The velocity models are numpy (copied as they are, so both packages
 make the same model from a seed); the observed gathers come from
 :func:`simulate_acoustic` (or, with ``backend="pallas"``, kernel B5
 :func:`acoustic_forward_pallas`) / :func:`simulate_elastic` on the
-requested device, by default the first CUDA card.
+requested device, by default the first CUDA card.  The ``*_from_disk``
+builders read the reference's npy contracts (``npy_datasets``) instead,
+and ``write_npy_tree``/``write_elastic_npy_tree`` write a workload out
+in them.
 """
 
 from __future__ import annotations
@@ -230,3 +233,184 @@ class SyntheticElasticWorkload:
                                      device=self.device)
                      for a in (self.acq.src_z, self.acq.src_x,
                                self.acq.rcv_z, self.acq.rcv_x))
+
+
+def acoustic_workload_from_disk(dataroot: str, *, nz, nx, dx, nt, dt,
+                                pml_width=20, freq=8.0, num_shots=None,
+                                num_receivers=None, chunk=64,
+                                phase: str = "train",
+                                wavelet_from_data: bool = False,
+                                device: torch.device | str | None = None):
+    """Build an acoustic workload from the reference's on-disk npy
+    contract (trainA = gathers [ns, nt, nr], trainB = true model,
+    trainC = low-frequency start model) so datasets prepared for the
+    reference train unchanged here; the tensors on ``device`` (the first
+    CUDA card by default).
+
+    wavelet_from_data: take the per-shot source wavelets from trainD
+    (the AutoWav capability, networks.py:13163-13165:
+    ``source_amplitudes_true = swapaxes(wav, 0, 2)`` from the data
+    dict) instead of a synthetic Ricker."""
+    from physicsbasedfwi2_tpu_torch.data.npy_datasets import NpyDictDataset
+    if device is None:
+        device = default_device()
+    ds = NpyDictDataset(dataroot, "unalignedVelABCD2", phase=phase)
+    item = ds[0]
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    obs = dev(item["A"])
+    vp_true = dev(item["B"]).reshape(nz, nx)
+    vp_start = dev(item.get("C", item["B"])).reshape(nz, nx)
+    ns, nt_d, nr = obs.shape
+    if num_shots is None:
+        num_shots = ns
+    if num_receivers is None:
+        num_receivers = nr
+    assert nt_d == nt, f"data nt {nt_d} != config nt {nt}"
+    grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
+                  pml_width=pml_width)
+    cfg = AcousticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
+    if wavelet_from_data and "D" in item:
+        wav = dev(item["D"]).reshape(num_shots, nt)
+    else:
+        wav = ricker(freq, nt, dt, device=device)
+    acq = surface_line(num_shots, num_receivers, nx, src_depth=0,
+                       rcv_depth=0)
+    return SyntheticAcousticWorkload(
+        grid=grid, cfg=cfg, acq=acq, wavelet=wav, vp_true=vp_true,
+        vp_start=vp_start, obs=obs, obs_norm=trace_normalize(obs),
+        from_disk=True)
+
+
+def latent_workload_from_disk(dataroot: str, *, nz, nx, dx, nt, dt,
+                              pml_width=20, freq=15.0, num_shots=None,
+                              num_receivers=None, chunk=64,
+                              phase: str = "train", sample: int = 0,
+                              device: torch.device | str | None = None):
+    """Acoustic workload from the reference's Latent2 contract
+    (unalignedVelLatent2_dataset.py: trainA = shot gathers, scaled x10
+    by the mode; trainB = velocity model; the latent-inversion workload
+    of VaeLatent2NoPhy_model.py:395-560 — 10 shots, nt=800, dt=1.5 ms,
+    15 Hz).  ``sample`` picks one of the many stored samples (the
+    reference ran batch 64 over them; latent inversion here optimizes
+    one sample's latent at a time).  Tensors on ``device`` (the first
+    CUDA card by default)."""
+    from physicsbasedfwi2_tpu_torch.data.npy_datasets import NpyDictDataset
+    if device is None:
+        device = default_device()
+    ds = NpyDictDataset(dataroot, "unalignedVelLatent2", phase=phase)
+    item = ds[sample]
+    obs = torch.as_tensor(item["A"], dtype=torch.float32, device=device)
+    vp_true = torch.as_tensor(item["B"], dtype=torch.float32,
+                              device=device).reshape(nz, nx)
+    ns, nt_d, nr = obs.shape
+    num_shots = num_shots or ns
+    num_receivers = num_receivers or nr
+    assert nt_d == nt, f"data nt {nt_d} != config nt {nt}"
+    grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
+                  pml_width=pml_width)
+    cfg = AcousticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
+    wav = ricker(freq, nt, dt, device=device)
+    acq = surface_line(num_shots, num_receivers, nx, src_depth=0,
+                       rcv_depth=0)
+    return SyntheticAcousticWorkload(
+        grid=grid, cfg=cfg, acq=acq, wavelet=wav, vp_true=vp_true,
+        vp_start=vp_true, obs=obs, obs_norm=trace_normalize(obs),
+        from_disk=True)
+
+
+def elastic_workload_from_disk(dataroot: str, *, nz, nx, dx, nt, dt,
+                               pml_width=20, freq=10.0,
+                               free_surface=True, chunk=64,
+                               num_shots=None, num_receivers=None,
+                               water_rows=26, phase: str = "train",
+                               src_depth_row=None, rcv_depth_row=None,
+                               rcv_follow_seabed=False,
+                               device: torch.device | str | None = None):
+    """Elastic workload from the unalignedVelABCDEl contract
+    (A = vx gathers, B = [Vp;Vs;Rho]/100, C = low-freq triple /100,
+    D = vz gathers — the /100 storage units are undone by the dataset
+    mode's scale, data/unalignedVelABCDEl_dataset.py:84-87); tensors on
+    ``device`` (the first CUDA card by default).
+
+    trainB is OPTIONAL: field data (the AutoRealData workload, SU
+    gathers ingested by ``prep --su-obs``) has no ground-truth
+    model — the starting model (trainC) then doubles as the metric
+    reference, so reported "model MSE" measures distance from the
+    start, not inversion quality."""
+    from physicsbasedfwi2_tpu_torch.data.npy_datasets import NpyDictDataset
+    if device is None:
+        device = default_device()
+    ds = NpyDictDataset(dataroot, "unalignedVelABCDEl", phase=phase)
+    item = ds[0]
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    ovx = dev(item["A"])
+    ovz = dev(item["D"])
+    c = item["C"].reshape(3, nz, nx)
+    b = item["B"].reshape(3, nz, nx) if "B" in item else c
+    ns, nt_d, nr = ovx.shape
+    assert nt_d == nt, f"data nt {nt_d} != config nt {nt}"
+    grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
+                  pml_width=pml_width, free_surface=free_surface)
+    cfg = ElasticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
+    wav = ricker(freq, nt, dt, device=device)
+    num_shots = num_shots or ns
+    num_receivers = num_receivers or nr
+    src_row = (src_depth_row if src_depth_row is not None
+               else water_rows + 1)
+    rcv_row = (rcv_depth_row if rcv_depth_row is not None
+               else water_rows + 1)
+    acq = elastic_line(
+        num_shots, num_receivers, nx, nz, src_row=src_row,
+        rcv_row=rcv_row,
+        rcv_rows_per_col=(seabed_rows(b[0]) if rcv_follow_seabed
+                          else None))
+    return SyntheticElasticWorkload(
+        grid=grid, cfg=cfg, acq=acq, wavelet=wav,
+        true={"vp": dev(b[0]), "vs": dev(b[1]), "rho": dev(b[2])},
+        start={"vp": dev(c[0]), "vs": dev(c[1]), "rho": dev(c[2])},
+        obs_vx=ovx, obs_vz=ovz, from_disk=True)
+
+
+def write_npy_tree(root: str, workload: SyntheticAcousticWorkload,
+                   *, phase: str = "train",
+                   write_wavelets: bool = False):
+    """Materialize the reference's on-disk contract
+    (<root>/<phase>A/0.npy etc.) from a workload.  write_wavelets adds
+    <phase>D = per-shot source wavelets [ns, nt] (the AutoWav trainD
+    contract, networks.py:13163)."""
+    import os
+    entries = [("A", workload.obs), ("B", workload.vp_true),
+               ("C", workload.vp_start)]
+    if write_wavelets:
+        wav = workload.wavelet
+        if wav.ndim == 1:
+            wav = wav[None].expand(len(workload.acq.src_z), -1)
+        entries.append(("D", wav))
+    for letter, arr in entries:
+        d = os.path.join(root, phase + letter)
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, "0.npy"), arr.cpu().numpy())
+
+
+def write_elastic_npy_tree(root: str, wl: SyntheticElasticWorkload,
+                           *, phase: str = "train"):
+    """Materialize the elastic contract (stored /100, bottom-up order
+    NOT applied — row 0 = surface as the loaders expect)."""
+    import os
+
+    def triple(fields):
+        return np.stack([fields[k].cpu().numpy()
+                         for k in ("vp", "vs", "rho")]) / 100.0
+
+    for letter, arr in (("A", wl.obs_vx.cpu().numpy()), ("B", triple(wl.true)),
+                        ("C", triple(wl.start)),
+                        ("D", wl.obs_vz.cpu().numpy())):
+        d = os.path.join(root, phase + letter)
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, "0.npy"), arr)

@@ -28,6 +28,8 @@ import torch
 
 from physicsbasedfwi2_tpu_torch.data.synthetic import (
     SyntheticAcousticWorkload, SyntheticElasticWorkload,
+    acoustic_workload_from_disk, elastic_workload_from_disk,
+    latent_workload_from_disk,
 )
 from physicsbasedfwi2_tpu_torch.device import default_device
 from physicsbasedfwi2_tpu_torch.engine.config import ExperimentConfig
@@ -99,14 +101,12 @@ def _engine_device(device, workload) -> torch.device:
     return dev
 
 
-def _not_ported(mesh=None, dataroot=None) -> None:
-    """Raise for the options the port does not take yet: ``mesh`` (shot
-    sharding) and ``dataroot`` (workloads from disk)."""
-    why = [w for cond, w in (
-        (mesh is not None, "mesh (shot sharding): ROADMAP Queue A, item 13"),
-        (bool(dataroot), "dataroot: ROADMAP Queue A, item 10")) if cond]
-    if why:
-        raise NotImplementedError("not ported yet: " + "; ".join(why))
+def _not_ported(mesh=None) -> None:
+    """Raise for the option the port does not take yet: ``mesh`` (shot
+    sharding)."""
+    if mesh is not None:
+        raise NotImplementedError("not ported yet: mesh (shot sharding): "
+                                  "ROADMAP Queue A, item 13")
 
 
 def _evict_stale_stages(cache: dict, fc: float) -> None:
@@ -378,9 +378,13 @@ class AcousticDIPEngine(EngineBase):
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None,
                  val_workload=None, *, device=None):
-        _not_ported(mesh, cfg.dataroot)
+        _not_ported(mesh)
         self.cfg = cfg
         self.device = _engine_device(device, workload)
+        if workload is None and cfg.dataroot:
+            workload = acoustic_workload_from_disk(
+                cfg.dataroot, wavelet_from_data=cfg.wavelet_from_data,
+                **_acoustic_disk_kw(cfg), device=self.device)
         # (water_rows is not passed, as in the JAX engine: ROADMAP Queue C)
         self.wl = workload or SyntheticAcousticWorkload.build(
             nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
@@ -471,11 +475,7 @@ class AcousticDIPEngine(EngineBase):
         self.true_b = self.wl.vp_true[None, :, :, None]
         self.val_wl = val_workload
         if self.val_wl is None and cfg.validate_on_twin:
-            self.val_wl = SyntheticAcousticWorkload.build(
-                nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
-                pml_width=cfg.pml_width, freq=cfg.freq,
-                num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
-                seed=cfg.seed + 101, chunk=cfg.chunk, device=self.device)
+            self.val_wl = self._build_val_twin()
         self.opt = _make_optimizer(cfg, self.net)
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         self._drop_gen = _dropout_generator(cfg, self.device)
@@ -486,6 +486,24 @@ class AcousticDIPEngine(EngineBase):
             torch.Generator().manual_seed(cfg.seed + _ENCODING_SEED)
             if self._encoded else None)
         self._build_physics()
+
+    def _build_val_twin(self):
+        """The validation twin (the reference's create_dataset2 Test
+        dataset): a dataroot's ``test`` sample, None when it has no
+        ``testA`` (the training sample then validates); without a
+        dataroot, the synthetic workload of seed ``cfg.seed + 101``."""
+        cfg = self.cfg
+        if cfg.dataroot:
+            if not os.path.isdir(os.path.join(cfg.dataroot, "testA")):
+                return None
+            return acoustic_workload_from_disk(
+                cfg.dataroot, **_acoustic_disk_kw(cfg), phase="test",
+                device=self.device)
+        return SyntheticAcousticWorkload.build(
+            nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+            pml_width=cfg.pml_width, freq=cfg.freq,
+            num_shots=cfg.num_shots, num_receivers=cfg.num_receivers,
+            seed=cfg.seed + 101, chunk=cfg.chunk, device=self.device)
 
     def _kernel_rows(self, pd, dir_rows):
         """Add the fused kernel's layouts to the physics data ``pd``: the
@@ -683,9 +701,31 @@ class AcousticDIPEngine(EngineBase):
         return {"loss_V_MSE": float(mse)}, vp.cpu().numpy()
 
 
+def _acoustic_disk_kw(cfg: ExperimentConfig) -> dict:
+    """The grid arguments of the acoustic from-disk loaders."""
+    return dict(nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
+                pml_width=cfg.pml_width, freq=cfg.freq, chunk=cfg.chunk)
+
+
+def _elastic_from_disk(cfg: ExperimentConfig, device):
+    """``cfg.dataroot``'s elastic workload, on ``device``, with the
+    config's acquisition extras."""
+    return elastic_workload_from_disk(
+        cfg.dataroot, nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt,
+        dt=cfg.dt, pml_width=cfg.pml_width, freq=cfg.freq,
+        free_surface=cfg.free_surface, chunk=cfg.chunk,
+        water_rows=cfg.water_rows,
+        src_depth_row=cfg.extras.get("src_depth_row"),
+        rcv_depth_row=cfg.extras.get("rcv_depth_row"),
+        rcv_follow_seabed=cfg.extras.get("rcv_follow_seabed", False),
+        device=device)
+
+
 def elastic_workload(cfg: ExperimentConfig, device):
-    """The synthetic workload an :class:`ElasticDIPEngine` builds from
-    ``cfg`` when it is given none."""
+    """The workload an :class:`ElasticDIPEngine` builds from ``cfg`` when
+    it is given none: ``cfg.dataroot``'s, or the synthetic one."""
+    if cfg.dataroot:
+        return _elastic_from_disk(cfg, device)
     return SyntheticElasticWorkload.build(
         nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
         pml_width=cfg.pml_width, freq=cfg.freq, num_shots=cfg.num_shots,
@@ -752,7 +792,7 @@ class ElasticDIPEngine(EngineBase):
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None, *,
                  device=None):
-        _not_ported(mesh, cfg.dataroot)
+        _not_ported(mesh)
         self.cfg = cfg
         self.device = _engine_device(device, workload)
         self.wl = workload or elastic_workload(cfg, self.device)
@@ -1427,8 +1467,6 @@ class ClassicFWIEngine(_ParamsEngine):
                  device=None):
         self.cfg = cfg
         self.is_elastic = cfg.dataset_mode.lower().endswith("el")
-        if self.is_elastic and workload is None:
-            _not_ported(dataroot=cfg.dataroot)
         self.device = _engine_device(device, workload)
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
         if self.is_elastic:
@@ -1451,6 +1489,8 @@ class ClassicFWIEngine(_ParamsEngine):
 
     def _init_elastic(self, workload):
         cfg = self.cfg
+        if workload is None and cfg.dataroot:
+            workload = _elastic_from_disk(cfg, self.device)
         self.wl = wl = workload or SyntheticElasticWorkload.build(
             nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
             pml_width=cfg.pml_width, freq=cfg.freq,
@@ -1570,10 +1610,15 @@ class LatentInversionEngine(_ParamsEngine):
                  decoder_net: torch.nn.Module | None = None,
                  decoder_norm: tuple[float, float] | None = None, *,
                  device=None):
-        if workload is None:
-            _not_ported(dataroot=cfg.dataroot)
         self.cfg = cfg
         self.device = _engine_device(device, workload)
+        if workload is None and cfg.dataroot:
+            # the reference's latent workload consumed real npy data
+            # (unalignedVelLatent2_dataset.py)
+            workload = latent_workload_from_disk(
+                cfg.dataroot, **_acoustic_disk_kw(cfg),
+                sample=int(cfg.extras.get("latent_sample", 0)),
+                device=self.device)
         self.wl = wl = workload or SyntheticAcousticWorkload.build(
             nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
             pml_width=cfg.pml_width, freq=cfg.freq,

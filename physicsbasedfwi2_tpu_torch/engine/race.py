@@ -97,7 +97,8 @@ def main(argv=None):
     p.add_argument("--name", default=None)
     p.add_argument("--save-dir", default="./checkpoints")
     p.add_argument("--dataroot", default=None,
-                   help="not ported yet: raises")
+                   help="npy tree in the reference's contract "
+                        "(data/prep.py); default: synthetic workload")
     p.add_argument("--small", action="store_true",
                    help="shrink the workload for smoke testing")
     p.add_argument("--device", default=None,
@@ -106,9 +107,6 @@ def main(argv=None):
     p.add_argument("--set", action="append", default=[],
                    metavar="FIELD=VALUE", dest="overrides")
     args = p.parse_args(argv)
-    if args.dataroot:
-        raise NotImplementedError(
-            "--dataroot is not ported yet (ROADMAP Queue A, item 10)")
     try:
         cfg = get_workload(args.workload,
                            **parse_set_overrides(args.overrides))
@@ -116,6 +114,8 @@ def main(argv=None):
         p.error(str(e))
     cfg = cfg.replace(name=args.name or f"race_{args.workload}",
                       save_dir=args.save_dir)
+    if args.dataroot:
+        cfg = cfg.replace(dataroot=args.dataroot)
     if args.small:
         cfg = cfg.replace(nz=48, nx=64, nt=300, num_shots=4,
                           num_receivers=32, filters=(4, 8, 16),

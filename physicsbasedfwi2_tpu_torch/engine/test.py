@@ -10,8 +10,8 @@ elastic engine, the MC-dropout ensemble's ``mc_mean.npy`` and
     python -m physicsbasedfwi2_tpu_torch.engine.test \\
         --workload marmousi_elastic_robust --epoch selected
 
-on the first CUDA card, or with ``--device cpu``.  ``--dataroot`` is not
-ported yet and raises.
+on the first CUDA card, or with ``--device cpu``; ``--dataroot`` builds
+the engine on a prepped npy tree (``data/prep.py``).
 """
 
 from __future__ import annotations
@@ -81,7 +81,8 @@ def main(argv=None):
     p.add_argument("--results-dir", default="./results")
     p.add_argument("--save-dir", default=None)
     p.add_argument("--dataroot", default=None,
-                   help="not ported yet: raises")
+                   help="npy tree in the reference's contract "
+                        "(data/prep.py); default: synthetic workload")
     p.add_argument("--small", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda:0; fails when no "
@@ -92,13 +93,12 @@ def main(argv=None):
                    help="override any ExperimentConfig field (see the "
                         "train CLI's --set)")
     args = p.parse_args(argv)
-    if args.dataroot:
-        raise NotImplementedError(
-            "--dataroot is not ported yet (ROADMAP Queue A, item 10)")
     # the train CLI's precedence: dedicated flags, then --set, then --name
     overrides = {}
     if args.save_dir:
         overrides["save_dir"] = args.save_dir
+    if args.dataroot:
+        overrides["dataroot"] = args.dataroot
     try:
         overrides.update(parse_set_overrides(args.set_fields))
     except ValueError as e:

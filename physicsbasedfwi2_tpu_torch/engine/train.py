@@ -284,6 +284,9 @@ def main(argv=None):
     p.add_argument("--lstart", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--save-dir", default=None)
+    p.add_argument("--dataroot", default=None,
+                   help="npy tree in the reference's contract "
+                        "(data/prep.py); default: synthetic workload")
     p.add_argument("--small", action="store_true",
                    help="shrink the workload for smoke testing")
     p.add_argument("--continue-train", action="store_true",
@@ -311,6 +314,8 @@ def main(argv=None):
             overrides[k] = v
     if args.save_dir:
         overrides["save_dir"] = args.save_dir
+    if args.dataroot:
+        overrides["dataroot"] = args.dataroot
     from physicsbasedfwi2_tpu_torch.engine.config import parse_set_overrides
     try:
         overrides.update(parse_set_overrides(args.set_fields))

@@ -149,11 +149,40 @@ class Down(nn.Module):
         return F.avg_pool2d(self.block(x), 2)
 
 
+def _resize_2x_transpose(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of the 2x half-pixel bilinear upsample along ``dim``
+    with clamped edges: input i gets 0.75 (g[2i] + g[2i+1]) + 0.25
+    (g[2i-1] + g[2i+2]), the edge rows the clamped 0.25 terms (g[-1] is
+    g[0], g[2n] is g[2n-1]).  Slices and adds, no atomics."""
+    pairs = g.unflatten(dim, (-1, 2))
+    ge, go = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
+    n = ge.shape[dim]
+    prev = torch.cat([ge.narrow(dim, 0, 1), go.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([ge.narrow(dim, 1, n - 1), go.narrow(dim, n - 1, 1)], dim)
+    return 0.75 * (ge + go) + 0.25 * (prev + nxt)
+
+
+class _Resize2x(torch.autograd.Function):
+    """``F.interpolate(scale_factor=2, bilinear)`` forward; its backward
+    is the fixed transpose (:func:`_resize_2x_transpose` on each axis),
+    which repeats bit for bit where the CUDA backward's atomic adds do
+    not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.interpolate(x, scale_factor=2, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _resize_2x_transpose(_resize_2x_transpose(g, 2), 3)
+
+
 def resize_2x(x: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample of NCHW (``jax.image.resize`` bilinear:
-    half-pixel centres, edge samples clamped)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear",
-                         align_corners=False)
+    half-pixel centres, edge samples clamped), with a deterministic
+    backward."""
+    return _Resize2x.apply(x)
 
 
 class Up(nn.Module):
@@ -185,18 +214,59 @@ def match_spatial(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
+def upsample_weights(n_in: int, n_out: int, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """The [n_out, n_in] matrix of ``F.interpolate(size=..., bilinear,
+    align_corners=False)`` along one axis with ``n_out >= n_in``: source
+    position max(0, (j + 0.5) n_in / n_out - 0.5), its two neighbours
+    (the upper clamped to n_in - 1) weighted by distance."""
+    src = ((torch.arange(n_out, dtype=torch.float64) + 0.5) * (n_in / n_out)
+           - 0.5).clamp(min=0.0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    lam = src - i0
+    w = torch.zeros(n_out, n_in, dtype=torch.float64)
+    rows = torch.arange(n_out)
+    w.index_put_((rows, i0), 1.0 - lam, accumulate=True)
+    w.index_put_((rows, i1), lam, accumulate=True)
+    return w.to(dtype=dtype, device=device)
+
+
+class _ResizeTo(torch.autograd.Function):
+    """``F.interpolate(size=size, bilinear)`` forward (an enlargement or
+    identity on each axis); backward Wzᵀ · g · Wx with the separable
+    weight matrices of :func:`upsample_weights` (matmuls in float64, no
+    atomics)."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw = tuple(x.shape[2:])
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (nz, nx) = ctx.in_hw, g.shape[2:]
+        gx = g.double()
+        if nz != h:
+            gx = upsample_weights(h, nz, gx.dtype, g.device).T @ gx
+        if nx != w:
+            gx = gx @ upsample_weights(w, nx, gx.dtype, g.device)
+        return gx.to(g.dtype), None
+
+
 def fit_to_shape(x: torch.Tensor, out_shape) -> torch.Tensor:
     """Map NCHW decoder output to the model grid ``out_shape`` (nz, nx):
     bilinear-upscale any axis that is too small (few-receiver inputs),
     then crop from the top-left.  The resize only ever enlarges or keeps
     an axis, where ``F.interpolate(..., align_corners=False)`` is
     ``jax.image.resize``'s bilinear; JAX antialiases when it shrinks an
-    axis, which this function never asks of it."""
+    axis, which this function never asks of it.  Its backward is
+    deterministic (:class:`_ResizeTo`)."""
     h, w = x.shape[2], x.shape[3]
     nz, nx = out_shape
     if h < nz or w < nx:
-        x = F.interpolate(x, size=(max(h, nz), max(w, nx)),
-                          mode="bilinear", align_corners=False)
+        x = _ResizeTo.apply(x, (max(h, nz), max(w, nx)))
     return x[:, :, :nz, :nx]
 
 

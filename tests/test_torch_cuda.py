@@ -1080,3 +1080,31 @@ def test_new_engines_run_on_the_card_by_default(dev, tmp_path, name, over):
     torch.cuda.synchronize()
     assert all(np.isfinite(v) for v in rec.values())
     assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
+
+
+@pytest.mark.parametrize("out_shape", [None, (151, 200)])
+def test_resize_backward_repeats_on_card(dev, out_shape):
+    """The generators' resizes on the card: forward equal to
+    F.interpolate, backward repeated bit for bit and within 1e-6 of the
+    CPU's."""
+    import torch.nn.functional as F
+    from physicsbasedfwi2_tpu_torch.models.blocks import (
+        fit_to_shape, resize_2x)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, 38, 50, generator=gen)
+    fn = resize_2x if out_shape is None else (
+        lambda a: fit_to_shape(a, out_shape))
+    g = torch.randn(fn(x).shape, generator=gen)
+    grads = []
+    for _ in range(2):
+        xc = x.to(dev).requires_grad_()
+        out = fn(xc)
+        (gc,) = torch.autograd.grad(out, xc, g.to(dev))
+        grads.append(gc)
+    if out_shape is None:
+        assert torch.equal(out, F.interpolate(
+            x.to(dev), scale_factor=2, mode="bilinear", align_corners=False))
+    assert torch.equal(grads[0], grads[1])
+    xr = x.clone().requires_grad_()
+    (gr,) = torch.autograd.grad(fn(xr), xr, g)
+    assert rel_max(grads[0].cpu(), gr) <= 1e-6

@@ -29,6 +29,7 @@ from physicsbasedfwi2_tpu.data.synthetic import (
 from physicsbasedfwi2_tpu.engine import config as j_config
 from physicsbasedfwi2_tpu.engine.engines import ElasticDIPEngine as JEngine
 from physicsbasedfwi2_tpu.engine.test import evaluate as j_evaluate
+from physicsbasedfwi2_tpu_torch.data.synthetic import write_elastic_npy_tree
 from physicsbasedfwi2_tpu_torch.engine import config
 from physicsbasedfwi2_tpu_torch.engine import test as t_test
 from physicsbasedfwi2_tpu_torch.engine.engines import (
@@ -327,9 +328,21 @@ def test_test_cli_unported_options_raise(tmp_path):
     assert got["realizations"] == 4 and got["mc_std_mean"] == 0.0
     assert sorted(os.listdir(out)) == ["mc_mean.npy", "mc_std.npy",
                                        "metrics.json"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        t_test.main(["--workload", "marmousi_elastic", "--dataroot",
-                     str(tmp_path), "--device", "cpu"])
+    # --dataroot is ported since: the CLI evaluates the same checkpoint on
+    # the engine's own workload written as an npy tree (the models stored
+    # /100, so equal to float32 rounding)
+    eng = ElasticDIPEngine(cfg, device="cpu")
+    write_elastic_npy_tree(str(tmp_path / "tree"), eng.wl)
+    fields = dict(WL, filters=(4, 8, 16), lstart=1, grad_taper_rows=5)
+    t_test.main(["--workload", "marmousi_elastic", "--name", "t_unported",
+                 "--save-dir", str(tmp_path), "--results-dir",
+                 str(tmp_path / "res_disk"), "--dataroot",
+                 str(tmp_path / "tree"), "--device", "cpu"]
+                + [f"--set={k}={v!r}" for k, v in fields.items()])
+    disk = json.loads((tmp_path / "res_disk" / "t_unported" / "epoch_latest"
+                       / "metrics.json").read_text())
+    np.testing.assert_allclose(disk["loss_V_MSE"], got["loss_V_MSE"],
+                               rtol=1e-5)
 
 
 # names of the JAX subpackages' __all__ whose modules are not ported yet
@@ -347,8 +360,7 @@ NOT_PORTED = {
                "PixelDiscriminator", "gan_loss", "gradient_penalty",
                "ImagePool", "FNO2d", "SpectralConv1d", "SpectralConv2d",
                "lp_loss"},
-    "data": {"NpyDictDataset", "create_dataset", "register_dataset",
-             "acoustic_workload_from_disk", "elastic_workload_from_disk"},
+    "data": set(),
 }
 
 

@@ -193,7 +193,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
     per-step route against its plain version on 2 shots and timed on a
     physics epoch's 4, then lstart + 3 epochs, every B3 launch per-step;
     ``fwi-test --dataroot`` of the acoustic run and ``fwi-race
-    --dataroot`` (``marmousi_elastic_robust``, 2 seeds, 2-epoch probes).
+    --dataroot`` (``marmousi_elastic_robust``, 2 seeds, 2-epoch probes);
+21. the supervised/GAN family: a dataroot of 128 x 128 float32 patches
+    from numpy seed 0 (``trainA`` .. ``trainE`` 64 each, ``testA`` ..
+    ``testC`` 4 each, under a temporary directory removed at the end);
+    ``train(get_workload(w, dataroot=...), epochs=3)`` on the card by
+    default for ``pix2pix_baseline``, ``unet_ssim_baseline``,
+    ``pix2pix_bd``, ``pix2pix_bde`` and ``fno_baseline`` at their
+    registered configs (batch 1), every kernel counter 0, finite losses,
+    ``loss_V_L1`` where the test twin has the letters, a checkpoint
+    round trip to the bit and one ``fwi-train`` run; 10 steps of
+    ``CycleGanEngine(base=64, n_blocks=9)`` (the upstream ngf 64 and
+    resnet_9blocks) at 128 x 128, timed; ASPP, ResUNET, UNet3Plus, R2U,
+    R2AttU and Multi as the generator of ``marmousi_acoustic`` at full
+    width on phase 18's workload, 2 epochs each, B2 resident once an
+    epoch and B1 resident at setup, each net's forward and forward +
+    backward timed; the weight gradients of UNet3Plus, MultiScaleUNet
+    (at [1, 4001, 200, 18]), ResnetGenerator and FNO2d (at 128 x 128)
+    taken twice, held to ``torch.equal``; ``born_acoustic`` against a
+    central difference of ``simulate_acoustic`` at 40 x 50 (nt 250) and
+    timed at the Marmousi grid (151 x 200, 2 shots, nt cut to 1000), and
+    ``born_elastic`` once at 36 x 48 (nt 64).
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -2596,12 +2616,13 @@ def _vae_logvar(engine):
         return engine.net.encoder(engine.shots_in).chunk(2, dim=-1)[1]
 
 
-def _acoustic_run(dev, wl, twin, name, epochs, **overrides):
+def _acoustic_run(dev, wl, twin, name, epochs, phase=18, **overrides):
     """``train(get_workload(name, **overrides), epochs=epochs)`` on a
     copy of the shared workload ``wl`` (validated on ``twin``): prints the
     epochs, the peak memory and B1's and B2's launches, checks the fused
     path, B2 resident once an epoch, B1 resident and every number finite.
-    A VAE engine's latent draws are checked before it trains
+    ``phase`` labels the lines.  A VAE engine's latent draws are checked
+    before it trains
     (:func:`_vae_draws`), and its encoder logvar is read before every
     step: the registered VAE recipe's first Adam step (lr 0.01, a step of
     lr * sign(gradient) in every weight) moves the logvar through the
@@ -2647,7 +2668,7 @@ def _acoustic_run(dev, wl, twin, name, epochs, **overrides):
     for rec in history:
         print("epoch", json.dumps(rec))
     secs = ", ".join(f"{r['epoch_time']:.4f}" for r in history)
-    print(f"phase 18 {what}: {cfg.netG}, optimizer {cfg.optimizer}; "
+    print(f"phase {phase} {what}: {cfg.netG}, optimizer {cfg.optimizer}; "
           f"{total:.2f} s in all (engine setup included), epochs {secs} s; "
           f"peak memory {peak:.2f} GiB; launches {launches} (B1 resident "
           f"{b1.resident_launches}, B2 resident {b2.resident_launches})")
@@ -2659,7 +2680,7 @@ def _acoustic_run(dev, wl, twin, name, epochs, **overrides):
           f"{what}: B1 not resident for obs + direct")
     overflow = 2 * math.log(torch.finfo(torch.float32).max)
     if lv_in:
-        print(f"phase 18 {what}: max logvar entering each step "
+        print(f"phase {phase} {what}: max logvar entering each step "
               f"{[f'{v:.4g}' for v in lv_in.values()]} (exp(logvar / 2) "
               f"overflows float32 above {overflow:.4g})")
     for rec in history:
@@ -2670,7 +2691,7 @@ def _acoustic_run(dev, wl, twin, name, epochs, **overrides):
         check(not bad or over, f"{what} epoch {rec['epoch']}: non-finite "
               f"{bad}")
         if bad:
-            print(f"phase 18 {what} epoch {rec['epoch']}: non-finite {bad}; "
+            print(f"phase {phase} {what} epoch {rec['epoch']}: non-finite {bad}; "
                   f"epoch {over[0]} decoded from logvar "
                   f"{lv_in[over[0]]:.4g} (the recipe's overflow)")
     return engine, history, launches
@@ -2698,9 +2719,10 @@ def _vae_draws(engine, what: str) -> None:
           f"{what}: test() is not deterministic")
 
 
-def _unet_net_timing(engine) -> None:
-    """One Unet22 forward, and one forward + backward, at full width (the
-    engine's [1, 4001, 200, 18] input), timed with CUDA events."""
+def _unet_net_timing(engine, what="phase 18 Unet22") -> None:
+    """One forward of the engine's generator, and one forward + backward,
+    at full width (the engine's [1, 4001, 200, 18] input), timed with CUDA
+    events; ``what`` labels the line."""
     import torch
     net, x = engine.net, engine.shots_in
     w = torch.randn(1, engine.cfg.nz, engine.cfg.nx, 1, device=x.device,
@@ -2719,12 +2741,12 @@ def _unet_net_timing(engine) -> None:
     _, ms_fb = timed_ms(forward_backward, repeats=5)
     peak = torch.cuda.max_memory_allocated(x.device) / 2**30
     n_par = sum(p.numel() for p in net.parameters())
-    print(f"phase 18 Unet22 generator at full width, input "
+    print(f"{what} generator at full width, input "
           f"{tuple(x.shape)}, {n_par} weights: forward {ms_f:.2f} ms, "
           f"forward + backward {ms_fb:.2f} ms, peak memory "
           f"{peak:.2f} GiB; field {tuple(field.shape)}")
     check(tuple(field.shape) == (1, engine.cfg.nz, engine.cfg.nx, 1)
-          and bool(torch.isfinite(field).all()), "Unet22 field")
+          and bool(torch.isfinite(field).all()), f"{what} field")
     net.zero_grad(set_to_none=True)
 
 
@@ -2852,28 +2874,42 @@ def _mcdip_sghmc(dev):
     return launches
 
 
+_SHARED_ACOUSTIC: dict = {}
+
+
+def _shared_acoustic(dev, phase: int):
+    """``marmousi_acoustic``'s synthetic workload and its validation twin
+    (``validate_on_twin``) on the card, built at the first call and kept
+    for the acoustic engines of phases 18 and 21 (each trains on a
+    copy)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticAcousticWorkload)
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    if dev not in _SHARED_ACOUSTIC:
+        base = get_workload("marmousi_acoustic")
+        kw = {f: getattr(base, f) for f in ACOUSTIC_BUILD if f != "seed"}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wl = SyntheticAcousticWorkload.build(**kw, seed=base.seed,
+                                             device=dev)
+        twin = SyntheticAcousticWorkload.build(**kw, seed=base.seed + 101,
+                                               device=dev)
+        torch.cuda.synchronize()
+        _SHARED_ACOUSTIC[dev] = wl, twin
+        print(f"phase {phase}: marmousi_acoustic's workload and its twin "
+              f"{base.nz}x{base.nx}, nt {base.nt}, {base.num_shots} shots x "
+              f"{base.num_receivers} receivers, built once in "
+              f"{time.perf_counter() - t0:.2f} s for the acoustic engines")
+    return _SHARED_ACOUSTIC[dev]
+
+
 def phase_config2(dev):
     """BASELINE config 2 (Unet22) and the acoustic generator zoo at full
     width on one shared workload, then SGLD and SGHMC.  Returns the
     paths' launches."""
     import collections
-    import torch
-    from physicsbasedfwi2_tpu_torch.data.synthetic import (
-        SyntheticAcousticWorkload)
-    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
-    base = get_workload("marmousi_acoustic")
-    kw = {f: getattr(base, f) for f in ACOUSTIC_BUILD if f != "seed"}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    wl = SyntheticAcousticWorkload.build(**kw, seed=base.seed, device=dev)
-    # the engines' validation twin (validate_on_twin), built once too
-    twin = SyntheticAcousticWorkload.build(**kw, seed=base.seed + 101,
-                                           device=dev)
-    torch.cuda.synchronize()
-    print(f"phase 18: marmousi_acoustic's workload and its twin "
-          f"{base.nz}x{base.nx}, nt {base.nt}, {base.num_shots} shots x "
-          f"{base.num_receivers} receivers, built once in "
-          f"{time.perf_counter() - t0:.2f} s for the acoustic engines")
+    wl, twin = _shared_acoustic(dev, 18)
     launches = collections.Counter()
 
     engine, hist, n = _acoustic_run(dev, wl, twin, "marmousi_acoustic_unet",
@@ -3607,6 +3643,346 @@ def phase_dataroot(dev):
     return launches, routes, b3_real
 
 
+# phase 21: the supervised baselines' registered configs, their epochs
+# (the recipes run 100), CycleGAN's steps, the DIP runs of the new U-Nets
+SUP_WORKLOADS = ("pix2pix_baseline", "unet_ssim_baseline", "pix2pix_bd",
+                 "pix2pix_bde", "fno_baseline")
+SUP_EPOCHS = 3
+SUP_TRAIN, SUP_TEST = 64, 4   # patches a letter in trainA..E, testA..C
+PATCH = 128                   # unet_128: the pix2pix U-Net's 128 x 128
+CYCLE_STEPS = 10
+DIP21_NETS = ("ASPP", "ResUNET", "UNet3Plus", "R2U", "R2AttU", "Multi")
+DIP21_EPOCHS = 2
+# the Marmousi Born run's time steps, cut from marmousi_acoustic's 4001:
+# forward-mode AD runs ~10 ms a time step on the card (PERF.md §6, PR 17)
+BORN_MARMOUSI_NT = 1000
+
+
+def _write_patches(root: Path) -> None:
+    """Phase 21's dataroot: 128 x 128 float32 npy patches from numpy seed
+    0, ``trainA`` .. ``trainE`` with 64 each and ``testA`` .. ``testC``
+    with 4.  A is uniform in [0.1, 1), smoothed by a 5 x 5 box; each other
+    letter is a fixed pointwise map of it (B = A^2, C = 1 - A, D =
+    sqrt(A), E = 0.5 A + 0.3), so every pairing is learnable."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    maps = {"A": lambda a: a, "B": lambda a: a * a, "C": lambda a: 1 - a,
+            "D": np.sqrt, "E": lambda a: 0.5 * a + 0.3}
+    for phase, letters, count in (("train", "ABCDE", SUP_TRAIN),
+                                  ("test", "ABC", SUP_TEST)):
+        for L in letters:
+            (root / f"{phase}{L}").mkdir(parents=True)
+        for i in range(count):
+            a = rng.uniform(0.1, 1.0, (PATCH + 4, PATCH + 4))
+            a = sum(a[dz:dz + PATCH, dx:dx + PATCH] for dz in range(5)
+                    for dx in range(5)) / 25.0
+            for L in letters:
+                np.save(root / f"{phase}{L}" / f"{i:03d}.npy",
+                        maps[L](a).astype(np.float32))
+
+
+def _supervised21(dev, root: Path) -> None:
+    """The five supervised workloads at their registered configs from
+    ``root`` through ``train()`` (the card by default), every kernel
+    counter 0; a checkpoint round trip and ``fwi-train`` once."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.train import main as train_main
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    counters = _all_kernels()
+    reset_launches(*counters.values())
+    out_dir = ROOT / "build" / "chip_smoke"
+    engines = {}
+    for w in SUP_WORKLOADS:
+        cfg = get_workload(w, dataroot=str(root), save_dir=str(out_dir))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine, hist = train(cfg, epochs=SUP_EPOCHS, quiet=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(engine.device == dev, f"{w}: engine on {engine.device}")
+        for rec in hist:
+            print("epoch", json.dumps(rec))
+            for k, v in rec.items():
+                check(math.isfinite(v), f"{w} epoch {rec['epoch']}: {k}={v}")
+        # the test twin holds A, B and C: pix2pix_bd/_bde (D targets) do
+        # not validate
+        check(("loss_V_L1" in hist[-1]) == (w not in ("pix2pix_bd",
+                                                       "pix2pix_bde")),
+              f"{w}: validation {sorted(hist[-1])}")
+        n_w = sum(p.numel() for p in engine.net.parameters())
+        n_in = next(m for m in engine.net.modules()
+                    if isinstance(m, torch.nn.Conv2d)).in_channels
+        d_w = (sum(p.numel() for p in engine.disc.parameters())
+               if engine.use_gan else 0)
+        steps = SUP_TRAIN // cfg.batch_size
+        secs = ", ".join(f"{r['epoch_time']:.3f}" for r in hist)
+        ms = min(r["epoch_time"] for r in hist) / steps * 1e3
+        val = [f"{r['loss_V_L1']:.5f}" for r in hist if "loss_V_L1" in r]
+        print(f"phase 21 {w}: {cfg.netG} ({type(engine.net).__name__}, "
+              f"{n_w} weights; discriminator {d_w}), input channels "
+              f"{n_in}, batch {cfg.batch_size}, {steps} "
+              f"steps an epoch; {total:.2f} s in all (engine setup "
+              f"included), epochs {secs} s ({ms:.2f} ms a step in the "
+              f"fastest); loss_G {[round(r['loss_G'], 5) for r in hist]}"
+              + (f", loss_D {[round(r['loss_D'], 5) for r in hist]}"
+                 if engine.use_gan else "")
+              + f"; loss_V_L1 {val or 'none (no test twin)'}; peak memory "
+              f"{peak:.3f} GiB")
+        engines[w] = engine
+    ran = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    check(not ran, f"supervised workloads launched kernels: {ran}")
+    # a checkpoint round trip on the card, to the bit
+    engine = engines["pix2pix_baseline"]
+    before = {k: v.clone() for k, v in engine.net.state_dict().items()}
+    path = engine.save_networks("chip_smoke_rt")
+    with torch.no_grad():
+        for p in engine.net.parameters():
+            p.add_(1.0)
+    engine.load_networks("chip_smoke_rt")
+    same = all(torch.equal(v, before[k])
+               for k, v in engine.net.state_dict().items())
+    print(f"phase 21 pix2pix_baseline save_networks/load_networks "
+          f"({Path(path).name}, {Path(path).stat().st_size} bytes, the "
+          f"generator alone): torch.equal {same}")
+    check(same, "supervised checkpoint round trip")
+    t0 = time.perf_counter()
+    train_main(["--workload", "fno_baseline", "--dataroot", str(root),
+                "--epochs", "1", "--name", "chip_smoke_fwi_train",
+                "--save-dir", str(out_dir)])
+    ck = out_dir / "chip_smoke_fwi_train" / "latest_net_G.npz"
+    print(f"phase 21 fwi-train --workload fno_baseline --dataroot (1 epoch "
+          f"on the card): {time.perf_counter() - t0:.2f} s; {ck.name} "
+          f"written {ck.exists()}")
+    check(ck.exists(), "fwi-train wrote no checkpoint")
+
+
+def _cyclegan21(dev, root: Path) -> None:
+    """CycleGAN at the upstream widths (ngf 64, resnet_9blocks) on the
+    phase's 128 x 128 A and B patches: ``CYCLE_STEPS`` steps timed."""
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.cyclegan import CycleGanEngine
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = CycleGanEngine(base=64, n_blocks=9, in_shape=(PATCH, PATCH))
+    check(eng.device == dev, f"CycleGAN on {eng.device}")
+    setup = time.perf_counter() - t0
+
+    def patch(letter, i):
+        return torch.from_numpy(np.load(
+            root / f"train{letter}" / f"{i:03d}.npy"))[None, :, :, None]
+
+    secs, recs = [], []
+    for i in range(CYCLE_STEPS):
+        a, b = patch("A", i), patch("B", i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        recs.append(eng.optimize_parameters(a, b))   # syncs on the losses
+        secs.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    out = eng.translate(patch("A", 0))
+    n_w = sum(p.numel() for net in (eng.G, eng.F, eng.DA, eng.DB)
+              for p in net.parameters())
+    print(f"phase 21 CycleGAN (ngf 64, resnet_9blocks, 2-layer PatchGANs, "
+          f"{n_w} weights) at {PATCH} x {PATCH}: setup {setup:.2f} s; "
+          f"{CYCLE_STEPS} steps, ms a step {[round(1e3 * x, 2) for x in secs]}"
+          f" (median of the last {CYCLE_STEPS - 1}: "
+          f"{1e3 * _median(secs[1:]):.2f}); loss_G "
+          f"{[round(r['loss_G'], 4) for r in recs]}, loss_D "
+          f"{[round(r['loss_D'], 4) for r in recs]}; peak memory "
+          f"{peak:.3f} GiB; pools hold {len(eng.pool_A.images)} and "
+          f"{len(eng.pool_B.images)} images")
+    check(all(math.isfinite(v) for r in recs for v in r.values()),
+          "CycleGAN losses not finite")
+    check(tuple(out.shape) == (1, PATCH, PATCH, 1)
+          and bool(torch.isfinite(out).all()), "CycleGAN translate")
+
+
+def _dip21(dev):
+    """The supervised family's U-Nets as acoustic DIP generators at full
+    width on phase 18's shared workload.  Returns their launches."""
+    import collections
+    wl, twin = _shared_acoustic(dev, 21)
+    launches = collections.Counter()
+    for netg in DIP21_NETS:
+        engine, _, n = _acoustic_run(dev, wl, twin, "marmousi_acoustic",
+                                     DIP21_EPOCHS, phase=21, netG=netg)
+        launches.update(n)
+        _unet_net_timing(engine, f"phase 21 {netg}")
+        del engine
+    return launches
+
+
+def _determinism21(dev) -> None:
+    """Weight gradients of UNet3Plus and MultiScaleUNet at
+    ``marmousi_acoustic``'s [1, 4001, 200, 18], and of ResnetGenerator
+    (resnet_9blocks) and FNO2d at the supervised 128 x 128 x 1, each
+    taken twice on the same inputs and held to ``torch.equal``; the ops
+    the deterministic-algorithms check names on them."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    ac = get_workload("marmousi_acoustic")
+    ac_in = (ac.nt, ac.num_receivers, ac.num_shots)
+    img = (PATCH, PATCH, 1)
+    nets = {
+        "UNet3Plus": _weight_grads(dev, ac.replace(netG="UNet3Plus"), ac_in),
+        "MultiScaleUNet": _weight_grads(dev, ac.replace(netG="Multi"),
+                                        ac_in),
+        "ResnetGenerator": _weight_grads(
+            dev, get_workload("pix2pix_baseline", netG="resnet_9blocks"),
+            img),
+        "FNO2d": _weight_grads(dev, get_workload("fno_baseline"), img)}
+    named = _nondeterministic_ops(lambda: [g() for _, g in nets.values()])
+    print(f"phase 21 ops named by torch.use_deterministic_algorithms(True, "
+          f"warn_only=True) on the four nets' forward + backward: "
+          f"{named or 'none'}")
+    for name, (net, grads) in nets.items():
+        a, b = grads(), grads()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"phase 21 {name}: {len(a)} weight gradients taken twice on "
+              f"the same inputs, torch.equal: {same}")
+        check(same, f"{name}: the weight gradients do not repeat")
+        net.zero_grad(set_to_none=True)
+
+
+def _born21(dev) -> None:
+    """``born_acoustic`` on the card against a central difference of
+    ``simulate_acoustic`` at the JAX test's case (40 x 50, nt 250, 2
+    shots) and timed; one call timed at the Marmousi grid (151 x 200, 2
+    shots, nt ``BORN_MARMOUSI_NT``); ``born_elastic`` once at a small
+    shape."""
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D, ricker, surface_line
+    from physicsbasedfwi2_tpu_torch.ops import (
+        AcousticConfig, simulate_acoustic)
+    from physicsbasedfwi2_tpu_torch.ops.born import (
+        born_acoustic, born_elastic)
+    from physicsbasedfwi2_tpu_torch.ops.elastic import (
+        ElasticConfig, simulate_elastic)
+
+    def case(nz, nx, nt, dx, dt, pml, vmax, rows, ns=2):
+        grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt, pml_width=pml)
+        cfg = AcousticConfig(grid=grid, chunk=25, vmax_pml=vmax)
+        acq = surface_line(ns, nx // ns, nx, src_depth=2, rcv_depth=2)
+        geom = [torch.as_tensor(np.asarray(a), device=dev)
+                for a in (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x)]
+        wav = ricker(10.0, nt, dt).to(dev)
+        vp = torch.full((nz, nx), 1800.0, device=dev)
+        dvp = torch.zeros_like(vp)
+        dvp[rows] = 1.0
+        return vp, dvp, wav, geom, cfg
+
+    vp, dvp, wav, geom, cfg = case(40, 50, 250, 10.0, 0.002, 14, 2500.0,
+                                   (slice(22, 28), slice(20, 35)))
+    (bg, scat), ms = timed_ms(lambda: born_acoustic(vp, dvp, wav, *geom,
+                                                    cfg), repeats=1)
+    eps = 2.0
+    with torch.no_grad():
+        plain = simulate_acoustic(vp, wav, *geom, cfg)
+        fd = (simulate_acoustic(vp + eps * dvp, wav, *geom, cfg)
+              - simulate_acoustic(vp - eps * dvp, wav, *geom, cfg)) / (
+            2 * eps)
+    err = float((fd - scat).abs().max() / scat.abs().max())
+    bg_err = float((bg - plain).abs().max() / plain.abs().max())
+    print(f"phase 21 born_acoustic (40 x 50, nt 250, 2 shots x "
+          f"{geom[2].shape[1]} receivers, on {scat.device}): {ms:.1f} ms a "
+          f"call; scattered against a central difference (eps 2 m/s) "
+          f"{err:.3e} of max (tol 0.05); background against "
+          f"simulate_acoustic {bg_err:.3e} of max (tol 1e-5)")
+    check(scat.is_cuda and err < 0.05 and bg_err <= 1e-5,
+          "born_acoustic on the card")
+    base = get_workload("marmousi_acoustic")
+    vp, dvp, wav, geom, cfg = case(
+        base.nz, base.nx, BORN_MARMOUSI_NT, base.dx, base.dt,
+        base.pml_width, 5000.0, (slice(20, 40), slice(80, 120)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, scat = born_acoustic(vp, dvp, wav, *geom, cfg)   # one call
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase 21 born_acoustic at the Marmousi grid ({base.nz} x "
+          f"{base.nx}, dx {base.dx:g} m, nt {BORN_MARMOUSI_NT} of "
+          f"{base.nt}, 2 shots x "
+          f"{geom[2].shape[1]} receivers): {ms:.1f} ms a call "
+          f"({1e3 * ms / BORN_MARMOUSI_NT:.1f} us a time step); peak memory "
+          f"{peak:.3f} GiB; scattered max {float(scat.abs().max()):.3e}")
+    check(bool(torch.isfinite(scat).all()) and float(scat.abs().max()) > 0,
+          "born_acoustic at the Marmousi grid")
+    grid = Grid2D(nz=36, nx=48, dx=15.0, nt=64, dt=0.0015, pml_width=8,
+                  free_surface=False)
+    ecfg = ElasticConfig(grid=grid, chunk=16, vmax_pml=4000.0)
+    vp = torch.full((36, 48), 2500.0, device=dev)
+    vs, rho = vp / 1.8, torch.full_like(vp, 2000.0)
+    dvp, dvs = torch.zeros_like(vp), torch.zeros_like(vp)
+    dvp[18:24, 16:32] = 50.0
+    dvs[20:26, 12:30] = 20.0
+    geom = [torch.as_tensor(a, device=dev) for a in (
+        np.array([5, 5], np.int32), np.array([10, 30], np.int32),
+        np.full((2, 10), 5, np.int32),
+        np.tile(np.linspace(3, 44, 10, dtype=np.int32), (2, 1)))]
+    ewav = ricker(12.0, 64, 0.0015).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (bx, bz), (sx, sz) = born_elastic(vp, vs, rho, dvp, dvs, ewav, *geom,
+                                      ecfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with torch.no_grad():
+        px, _ = simulate_elastic(vp, vs, rho, ewav, *geom, ecfg)
+    e_bg = float((bx - px).abs().max() / px.abs().max())
+    print(f"phase 21 born_elastic (36 x 48, nt 64, 2 shots x 10 receivers): "
+          f"{secs:.2f} s; background vx against simulate_elastic {e_bg:.3e} "
+          f"of max; scattered max vx {float(sx.abs().max()):.3e}, vz "
+          f"{float(sz.abs().max()):.3e}")
+    check(e_bg <= 1e-5 and bool(torch.isfinite(sx).all())
+          and float(sx.abs().max()) > 0, "born_elastic on the card")
+
+
+def phase_supervised(dev):
+    """The supervised/GAN family (see the module docstring, phase 21).
+    Returns the DIP runs' kernel launches."""
+    import shutil
+    import tempfile
+    print(f"phase 21 on {card_line()}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_patches_"))
+    try:
+        t0 = time.perf_counter()
+        _write_patches(tmp)
+        print(f"phase 21: dataroot of {PATCH} x {PATCH} float32 patches "
+              f"(train A-E x {SUP_TRAIN}, test A-C x {SUP_TEST}) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        _supervised21(dev, tmp)
+        print(f"phase 21: supervised workloads {time.perf_counter() - t0:.1f}"
+              f" s")
+        t0 = time.perf_counter()
+        _cyclegan21(dev, tmp)
+        print(f"phase 21: CycleGAN {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    launches = _dip21(dev)
+    print(f"phase 21: DIP runs {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _determinism21(dev)
+    print(f"phase 21: determinism {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _born21(dev)
+    print(f"phase 21: Born {time.perf_counter() - t0:.1f} s")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{dict(launches)}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -3639,7 +4015,8 @@ def main(argv: list[str]) -> int:
                   13: [phase_b2_wavelet], 14: [phase_engine_paths],
                   15: [phase_robust], 16: [phase_lbfgs],
                   17: [phase_config5], 18: [phase_config2],
-                  19: [phase_other_engines], 20: [phase_dataroot]}
+                  19: [phase_other_engines], 20: [phase_dataroot],
+                  21: [phase_supervised]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -3673,6 +4050,7 @@ def main(argv: list[str]) -> int:
     dataroot_launches, dataroot_routes, b3_real = phase_dataroot(dev)
     launches.update(dataroot_launches)
     b3.update(b3_real)
+    launches.update(phase_supervised(dev))
     # phase 20's launches of each kernel it ran, by route
     for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
                          ("fused_elastic_loss_grad", b3),

@@ -6,7 +6,7 @@ from physicsbasedfwi2_tpu_torch.engine.config import (
 from physicsbasedfwi2_tpu_torch.engine.engines import (
     AcousticDIPEngine, ClassicFWIEngine, ElasticDIPEngine,
     ImpedanceDIPEngine, LatentInversionEngine, MultiSampleAcousticDIPEngine,
-    create_engine, default_device,
+    SupervisedEngine, create_engine, default_device,
 )
 
 __all__ = [
@@ -20,6 +20,7 @@ __all__ = [
     "ClassicFWIEngine",
     "MultiSampleAcousticDIPEngine",
     "ImpedanceDIPEngine",
+    "SupervisedEngine",
     "create_engine",
     "default_device",
     "race",

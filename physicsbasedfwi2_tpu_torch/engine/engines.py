@@ -5,8 +5,9 @@ held-out shots, the step cap, the drift guard's revert, illumination
 preconditioning, gradient smoothing and MC dropout, Adam or L-BFGS in
 both, SGLD or SGHMC in both, the VAE and flow generators' loss terms;
 ``MultiSampleAcousticDIPEngine``, ``ClassicFWIEngine``,
-``LatentInversionEngine`` and ``ImpedanceDIPEngine``; ``LrPolicy``,
-``_make_optimizer``, ``_evict_stale_stages`` and ``create_engine``).
+``LatentInversionEngine``, ``ImpedanceDIPEngine`` and the supervised/GAN
+baselines' ``SupervisedEngine``; ``LrPolicy``, ``_make_optimizer``,
+``_evict_stale_stages`` and ``create_engine``).
 
 The JAX engines inject the processed physics gradient into the
 generator's autodiff with a ``jax.custom_vjp``; here that is
@@ -36,7 +37,8 @@ from physicsbasedfwi2_tpu_torch.engine.config import ExperimentConfig
 from physicsbasedfwi2_tpu_torch.geo.filters import lowpass_filter_time
 from physicsbasedfwi2_tpu_torch.models import (
     apply_elastic_output, apply_generator, apply_velocity_output,
-    define_generator, kl_divergence, pack_output,
+    define_discriminator, define_generator, gan_loss, kl_divergence,
+    pack_output,
 )
 from physicsbasedfwi2_tpu_torch.models.convert import (
     npz_from_state_dict, state_dict_from_npz,
@@ -64,6 +66,7 @@ from physicsbasedfwi2_tpu_torch.ops.gradproc import (
 )
 from physicsbasedfwi2_tpu_torch.ops.impedance import impedance_synthetic
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import forward2
+from physicsbasedfwi2_tpu_torch.ops.ssim import ssim
 from physicsbasedfwi2_tpu_torch.optim.lbfgs import lbfgs_wolfe
 from physicsbasedfwi2_tpu_torch.optim.schedules import (
     PlateauController, make_scheduler,
@@ -1728,20 +1731,101 @@ class ImpedanceDIPEngine(EngineBase):
         return {"loss_V_MSE": float(mse)}, vp.cpu().numpy()
 
 
+class SupervisedEngine(EngineBase):
+    """Image-to-image baselines (``engine="supervised"``: pix2pix2,
+    unetSSIMAC, FNO): the generator ``cfg.netG`` (filters (16, 32, 64), no
+    ``out_shape``: the output keeps the input's size) maps the input image
+    ``a`` [B, H, W, in_channels] to the target ``b``; its loss is
+    ``extras["lambda_l1"]`` (10) times the L1, plus 1 - SSIM at window
+    ``extras["ssim_window"]`` where it is set, plus the GAN loss
+    (``extras["gan_mode"]``, "lsgan"; "none" drops the discriminator) of
+    the current discriminator on [a, fake].  The discriminator (a 3-layer
+    PatchGAN at base 32 on [a, b] or [a, fake], weights from seed 1) then
+    takes one step on the same forward's fake, detached.
+
+    The generator's Adam follows :class:`LrPolicy`; the discriminator's
+    keeps ``cfg.lr`` with b1 ``cfg.beta1`` and eps 1e-8, as the JAX
+    engine's ``optax.adam(cfg.lr, b1=cfg.beta1)`` does.
+    ``save_networks`` saves the generator alone."""
+
+    def __init__(self, cfg: ExperimentConfig, in_shape=(128, 128),
+                 in_channels: int = 1, out_channels: int = 1, *,
+                 device=None):
+        self.cfg = cfg
+        self.device = _engine_device(device, None)
+        self.gan_mode = cfg.extras.get("gan_mode", "lsgan")
+        self.lambda_l1 = cfg.extras.get("lambda_l1", 10.0)
+        self.ssim_window = cfg.extras.get("ssim_window", 0)
+        self.net = define_generator(
+            cfg.netG, out_shape=None, in_shape=(*in_shape, in_channels),
+            out_channels=out_channels, filters=(16, 32, 64),
+            generator=torch.Generator().manual_seed(cfg.seed),
+        ).to(self.device)
+        self.opt = _first_order_optimizer(cfg, self.net,
+                                          "the supervised engine")
+        self.lr_policy = LrPolicy(cfg)
+        self._epoch = 0
+        self.use_gan = self.gan_mode != "none"
+        if self.use_gan:
+            self.disc = define_discriminator(
+                "n_layers", in_channels=in_channels + out_channels, base=32,
+                n_layers=3, generator=torch.Generator().manual_seed(1),
+            ).to(self.device)
+            self.d_opt = torch.optim.Adam(self.disc.parameters(), lr=cfg.lr,
+                                          betas=(cfg.beta1, 0.999), eps=1e-8)
+
+    def optimize_parameters(self, a: torch.Tensor, b: torch.Tensor,
+                            epoch: int | None = None):
+        """One generator step, then (with the GAN term) one discriminator
+        step on the same fake; ``epoch`` (default: the last one + 1) sets
+        the generator's lr.  Returns ``loss_G`` (and ``loss_D``), each the
+        loss before its step, and ``lr``."""
+        self._epoch = epoch if epoch is not None else self._epoch + 1
+        _set_lr(self, self._epoch)
+        a, b = a.to(self.device), b.to(self.device)
+        fake = pack_output(self.net(a)).field
+        loss = self.lambda_l1 * torch.mean(torch.abs(fake - b))
+        if self.ssim_window:
+            loss = loss + (1.0 - ssim(fake, b, window_size=self.ssim_window))
+        losses = {"loss_G": loss}
+        if self.use_gan:
+            # the generator's step trains the generator alone
+            self.disc.requires_grad_(False)
+            loss = loss + gan_loss(self.disc(torch.cat([a, fake], -1)), True,
+                                   self.gan_mode)
+            losses["loss_G"] = loss
+        _step(self.opt, loss)
+        if self.use_gan:
+            self.disc.requires_grad_(True)
+            pr = self.disc(torch.cat([a, b], -1))
+            pf = self.disc(torch.cat([a, fake.detach()], -1))
+            losses["loss_D"] = 0.5 * (gan_loss(pr, True, self.gan_mode)
+                                      + gan_loss(pf, False, self.gan_mode))
+            _step(self.d_opt, losses["loss_D"])
+        vals = torch.stack([v.detach() for v in losses.values()]).tolist()
+        return {**dict(zip(losses, vals)), "lr": self.lr_policy.lr}
+
+    @torch.no_grad()
+    def test(self, a: torch.Tensor, b: torch.Tensor):
+        """The generator's L1 to ``b`` (``loss_V_L1``) and its image."""
+        fake = pack_output(self.net(a.to(self.device))).field
+        l1 = torch.mean(torch.abs(fake - b.to(self.device)))
+        return {"loss_V_L1": float(l1)}, fake.cpu().numpy()
+
+
 _ENGINES: dict[str, Any] = {
     "acoustic_dip": AcousticDIPEngine,
     "acoustic_dip_multi": MultiSampleAcousticDIPEngine,
     "elastic_dip": ElasticDIPEngine,
     "classic_fwi": ClassicFWIEngine,
     "latent_inversion": LatentInversionEngine,
+    "supervised": SupervisedEngine,
     "impedance_dip": ImpedanceDIPEngine,
 }
 
 
 def create_engine(cfg: ExperimentConfig, **kw):
-    """Factory by ``cfg.engine``."""
-    if cfg.engine not in _ENGINES:
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} is not ported yet (the supervised/GAN "
-            "family: ROADMAP Queue A, item 9)")
+    """Factory by ``cfg.engine``; ``kw`` goes to the engine (``device``,
+    a workload; the supervised engine's ``in_shape``, ``in_channels`` and
+    ``out_channels``)."""
     return _ENGINES[cfg.engine](cfg, **kw)

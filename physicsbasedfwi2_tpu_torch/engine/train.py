@@ -2,10 +2,12 @@
 
 Epoch loop with validation at the top of each epoch, per-epoch
 aggregated losses, frequency continuation (a plateau detector advances
-the stage), periodic checkpointing and wall-clock metrics.  Run it as
-``python -m physicsbasedfwi2_tpu_torch.engine.train --workload
-marmousi_elastic``; it runs on the first CUDA card unless given
-``--device cpu``.
+the stage), periodic checkpointing and wall-clock metrics; the
+supervised/GAN baselines' batch loop over a dataroot
+(:func:`train_supervised`).  Run it as ``python -m
+physicsbasedfwi2_tpu_torch.engine.train --workload marmousi_elastic``
+(``--workload pix2pix_baseline --dataroot DIR`` for a supervised one);
+it runs on the first CUDA card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ import json
 import os
 import time
 
+import numpy as np
+import torch
+
+from physicsbasedfwi2_tpu_torch.data.npy_datasets import create_dataset
 from physicsbasedfwi2_tpu_torch.engine.config import (
     ExperimentConfig, get_workload, list_workloads,
 )
@@ -76,6 +82,89 @@ class PlateauDetector:
         return False
 
 
+def _prep_img(x) -> np.ndarray:
+    """A [B?, H, W(, C)] float array as float32 NHWC: a channel axis is
+    added to 2-D and 3-D arrays."""
+    x = np.asarray(x, np.float32)
+    return x[..., None] if x.ndim in (2, 3) else x
+
+
+def train_supervised(cfg: ExperimentConfig, *, epochs: int | None = None,
+                     quiet: bool = False, device=None):
+    """The supervised and GAN baselines' batch loop: each epoch iterates
+    the dataroot's training batches (``cfg.batch_size``, shuffled from
+    ``cfg.seed + epoch``, lateral flips with ``extras["flip"]``; numpy's
+    order, the JAX loop's) through :class:`SupervisedEngine` on
+    ``device`` (default: the first CUDA card; raises when there is none),
+    then validates on the test twin's first sample where the twin holds
+    every letter.  The dataset's first letter is the input and its second
+    the target; further letters join the input's channels.  Checkpoints
+    every ``cfg.save_epoch_freq`` epochs and at the last.
+
+    Returns (engine, history)."""
+    if not cfg.dataroot:
+        raise ValueError(
+            "supervised workloads need --dataroot (an npy tree with "
+            f"{cfg.dataset_mode}'s letter directories)")
+    ds = create_dataset(cfg.dataroot, cfg.dataset_mode)
+    item0 = ds[0]
+    letters = [L for L in "ABCDE" if L in item0]
+    if len(letters) < 2:
+        raise ValueError(f"need input+target dirs, found {letters}")
+    la, lb = letters[0], letters[1]
+    extra = letters[2:]
+
+    def prep_in(item):
+        parts = [_prep_img(item[L]) for L in (la, *extra)]
+        return parts[0] if not extra else np.concatenate(parts, -1)
+
+    a0, b0 = prep_in(item0), _prep_img(item0[lb])
+    engine = create_engine(
+        cfg, in_shape=a0.shape[:2], in_channels=a0.shape[-1],
+        out_channels=b0.shape[-1],
+        device=device if device is not None else default_device())
+    dev = engine.device
+    need = {la, lb, *extra}
+    try:
+        ds_val = create_dataset(cfg.dataroot, cfg.dataset_mode,
+                                phase="test")
+        if len(ds_val) == 0 or not need <= set(ds_val[0]):
+            ds_val = None  # twin missing (or missing a needed letter)
+    except (FileNotFoundError, OSError):
+        ds_val = None
+    viz = Visualizer(cfg)
+    viz.dump_config(cfg)
+    epochs = epochs if epochs is not None else cfg.n_epochs
+    history = []
+    flip = bool(cfg.extras.get("flip", False))
+    for epoch in range(1, epochs + 1):
+        t0 = time.time()
+        agg = collections.defaultdict(float)
+        nb = 0
+        for batch in ds.batches(cfg.batch_size, seed=cfg.seed + epoch,
+                                flip=flip):
+            a = torch.from_numpy(prep_in(batch)).to(dev)
+            b = torch.from_numpy(_prep_img(batch[lb])).to(dev)
+            for k, v in engine.optimize_parameters(a, b,
+                                                   epoch=epoch).items():
+                agg[k] += v
+            nb += 1
+        rec = {"epoch": epoch,
+               **{k: v / max(nb, 1) for k, v in agg.items()},
+               "epoch_time": time.time() - t0}
+        if ds_val is not None:
+            it = ds_val[0]
+            val, _ = engine.test(torch.from_numpy(prep_in(it)[None]),
+                                 torch.from_numpy(_prep_img(it[lb])[None]))
+            rec.update(val)
+        history.append(rec)
+        viz.log_epoch(rec)
+        if epoch % cfg.save_epoch_freq == 0 or epoch == epochs:
+            engine.save_networks(epoch)
+            engine.save_networks("latest")
+    return engine, history
+
+
 def train(cfg: ExperimentConfig, *, epochs: int | None = None,
           iters_per_epoch: int = 1, workload=None, quiet: bool = False,
           continue_from: str | int | None = None, start_epoch: int = 1,
@@ -106,12 +195,14 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     ``profile_dir/<name>.pt.trace.json`` (Chrome trace format): device
     activity only on a CUDA engine (a trace that also records the host
     did not finish a kernel-heavy epoch loop in 900 s), host activity on
-    the CPU.  The supervised loop is not ported yet and raises.
+    the CPU.
+
+    Supervised/GAN workloads (``engine == "supervised"``) go to the batch
+    loop over ``cfg.dataroot`` (:func:`train_supervised`).
     """
     if cfg.engine == "supervised":
-        raise NotImplementedError(
-            "the supervised loop is not ported yet (ROADMAP Queue A, "
-            "item 9)")
+        return train_supervised(cfg, epochs=epochs, quiet=quiet,
+                                device=device)
     if engine is None:
         kw = {"device": device if device is not None else default_device()}
         if workload is not None:

@@ -1,12 +1,12 @@
 """Generator registry (port of ``physicsbasedfwi2_tpu/models/__init__.py``:
-the AutoEncoderNet, ElasticAutoEncoderNet, UNet, VAE and flow names).
+every name of the JAX registry, and ``define_discriminator``).
 
 ``define_generator`` maps a reference generator name to a configured
 module; keyword arguments the module does not take are dropped, as
 the JAX registry drops fields its Flax module lacks.  The nets that
 size their layers from the input take ``in_shape``, one sample's (H, W,
-C); a net that needs only its channel count (UNet) gets ``in_channels``
-from it.
+C); a net that needs only its channel count (the U-Nets, FNO2d,
+ResnetGenerator) gets ``in_channels`` from it.
 """
 
 from __future__ import annotations
@@ -24,7 +24,16 @@ from physicsbasedfwi2_tpu_torch.models.autoencoders import (
 from physicsbasedfwi2_tpu_torch.models.flows import (
     LatentFlow, PlanarFlowStack,
 )
-from physicsbasedfwi2_tpu_torch.models.unets import UNet
+from physicsbasedfwi2_tpu_torch.models.fno import (
+    FNO2d, SpectralConv1d, SpectralConv2d, lp_loss,
+)
+from physicsbasedfwi2_tpu_torch.models.gan import (
+    ImagePool, NLayerDiscriminator, PixelDiscriminator, ResnetGenerator,
+    gan_loss, gradient_penalty,
+)
+from physicsbasedfwi2_tpu_torch.models.unets import (
+    ASPPUNet, MultiScaleUNet, R2UNet, ResUNetPlusPlus, UNet, UNet3Plus,
+)
 from physicsbasedfwi2_tpu_torch.models.vae import (
     ModelVae, VaeFlowNet, VaeNet, kl_divergence,
 )
@@ -43,9 +52,7 @@ def define_generator(name: str, out_shape: tuple[int, int] | None = None,
     key = name.lower()
     if key not in _GENERATORS:
         raise KeyError(
-            f"unknown generator {name!r}; ported: {sorted(_GENERATORS)} "
-            f"(the supervised engine's nets wait in ROADMAP Queue A, "
-            f"item 9)")
+            f"unknown generator {name!r}; known: {sorted(_GENERATORS)}")
     factory, defaults = _GENERATORS[key]
     kwargs = dict(defaults)
     kwargs.update(overrides)
@@ -82,6 +89,14 @@ for _n in ["Unet", "UnetPre", "Unet22", "classic", "NewU", "unet_128",
            "unet_256"]:
     register_generator(_n, UNet)
 register_generator("Att", UNet, use_attention=True)
+register_generator("ASPP", ASPPUNet)
+register_generator("MultiASPP", ASPPUNet)
+register_generator("ResUNET", ResUNetPlusPlus)
+register_generator("UNet3Plus", UNet3Plus)
+register_generator("R2U", R2UNet)
+register_generator("R2AttU", R2UNet, use_attention=True)
+register_generator("Multi", MultiScaleUNet)
+register_generator("Multi2", MultiScaleUNet)
 
 # --- VAEs ---
 for _n in ["Vae", "Vae2", "Vae3", "VaeLatentNoPhy", "VaeLatent2NoPhy"]:
@@ -92,8 +107,11 @@ for _n in ["VaeNoPhy", "Vaevel"]:
 for _n in ["VaeNormalizing", "VaeNormalizingPhy"]:
     register_generator(_n, VaeFlowNet)
 
-# --- invertible latent head ---
+# --- flows / FNO / GAN generators ---
 register_generator("AutoNF", FlowAutoEncoderNet)
+register_generator("FNO", FNO2d)
+register_generator("resnet_9blocks", ResnetGenerator, n_blocks=9)
+register_generator("resnet_6blocks", ResnetGenerator, n_blocks=6)
 
 
 class GenOut(NamedTuple):
@@ -130,8 +148,20 @@ def apply_generator(net, *inputs) -> GenOut:
     return pack_output(net(*inputs))
 
 
+def define_discriminator(kind: str = "n_layers", **kwargs):
+    """The discriminator by the reference's ``define_D`` kind: "n_layers"
+    or "basic" (:class:`NLayerDiscriminator`), "pixel"
+    (:class:`PixelDiscriminator`); ``in_channels`` is required."""
+    if kind in ("n_layers", "basic"):
+        return NLayerDiscriminator(**kwargs)
+    if kind == "pixel":
+        return PixelDiscriminator(**kwargs)
+    raise KeyError(f"unknown discriminator {kind!r}")
+
+
 __all__ = [
     "define_generator",
+    "define_discriminator",
     "register_generator",
     "GenOut",
     "pack_output",
@@ -140,6 +170,21 @@ __all__ = [
     "ElasticAutoEncoderNet",
     "FlowAutoEncoderNet",
     "UNet",
+    "ASPPUNet",
+    "ResUNetPlusPlus",
+    "UNet3Plus",
+    "MultiScaleUNet",
+    "R2UNet",
+    "ResnetGenerator",
+    "NLayerDiscriminator",
+    "PixelDiscriminator",
+    "gan_loss",
+    "gradient_penalty",
+    "ImagePool",
+    "FNO2d",
+    "SpectralConv1d",
+    "SpectralConv2d",
+    "lp_loss",
     "VaeNet",
     "VaeFlowNet",
     "ModelVae",

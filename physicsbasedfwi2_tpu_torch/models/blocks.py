@@ -1,7 +1,8 @@
 """Building blocks of the generator (port of
 ``physicsbasedfwi2_tpu/models/blocks.py``: the conv blocks, the U-Net
-decoder stage ``UpCat`` with ``match_spatial`` and ``fit_to_shape``, and
-CBAM attention).
+decoder stage ``UpCat`` with ``match_spatial`` and ``fit_to_shape``, CBAM
+attention, squeeze-excite, ASPP and the residual conv block; and
+:func:`resize_to`, ``jax.image.resize``'s bilinear to any size).
 
 The modules here work in NCHW, PyTorch's layout; the nets in
 :mod:`autoencoders`, :mod:`unets` and :mod:`vae` take and return NHWC at
@@ -17,6 +18,7 @@ scaled by 1 / (1 - rate)) with the mask drawn from an explicit
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -60,6 +62,56 @@ def init_flax_like(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+def same_padding(size: int, kernel: int, stride: int = 1,
+                 dilation: int = 1) -> tuple[int, int]:
+    """Flax's ``padding="SAME"`` on one axis of length ``size``: (before,
+    after) with total max((ceil(size / stride) - 1) stride + (kernel - 1)
+    dilation + 1 - size, 0), the odd one after.  Asymmetric for a stride-2
+    3x3 conv on an even size (0, 1) and for a 4x4 conv at stride 1 (1, 2)
+    or at stride 2 on an odd size (1, 2)."""
+    span = (kernel - 1) * dilation + 1
+    total = max((-(-size // stride) - 1) * stride + span - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """``nn.Conv2d`` with Flax's ``padding="SAME"`` for any kernel size and
+    stride: the input is zero-padded by :func:`same_padding` (``F.pad``)
+    on each axis, then convolved unpadded."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, dilation=dilation)
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        (dh, dw) = self.dilation
+        top, bottom = same_padding(x.shape[2], kh, sh, dh)
+        left, right = same_padding(x.shape[3], kw, sw, dw)
+        return super().forward(F.pad(x, (left, right, top, bottom)))
+
+
+def same_conv(in_channels: int, out_channels: int, kernel_size: int,
+              stride: int = 1, dilation: int = 1) -> nn.Conv2d:
+    """A conv with Flax's ``padding="SAME"``: ``nn.Conv2d`` with symmetric
+    padding where SAME is symmetric on every size (odd kernel, stride 1),
+    else :class:`SameConv2d`."""
+    if stride == 1 and kernel_size % 2 == 1:
+        return nn.Conv2d(in_channels, out_channels, kernel_size,
+                         padding=dilation * (kernel_size // 2),
+                         dilation=dilation)
+    return SameConv2d(in_channels, out_channels, kernel_size, stride,
+                      dilation)
+
+
+def group_norm(channels: int, groups: int | None = None) -> nn.GroupNorm:
+    """Flax's ``nn.GroupNorm`` (eps 1e-6) over ``channels``: ``groups``
+    groups, or :func:`num_groups_for` of them."""
+    return nn.GroupNorm(groups or num_groups_for(channels), channels,
+                        eps=NORM_EPS)
+
+
 class ChannelLayerNorm(nn.Module):
     """Flax's ``nn.LayerNorm()`` on an NHWC tensor, applied to NCHW:
     each pixel normalized over its channels (dim 1) with eps 1e-6, then
@@ -80,8 +132,7 @@ class ChannelLayerNorm(nn.Module):
 
 def _norm(norm: str, features: int) -> nn.Module:
     if norm == "group":
-        return nn.GroupNorm(num_groups_for(features), features,
-                            eps=NORM_EPS)
+        return group_norm(features)
     if norm == "layer":
         return ChannelLayerNorm(features)
     if norm == "none":
@@ -270,6 +321,33 @@ def fit_to_shape(x: torch.Tensor, out_shape) -> torch.Tensor:
     return x[:, :, :nz, :nx]
 
 
+@functools.lru_cache(maxsize=64)
+def _shrink_weights(n_in: int, n_out: int,
+                    device: torch.device) -> torch.Tensor:
+    """``data/prep.py::resize_weights(n_in, n_out)`` ([n_in, n_out],
+    float32) on ``device``, cached."""
+    from physicsbasedfwi2_tpu_torch.data.prep import resize_weights
+    return torch.from_numpy(resize_weights(n_in, n_out)).to(device)
+
+
+def resize_to(x: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(x, size, "bilinear")`` of NCHW ``x`` to ``size``
+    (h, w), each axis on its own: an axis that shrinks is a matmul with
+    JAX's antialiased triangle-kernel weights (:func:`_shrink_weights`),
+    whose backward is the transposed matmul; an axis that grows goes
+    through :class:`_ResizeTo`; an axis that keeps its size is left as it
+    is.  No atomics either way, so the backward repeats bit for bit."""
+    (h, w), (nz, nx) = x.shape[2:], tuple(size)
+    if nx < w:
+        x = x @ _shrink_weights(w, nx, x.device)
+    if nz < h:
+        x = (x.transpose(2, 3) @ _shrink_weights(h, nz, x.device)
+             ).transpose(2, 3)
+    if nz > h or nx > w:
+        x = _ResizeTo.apply(x, (nz, nx))
+    return x
+
+
 class UpCat(nn.Module):
     """U-Net decoder stage: bilinear 2x upsample, a SAME 3x3 conv to
     ``features``, :func:`match_spatial` to the skip, concatenation
@@ -332,6 +410,61 @@ class CBAM(nn.Module):
 
     def forward(self, x):
         return self.spatial(self.channel(x))
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-excite: an MLP (channels -> channels // ``reduction``, at
+    least 1, ReLU, -> channels) of the spatial mean; its sigmoid scales
+    each channel."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.mlp = nn.Sequential(nn.Linear(channels, hidden), nn.ReLU(),
+                                 nn.Linear(hidden, channels))
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.mlp(x.mean(dim=(2, 3))))[:, :, None,
+                                                                 None]
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling: one SAME 3x3 conv at each dilation
+    ``rates`` with GroupNorm and ReLU, the branches concatenated and mapped
+    to ``features`` by a 1x1 conv (``convs[-1]``)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 rates=(1, 6, 12, 18)):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [same_conv(in_channels, features, 3, dilation=r) for r in rates]
+            + [nn.Conv2d(len(rates) * features, features, 1)])
+        self.norms = nn.ModuleList(group_norm(features) for _ in rates)
+
+    def forward(self, x):
+        branches = [F.relu(norm(conv(x)))
+                    for conv, norm in zip(self.convs, self.norms)]
+        return self.convs[-1](torch.cat(branches, dim=1))
+
+
+class ResidualConv(nn.Module):
+    """Pre-activation residual block: GroupNorm, ReLU, SAME 3x3 conv at
+    ``stride``, GroupNorm, ReLU, SAME 3x3 conv; plus a 1x1 conv at
+    ``stride`` of the input (``convs[2]``)."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1):
+        super().__init__()
+        self.norms = nn.ModuleList([group_norm(in_channels),
+                                    group_norm(features)])
+        self.convs = nn.ModuleList([
+            same_conv(in_channels, features, 3, stride),
+            same_conv(features, features, 3),
+            same_conv(in_channels, features, 1, stride)])
+
+    def forward(self, x):
+        h = self.convs[0](F.relu(self.norms[0](x)))
+        h = self.convs[1](F.relu(self.norms[1](h)))
+        return h + self.convs[2](x)
 
 
 def scale_to_range(x01: torch.Tensor, vmin, vmax) -> torch.Tensor:

@@ -8,11 +8,19 @@ port's attribute names follow the Flax submodules':
 - ``@nn.compact`` nets name a submodule by type and index:
   ``Encoder2D_0`` <-> ``encoder``, ``Down_i`` <-> ``downs.i``,
   ``UpCat_i`` <-> ``upcats.i``, ``CBAM_i`` <-> ``cbams.i``,
-  ``AffineCoupling_i`` <-> ``couplings.i``, a U-Net's ``ConvBlock_k``
-  <-> ``blocks.k`` (a ``ConvBlock_0`` inside a stage <-> ``block``),
-  ``Conv_j`` <-> ``convs.j`` in a ConvBlock, ``conv`` in an UpCat or a
-  SpatialGate, else ``head``; ``Dense_k`` <-> ``mlp.{2k}`` in a
-  ChannelGate or an AffineCoupling (ReLUs between), else ``fc``;
+  ``AffineCoupling_i`` <-> ``couplings.i``, ``ResidualConv_i`` <->
+  ``res.i``, ``SqueezeExcite_i`` <-> ``ses.i``, ``RecurrentConvBlock_i``
+  <-> ``recs.i``, ``ResnetBlock_i`` <-> ``resblocks.i``, ``FNOBlock2d_i``
+  <-> ``fnos.i``, ``ASPP_0`` <-> ``aspp``, ``SpectralConv2d_0`` <->
+  ``spectral``, a U-Net's ``ConvBlock_k`` <-> ``blocks.k`` (a
+  ``ConvBlock_0`` inside a stage <-> ``block``); ``Conv_j`` <->
+  ``convs.j`` inside a ConvBlock, ASPP, ResidualConv,
+  RecurrentConvBlock or ResnetBlock, ``conv`` inside an UpCat, a
+  SpatialGate or an FNOBlock2d; elsewhere the last ``Conv_j`` of its
+  level (the Flax nets create their output conv last) <-> ``head`` and
+  the others <-> ``convs.j``; ``Dense_k`` <-> ``mlp.{2k}`` in a
+  ChannelGate, a SqueezeExcite or an AffineCoupling (ReLUs between),
+  else ``fc``;
 - ``setup()`` nets (``VaeNet``, ``VaeFlowNet``, ``ModelVae``) name them by
   attribute (``encoder``, ``decoder``, ``flows``), as do the elastic
   net's ``combine_vx``/``combine_vz``/``decoder_field{k}`` and the
@@ -21,8 +29,8 @@ port's attribute names follow the Flax submodules':
 Layouts: conv kernels HWIO <-> OIHW; Dense kernels [in, out] <-> Linear
 weights [out, in] (the port flattens and unflattens in NHWC order, so no
 permutation of rows is needed); GroupNorm and LayerNorm ``scale``/
-``bias`` <-> ``weight``/``bias``; the planar flows' ``u``, ``w``, ``b`` as
-they are.
+``bias`` <-> ``weight``/``bias``; the planar flows' ``u``, ``w``, ``b`` and
+the spectral convs' ``w*_real``/``w*_imag`` as they are.
 
 A state dict alone does not say whether its net is a ``setup()`` VAE or
 which norm it uses, so the torch -> Flax direction takes the ``net``.
@@ -56,19 +64,36 @@ _TO_TORCH = [
     (re.compile(r"CBAM_(\d+)"), r"cbams.\1"),
     (re.compile(r"ChannelGate_0"), "channel"),
     (re.compile(r"SpatialGate_0"), "spatial"),
+    (re.compile(r"ResidualConv_(\d+)"), r"res.\1"),
+    (re.compile(r"SqueezeExcite_(\d+)"), r"ses.\1"),
+    (re.compile(r"RecurrentConvBlock_(\d+)"), r"recs.\1"),
+    (re.compile(r"ResnetBlock_(\d+)"), r"resblocks.\1"),
+    (re.compile(r"FNOBlock2d_(\d+)"), r"fnos.\1"),
+    (re.compile(r"ASPP_0"), "aspp"),
+    (re.compile(r"SpectralConv2d_0"), "spectral"),
     (re.compile(r"(?:Group|Layer)Norm_(\d+)"), r"norms.\1"),
     (re.compile(r"(combine_v[xz]|decoder_field\d+|flows|flow\d+)"), r"\1"),
 ]
 # torch module lists -> Flax type names (index appended)
 _LISTS = {"downs": "Down", "ups": "Up", "upcats": "UpCat", "cbams": "CBAM",
           "couplings": "AffineCoupling", "convs": "Conv",
-          "blocks": "ConvBlock"}
+          "blocks": "ConvBlock", "res": "ResidualConv",
+          "ses": "SqueezeExcite", "recs": "RecurrentConvBlock",
+          "resblocks": "ResnetBlock", "fnos": "FNOBlock2d"}
 _SINGLE = {"block": "ConvBlock_0", "channel": "ChannelGate_0",
-           "spatial": "SpatialGate_0", "conv": "Conv_0", "head": "Conv_0",
-           "fc": "Dense_0", "flow": "LatentFlow_0"}
+           "spatial": "SpatialGate_0", "conv": "Conv_0",
+           "fc": "Dense_0", "flow": "LatentFlow_0", "aspp": "ASPP_0",
+           "spectral": "SpectralConv2d_0"}
 _NAMED = re.compile(r"combine_v[xz]|decoder_field\d+|flows|flow\d+")
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-           "u": "u", "w": "w", "b": "b"}
+           "u": "u", "w": "w", "b": "b",
+           **{k: k for k in ("w_real", "w_imag", "w1_real", "w1_imag",
+                             "w2_real", "w2_imag")}}
+# Flax modules whose Conv_j is the port's convs.j, and those whose one
+# Conv_0 is the port's conv
+_CONV_LISTS = re.compile(r"(ConvBlock|ASPP|ResidualConv|RecurrentConvBlock|"
+                         r"ResnetBlock)_\d+")
+_CONV_SINGLE = re.compile(r"(UpCat|SpatialGate|FNOBlock2d)_\d+")
 _KEY = re.compile(r"\['([^']*)'\]")
 
 
@@ -80,7 +105,19 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_name(path: tuple[str, ...]) -> str:
+def _last_convs(paths) -> dict[tuple[str, ...], int]:
+    """The largest ``Conv_j`` index at each level (by parent path) of a
+    flat Flax tree's paths."""
+    last: dict[tuple[str, ...], int] = {}
+    for path in paths:
+        for i, comp in enumerate(path[:-1]):
+            m = re.fullmatch(r"Conv_(\d+)", comp)
+            if m:
+                last[path[:i]] = max(last.get(path[:i], 0), int(m.group(1)))
+    return last
+
+
+def _torch_name(path: tuple[str, ...], last: dict) -> str:
     parts = []
     for i, comp in enumerate(path[:-1]):
         parent = path[i - 1] if i else ""
@@ -91,12 +128,13 @@ def _torch_name(path: tuple[str, ...]) -> str:
                 parts.append(f"blocks.{k}" if i == 0 else "block")
             elif kind == "Conv":
                 parts.append(
-                    f"convs.{k}" if parent.startswith("ConvBlock_") else
-                    "conv" if re.match(r"UpCat_|SpatialGate_", parent) else
-                    "head")
+                    f"convs.{k}" if _CONV_LISTS.fullmatch(parent) else
+                    "conv" if _CONV_SINGLE.fullmatch(parent) else
+                    "head" if int(k) == last[path[:i]] else f"convs.{k}")
             else:
                 parts.append(f"mlp.{2 * int(k)}" if re.match(
-                    r"ChannelGate_|AffineCoupling_", parent) else "fc")
+                    r"ChannelGate_|SqueezeExcite_|AffineCoupling_", parent)
+                    else "fc")
             continue
         for pat, rep in _TO_TORCH:
             if pat.fullmatch(comp):
@@ -129,6 +167,11 @@ def _flax_path(name: str, net: torch.nn.Module) -> tuple[str, ...]:
         elif c in _LISTS:
             path.append(f"{_LISTS[c]}_{comps[i + 1]}")
             i += 1
+        elif c == "head":
+            # the output conv comes after the level's other convs
+            convs = getattr(net.get_submodule(".".join(comps[:i])), "convs",
+                            ())
+            path.append(f"Conv_{len(convs)}")
         else:
             path.append(_SINGLE[c])
         i += 1
@@ -142,12 +185,14 @@ def params_from_flax(flax_params) -> dict[str, torch.Tensor]:
     """Flax params tree -> PyTorch state_dict (float32 CPU tensors)."""
     if "params" in flax_params:
         flax_params = flax_params["params"]
+    flat = list(_flat(flax_params))
+    last = _last_convs(path for path, _ in flat)
     out = {}
-    for path, v in _flat(flax_params):
+    for path, v in flat:
         a = np.asarray(v, np.float32)
         if path[-1] == "kernel":
             a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-        out[_torch_name(path)] = torch.tensor(a)
+        out[_torch_name(path, last)] = torch.tensor(a)
     return out
 
 

@@ -8,7 +8,9 @@ forward), :mod:`kernels` (B5, first-order forward) and :mod:`adjoint`
 ``acoustic_pallas2b``) and :mod:`elastic_fwd` (B8,
 ``elastic_forward_pallas``); each holds its CUDA wrapper and plain
 version.  Plain PyTorch under autograd: :mod:`acoustic`, :mod:`elastic`
-(split PML) and :mod:`elastic_fast` (5 fields, sponge).
+(split PML) and :mod:`elastic_fast` (5 fields, sponge); :mod:`born`
+(linearized modeling, forward-mode AD through those propagators) and
+:mod:`ssim`.
 """
 
 import torch
@@ -37,6 +39,7 @@ from physicsbasedfwi2_tpu_torch.ops.misfit import (
     normalized_trace_misfit,
     trace_normalize,
 )
+from physicsbasedfwi2_tpu_torch.ops.ssim import ssim
 
 
 def select_acoustic(backend: str = "auto"):
@@ -69,4 +72,5 @@ __all__ = [
     "l2_misfit",
     "huber_misfit",
     "normalized_trace_misfit",
+    "ssim",
 ]

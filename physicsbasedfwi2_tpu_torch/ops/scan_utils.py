@@ -12,6 +12,7 @@ twice the forward, as ``jax.checkpoint`` on the inner scan gives.
 from __future__ import annotations
 
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch.utils.checkpoint import checkpoint
 
 
@@ -166,7 +167,8 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
             tensors both passes of a chunk are captured once as CUDA
             graphs and replayed (:class:`_ChunkGraphs`), so the step must
             be capturable (no host sync).  With ``params`` a tensor the
-            step closes over gets no gradient.
+            step closes over gets no gradient.  A dual (forward-mode
+            AD) parameter runs the chunks as a plain loop, no graphs.
 
     Returns:
         (carry, ys), ys with leading dim nt.  As in the JAX package, xs
@@ -181,8 +183,11 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
                for x in xs)
     n = len(carry)
     use_ckpt = torch.is_grad_enabled()
+    # a dual (forward-mode) parameter's tangent would not be in the graph
+    dual = params is not None and any(
+        fwAD.unpack_dual(p).tangent is not None for p in params)
     graphs = (_ChunkGraphs() if params is not None and carry[0].is_cuda
-              else None)
+              and not dual else None)
     ys = []
     for t0 in range(0, nt + pad, chunk):
         xc = tuple(x[t0: t0 + chunk] for x in xs)

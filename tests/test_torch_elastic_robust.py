@@ -348,18 +348,13 @@ def test_test_cli_unported_options_raise(tmp_path):
 # names of the JAX subpackages' __all__ whose modules are not ported yet
 # (ROADMAP Queue A); the set shrinks as the queue lands
 NOT_PORTED = {
-    "ops": {"ssim"},
+    "ops": set(),
     "geo": {"marmousi_acoustic_acquisition", "marmousi_elastic_acquisition",
             "seam_elastic_acquisition", "model_from_storage",
             "model_to_storage"},
     "optim": set(),
-    "engine": {"SupervisedEngine"},
-    "models": {"define_discriminator", "ModelParamNet", "ASPPUNet",
-               "ResUNetPlusPlus", "UNet3Plus", "MultiScaleUNet", "R2UNet",
-               "ResnetGenerator", "NLayerDiscriminator",
-               "PixelDiscriminator", "gan_loss", "gradient_penalty",
-               "ImagePool", "FNO2d", "SpectralConv1d", "SpectralConv2d",
-               "lp_loss"},
+    "engine": set(),
+    "models": {"ModelParamNet"},
     "data": set(),
 }
 

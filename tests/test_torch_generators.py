@@ -1,11 +1,17 @@
-"""The acoustic generator zoo (BASELINE config 2's Unet22, Att, the VAEs,
-AutoNF, Auto22CBAM and Auto22 with norm="layer"): each port against its
-Flax net with the same weights (carried by models/convert.py), the
-converter both ways for every family, and the blocks the zoo adds.
+"""The generator zoo (BASELINE config 2's Unet22, Att, the VAEs, AutoNF,
+Auto22CBAM and Auto22 with norm="layer"; the supervised engine's U-Nets
+ASPP, MultiASPP, ResUNET, UNet3Plus, R2U, R2AttU, Multi and Multi2): each
+port against its Flax net with the same weights (carried by
+models/convert.py), the converter both ways for every family, and the
+blocks the zoo adds.
 
 The input is odd ([1, 401, 11, 3]) and the model grid (32, 40) wider
-than the U-Net's output, so ``match_spatial`` pads and ``fit_to_shape``
-upscales.  A VAE's noise is the Flax call's own: Flax is handed
+than the U-Net's output, so ``match_spatial`` pads, ``fit_to_shape``
+upscales, ResUNET's stride-2 convs pad (1, 1), and UNet3Plus and
+MultiScaleUNet shrink by non-integer factors (``jax.image.resize``
+antialiases there).  The "-image" cases are the supervised use: an even
+[1, 32, 40, 1] image in, the same size out (no ``out_shape``), where
+ResUNET's stride-2 convs pad (0, 1).  A VAE's noise is the Flax call's own: Flax is handed
 ``rng_key`` and the port ``jax.random.normal(rng_key, mu.shape)`` through
 ``vae.latent_noise``.
 """
@@ -27,10 +33,14 @@ from physicsbasedfwi2_tpu.models.flows import (
     PlanarFlowStack as JPlanarFlowStack,
 )
 from physicsbasedfwi2_tpu.models.vae import kl_divergence as j_kl
+from physicsbasedfwi2_tpu.models import _GENERATORS as J_GENERATORS
 from physicsbasedfwi2_tpu_torch.models import (
-    AutoEncoderNet, FlowAutoEncoderNet, ModelVae, PlanarFlowStack, UNet,
-    VaeFlowNet, VaeNet, define_generator, kl_divergence, pack_output,
+    ASPPUNet, AutoEncoderNet, FNO2d, FlowAutoEncoderNet, ModelVae,
+    MultiScaleUNet, PlanarFlowStack, R2UNet, ResnetGenerator,
+    ResUNetPlusPlus, UNet, UNet3Plus, VaeFlowNet, VaeNet, define_generator,
+    kl_divergence, pack_output,
 )
+from physicsbasedfwi2_tpu_torch.models import _GENERATORS
 from physicsbasedfwi2_tpu_torch.models import vae
 from physicsbasedfwi2_tpu_torch.models.blocks import (
     ChannelLayerNorm, fit_to_shape, match_spatial,
@@ -65,6 +75,16 @@ CASES = {
     "AutoNF-reverse": ("AutoNF", {}, SHOTS, {"reverse": True}),
     "Auto22CBAM": ("Auto22CBAM", {}, SHOTS, {}),
     "Auto22-layer": ("Auto22", {"norm": "layer"}, SHOTS, {}),
+    "ASPP": ("ASPP", {}, SHOTS, {}),
+    "MultiASPP": ("MultiASPP", {}, SHOTS, {}),
+    "ResUNET": ("ResUNET", {}, SHOTS, {}),
+    "UNet3Plus": ("UNet3Plus", {}, SHOTS, {}),
+    "R2U": ("R2U", {}, SHOTS, {}),
+    "R2AttU": ("R2AttU", {}, SHOTS, {}),
+    "Multi": ("Multi", {}, SHOTS, {}),
+    "Multi2": ("Multi2", {}, SHOTS, {}),
+    "unet_128-image": ("unet_128", {"out_shape": None}, IMG, {}),
+    "ResUNET-image": ("ResUNET", {"out_shape": None}, IMG, {}),
 }
 
 
@@ -73,16 +93,18 @@ def case(request):
     """(Flax net, its params, the port net with the same weights, the
     input, the Flax apply and the port call for the case)."""
     name, over, shape, kw = CASES[request.param]
+    over = dict(over)
+    out_shape = over.pop("out_shape", OUT)
     rng = np.random.default_rng(0)
     x = (rng.random(shape) if shape == IMG
          else rng.standard_normal(shape)).astype(np.float32)
-    jnet = j_define(name, out_shape=OUT, filters=FILTERS, latent_dim=LATENT,
-                    **over)
+    jnet = j_define(name, out_shape=out_shape, filters=FILTERS,
+                    latent_dim=LATENT, **over)
     # jitted: one compile instead of op-by-op dispatch
     params = jax.tree_util.tree_map(np.asarray, jax.jit(jnet.init)(
         {"params": jax.random.PRNGKey(0), "latent": jax.random.PRNGKey(1)},
         jnp.asarray(x)))
-    net = define_generator(name, out_shape=OUT, in_shape=shape[1:],
+    net = define_generator(name, out_shape=out_shape, in_shape=shape[1:],
                            filters=FILTERS, latent_dim=LATENT, **over)
     net.load_state_dict(params_from_flax(params))
     stochastic = kw.get("deterministic") is False
@@ -186,6 +208,13 @@ def test_converter_round_trip_and_npz_keys(case):
     (("VaeNormalizing", "VaeNormalizingPhy"), VaeFlowNet),
     (("AutoNF",), FlowAutoEncoderNet),
     (("Auto22CBAM",), AutoEncoderNet),
+    (("ASPP", "MultiASPP"), ASPPUNet),
+    (("ResUNET",), ResUNetPlusPlus),
+    (("UNet3Plus",), UNet3Plus),
+    (("R2U", "R2AttU"), R2UNet),
+    (("Multi", "Multi2"), MultiScaleUNet),
+    (("FNO",), FNO2d),
+    (("resnet_6blocks", "resnet_9blocks"), ResnetGenerator),
 ])
 def test_define_generator_builds_the_zoo(names, cls):
     for name in names:
@@ -202,6 +231,23 @@ def test_define_generator_builds_the_zoo(names, cls):
                                 filters=FILTERS).cbams is None
     if cls is AutoEncoderNet:
         assert len(net.decoder.cbams) == len(FILTERS) - 1
+    if cls is R2UNet:
+        # R2AttU gates its skips with CBAM, R2U does not
+        assert net.cbams is not None and len(net.cbams) == len(FILTERS)
+        assert define_generator("R2U", in_shape=SHOTS[1:],
+                                filters=FILTERS).cbams is None
+    if cls is ResnetGenerator:
+        assert len(net.resblocks) == 9
+        assert len(define_generator("resnet_6blocks", in_shape=SHOTS[1:],
+                                    base=8).resblocks) == 6
+
+
+def test_registry_has_every_jax_name():
+    """define_generator builds every name of the JAX registry, with the
+    JAX defaults."""
+    assert set(_GENERATORS) == set(J_GENERATORS)
+    for key, (_, defaults) in J_GENERATORS.items():
+        assert _GENERATORS[key][1] == defaults, key
 
 
 def test_vae_latent_draws():
@@ -310,3 +356,40 @@ def test_channel_layer_norm_is_flax_layernorm():
     with torch.no_grad():
         got = ln(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert rel_max(got, ref) <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def small_acoustic():
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        SyntheticAcousticWorkload)
+    return SyntheticAcousticWorkload.build(
+        nz=40, nx=48, nt=400, dt=0.001, num_shots=4, num_receivers=24,
+        water_rows=6, chunk=25, pml_width=12, device="cpu")
+
+
+@pytest.mark.parametrize("netg", ["ASPP", "ResUNET", "UNet3Plus", "R2U",
+                                  "R2AttU", "Multi"])
+def test_new_unets_train_in_the_acoustic_engine(netg, small_acoustic,
+                                                tmp_path):
+    """Each U-Net of the supervised family is also an acoustic DIP
+    generator (the JAX test_every_registered_generator_trains): two
+    finite steps on the fused path's plain version that move its
+    weights."""
+    import dataclasses
+    from physicsbasedfwi2_tpu_torch.engine import config
+    from physicsbasedfwi2_tpu_torch.engine.engines import AcousticDIPEngine
+    wl = small_acoustic
+    cfg = config.get_workload(
+        "marmousi_acoustic", nz=40, nx=48, nt=400, dt=0.001, num_shots=4,
+        num_receivers=24, chunk=25, pml_width=12, filters=(4, 8, 16),
+        netG=netg, save_dir=str(tmp_path), direct_wave=False,
+        validate_on_twin=False)
+    e = AcousticDIPEngine(cfg, workload=dataclasses.replace(wl),
+                          device="cpu")
+    assert e.physics_path == "fused-plain"
+    before = [p.detach().clone() for p in e.net.parameters()]
+    for ep in (1, 2):
+        rec = e.optimize_parameters(ep)
+        assert all(np.isfinite(v) for v in rec.values()), rec
+    assert any(not torch.equal(b, p) for b, p in zip(before,
+                                                     e.net.parameters()))

@@ -112,16 +112,18 @@ def test_define_generator_filters_kwargs_and_names():
         assert isinstance(define_generator(
             name, out_shape=OUT, in_shape=IN[1:], filters=FILTERS),
             AutoEncoderNet)
-    # Auto22CBAM and Unet22 build; a name still unported raises, naming
-    # the roadmap item
+    # Auto22CBAM, Unet22 and the supervised engine's FNO build; a name no
+    # registry knows raises
     net = define_generator("Auto22CBAM", out_shape=OUT, in_shape=IN[1:],
                            filters=FILTERS)
     assert isinstance(net, AutoEncoderNet) and net.decoder.cbams is not None
     assert isinstance(define_generator("Unet22", out_shape=OUT,
                                        in_shape=IN[1:], filters=FILTERS),
                       UNet)
-    with pytest.raises(KeyError, match="ROADMAP Queue A, item 9"):
-        define_generator("FNO", out_shape=OUT, in_shape=IN[1:])
+    assert type(define_generator("FNO", out_shape=OUT,
+                                 in_shape=IN[1:])).__name__ == "FNO2d"
+    with pytest.raises(KeyError, match="unknown generator"):
+        define_generator("NoSuchNet", out_shape=OUT, in_shape=IN[1:])
     out = pack_output((torch.zeros(1), torch.ones(1)))
     assert out.latent is not None and out.mu is None
 

@@ -171,8 +171,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     step, the "fast" path) 2 epochs, vs live; ``marmousi_impedance`` 3
     epochs, then ``save_engine``/``restore_engine`` on the card;
     ``marmousi_acoustic_encoded`` (4 super-shots) 2 epochs on the
-    "encoded" path; ``acoustic_dip_multi`` on ``marmousi_acoustic``, 2
-    samples, 1 warmup epoch then 1 physics epoch.  Each prints its setup
+    "encoded" path; ``acoustic_dip_multi`` on ``marmousi_acoustic`` (nt
+    cut to ``MULTI_NT``), 2 samples, 1 warmup epoch then 1 physics
+    epoch.  Each prints its setup
     and epoch seconds, peak memory and physics path;
 20. training from a dataroot at full width, the trees under a temporary
     directory removed at the end: the canonical Marmousi 751 x 2301
@@ -213,7 +214,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     taken twice, held to ``torch.equal``; ``born_acoustic`` against a
     central difference of ``simulate_acoustic`` at 40 x 50 (nt 250) and
     timed at the Marmousi grid (151 x 200, 2 shots, nt cut to 1000), and
-    ``born_elastic`` once at 36 x 48 (nt 64).
+    ``born_elastic`` once at 36 x 48 (nt 64);
+22. ``fwi-landscape`` (``landscape/cli.py::main`` on pre-built engines):
+    ``marmousi_acoustic`` on phase 18's shared workload (B1 resident
+    twice at its setup) and ``marmousi_elastic`` (the ring forward
+    resident once at its setup), each a 3 x 3 surface on [-0.3, 0.3]^2
+    with ``--vtp`` (every loss finite, the centre equal to a direct
+    evaluation of the physics loss, the .vtp's 9 points and 4 quads;
+    the elastic surface's 9 ring forwards resident); ``simulate_acoustic``
+    without autograd at the full nt on its CUDA-graph chunks against the
+    closure scan's loop, in turns, to the bit; four epoch-tagged elastic
+    checkpoints and ``--trajectory`` (the last coordinate 0 within 1e-3,
+    the epochs as saved, 9 more resident ring forwards); Lanczos in
+    float64 through the composite HVP at the full grid, shots and
+    generator with the misfit's time loop cut (acoustic 3 HVPs at nt
+    ``HESS_NT_AC`` and one at twice that, whose peak memory against the
+    first's gives the memory a time step adds; elastic 2 at
+    ``HESS_NT_EL`` on the ``l2`` misfit), the acoustic first HVP and the
+    elastic misfit's HVP in model space each against a central
+    difference of two float64 gradients (relative L2 error <=
+    ``HVP_CD_TOL``), each HVP's seconds and peak memory.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -826,7 +846,8 @@ def phase_b3(dev):
           "the resident ring forward is not one launch a call")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom_all, cfg)
+    with torch.no_grad():
+        pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom_all, cfg)
     torch.cuda.synchronize()
     ms_rp = (time.perf_counter() - t0) * 1e3
     scale = max(float(pvx.abs().max()), float(pvz.abs().max()))
@@ -2220,7 +2241,8 @@ def _seam_kernels(dev):
     pick = torch.arange(0, ns_all, 10, device=dev)
     geom = tuple(a[pick].contiguous() for a in geom_all)
     ovx, ovz = ovx[pick], ovz[pick]
-    pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom, cfg)
+    with torch.no_grad():
+        pvx, pvz = simulate_elastic_ring_plain(*true, wav, *geom, cfg)
     scale = max(float(pvx.abs().max()), float(pvz.abs().max()))
     err_r = max(float((ovx - pvx).abs().max()), float((ovz - pvz).abs().max()))
     ns, nr = geom[3].shape
@@ -2603,6 +2625,9 @@ SGHMC_LSTART = 2  # mcdip_uq's warmup epochs under SGHMC (the recipe: 30)
 PRETRAIN_EPOCHS = 30
 LATENT_EPOCHS = 5
 CLASSIC_AC_EPOCHS = 1
+# the multi-sample engine's time steps (of marmousi_acoustic's 4001): a
+# depth cut that makes room for phase 22
+MULTI_NT = 2000
 CLASSIC_EL_EPOCHS = 2
 IMPEDANCE_EPOCHS = 3
 ENCODED_EPOCHS = 2
@@ -3193,9 +3218,11 @@ def _round_trip19(dev, engine, path) -> None:
 
 def phase_other_engines(dev):
     """BASELINE config 4 and the rest of the physics engines at full
-    width (plain PyTorch: no kernel launch); the three acoustic engines
-    on marmousi_acoustic's grid each on a copy of one workload (and the
-    encoded engine on one validation twin), built once."""
+    width (plain PyTorch: no kernel launch); classic acoustic FWI and the
+    encoded engine on marmousi_acoustic's grid each on a copy of one
+    workload (and the encoded engine on one validation twin), built
+    once; the multi-sample engine on two workloads of its own at its cut
+    nt."""
     import dataclasses
     import torch
     from physicsbasedfwi2_tpu_torch.data.synthetic import (
@@ -3222,8 +3249,8 @@ def phase_other_engines(dev):
                                            device=dev)
     torch.cuda.synchronize()
     print(f"phase 19: marmousi_acoustic's workload and its twin built once "
-          f"in {time.perf_counter() - t0:.2f} s for classic_fwi_acoustic, "
-          f"marmousi_acoustic_encoded and acoustic_dip_multi's sample 0")
+          f"in {time.perf_counter() - t0:.2f} s for classic_fwi_acoustic "
+          f"and marmousi_acoustic_encoded")
 
     cfg = get_workload("classic_fwi_acoustic", save_dir=str(out_dir))
     check(all(getattr(cfg, f) == getattr(base, f) for f in ACOUSTIC_BUILD),
@@ -3265,13 +3292,14 @@ def phase_other_engines(dev):
           f"encoded: physics path {engine.physics_path}")
 
     cfg = get_workload("marmousi_acoustic", save_dir=str(out_dir),
-                       engine="acoustic_dip_multi", lstart=1)
+                       engine="acoustic_dip_multi", lstart=1, nt=MULTI_NT)
+    cut = dict(kw, nt=MULTI_NT)
     engine, hist = _train19(
         dev, "acoustic_dip_multi (marmousi_acoustic, 2 samples, lstart 1)",
         cfg, 2, lambda: MultiSampleAcousticDIPEngine(
-            cfg, workloads=[dataclasses.replace(wl),
-                            SyntheticAcousticWorkload.build(
-                                **kw, seed=base.seed + 1, device=dev)],
+            cfg, workloads=[SyntheticAcousticWorkload.build(
+                                **cut, seed=base.seed + s, device=dev)
+                            for s in (0, 1)],
             device=dev))
     check("loss_M" in hist[0] and "loss_D" in hist[1],
           "multi-sample: not loss_M then loss_D")
@@ -3983,6 +4011,376 @@ def phase_supervised(dev):
     return launches
 
 
+# phase 22's depth cuts: the Hessian's time loop (of the registered
+# 4001 and 3334 steps; the acoustic cut stays above the water layer's
+# two-way time, ~410 steps, under which the generator, whose water rows
+# are pinned, moves no recorded sample; the elastic line lies below the
+# water), and the closure scan's steps in the graph-replay comparison
+HESS_NT_AC = 450
+HESS_NT_EL = 150
+HVP_CD_EPS = 1e-7  # the central difference's step along a unit v, float64
+HVP_CD_EPS_M = 1e-3  # the same in model space (m/s along a unit v)
+HVP_CD_TOL = 1e-4  # its relative L2 error against the float64 HVP
+TRAJ_TAGS = (10, 20, 30, 40)
+
+
+def _surface22(engine, out: Path, name: str, *extra: str):
+    """A 3 x 3 surface on [-0.3, 0.3]^2 through the landscape CLI's
+    ``main`` on ``engine`` (with ``--vtp``): (result, seconds, losses,
+    npz arrays); checks the losses finite and the .vtp's counts."""
+    import xml.etree.ElementTree as ET
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.landscape import cli
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cli.main(["--workload", engine.cfg.name, "--x=-0.3:0.3:3",
+                    "--y=-0.3:0.3:3", "--vtp", "--out", str(out), "--name",
+                    name, *extra], engine=engine)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    with np.load(out / f"{name}_surface.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    surf = arrays["losses"]
+    check(surf.shape == (3, 3) and bool(np.isfinite(surf).all()),
+          f"{name}: losses {surf}")
+    piece = ET.parse(out / f"{name}_surface.vtp").getroot().find(
+        "PolyData/Piece")
+    check(int(piece.get("NumberOfPoints")) == 9
+          and int(piece.get("NumberOfPolys")) == 4,
+          f"{name}: .vtp has {piece.get('NumberOfPoints')} points and "
+          f"{piece.get('NumberOfPolys')} quads")
+    return res, secs, surf, arrays
+
+
+def _center22(engine, surf, what: str) -> None:
+    """The surface's centre against a direct evaluation of the physics
+    loss at the unperturbed weights, timed."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.landscape import cli
+    decode, misfit, data = cli.physics_loss(engine)
+    params = {k: w.detach() for k, w in engine.net.named_parameters()}
+    with torch.no_grad():
+        direct, ms = timed_ms(lambda: misfit(decode(params, data), data),
+                              repeats=1)
+    direct = float(direct)
+    print(f"phase 22 {what}: centre {surf[1, 1]!r} against a direct "
+          f"evaluation {direct!r}; one point (decode + misfit) {ms:.1f} ms")
+    check(abs(float(surf[1, 1]) - direct) <= 1e-6 * abs(direct),
+          f"{what}: the centre is not the loss at the weights")
+
+
+def _replay22(dev, engine) -> None:
+    """``simulate_acoustic`` without autograd at the workload's full
+    grid, shots and nt (the workload build's call): the
+    explicit-parameter scan replayed as CUDA graphs against the closure
+    scan's loop, in turns (graphs, loop, loop, graphs), to the bit."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import acoustic
+    wl = engine.wl
+    args = (wl.vp_true, wl.wavelet, *wl.geom, wl.cfg)
+    secs = {True: [], False: []}
+    outs = {}
+    with torch.no_grad():
+        for explicit in (True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[explicit] = acoustic._simulate(*args, explicit=explicit)
+            torch.cuda.synchronize()
+            secs[explicit].append(time.perf_counter() - t0)
+    same = torch.equal(outs[True], outs[False])
+    print(f"phase 22 simulate_acoustic without autograd ({wl.cfg.grid.nz}x"
+          f"{wl.cfg.grid.nx}, {int(wl.geom[0].shape[0])} shots, nt "
+          f"{wl.cfg.grid.nt}), in turns: CUDA-graph chunks "
+          f"{', '.join(f'{t:.3f}' for t in secs[True])} s, closure scan "
+          f"{', '.join(f'{t:.3f}' for t in secs[False])} s; torch.equal "
+          f"{same}")
+    check(same, "the graph replay differs from the loop")
+
+
+def _cut22(engine, nt: int):
+    """``cli.physics_loss(engine, differentiable=True)`` with the
+    misfit's time loop cut to its first ``nt`` steps (a depth cut): the
+    wavelet and observed gathers cut, the acoustic ones normalized again
+    over the cut; the generator still reads the full gathers."""
+    import dataclasses
+    import torch
+    from physicsbasedfwi2_tpu_torch.landscape import cli
+    from physicsbasedfwi2_tpu_torch.ops import (
+        simulate_acoustic, trace_normalize)
+    from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
+        simulate_elastic_ring_plain)
+    decode, _, data = cli.physics_loss(engine, differentiable=True)
+    wl = engine.wl
+    cfg = dataclasses.replace(wl.cfg, grid=dataclasses.replace(wl.cfg.grid,
+                                                               nt=nt))
+    if engine.cfg.engine == "elastic_dip":
+        idx = torch.arange(engine.cfg.shots_per_iter or engine.cfg.num_shots,
+                           device=engine.device)
+        pd = data["phys"]
+        data = dict(data, phys={"wav": pd["wav"][..., :nt],
+                                "ovx": pd["ovx"][:, :nt],
+                                "ovz": pd["ovz"][:, :nt]})
+
+        def misfit(m, d):
+            return engine._physics_loss_raw(
+                m, idx, d["phys"],
+                sim=lambda *a: simulate_elastic_ring_plain(*a[:-1], cfg))
+    else:
+        data = dict(data, obs_norm=trace_normalize(wl.obs[:, :nt]))
+
+        def misfit(vp, d):
+            pred = simulate_acoustic(vp, wl.wavelet[..., :nt], *wl.geom, cfg)
+            return torch.mean((trace_normalize(pred) - d["obs_norm"]) ** 2)
+    return decode, misfit, data
+
+
+def _hessian22(dev, engine, nt: int, steps: int, what: str,
+               model_space: bool = False, nt2: int | None = None) -> None:
+    """Lanczos (``steps`` HVPs) on ``engine``'s physics loss in float64,
+    its time loop cut to ``nt`` steps at the full grid, shots and
+    generator (:func:`_cut22`), through the composite HVP, each HVP
+    timed with its peak memory; with ``nt2`` one more HVP at that cut,
+    whose peak against the first's gives the memory a time step adds;
+    then an HVP held against a central difference of two float64
+    gradients along the same unit vector: Lanczos's first, or with
+    ``model_space`` the misfit's alone along a unit vector in model
+    space at the decoded model (a step along a unit v crosses some of
+    the elastic generator's leaky-ReLU kinks at every step a float64
+    difference resolves: ROADMAP Queue C)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.landscape import (
+        composite_hvp, lanczos_extreme_eigs)
+    f64 = torch.float64
+    params = {k: w.detach().to(f64) for k, w in engine.net.named_parameters()}
+
+    def cut(n):
+        decode, misfit, data = _cut22(engine, n)
+        data = {k: (v.to(f64) if torch.is_tensor(v) else v)
+                for k, v in data.items()}
+        return (lambda q: decode(q, data)), (lambda m: misfit(m, data))
+
+    dec, mis = cut(nt)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev) / 2**30)
+
+    calls = []
+
+    def hvp_fn(p, v):
+        out, secs, peak = timed(lambda: composite_hvp(dec, mis, p, v))
+        calls.append((v, out, secs, peak))
+        return out
+
+    (lo, hi, ritz), s_l, _ = timed(lambda: lanczos_extreme_eigs(
+        None, params, steps=steps, hvp_fn=hvp_fn,
+        generator=torch.Generator(device=dev).manual_seed(0)))
+    secs = [c[2] for c in calls]
+    mean = sum(secs) / len(secs)
+    label = (engine.cfg.misfit if engine.cfg.engine == "elastic_dip"
+             else "trace-normalized l2")
+    print(f"phase 22 {what} Hessian ({label} misfit, nt {nt} of "
+          f"{engine.cfg.nt}, float64): Lanczos steps {steps}: eig_min "
+          f"{lo!r}, eig_max {hi!r} in {s_l:.2f} s; composite HVPs "
+          f"{', '.join(f'{s:.2f}' for s in secs)} s, peak "
+          f"{max(c[3] for c in calls):.2f} GiB; at the full nt "
+          f"{engine.cfg.nt} ~{mean * engine.cfg.nt / nt:.0f} s an HVP "
+          f"(extrapolated linearly in nt from {mean:.2f} s at {nt})")
+    check(len(calls) == steps and math.isfinite(hi) and math.isfinite(lo),
+          f"{what}: {len(calls)} HVPs, Ritz values {ritz}")
+    if nt2 is not None:
+        dec2, mis2 = cut(nt2)
+        _, s2, peak2 = timed(lambda: composite_hvp(dec2, mis2, params,
+                                                   calls[0][0]))
+        peak = calls[0][3]
+        per_step = (peak2 - peak) / (nt2 - nt)
+        full = peak + per_step * (engine.cfg.nt - nt)
+        s_full = s2 * engine.cfg.nt / nt2
+        print(f"phase 22 {what}: a composite HVP at nt {nt2} {s2:.2f} s, "
+              f"peak {peak2:.2f} GiB against {peak:.2f} GiB at nt {nt}: "
+              f"{per_step * 2**10:.3f} MiB a time step; at the full nt "
+              f"{engine.cfg.nt} ~{full:.1f} GiB and ~{s_full:.0f} s an HVP "
+              f"(extrapolated linearly in nt)")
+        check(full < 80.0, f"{what}: the HVP would not fit the card at the "
+              f"full nt")
+
+    v, hv = calls[0][0], calls[0][1]
+    loss, at, eps = (lambda q: mis(dec(q))), params, HVP_CD_EPS
+    if model_space:
+        eps = HVP_CD_EPS_M
+        with torch.no_grad():
+            at = {"m": dec(params)}
+        gen = torch.Generator(device=dev).manual_seed(22)
+        v = {"m": torch.randn(at["m"].shape, generator=gen, device=dev,
+                              dtype=f64)}
+        v["m"] /= torch.linalg.vector_norm(v["m"])
+        loss = (lambda q: mis(q["m"]))
+        hv, s_hvp, peak = timed(lambda: composite_hvp(
+            lambda q: q["m"], mis, at, v))
+        print(f"phase 22 {what}: the misfit's HVP in model space "
+              f"{s_hvp:.2f} s, peak {peak:.2f} GiB")
+
+    def grad(sign):
+        with torch.enable_grad():
+            q = {k: (w + sign * eps * v[k]).requires_grad_()
+                 for k, w in at.items()}
+            gs = torch.autograd.grad(loss(q), list(q.values()),
+                                     allow_unused=True)
+        return {k: torch.zeros_like(w) if g is None else g
+                for (k, w), g in zip(q.items(), gs)}
+
+    (gp, gm), s_cd, _ = timed(lambda: (grad(1.0), grad(-1.0)))
+    num = sum(torch.sum((hv[k] - (gp[k] - gm[k]) / (2 * eps)) ** 2)
+              for k in hv)
+    den = sum(torch.sum(h * h) for h in hv.values())
+    err = float(torch.sqrt(num / den))
+    print(f"phase 22 {what}: the "
+          f"{'model-space' if model_space else 'first'} HVP (|Hv| "
+          f"{float(torch.sqrt(den)):.4e}) against a central difference of "
+          f"two gradients (eps "
+          f"{eps:g} along its unit v; {s_cd:.2f} s): relative L2 "
+          f"error {err:.3e} (tol {HVP_CD_TOL:g})")
+    check(float(den) > 0 and err <= HVP_CD_TOL,
+          f"{what}: the HVP is not the central difference")
+
+
+def phase_landscape(dev):
+    """The landscape CLI on the card (see the module docstring, phase
+    22).  Returns its kernel launches."""
+    import collections
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import (
+        AcousticDIPEngine, ElasticDIPEngine)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    print(f"phase 22 on {card_line()}")
+    t_phase = time.perf_counter()
+    counters = _all_kernels()
+    b1, ring = counters["forward2"], counters["simulate_elastic_ring"]
+    launches = collections.Counter()
+
+    def take(*names):
+        """The launches of ``names`` since the last take (every other
+        kernel's must be 0), then every count set to 0."""
+        got = {k: counters[k].launches for k in counters}
+        check(all(v == 0 for k, v in got.items() if k not in names),
+              f"phase 22: a kernel off the landscape's path ran: {got}")
+        reset_launches(*counters.values())
+        return {k: got[k] for k in names}
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_landscape_"))
+    try:
+        # the acoustic surface, on phase 18's shared workload
+        wl, twin = _shared_acoustic(dev, 22)
+        cfg = get_workload("marmousi_acoustic", save_dir=str(tmp))
+        reset_launches(*counters.values())
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        ac = AcousticDIPEngine(cfg, workload=dataclasses.replace(wl),
+                               val_workload=twin, device=dev)
+        setup = time.perf_counter() - t0
+        res, secs, surf, _ = _surface22(ac, tmp, "acoustic")
+        resident = b1.resident_launches
+        n = take("forward2")
+        launches.update(n)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"phase 22 marmousi_acoustic surface: {res}; setup {setup:.2f} "
+              f"s, 9 points in {secs:.2f} s ({secs / 9 * 1e3:.0f} ms a "
+              f"point, main's whole call), peak memory {peak:.2f} GiB; "
+              f"launches {n} (B1 resident {resident})")
+        check(n["forward2"] == resident == 2,
+              "B1 not resident twice at the acoustic setup")
+        _center22(ac, surf, "marmousi_acoustic")
+        _replay22(dev, ac)
+
+        # the elastic surface and the trajectory
+        cfg = get_workload("marmousi_elastic", save_dir=str(tmp))
+        reset_launches(*counters.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        el = ElasticDIPEngine(cfg, device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        check(el.physics_path == "fused-cuda",
+              f"elastic physics path {el.physics_path}")
+        resident = ring.resident_launches
+        n = take("simulate_elastic_ring")
+        launches.update(n)
+        print(f"phase 22 marmousi_elastic setup {setup:.2f} s; ring forward "
+              f"{n} (resident {resident})")
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, secs, surf, _ = _surface22(el, tmp, "elastic")
+        resident, per_step = ring.resident_launches, ring.per_step_launches
+        n = take("simulate_elastic_ring")
+        launches.update(n)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"phase 22 marmousi_elastic surface: {res}; 9 points in "
+              f"{secs:.2f} s ({secs / 9 * 1e3:.0f} ms a point, main's whole "
+              f"call), peak memory {peak:.2f} GiB; ring forward {n} "
+              f"(resident {resident}, per-step {per_step})")
+        check(n["simulate_elastic_ring"] == resident == 9 and per_step == 0,
+              "the elastic surface's ring forwards not 9 resident")
+        # (the direct evaluation's ring forward is not on the path)
+        _center22(el, surf, "marmousi_elastic")
+
+        base = {k: w.detach().clone() for k, w in el.net.state_dict().items()}
+        for i, tag in enumerate(TRAJ_TAGS):
+            el.net.load_state_dict({k: w * (1.0 + 0.02 * i) + 0.001 * i
+                                    for k, w in base.items()})
+            el.save_networks(tag)
+        el.net.load_state_dict(base)
+        reset_launches(*counters.values())
+        res, secs, _, arrays = _surface22(
+            el, tmp, "trajectory", "--trajectory", str(tmp / cfg.name))
+        resident = ring.resident_launches
+        n = take("simulate_elastic_ring")
+        launches.update(n)
+        coords, epochs = arrays["traj_coords"], arrays["traj_epochs"]
+        print(f"phase 22 marmousi_elastic trajectory: {res} in {secs:.2f} s; "
+              f"coordinates {coords.tolist()}, epochs {epochs.tolist()}; "
+              f"ring forward {n}")
+        check(coords.shape == (4, 2) and list(epochs) == list(TRAJ_TAGS)
+              and bool(np.abs(coords[-1]).max() <= 1e-3),
+              "the trajectory's last coordinate or epochs")
+        check(n["simulate_elastic_ring"] == resident == 9,
+              "the trajectory's ring forwards not 9 resident")
+
+        # the Hessians (plain PyTorch through the differentiable loops)
+        reset_launches(*counters.values())
+        t0 = time.perf_counter()
+        _hessian22(dev, ac, HESS_NT_AC, 3, "marmousi_acoustic",
+                   nt2=2 * HESS_NT_AC)
+        print(f"phase 22 marmousi_acoustic Hessian: "
+              f"{time.perf_counter() - t0:.1f} s")
+        take()
+        # the raw L2 misfit for the central difference: the registered
+        # tnl1's kinks (|r|, the trace max) put jumps in the gradient
+        el_l2 = ElasticDIPEngine(cfg.replace(misfit="l2"),
+                                 workload=el.wl, device=dev)
+        launches.update(take("simulate_elastic_ring"))
+        t0 = time.perf_counter()
+        _hessian22(dev, el_l2, HESS_NT_EL, 2, "marmousi_elastic",
+                   model_space=True)
+        print(f"phase 22 marmousi_elastic Hessian: "
+              f"{time.perf_counter() - t0:.1f} s")
+        take()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{dict(launches)}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -4016,7 +4414,7 @@ def main(argv: list[str]) -> int:
                   15: [phase_robust], 16: [phase_lbfgs],
                   17: [phase_config5], 18: [phase_config2],
                   19: [phase_other_engines], 20: [phase_dataroot],
-                  21: [phase_supervised]}
+                  21: [phase_supervised], 22: [phase_landscape]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -4051,6 +4449,7 @@ def main(argv: list[str]) -> int:
     launches.update(dataroot_launches)
     b3.update(b3_real)
     launches.update(phase_supervised(dev))
+    launches.update(phase_landscape(dev))
     # phase 20's launches of each kernel it ran, by route
     for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
                          ("fused_elastic_loss_grad", b3),

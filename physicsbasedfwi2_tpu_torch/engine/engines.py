@@ -937,10 +937,11 @@ class ElasticDIPEngine(EngineBase):
             self._stage_cache[key] = pd
         return self._stage_cache[key]
 
-    def _physics_loss_raw(self, m, shot_idx, pd, rho=None):
+    def _physics_loss_raw(self, m, shot_idx, pd, rho=None, sim=None):
         """The misfit of m [nz, nx, F] on a shot subset, from the path's
         operator (the ring forward on the fused path: no gradient;
-        autograd through the fast or split-PML propagator otherwise):
+        autograd through the fast or split-PML propagator otherwise) or
+        from ``sim``, a propagator of the same signature:
         ``tnl2``/``tnl1`` trace-normalize both sides and sum ``mean (p -
         o)^2`` or ``mean|p - o|`` over vx and vz, ``l2``/``snl2`` the raw
         L2.  ``pd`` holds the stage's wavelet and observed gathers; with
@@ -952,8 +953,8 @@ class ElasticDIPEngine(EngineBase):
             wav = wav[shot_idx]
         if rho is None:
             rho = m[..., 2] if self.n_fields == 3 else wl.start["rho"]
-        pvx, pvz = self._sim(m[..., 0], m[..., 1], rho, wav, sz, sx, rz, rx,
-                             wl.cfg)
+        pvx, pvz = (sim or self._sim)(m[..., 0], m[..., 1], rho, wav, sz, sx,
+                                      rz, rx, wl.cfg)
         ovx, ovz = pd["ovx"][shot_idx], pd["ovz"][shot_idx]
         if self.cfg.misfit in ("tnl2", "tnl1"):
             pvx, pvz = trace_normalize(pvx), trace_normalize(pvz)

@@ -1,9 +1,8 @@
 """Acquisition geometry as integer cell indices (numpy).
 
-The slice of ``physicsbasedfwi2_tpu/geo/acquisition.py`` that the
-acoustic and elastic workloads use, copied as it is: geometry stays host-side
-numpy and becomes int32 device tensors only where a propagator reads
-it.
+Port of ``physicsbasedfwi2_tpu/geo/acquisition.py``, copied as it is:
+geometry stays host-side numpy and becomes int32 device tensors only
+where a propagator reads it.
 """
 
 from __future__ import annotations
@@ -94,4 +93,36 @@ def elastic_line(num_shots: int, num_receivers: int, nx: int, nz: int,
         rz_line = np.full(num_receivers, min(rcv_row, nz - 2), np.int32)
     rcv_x = np.tile(rx, (num_shots, 1)).astype(np.int32)
     rcv_z = np.tile(rz_line, (num_shots, 1)).astype(np.int32)
+    return Acquisition(src_z, src_x, rcv_z, rcv_x)
+
+
+def marmousi_acoustic_acquisition(nx: int = 200) -> Acquisition:
+    """18 shots / 200 receivers on the surface: the canonical Marmousi
+    acoustic workload."""
+    return surface_line(num_shots=18, num_receivers=200, nx=nx)
+
+
+def marmousi_elastic_acquisition(nx: int = 300,
+                                 dx: float = 20.0) -> Acquisition:
+    """35 shots, receiver line at 2-cell depth: the Marmousi elastic
+    workload (sources every ~160 m at row 1, receivers every cell at
+    row 2).  ``dx`` is accepted for the JAX signature's sake."""
+    num_shots = 35
+    src_x = np.round(np.linspace(2, nx - 3, num_shots)).astype(np.int32)
+    src_z = np.full(num_shots, 1, np.int32)
+    rx = np.arange(1, nx - 1, dtype=np.int32)
+    rcv_x = np.tile(rx, (num_shots, 1))
+    rcv_z = np.full_like(rcv_x, 2)
+    return Acquisition(src_z, src_x, rcv_z, rcv_x)
+
+
+def seam_elastic_acquisition(nx: int = 300) -> Acquisition:
+    """SEAM-style geometry at dx=30 m: deeper receivers (row 3, every
+    second cell), sparser shots (20)."""
+    num_shots = 20
+    src_x = np.round(np.linspace(2, nx - 3, num_shots)).astype(np.int32)
+    src_z = np.full(num_shots, 1, np.int32)
+    rx = np.arange(1, nx - 1, 2, dtype=np.int32)
+    rcv_x = np.tile(rx, (num_shots, 1))
+    rcv_z = np.full_like(rcv_x, 3)
     return Acquisition(src_z, src_x, rcv_z, rcv_x)

@@ -18,7 +18,9 @@ import torch
 
 from physicsbasedfwi2_tpu_torch.geo.grid import Grid2D
 from physicsbasedfwi2_tpu_torch.ops import pml, stencil
-from physicsbasedfwi2_tpu_torch.ops.scan_utils import chunked_checkpoint_scan
+from physicsbasedfwi2_tpu_torch.ops.scan_utils import (
+    chunked_checkpoint_scan, closure_scan,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +83,21 @@ def simulate_acoustic(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
     All tensors on one device.  Returns receivers [num_shots, nt, nr],
     float32; a float64 ``vp`` runs the whole loop in float64 (a
     reference for finite-difference checks).
+
+    Without autograd on a card the loop runs on the explicit-parameter
+    scan, each chunk replayed as a CUDA graph; otherwise on
+    :func:`closure_scan` (``torch.utils.checkpoint``, differentiable
+    twice; forward over reverse on the explicit-parameter scan, for
+    ``landscape/hessian.py``).  All give the same bits.
     """
+    return _simulate(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
+                     explicit=vp.is_cuda and not torch.is_grad_enabled())
+
+
+def _simulate(vp, wavelet, src_z, src_x, rcv_z, rcv_x, cfg: AcousticConfig,
+              *, explicit: bool) -> torch.Tensor:
+    """:func:`simulate_acoustic` on the explicit-parameter scan
+    (``explicit``) or on :func:`closure_scan`."""
     g = cfg.grid
     dev = vp.device
     dtype = torch.float64 if vp.dtype == torch.float64 else torch.float32
@@ -101,25 +117,35 @@ def simulate_acoustic(vp, wavelet, src_z, src_x, rcv_z, rcv_x,
 
     inv_dx = 1.0 / g.dx
     dt = g.dt
-    shot = torch.arange(ns, device=dev)
+    # flat cells of the padded grid: the injection is a scatter-add and
+    # the recording a gather, both capturable in a CUDA graph
+    nx_pad = vp_pad.shape[1]
+    src = (src_z * nx_pad + src_x)[:, None]
+    rcv = rcv_z * nx_pad + rcv_x
     # moment-source injection: amp * dt * kappa / cell-area
-    src_gain = kappa_dt[src_z, src_x] * (inv_dx * inv_dx)
+    src_gain = kappa_dt.flatten()[src[:, 0]] * (inv_dx * inv_dx)
 
-    def step(carry, x):
+    def step(carry, x, params):
+        kap, gain = params
         vx, vz, px, pz = carry
         (amp_t,) = x
         p = px + pz
         vx = ax_v * (vx + dt * stencil.dx_fwd(p, inv_dx, cfg.order))
         vz = az_v * (vz + dt * stencil.dz_fwd(p, inv_dx, cfg.order))
-        px = ax_p * (px + kappa_dt * stencil.dx_bwd(vx, inv_dx, cfg.order))
-        pz = az_p * (pz + kappa_dt * stencil.dz_bwd(vz, inv_dx, cfg.order))
-        pz = pz.index_put((shot, src_z, src_x), amp_t * src_gain,
-                          accumulate=True)
-        return (vx, vz, px, pz), (px + pz)[shot[:, None], rcv_z, rcv_x]
+        px = ax_p * (px + kap * stencil.dx_bwd(vx, inv_dx, cfg.order))
+        pz = az_p * (pz + kap * stencil.dz_bwd(vz, inv_dx, cfg.order))
+        pz = pz.flatten(1).scatter_add(1, src, (amp_t * gain)[:, None]
+                                       ).view_as(pz)
+        return (vx, vz, px, pz), (px + pz).flatten(1).gather(1, rcv)
 
     zero = torch.zeros((ns,) + vp_pad.shape, dtype=dtype, device=dev)
-    _, recs = chunked_checkpoint_scan(step, (zero,) * 4, (wavelet.T,),
-                                      chunk=cfg.chunk)
+    params = (kappa_dt, src_gain)
+    if explicit:
+        _, recs = chunked_checkpoint_scan(step, (zero,) * 4, (wavelet.T,),
+                                          chunk=cfg.chunk, params=params)
+    else:
+        _, recs = closure_scan(step, (zero,) * 4, (wavelet.T,), params,
+                               chunk=cfg.chunk)
     return recs.permute(1, 0, 2).contiguous()
 
 

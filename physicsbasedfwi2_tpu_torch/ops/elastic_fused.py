@@ -66,6 +66,7 @@ from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
     SMEM_LIMIT, ResidentPlan, _round_up, check_tensors, count_launch,
     pick_route, reset_launches,
 )
+from physicsbasedfwi2_tpu_torch.ops.scan_utils import closure_scan
 from physicsbasedfwi2_tpu_torch.ops.stencil import _shift
 
 RING = 2  # zero ring width (stands in for circular rolls)
@@ -94,12 +95,13 @@ def _layout(cfg: ElasticConfig):
     return top, w, nzp, nxp, _round_up(nzp, 8), _round_up(nxp, 128)
 
 
-def prep_medium(vp, vs, rho, cfg: ElasticConfig):
+def prep_medium(vp, vs, rho, cfg: ElasticConfig, dtype=torch.float32):
     """(vp, vs, rho) -> kernel-layout (lam, l2m, muxz, bx, bz), each
-    [nz8, nx128] float32.  Differentiable: ``torch.autograd`` through it
-    pulls the kernel's medium gradients back to the physical fields."""
+    [nz8, nx128] in ``dtype`` (the kernels take float32).
+    Differentiable: ``torch.autograd`` through it pulls the kernel's
+    medium gradients back to the physical fields."""
     top, w, nzp, nxp, nz8, nx128 = _layout(cfg)
-    vp_p, vs_p, rho_p = (edge_pad(a.to(torch.float32), top, w, w, w)
+    vp_p, vs_p, rho_p = (edge_pad(a.to(dtype), top, w, w, w)
                          for a in (vp, vs, rho))
     lam, mu, muxz, bx, bz = _staggered_medium(vp_p, vs_p, rho_p)
     l2m = lam + 2.0 * mu
@@ -356,8 +358,12 @@ def _loss_gmeds_plain(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
     return loss, tuple(out)
 
 
-def _rows_plain(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx):
-    """Receiver-row histories (vx, vz), each [ns, nt, nx128]."""
+def _rows_plain(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx,
+                chunk: int = 32):
+    """Receiver-row histories (vx, vz), each [ns, nt, nx128], from
+    :func:`_fwd_step` on :func:`closure_scan` (``chunk`` steps a
+    checkpoint): differentiable in ``meds`` and ``gain``, forward over
+    reverse too."""
     ns = wav.shape[0]
     shape = tuple(damp.shape)
     dtype, dev = damp.dtype, damp.device
@@ -368,14 +374,17 @@ def _rows_plain(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx):
     if fs_row >= 0:
         fs = torch.ones((shape[0], 1), dtype=dtype, device=dev)
         fs[fs_row] = 0.0
-    st = _state(ns, shape, dtype, dev)
-    hx = torch.empty((ns, nt, shape[1]), dtype=dtype, device=dev)
-    hz = torch.empty_like(hx)
-    for t in range(nt):
-        st, _ = _fwd_step(st, meds, damp, fs, dtx, src, wav[:, t] * gain)
-        hx[:, t] = st[0][shot, rrow]
-        hz[:, t] = st[1][shot, rrow]
-    return hx, hz
+
+    def step(st, x, params):
+        (wav_t,) = x
+        st, _ = _fwd_step(st, params[:5], damp, fs, dtx, src,
+                          wav_t * params[5])
+        return st, torch.stack([st[0][shot, rrow], st[1][shot, rrow]])
+
+    _, rows = closure_scan(step, _state(ns, shape, dtype, dev),
+                           (wav[:, :nt].T,), (*meds, gain), chunk=chunk)
+    rows = rows.permute(1, 2, 0, 3)
+    return rows[0], rows[1]
 
 
 # ---------------------------------------------------------------------------
@@ -647,26 +656,32 @@ def fused_elastic_loss_grad(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
     return loss, {k: named[k] for k in wrt}
 
 
-def _ring(rows_fn, vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x, cfg):
+def _ring(rows_fn, vp, vs, rho, wavelet, src_z, src_x, rcv_z, rcv_x, cfg,
+          dtype=torch.float32):
     g = cfg.grid
-    meds = prep_medium(vp, vs, rho, cfg)
-    damp = prep_damp(cfg, vp.device)
-    wav, sz, sx, rrow, gain, _, fs_row = _geometry(
+    meds = prep_medium(vp, vs, rho, cfg, dtype)
+    damp = prep_damp(cfg, vp.device).to(dtype)
+    wav, sz, sx, rrow, _, _, fs_row = _geometry(
         cfg, meds[1], wavelet, src_z, src_x, rcv_z, rcv_x, g.nt)
-    hx, hz = rows_fn(meds, damp, wav, sz, sx, rrow, gain, fs_row, g.nt,
-                     g.dt / g.dx)
+    # the source gain dt/dx^2 l2m[src], differentiable in l2m
+    gain = (g.dt / (g.dx * g.dx)) * meds[1][sz.long(), sx.long()]
+    hx, hz = rows_fn(meds, damp, wav.to(dtype), sz, sx, rrow, gain, fs_row,
+                     g.nt, g.dt / g.dx)
     cols = torch.as_tensor(rcv_x, device=vp.device).long() + g.pml_width
     idx = cols[:, None, :].expand(-1, g.nt, -1)
     return torch.gather(hx, 2, idx), torch.gather(hz, 2, idx)
 
 
-@torch.no_grad()
 def simulate_elastic_ring_plain(vp, vs, rho, wavelet, src_z, src_x, rcv_z,
                                 rcv_x, cfg: ElasticConfig):
     """Plain PyTorch version of :func:`simulate_elastic_ring` (the
-    forward scan, any device)."""
-    return _ring(_rows_plain, vp, vs, rho, wavelet, src_z, src_x, rcv_z,
-                 rcv_x, cfg)
+    forward scan, any device).  Differentiable in (vp, vs, rho), as the
+    JAX package's ``_ring_scan`` is: the landscape's elastic Hessian
+    runs through it.  A float64 ``vp`` runs the loop in float64 (a
+    reference for finite-difference checks)."""
+    dtype = torch.float64 if vp.dtype == torch.float64 else torch.float32
+    return _ring(partial(_rows_plain, chunk=cfg.chunk), vp, vs, rho,
+                 wavelet, src_z, src_x, rcv_z, rcv_x, cfg, dtype)
 
 
 @torch.no_grad()

@@ -143,6 +143,60 @@ class _Chunk(torch.autograd.Function):
                 *(next(got) if a.requires_grad else None for a in args))
 
 
+class _DualChunk(torch.autograd.Function):
+    """The graph node of one chunk under forward over reverse, which
+    keeps no tangent per step.
+
+    ``args``: the chunk's n + 1 outputs (carry and ys) as a pass on dual
+    tensors without autograd gave their primals; then the carry's n
+    primals and n tangents, the m inputs, the k parameters' primals and
+    k tangents (a tangent None where that tensor is not dual).  The
+    forward returns the outputs and saves only the chunk's inputs.  The
+    backward recomputes the chunk on dual tensors under autograd and
+    returns dual gradients, whose tangents carry the Hessian-vector
+    product.  (``torch.utils.checkpoint`` on dual tensors keeps the
+    tangent of every tensor a step saves outside its hooks, so memory
+    grows with nt; and a Function's forward runs with forward-mode AD
+    off, hence the pass outside it.)"""
+
+    @staticmethod
+    def _duals(args, n, m, k):
+        def dual(ps, ts):
+            return tuple(p if t is None else fwAD.make_dual(p, t)
+                         for p, t in zip(ps, ts))
+        i = 2 * n + m
+        return (dual(args[:n], args[n:2 * n]), tuple(args[2 * n:i]),
+                dual(args[i:i + k], args[i + k:]))
+
+    @staticmethod
+    def forward(ctx, step, n, m, k, *args):
+        ctx.step, ctx.sizes = step, (n, m, k)
+        ctx.save_for_backward(*args[n + 1:])
+        return tuple(o.view_as(o) for o in args[:n + 1])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, m, k = ctx.sizes
+        # the primals become leaves; tangents stay constants
+        primal = [i < n or 2 * n <= i < 2 * n + m + k
+                  for i in range(2 * n + m + 2 * k)]
+        args = [a.detach().requires_grad_(a.requires_grad) if p else a
+                for a, p in zip(ctx.saved_tensors, primal)]
+        with torch.enable_grad():
+            outs = _run_chunk_params(ctx.step,
+                                     *_DualChunk._duals(args, n, m, k))
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        want = [a for a, p in zip(args, primal) if p and a.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], want,
+                                       [g for _, g in pairs],
+                                       allow_unused=True) if pairs and want
+                   else [None] * len(want))
+        return (None,) * (4 + n + 1) + tuple(
+            next(got) if p and a.requires_grad else None
+            for a, p in zip(args, primal))
+
+
 def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
                             params=None):
     """``carry, ys = scan(step, carry, xs)`` with one checkpoint per
@@ -167,8 +221,13 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
             tensors both passes of a chunk are captured once as CUDA
             graphs and replayed (:class:`_ChunkGraphs`), so the step must
             be capturable (no host sync).  With ``params`` a tensor the
-            step closes over gets no gradient.  A dual (forward-mode
-            AD) parameter runs the chunks as a plain loop, no graphs.
+            step closes over gets no gradient.  Dual (forward-mode AD)
+            tensors in the carry or ``params`` run the chunks as a
+            plain loop without autograd, and under autograd (forward
+            over reverse) as :class:`_DualChunk`, whose memory is two
+            carries a chunk whatever the chunk's length; there a dual
+            tensor the step closes over would keep its tangents, so the
+            step must take every dual tensor it reads as ``params``.
 
     Returns:
         (carry, ys), ys with leading dim nt.  As in the JAX package, xs
@@ -183,16 +242,30 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
                for x in xs)
     n = len(carry)
     use_ckpt = torch.is_grad_enabled()
-    # a dual (forward-mode) parameter's tangent would not be in the graph
-    dual = params is not None and any(
-        fwAD.unpack_dual(p).tangent is not None for p in params)
+    dual = any(fwAD.unpack_dual(a).tangent is not None
+               for a in (*carry, *(params or ())))
+    if dual and use_ckpt and params is None:
+        raise ValueError("chunked_checkpoint_scan: forward over reverse "
+                         "needs the step's tensors as params")
     graphs = (_ChunkGraphs() if params is not None and carry[0].is_cuda
               and not dual else None)
     ys = []
     for t0 in range(0, nt + pad, chunk):
         xc = tuple(x[t0: t0 + chunk] for x in xs)
         if params is not None:
-            if use_ckpt:
+            if use_ckpt and dual:
+                with torch.no_grad():
+                    out = [fwAD.unpack_dual(o) for o in
+                           _run_chunk_params(step, carry, xc, params)]
+                cp = [fwAD.unpack_dual(c) for c in carry]
+                pp = [fwAD.unpack_dual(p) for p in params]
+                prim = _DualChunk.apply(
+                    step, n, len(xc), len(pp), *(o.primal for o in out),
+                    *(c.primal for c in cp), *(c.tangent for c in cp), *xc,
+                    *(p.primal for p in pp), *(p.tangent for p in pp))
+                out = [p if o.tangent is None else fwAD.make_dual(p, o.tangent)
+                       for p, o in zip(prim, out)]
+            elif use_ckpt:
                 out = _Chunk.apply(step, n, len(xc), graphs, *carry, *xc,
                                    *params)
             elif graphs is not None:
@@ -207,3 +280,17 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
         carry, y = tuple(out[:n]), out[n]
         ys.append(y)
     return carry, torch.cat(ys)[:nt]
+
+
+def closure_scan(step, carry, xs, params, *, chunk: int = 32):
+    """:func:`chunked_checkpoint_scan` of ``step(carry, x, params)`` with
+    ``params`` closed over (``torch.utils.checkpoint`` under autograd:
+    differentiable twice, gradients reach every tensor the step reads),
+    except where a parameter is dual: there ``params`` go to the scan,
+    whose :class:`_DualChunk` keeps no tangent per step under forward
+    over reverse."""
+    if any(fwAD.unpack_dual(p).tangent is not None for p in params):
+        return chunked_checkpoint_scan(step, carry, xs, chunk=chunk,
+                                       params=params)
+    return chunked_checkpoint_scan(lambda c, x: step(c, x, params), carry,
+                                   xs, chunk=chunk)

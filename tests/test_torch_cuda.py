@@ -1108,3 +1108,77 @@ def test_resize_backward_repeats_on_card(dev, out_shape):
     xr = x.clone().requires_grad_()
     (gr,) = torch.autograd.grad(fn(xr), xr, g)
     assert rel_max(grads[0].cpu(), gr) <= 1e-6
+
+
+def test_simulate_acoustic_replays_graphs_without_autograd(case,
+                                                           monkeypatch):
+    """``simulate_acoustic`` without autograd on the card runs the
+    explicit-parameter scan, one CUDA-graph capture a scan, to the bit of
+    the closure scan's loop on the card, and within 1e-5 of the CPU; under
+    autograd it stays on the closure scan (no capture)."""
+    from physicsbasedfwi2_tpu_torch.ops import acoustic, scan_utils
+    cfg, wav, vp, geom = case
+    captures = []
+    capture = scan_utils._ChunkGraphs._capture
+    monkeypatch.setattr(scan_utils._ChunkGraphs, "_capture", staticmethod(
+        lambda fn: captures.append(1) or capture(fn)))
+    with torch.no_grad():
+        got = acoustic.simulate_acoustic(vp, wav, *geom, cfg)
+        loop = acoustic._simulate(vp, wav, *geom, cfg, explicit=False)
+    torch.cuda.synchronize()
+    assert len(captures) == 1
+    assert torch.equal(got, loop)
+    ref = acoustic.simulate_acoustic(vp.cpu(), wav.cpu(),
+                                     *(a.cpu() for a in geom), cfg)
+    assert rel_max(got, ref) <= 1e-5
+    v = vp.clone().requires_grad_()
+    (acoustic.simulate_acoustic(v, wav, *geom, cfg) ** 2).sum().backward()
+    assert len(captures) == 1 and torch.isfinite(v.grad).all()
+
+
+def test_landscape_hvp_on_card_matches_cpu(dev):
+    """The composite HVP through the ring forward's plain version and
+    through ``simulate_acoustic`` on the card against the same on the
+    CPU (small grid, a tiny decoder)."""
+    from physicsbasedfwi2_tpu_torch.landscape import composite_hvp
+    from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
+    grid, cfg, wargs, vp, geom = acoustic_case()
+    grid = dict(grid, nt=90)
+    acfg = torch_acoustic(grid, cfg)
+    egrid, ecfg, ewargs, fields, egeom = elastic_case()
+    el = torch_elastic(egrid, ecfg)
+    gen = torch.Generator().manual_seed(3)
+    params = {"a": torch.randn(6, generator=gen),
+              "b": torch.randn(6, generator=gen)}
+    v = {k: torch.randn(6, generator=gen) for k in params}
+    basis = torch.randn(6, *vp.shape, generator=gen)
+    ebasis = torch.randn(6, *fields[0].shape, generator=gen)
+
+    def run(device):
+        p = {k: a.to(device) for k, a in params.items()}
+        w = {k: a.to(device) for k, a in v.items()}
+        b, eb = basis.to(device), ebasis.to(device)
+        vp0 = torch.as_tensor(vp, device=device)
+        wav = ricker(10.0, grid["nt"], grid["dt"], device=device)
+        g = [torch.as_tensor(a, device=device) for a in geom]
+        out = [composite_hvp(
+            lambda q: vp0 + 20.0 * torch.tanh(torch.einsum("k,kij->ij",
+                                                           q["a"], b)),
+            lambda m: torch.mean(simulate_acoustic(m, wav, *g, acfg) ** 2),
+            p, w)]
+        f = [torch.as_tensor(a, device=device) for a in fields]
+        ew = ricker(*ewargs, device=device)
+        eg = [torch.as_tensor(a, device=device) for a in egeom]
+        out.append(composite_hvp(
+            lambda q: f[0] + 20.0 * torch.tanh(torch.einsum("k,kij->ij",
+                                                            q["b"], eb)),
+            lambda m: sum(torch.mean(t ** 2) for t in
+                          ef.simulate_elastic_ring_plain(m, f[1], f[2], ew,
+                                                         *eg, el)),
+            p, w))
+        return [{k: a.cpu() for k, a in h.items()} for h in out]
+
+    got, ref = run(dev), run("cpu")
+    for h, r in zip(got, ref):
+        for k in h:
+            assert rel_l2(h[k], r[k]) <= 1e-4, k

@@ -227,13 +227,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     checkpoints and ``--trajectory`` (the last coordinate 0 within 1e-3,
     the epochs as saved, 9 more resident ring forwards); Lanczos in
     float64 through the composite HVP at the full grid, shots and
-    generator with the misfit's time loop cut (acoustic 3 HVPs at nt
-    ``HESS_NT_AC`` and one at twice that, whose peak memory against the
-    first's gives the memory a time step adds; elastic 2 at
+    generator with the misfit's time loop cut (acoustic 2 HVPs at nt
+    ``HESS_NT_AC`` and one at ``HESS_NT2_AC``, whose peak memory against
+    the first's gives the memory a time step adds; elastic 2 at
     ``HESS_NT_EL`` on the ``l2`` misfit), the acoustic first HVP and the
     elastic misfit's HVP in model space each against a central
     difference of two float64 gradients (relative L2 error <=
-    ``HVP_CD_TOL``), each HVP's seconds and peak memory.
+    ``HVP_CD_TOL``), each HVP's seconds and peak memory;
+23. ``parallel/`` on ``torch.distributed``, each run in child processes
+    (``parallel/dryrun.py::spawn``, a ``file://`` store) that load phase
+    1's kernel library: run A on one rank (NCCL, ``cuda:0``),
+    ``train()`` of ``AcousticDIPEngine(marmousi_acoustic,
+    mesh=make_mesh())`` at full width for ``MESH_EPOCHS`` epochs
+    (``fused+mesh``, B1 resident twice at setup, B2 resident once an
+    epoch), every epoch's loss and the final weights equal to the bit to
+    ``train()`` without a mesh, then ``ElasticDIPEngine(marmousi_elastic,
+    mesh=...)`` for ``MESH_EL_LSTART`` + 3 epochs (the 30 warmup epochs
+    cut to ``MESH_EL_LSTART``; B3 resident once a physics epoch, the
+    ring forward at setup); run B on two ranks sharing the card (gloo,
+    every CUDA tensor through the host): the same acoustic engine, 9
+    shots a rank, every rank's weights equal to the bit after each step,
+    the first step's loss and its dJ/dvp at the initial model against
+    run A's (``MESH_FIRST_RTOL``), the later epochs' (``MESH_DRIFT_RTOL``),
+    ``parallel/dryrun.py``'s four layouts at world 2, and
+    ``loss_surface_2d_sharded`` of the elastic landscape engine (3 x 3
+    points, 5 a rank with the pad, the ring forward resident a point)
+    against rank 0's ``loss_surface_2d``.  Each run prints its launches
+    by kernel and route, its seconds and peak memory per rank, and the
+    card's name and power limit.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -2626,8 +2647,8 @@ PRETRAIN_EPOCHS = 30
 LATENT_EPOCHS = 5
 CLASSIC_AC_EPOCHS = 1
 # the multi-sample engine's time steps (of marmousi_acoustic's 4001): a
-# depth cut that makes room for phase 22
-MULTI_NT = 2000
+# depth cut that makes room for phases 22 and 23
+MULTI_NT = 1000
 CLASSIC_EL_EPOCHS = 2
 IMPEDANCE_EPOCHS = 3
 ENCODED_EPOCHS = 2
@@ -4017,6 +4038,7 @@ def phase_supervised(dev):
 # are pinned, moves no recorded sample; the elastic line lies below the
 # water), and the closure scan's steps in the graph-replay comparison
 HESS_NT_AC = 450
+HESS_NT2_AC = 900  # the second cut, for the memory a time step adds
 HESS_NT_EL = 150
 HVP_CD_EPS = 1e-7  # the central difference's step along a unit v, float64
 HVP_CD_EPS_M = 1e-3  # the same in model space (m/s along a unit v)
@@ -4188,8 +4210,8 @@ def _hessian22(dev, engine, nt: int, steps: int, what: str,
     print(f"phase 22 {what} Hessian ({label} misfit, nt {nt} of "
           f"{engine.cfg.nt}, float64): Lanczos steps {steps}: eig_min "
           f"{lo!r}, eig_max {hi!r} in {s_l:.2f} s; composite HVPs "
-          f"{', '.join(f'{s:.2f}' for s in secs)} s, peak "
-          f"{max(c[3] for c in calls):.2f} GiB; at the full nt "
+          f"{', '.join(f'{s:.2f}' for s in secs)} s, peaks "
+          f"{', '.join(f'{c[3]:.4f}' for c in calls)} GiB; at the full nt "
           f"{engine.cfg.nt} ~{mean * engine.cfg.nt / nt:.0f} s an HVP "
           f"(extrapolated linearly in nt from {mean:.2f} s at {nt})")
     check(len(calls) == steps and math.isfinite(hi) and math.isfinite(lo),
@@ -4203,7 +4225,7 @@ def _hessian22(dev, engine, nt: int, steps: int, what: str,
         full = peak + per_step * (engine.cfg.nt - nt)
         s_full = s2 * engine.cfg.nt / nt2
         print(f"phase 22 {what}: a composite HVP at nt {nt2} {s2:.2f} s, "
-              f"peak {peak2:.2f} GiB against {peak:.2f} GiB at nt {nt}: "
+              f"peak {peak2:.4f} GiB against {peak:.4f} GiB at nt {nt}: "
               f"{per_step * 2**10:.3f} MiB a time step; at the full nt "
               f"{engine.cfg.nt} ~{full:.1f} GiB and ~{s_full:.0f} s an HVP "
               f"(extrapolated linearly in nt)")
@@ -4358,8 +4380,8 @@ def phase_landscape(dev):
         # the Hessians (plain PyTorch through the differentiable loops)
         reset_launches(*counters.values())
         t0 = time.perf_counter()
-        _hessian22(dev, ac, HESS_NT_AC, 3, "marmousi_acoustic",
-                   nt2=2 * HESS_NT_AC)
+        _hessian22(dev, ac, HESS_NT_AC, 2, "marmousi_acoustic",
+                   nt2=HESS_NT2_AC)
         print(f"phase 22 marmousi_acoustic Hessian: "
               f"{time.perf_counter() - t0:.1f} s")
         take()
@@ -4377,6 +4399,322 @@ def phase_landscape(dev):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 22: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{dict(launches)}")
+    return launches
+
+
+# phase 23: parallel/ on torch.distributed (see the module docstring)
+MESH_EPOCHS = 3
+MESH_EL_LSTART = 2     # marmousi_elastic's 30 warmup epochs, cut
+MESH_FIRST_RTOL = 1e-5  # run B's first step against run A's
+MESH_DRIFT_RTOL = 1e-5  # run B's later epochs against run A's
+MESH_KERNELS = ("forward2", "fwi_l1_loss_grad", "fused_elastic_loss_grad",
+                "simulate_elastic_ring")
+
+
+def _mesh_take(what: str) -> dict:
+    """B1's, B2's, B3's and the ring forward's (launches, resident,
+    per-step) since the last take (every other kernel's must be 0), then
+    every count set to 0."""
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    ks = _all_kernels()
+    got = {k: [f.launches, f.resident_launches, f.per_step_launches]
+           for k, f in ks.items()}
+    check(all(v[0] == 0 for k, v in got.items() if k not in MESH_KERNELS),
+          f"phase 23 {what}: a kernel off the path ran: {got}")
+    reset_launches(*ks.values())
+    return {k: got[k] for k in MESH_KERNELS if got[k][0]}
+
+
+def _mesh_decode(engine):
+    """The acoustic engine's velocity model at its current weights (the
+    generator only, no kernel)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.models import (
+        apply_generator, apply_velocity_output)
+    with torch.no_grad():
+        out = apply_generator(engine.net, engine.shots_in)
+        vp = apply_velocity_output(out.field, engine.true_b,
+                                   water_vel=engine.cfg.water_vel)
+    return vp[0, :, :, 0]
+
+
+def _mesh_weights(net):
+    import torch
+    return torch.cat([p.detach().flatten() for p in net.parameters()])
+
+
+def _mesh_write(out: str, run: str, rank: int, rec: dict, **arrays) -> None:
+    import numpy as np
+    with open(Path(out) / f"{run}{rank}.json", "w") as f:
+        json.dump(rec, f)
+    if arrays:
+        np.savez(Path(out) / f"{run}{rank}.npz", **arrays)
+
+
+def _mesh_a(out: str) -> None:
+    """Run A on its one rank (NCCL, ``cuda:0``): ``train()`` of
+    ``marmousi_acoustic`` with a mesh against the same without one, then
+    ``marmousi_elastic`` with a mesh."""
+    import torch
+    import torch.distributed as dist
+    from physicsbasedfwi2_tpu_torch.device import default_device
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import (
+        AcousticDIPEngine, ElasticDIPEngine)
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.parallel import make_mesh
+    t_run = time.perf_counter()
+    mesh = make_mesh()
+    dev = mesh.device
+    check(dev == torch.device("cuda", 0) and default_device() == dev
+          and dist.get_backend() == "nccl", f"run A: {mesh}")
+    cfg = get_workload("marmousi_acoustic", save_dir=f"{out}/a_plain")
+    plain_engine, plain = train(cfg, epochs=MESH_EPOCHS, quiet=True,
+                                device=dev)
+    _mesh_take("run A's engine without a mesh")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = cfg.replace(save_dir=f"{out}/a_mesh")
+    engine = AcousticDIPEngine(cfg, mesh=mesh)
+    vp0 = _mesh_decode(engine)
+    engine, hist = train(cfg, engine=engine, epochs=MESH_EPOCHS, quiet=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ac = _mesh_take("run A acoustic")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(engine.physics_path == "fused+mesh",
+          f"run A: physics path {engine.physics_path}")
+    check(ac.get("fwi_l1_loss_grad") == [MESH_EPOCHS] * 2 + [0],
+          f"run A: B2 not resident once an epoch: {ac}")
+    check(ac.get("forward2") == [2, 2, 0],
+          f"run A: B1 not resident for obs and direct wave: {ac}")
+    losses = [r["loss_D"] for r in hist]
+    check(losses == [r["loss_D"] for r in plain],
+          f"run A: losses {losses} differ from the engine without a mesh "
+          f"{[r['loss_D'] for r in plain]}")
+    check(torch.equal(_mesh_weights(engine.net),
+                      _mesh_weights(plain_engine.net)),
+          "run A: the final weights differ from the engine without a mesh's")
+    del plain_engine
+    # the first step's pair, for run B (outside the counted window)
+    l0, g0 = engine.physics_value_and_grad(vp0)
+    _mesh_take("run A's first-step pair")
+    # the elastic engine, its warmup cut to MESH_EL_LSTART epochs
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg_el = get_workload("marmousi_elastic", lstart=MESH_EL_LSTART,
+                          save_dir=f"{out}/a_el")
+    el = ElasticDIPEngine(cfg_el, mesh=mesh)
+    el, el_hist = train(cfg_el, engine=el, epochs=MESH_EL_LSTART + 3,
+                        quiet=True)
+    torch.cuda.synchronize()
+    el_secs = time.perf_counter() - t0
+    el_counts = _mesh_take("run A elastic")
+    el_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(el.physics_path == "fused+mesh",
+          f"run A elastic: physics path {el.physics_path}")
+    check(el_counts.get("fused_elastic_loss_grad") == [3, 3, 0],
+          f"run A: B3 not resident once a physics epoch: {el_counts}")
+    ring = el_counts.get("simulate_elastic_ring", [0, 0, 0])
+    check(ring[0] >= 1 and ring[2] == 0,
+          f"run A: the setup's ring forward not resident: {el_counts}")
+    el_losses = [r["loss_D_MSE"] for r in el_hist[MESH_EL_LSTART:]]
+    check(all(math.isfinite(x) for x in el_losses)
+          and len(set(el_losses)) > 1, f"run A elastic losses {el_losses}")
+    _mesh_write(out, "a", 0, {
+        "losses": losses, "secs": secs, "peak_gib": peak, "acoustic": ac,
+        "elastic": el_counts, "el_losses": el_losses, "el_secs": el_secs,
+        "el_peak_gib": el_peak, "epoch_s": [r["epoch_time"] for r in hist],
+        "run_s": time.perf_counter() - t_run},
+        l0=l0.cpu().numpy(), g0=g0.cpu().numpy())
+
+
+def _mesh_b(out: str) -> None:
+    """Run B on each of two ranks sharing the card (gloo): the acoustic
+    engine at full width with 9 shots a rank, every rank's weights equal
+    after each step; the dry run's four layouts; the elastic surface,
+    sharded."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.engines import (
+        AcousticDIPEngine, ElasticDIPEngine)
+    from physicsbasedfwi2_tpu_torch.landscape import (
+        loss_surface_2d, loss_surface_2d_sharded, output_axes)
+    from physicsbasedfwi2_tpu_torch.landscape.cli import physics_loss
+    from physicsbasedfwi2_tpu_torch.parallel import (
+        all_gather, dryrun, make_mesh)
+    t_run = time.perf_counter()
+    mesh = make_mesh()
+    dev, rank = mesh.device, mesh.rank
+    check(dev == torch.device("cuda", 0) and dist.get_backend() == "gloo",
+          f"run B: {mesh}")
+    rec = {}
+    _mesh_take("run B start")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg = get_workload("marmousi_acoustic", save_dir=f"{out}/b{rank}")
+    engine = AcousticDIPEngine(cfg, mesh=mesh)
+    vp0 = _mesh_decode(engine)
+    losses, epoch_s = [], []
+    for epoch in range(1, MESH_EPOCHS + 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(engine.optimize_parameters(epoch)["loss_D"])
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t1)
+        w = all_gather(_mesh_weights(engine.net)[None], mesh)
+        check(torch.equal(w[0], w[1]),
+              f"run B: the ranks' weights differ after epoch {epoch}")
+    torch.cuda.synchronize()
+    rec.update(secs=time.perf_counter() - t0, losses=losses, epoch_s=epoch_s,
+               acoustic=_mesh_take("run B acoustic"),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    check(engine.physics_path == "fused+mesh",
+          f"run B: physics path {engine.physics_path}")
+    check(rec["acoustic"].get("fwi_l1_loss_grad") == [MESH_EPOCHS] * 2
+          + [0], f"run B: B2 not resident once an epoch: {rec}")
+    l0, g0 = engine.physics_value_and_grad(vp0)
+    _mesh_take("run B's first-step pair")
+    # the dry run's four layouts at world 2
+    t0 = time.perf_counter()
+    rec["dryrun"] = [dryrun.run(2), dryrun.run_mesh2d(2),
+                     dryrun.run_domain_decomp(2),
+                     dryrun.run_elastic_engine(2, save_dir=f"{out}/b_dry")]
+    torch.cuda.synchronize()
+    rec.update(dryrun_s=time.perf_counter() - t0,
+               dryrun_counts=_mesh_take("run B dry run"))
+    # the elastic landscape engine's surface, 3 x 3 points over 2 ranks
+    t0 = time.perf_counter()
+    el = ElasticDIPEngine(get_workload("marmousi_elastic",
+                                       save_dir=f"{out}/b_el"), device=dev)
+    setup = _mesh_take("run B elastic setup")
+    decode, misfit, data = physics_loss(el)
+
+    def loss_fn(p, d):
+        return misfit(decode(p, d), d)
+
+    params = {k: w.detach() for k, w in el.net.named_parameters()}
+    xs = np.linspace(-0.3, 0.3, 3)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    surf, d1, d2 = loss_surface_2d_sharded(
+        loss_fn, params, mesh, xs=xs, ys=xs, data=data,
+        out_axes=output_axes(el.net))
+    torch.cuda.synchronize()
+    rec.update(surface_s=time.perf_counter() - t1,
+               el_setup_s=t1 - t0, el_setup=setup,
+               surface=_mesh_take("run B surface"), surf=surf.tolist())
+    ring = rec["surface"].get("simulate_elastic_ring", [0, 0, 0])
+    check(ring == [5, 5, 0],
+          f"run B: the ring forwards of 5 points not resident: {ring}")
+    if rank == 0:
+        one, _, _ = loss_surface_2d(loss_fn, params, d1=d1, d2=d2, xs=xs,
+                                    ys=xs, data=data)
+        _mesh_take("run B one-rank surface")
+        rec["surf_rel_err"] = float(np.abs(surf - one).max()
+                                    / np.abs(one).max())
+        check(bool(np.isfinite(surf).all())
+              and rec["surf_rel_err"] <= 1e-6,
+              f"run B: sharded surface against one rank's "
+              f"{rec['surf_rel_err']:.3e}")
+    rec["run_s"] = time.perf_counter() - t_run
+    rec["run_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    _mesh_write(out, "b", rank, rec, l0=l0.cpu().numpy(),
+                g0=g0.cpu().numpy())
+
+
+def phase_mesh(dev):
+    """``parallel/`` on the card (see the module docstring, phase 23):
+    run A on one NCCL rank, run B on two gloo ranks sharing the card,
+    each a child process of its own.  Returns the launches of B1, B2, B3
+    and the ring forward on the runs' paths."""
+    import collections
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.parallel.dryrun import spawn
+    card = card_line()
+    print(f"phase 23 on {card}")
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    try:
+        t0 = time.perf_counter()
+        spawn(_mesh_a, 1, str(tmp), device="cuda", backend="nccl",
+              store_dir=str(tmp))
+        secs_a = time.perf_counter() - t0
+        a = json.loads((tmp / "a0.json").read_text())
+        pa = np.load(tmp / "a0.npz")
+        print(f"phase 23 run A (1 rank, NCCL, cuda:0; {card}): "
+              f"{secs_a:.1f} s with the process; marmousi_acoustic "
+              f"fused+mesh {MESH_EPOCHS} epochs in {a['secs']:.2f} s "
+              f"(setup included; epochs "
+              f"{', '.join(f'{x:.4f}' for x in a['epoch_s'])} s), loss_D "
+              f"{a['losses']} (the engine without a mesh's, to the bit, "
+              f"and its final weights), launches (all, resident, per-step) "
+              f"{a['acoustic']}, peak memory {a['peak_gib']:.2f} GiB; "
+              f"marmousi_elastic fused+mesh lstart {MESH_EL_LSTART} + 3 "
+              f"epochs in {a['el_secs']:.2f} s, loss_D_MSE "
+              f"{a['el_losses']}, launches {a['elastic']}, peak memory "
+              f"{a['el_peak_gib']:.2f} GiB")
+        for k, v in (*a["acoustic"].items(), *a["elastic"].items()):
+            launches[k] += v[0]
+        t0 = time.perf_counter()
+        spawn(_mesh_b, 2, str(tmp), device="cuda", backend="gloo",
+              store_dir=str(tmp))
+        secs_b = time.perf_counter() - t0
+        bs = [json.loads((tmp / f"b{r}.json").read_text()) for r in (0, 1)]
+        pb = np.load(tmp / "b0.npz")
+        for r, b in enumerate(bs):
+            print(f"phase 23 run B rank {r} (2 ranks, gloo, cuda:0; "
+                  f"{card}): marmousi_acoustic fused+mesh, 9 shots a rank, "
+                  f"{MESH_EPOCHS} epochs in {b['secs']:.2f} s (setup "
+                  f"included; steps "
+                  f"{', '.join(f'{x:.4f}' for x in b['epoch_s'])} s), "
+                  f"loss_D {b['losses']}, launches "
+                  f"{b['acoustic']}, peak memory {b['peak_gib']:.2f} GiB; "
+                  f"dry run (loss, 2-D loss, energy, elastic loss) "
+                  f"{b['dryrun']} in {b['dryrun_s']:.2f} s, launches "
+                  f"{b['dryrun_counts']}; elastic setup "
+                  f"{b['el_setup_s']:.2f} s ({b['el_setup']}), sharded "
+                  f"surface {b['surface_s']:.2f} s ({b['surface']}); "
+                  f"{b['run_s']:.1f} s in the rank, peak memory "
+                  f"{b['run_peak_gib']:.2f} GiB")
+            for part in ("acoustic", "dryrun_counts", "el_setup", "surface"):
+                for k, v in b[part].items():
+                    launches[k] += v[0]
+        b0 = bs[0]
+        check(bs[1]["losses"] == b0["losses"] and bs[1]["surf"] == b0["surf"],
+              "run B: the ranks' losses or surfaces differ")
+        first = abs(b0["losses"][0] - a["losses"][0]) / abs(a["losses"][0])
+        g_err = float(np.linalg.norm(pb["g0"] - pa["g0"])
+                      / np.linalg.norm(pa["g0"]))
+        l_err = float(abs(pb["l0"] - pa["l0"]) / abs(pa["l0"]))
+        drift = [abs(x - y) / abs(y) for x, y in zip(b0["losses"][1:],
+                                                      a["losses"][1:])]
+        print(f"phase 23 run B against run A: first step loss_D rel err "
+              f"{first:.3e}, its loss and dJ/dvp at the initial model rel "
+              f"err {l_err:.3e} and rel L2 {g_err:.3e} (tol "
+              f"{MESH_FIRST_RTOL:g}: the shots' sums in another order); "
+              f"epochs 2-{MESH_EPOCHS} rel err {drift} (tol "
+              f"{MESH_DRIFT_RTOL:g}: the shots' sums in another order, "
+              f"carried through the Adam steps); sharded surface "
+              f"{b0['surf']} against one rank's, max rel err "
+              f"{b0['surf_rel_err']:.3e}; {secs_b:.1f} s with the "
+              f"processes")
+        check(max(first, l_err, g_err) <= MESH_FIRST_RTOL,
+              "run B's first step against run A's")
+        check(max(drift) <= MESH_DRIFT_RTOL,
+              "run B's later epochs against run A's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s; kernel launches "
           f"{dict(launches)}")
     return launches
 
@@ -4414,7 +4752,8 @@ def main(argv: list[str]) -> int:
                   15: [phase_robust], 16: [phase_lbfgs],
                   17: [phase_config5], 18: [phase_config2],
                   19: [phase_other_engines], 20: [phase_dataroot],
-                  21: [phase_supervised], 22: [phase_landscape]}
+                  21: [phase_supervised], 22: [phase_landscape],
+                  23: [phase_mesh]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -4450,6 +4789,7 @@ def main(argv: list[str]) -> int:
     b3.update(b3_real)
     launches.update(phase_supervised(dev))
     launches.update(phase_landscape(dev))
+    launches.update(phase_mesh(dev))
     # phase 20's launches of each kernel it ran, by route
     for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
                          ("fused_elastic_loss_grad", b3),

@@ -4,7 +4,8 @@ paths, ``ElasticDIPEngine`` on its fused, "fast" and "xla" paths with
 held-out shots, the step cap, the drift guard's revert, illumination
 preconditioning, gradient smoothing and MC dropout, Adam or L-BFGS in
 both, SGLD or SGHMC in both, the VAE and flow generators' loss terms;
-``MultiSampleAcousticDIPEngine``, ``ClassicFWIEngine``,
+``MultiSampleAcousticDIPEngine``, the three with a rank mesh
+(``mesh=``: shot sharding, ``parallel/``), ``ClassicFWIEngine``,
 ``LatentInversionEngine``, ``ImpedanceDIPEngine`` and the supervised/GAN
 baselines' ``SupervisedEngine``; ``LrPolicy``, ``_make_optimizer``,
 ``_evict_stale_stages`` and ``create_engine``).
@@ -72,6 +73,13 @@ from physicsbasedfwi2_tpu_torch.optim.schedules import (
     PlateauController, make_scheduler,
 )
 from physicsbasedfwi2_tpu_torch.optim.sgmcmc import sghmc, sgld
+from physicsbasedfwi2_tpu_torch.parallel import (
+    all_gather, all_reduce, broadcast_module, pad_shots_for_fused,
+    pad_shots_to_multiple, sample_shot_sharded_acoustic_gradient,
+    shot_sharded_acoustic_gradient, shot_sharded_fused_acoustic_gradient,
+)
+from physicsbasedfwi2_tpu_torch.parallel.mesh import broadcast_
+from physicsbasedfwi2_tpu_torch.parallel.shard import shot_block
 
 # Offsets from cfg.seed of the engines' generators on the device, apart
 # so that no two draw from one Philox stream: dropout masks (0), a VAE's
@@ -91,25 +99,19 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _engine_device(device, workload) -> torch.device:
+def _engine_device(device, workload, mesh=None) -> torch.device:
     """The device an engine runs on: ``device``, else its workload's,
-    else :func:`default_device` (the card; raises without one)."""
+    else its mesh rank's, else :func:`default_device` (the card; raises
+    without one)."""
     if device is None:
         device = (workload.device if workload is not None
+                  else mesh.device if mesh is not None
                   else default_device())
     dev = _resolve_device(device)
     if workload is not None and workload.device != dev:
         raise ValueError(f"workload lives on {workload.device}, engine "
                          f"on {dev}")
     return dev
-
-
-def _not_ported(mesh=None) -> None:
-    """Raise for the option the port does not take yet: ``mesh`` (shot
-    sharding)."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: mesh (shot sharding): "
-                                  "ROADMAP Queue A, item 13")
 
 
 def _evict_stale_stages(cache: dict, fc: float) -> None:
@@ -377,13 +379,22 @@ class AcousticDIPEngine(EngineBase):
     planar-flow VAEs); a generator with a flow log-det and no KL term
     (AutoNF) adds ``flow_weight`` times the latent's negative
     log-likelihood 0.5 |z|^2 - log|det|.
+
+    With ``mesh`` (``parallel.make_mesh``, a "shot" axis) every rank
+    builds the same engine, takes rank 0's weights, and runs the physics
+    on its block of the shots, the shot axis padded to the mesh: kernel
+    B2 per rank ("fused+mesh", :func:`shot_sharded_fused_acoustic_gradient`)
+    or autograd through :func:`simulate_acoustic` ("sharded-xla",
+    :func:`shot_sharded_acoustic_gradient`); one all-reduce of the
+    detached loss and gradient then leaves the step the same on every
+    rank.  The "encoded" path runs whole on every rank.
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None,
                  val_workload=None, *, device=None):
-        _not_ported(mesh)
         self.cfg = cfg
-        self.device = _engine_device(device, workload)
+        self.mesh = mesh
+        self.device = _engine_device(device, workload, mesh)
         if workload is None and cfg.dataroot:
             workload = acoustic_workload_from_disk(
                 cfg.dataroot, wavelet_from_data=cfg.wavelet_from_data,
@@ -425,14 +436,15 @@ class AcousticDIPEngine(EngineBase):
         # device
         self._use_fused = not why
         if self._use_fused:
-            self.physics_path = ("fused-cuda" if self.device.type == "cuda"
-                                 else "fused-plain")
+            self.physics_path = (
+                "fused+mesh" if mesh is not None else
+                "fused-cuda" if self.device.type == "cuda" else "fused-plain")
             _log_path(cfg.name, "acoustic", self.physics_path)
         elif self._encoded:
             self.physics_path = "encoded"
             _log_path(cfg.name, "acoustic", self.physics_path)
         else:
-            self.physics_path = "xla"
+            self.physics_path = "sharded-xla" if mesh is not None else "xla"
             _log_path(cfg.name, "acoustic", self.physics_path,
                       "fused unavailable: " + ", ".join(why))
 
@@ -472,6 +484,8 @@ class AcousticDIPEngine(EngineBase):
             time_decimation=cfg.time_decimation, dropout=cfg.dropout,
             generator=torch.Generator().manual_seed(cfg.seed),
         ).to(self.device)
+        if mesh is not None:
+            broadcast_module(self.net, mesh)
         self.is_vae = cfg.netG.lower().startswith("vae")
         # net input: [1, nt, nr, ns] (NHWC, as the JAX engine feeds it)
         self.shots_in = self.wl.obs.permute(1, 2, 0)[None].contiguous()
@@ -524,6 +538,29 @@ class AcousticDIPEngine(EngineBase):
         pd["obs_rows"] = obs_rows
         return pd
 
+    def _shard(self, pd):
+        """With a mesh, pad the shot axis of the physics data ``pd`` to
+        it: kernel B2's operands on the fused path (zero wavelet and rows
+        for the pad shots, the padded wavelet as ``pd["wavp"]``, the
+        padded geometry and the shot counts in ``_fused_pad``), else the
+        geometry, observed gathers and direct wave (``pd["padded"]``),
+        with the real shots' ``pd["mask"]``."""
+        mesh = self.mesh
+        if mesh is None or self._encoded:
+            return pd
+        n = mesh.shape["shot"]
+        if self._use_fused:
+            (pd["wavp"], *geom, pd["obs_rows"], pd["dir_rows"]), ns, ns_pad \
+                = pad_shots_for_fused(pd["wav"], *self.wl.geom,
+                                      pd["obs_rows"], pd["dir_rows"], n)
+            self._fused_pad = (*geom, ns, ns_pad)
+        else:
+            arrays = [*self.wl.geom, pd["obs_norm"]]
+            if pd["direct"] is not None:
+                arrays.append(pd["direct"])
+            pd["padded"], pd["mask"] = pad_shots_to_multiple(arrays, n)
+        return pd
+
     def _build_physics(self):
         """The base physics data (the full band: wavelet, normalized
         observed gathers, direct wave and, on the fused path, the
@@ -536,6 +573,7 @@ class AcousticDIPEngine(EngineBase):
             self._phys["obs"] = wl.obs
         if self._use_fused:
             self._kernel_rows(self._phys, self._dir_rows)
+        self._shard(self._phys)
         self._stage_cache = {}
         if self.val_wl is not None:
             # the twin's network input is its simulate_acoustic output,
@@ -548,13 +586,13 @@ class AcousticDIPEngine(EngineBase):
 
     def _stage_data(self, fc):
         """Physics data of the continuation stage ``fc`` (port of the JAX
-        engine's ``_stage_phys_pd``; the mesh branches are not ported):
+        engine's ``_stage_phys_pd``):
         the wavelet, the observed gathers (then trace-normalized) and the
         direct wave low-passed at ``fc`` once per stage (by linearity
         simulating with the filtered wavelet equals filtering the
         prediction), and on the fused path the kernel's rows rebuilt from
-        them.  ``fc <= 0`` returns the base data; a new stage evicts the
-        cached ones."""
+        them, padded to the mesh (:meth:`_shard`).  ``fc <= 0`` returns
+        the base data; a new stage evicts the cached ones."""
         key = float(fc or 0.0)
         if key <= 0.0:
             return self._phys
@@ -574,6 +612,7 @@ class AcousticDIPEngine(EngineBase):
                             lowpass_filter_time(self._dir_rows, key, dt,
                                                 axis=1))
                 self._kernel_rows(pd, dir_rows)
+            self._shard(pd)
             _evict_stale_stages(self._stage_cache, key)
             self._stage_cache[key] = pd
         return self._stage_cache[key]
@@ -589,8 +628,9 @@ class AcousticDIPEngine(EngineBase):
         """(loss, processed dJ/dvp) at stage ``fc`` (0 = full band): the
         fused loss+gradient (B2), on the "encoded" path the super-shots'
         (``encoding``, else a fresh one), or on the "xla" path autograd
-        through :func:`simulate_acoustic`; then depth^2 weighting, the
-        water mask and ``grad_scale``."""
+        through :func:`simulate_acoustic`, each on this rank's shots with
+        a mesh, all-reduced; then depth^2 weighting, the water mask and
+        ``grad_scale``."""
         cfg, wl = self.cfg, self.wl
         pd = self._stage_data(fc)
         if self._encoded:
@@ -598,10 +638,23 @@ class AcousticDIPEngine(EngineBase):
             loss, grad = encoded_fwi_gradient(
                 vp, pd["obs"], pd["wav"], *self._geom, wl.cfg,
                 cfg.encoded_shots, groups=groups, pol=pol, misfit=cfg.misfit)
+        elif self._use_fused and self.mesh is not None:
+            *geom, ns, ns_pad = self._fused_pad
+            loss, grad = shot_sharded_fused_acoustic_gradient(
+                self.mesh, vp, pd["wavp"], *geom, wl.cfg, pd["obs_rows"],
+                pd["dir_rows"])
+            # each rank's call normalizes by its padded shot count
+            loss, grad = loss * (ns_pad / ns), grad * (ns_pad / ns)
         elif self._use_fused:
             loss, grad = fwi_l1_loss_grad(vp, pd["wav"], *self._geom,
                                           wl.cfg, pd["obs_rows"],
                                           pd["dir_rows"])
+        elif self.mesh is not None:
+            sz, sx, rz, rx, obs, *direct = pd["padded"]
+            loss, grad = shot_sharded_acoustic_gradient(
+                self.mesh, vp, obs, pd["wav"], sz, sx, rz, rx, wl.cfg,
+                misfit=cfg.misfit, shot_mask=pd["mask"],
+                direct=direct[0] if direct else None)
         else:
             def misfit(pred):
                 # the reference pipeline: subtract the direct wave,
@@ -791,13 +844,27 @@ class ElasticDIPEngine(EngineBase):
     masks from a generator of its own on the engine's device, seeded from
     ``cfg.seed``; every other decode is deterministic, and
     :meth:`mc_realizations` draws the MC-dropout ensemble.
+
+    With ``mesh`` (a "shot" axis whose size divides ``shots_per_iter``;
+    DENISE's 30 MPI ranks, networks.py:7709-7710) every rank takes rank
+    0's weights and shot subset and runs the path on its block of the
+    subset (B3 per rank on the fused path), then a mean all-reduce of
+    the loss and gradient; the path's name gains "+mesh".
     """
 
     def __init__(self, cfg: ExperimentConfig, workload=None, mesh=None, *,
                  device=None):
-        _not_ported(mesh)
         self.cfg = cfg
-        self.device = _engine_device(device, workload)
+        self.mesh = mesh
+        if mesh is not None:
+            nsub = cfg.shots_per_iter or cfg.num_shots
+            n_dev = mesh.shape["shot"]
+            if nsub % n_dev:
+                raise ValueError(
+                    f"shots_per_iter ({nsub}) must be divisible by the "
+                    f"mesh shot axis ({n_dev}): pick e.g. "
+                    f"shots_per_iter={-(-nsub // n_dev) * n_dev}")
+        self.device = _engine_device(device, workload, mesh)
         self.wl = workload or elastic_workload(cfg, self.device)
         self.n_shots = int(self.wl.acq.num_shots)
         if self.n_shots != cfg.num_shots:
@@ -826,16 +893,21 @@ class ElasticDIPEngine(EngineBase):
              "duplicate receiver columns")) if cond]
         self._use_fused = not why
         if self._use_fused:
+            base, self._sim = "fused", simulate_elastic_ring
+        elif cfg.backend in ("auto", "fast", "pallas"):
+            base, self._sim = "fast", simulate_elastic_fast
+        else:
+            base, self._sim = "xla", simulate_elastic
+        if mesh is not None:
+            self.physics_path = base + "+mesh"
+        elif self._use_fused:
             self.physics_path = ("fused-cuda" if self.device.type == "cuda"
                                  else "fused-plain")
-            self._sim = simulate_elastic_ring
-        elif cfg.backend in ("auto", "fast", "pallas"):
-            self.physics_path, self._sim = "fast", simulate_elastic_fast
         else:
-            self.physics_path, self._sim = "xla", simulate_elastic
+            self.physics_path = base
         _log_path(cfg.name, "elastic", self.physics_path,
                   "fused unavailable: " + ", ".join(why) if why else "")
-        if self.physics_path != "xla" and not self.wl.from_disk:
+        if base != "xla" and not self.wl.from_disk:
             # regenerate obs with the path's operator so the misfit is
             # zero at the true model
             wl = self.wl
@@ -851,6 +923,8 @@ class ElasticDIPEngine(EngineBase):
             head=cfg.elastic_head,
             generator=torch.Generator().manual_seed(cfg.seed),
         ).to(self.device)
+        if mesh is not None:
+            broadcast_module(self.net, mesh)
         # net inputs: [1, nt, nr, ns] (NHWC, as the JAX engine feeds them)
         self.in_vx = self.wl.obs_vx.permute(1, 2, 0)[None].contiguous()
         self.in_vz = self.wl.obs_vz.permute(1, 2, 0)[None].contiguous()
@@ -991,6 +1065,18 @@ class ElasticDIPEngine(EngineBase):
             misfit="l2" if self.cfg.misfit == "snl2" else self.cfg.misfit)
         return loss, torch.stack([grads[k] for k in self.field_names], -1)
 
+    def _sharded_value_and_grad(self, m, shot_idx, pd, rho=None):
+        """(loss, dJ/dm) with the shot subset sharded over the mesh's
+        "shot" axis: the path's value and gradient (B3 on the fused
+        path) on this rank's block, then a mean all-reduce (each block's
+        misfit is a mean over its shots)."""
+        blk = shot_block(self.mesh, "shot", int(shot_idx.shape[0]))
+        local = (self._fused_value_and_grad if self._use_fused
+                 else self._autograd_value_and_grad)
+        loss, gm = local(m, shot_idx[blk], pd, rho)
+        return (all_reduce(loss, self.mesh, "shot", mean=True),
+                all_reduce(gm, self.mesh, "shot", mean=True))
+
     def _illum_weight(self):
         """DENISE's EPRECOND weight [nz, nx]: 1 / (il + grad_illum_eps),
         il the source illumination of the starting model over all shots
@@ -1017,8 +1103,10 @@ class ElasticDIPEngine(EngineBase):
         cfg = self.cfg
         taper_rows = (cfg.grad_taper_rows if cfg.grad_taper_rows
                       is not None else cfg.water_rows)
-        value_and_grad = (self._fused_value_and_grad if self._use_fused
-                          else self._autograd_value_and_grad)
+        value_and_grad = (
+            self._sharded_value_and_grad if self.mesh is not None
+            else self._fused_value_and_grad if self._use_fused
+            else self._autograd_value_and_grad)
         loss, gm = value_and_grad(m, shot_idx, pd, rho)
         cols = []
         for k in range(self.n_fields):
@@ -1105,6 +1193,9 @@ class ElasticDIPEngine(EngineBase):
         # random shot subset per iteration, drawn every epoch
         perm = torch.randperm(int(pool.shape[0]), generator=self._shot_gen)
         idx = pool[perm[:nsub].to(pool.device)]
+        if self.mesh is not None:
+            # every rank runs rank 0's subset
+            broadcast_(idx, self.mesh)
         use_physics = epoch > cfg.lstart
         if (use_physics and cfg.lstart > 0 and cfg.phase_reset_opt
                 and not self._phase_reset_done):
@@ -1336,11 +1427,16 @@ def _set_lr(engine, epoch: int) -> None:
 class MultiSampleAcousticDIPEngine(EngineBase):
     """One generator trained on a batch of acoustic FWI samples
     (``engine="acoustic_dip_multi"``): the generator runs over the batch,
-    and the physics is a loop over the samples (the JAX engine's vmap;
-    its {sample, shot} mesh is not ported): each sample's trace-normalized
-    misfit by autograd through :func:`simulate_acoustic`, their mean the
-    loss.  Each sample's dJ/dvp gets depth^2 weighting and its own water
-    mask, times ``grad_scale``, through :class:`_PhysicsLoss`.
+    and the physics is a loop over the samples (the JAX engine's vmap,
+    "xla-loop"): each sample's trace-normalized misfit by autograd
+    through :func:`simulate_acoustic`, their mean the loss.  With a
+    {sample, shot} ``mesh`` (``parallel.make_mesh2d``) each rank takes
+    rank 0's weights, runs the generator on the whole batch and the
+    physics on its block of samples and shots
+    (:func:`sample_shot_sharded_acoustic_gradient`,
+    "sample-shot-sharded"), and gathers the per-sample gradients over the
+    sample axis.  Each sample's dJ/dvp gets depth^2 weighting and its
+    own water mask, times ``grad_scale``, through :class:`_PhysicsLoss`.
 
     One direct wave (the constant water model is the same for every
     sample) is subtracted from every prediction and from the gathers of
@@ -1351,10 +1447,13 @@ class MultiSampleAcousticDIPEngine(EngineBase):
 
     def __init__(self, cfg: ExperimentConfig, workloads=None, mesh=None,
                  n_samples: int = 2, *, device=None):
-        _not_ported(mesh)
+        if mesh is not None and not {"sample", "shot"} <= set(mesh.shape):
+            raise ValueError("the multi-sample engine takes a {sample, shot} "
+                             "mesh (parallel.make_mesh2d)")
         self.cfg = cfg
-        self.device = _engine_device(device,
-                                     workloads[0] if workloads else None)
+        self.mesh = mesh
+        self.device = _engine_device(
+            device, workloads[0] if workloads else None, mesh)
         if workloads is None:
             workloads = [SyntheticAcousticWorkload.build(
                 nz=cfg.nz, nx=cfg.nx, dx=cfg.dx, nt=cfg.nt, dt=cfg.dt,
@@ -1391,34 +1490,44 @@ class MultiSampleAcousticDIPEngine(EngineBase):
             time_decimation=cfg.time_decimation,
             generator=torch.Generator().manual_seed(cfg.seed),
         ).to(self.device)
+        if mesh is not None:
+            broadcast_module(self.net, mesh)
         self.opt = _first_order_optimizer(cfg, self.net,
                                           "the multi-sample engine")
         self.lr_policy = LrPolicy(cfg) if cfg.optimizer == "adam" else None
-        self.physics_path = "xla-loop"
+        self.physics_path = ("sample-shot-sharded" if mesh is not None
+                             else "xla-loop")
         _log_path(cfg.name, "multi-sample acoustic", self.physics_path)
 
     def physics_value_and_grad(self, vps: torch.Tensor):
         """(mean over the samples of each one's misfit, processed dJ/dvps
         [S, nz, nx]) at the models ``vps``."""
         cfg = self.cfg
-        mis = l1_misfit if cfg.misfit == "l1" else l2_misfit
-        # the mean's cotangent of each sample's loss
-        ct = torch.tensor(1.0 / vps.shape[0], device=vps.device)
-        losses, grads = [], []
-        for vp, obs_norm, true in zip(vps, self.obs_norm, self.vp_true):
-            with torch.enable_grad():
-                v = vp.detach().requires_grad_(True)
-                pred = simulate_acoustic(v, self._wav, *self._geom,
-                                         self._wcfg)
-                if self._direct is not None:
-                    pred = pred - self._direct
-                loss = mis(trace_normalize(pred), obs_norm)
-                (g,) = torch.autograd.grad(loss, v, ct)
-            losses.append(loss.detach())
-            grads.append(water_mask(depth_weighting(g, 2.0), true,
-                                    cfg.water_vel))
-        return (torch.mean(torch.stack(losses)),
-                torch.stack(grads) * cfg.grad_scale)
+        if self.mesh is not None:
+            loss, raw = sample_shot_sharded_acoustic_gradient(
+                self.mesh, vps, self.obs_norm, self._wav, *self._geom,
+                self._wcfg, misfit=cfg.misfit, direct=self._direct)
+            raw = all_gather(raw, self.mesh, "sample")
+        else:
+            mis = l1_misfit if cfg.misfit == "l1" else l2_misfit
+            # the mean's cotangent of each sample's loss
+            ct = torch.tensor(1.0 / vps.shape[0], device=vps.device)
+            losses, raw = [], []
+            for vp, obs_norm in zip(vps, self.obs_norm):
+                with torch.enable_grad():
+                    v = vp.detach().requires_grad_(True)
+                    pred = simulate_acoustic(v, self._wav, *self._geom,
+                                             self._wcfg)
+                    if self._direct is not None:
+                        pred = pred - self._direct
+                    loss = mis(trace_normalize(pred), obs_norm)
+                    (g,) = torch.autograd.grad(loss, v, ct)
+                losses.append(loss.detach())
+                raw.append(g)
+            loss = torch.mean(torch.stack(losses))
+        grads = [water_mask(depth_weighting(g, 2.0), true, cfg.water_vel)
+                 for g, true in zip(raw, self.vp_true)]
+        return loss, torch.stack(grads) * cfg.grad_scale
 
     def _decode(self):
         out = pack_output(self.net(self.shots_in))

@@ -190,6 +190,10 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     ``guard_patience`` evaluations above ``guard_tol`` x that best,
     reverts to the snapshot with a fresh optimizer.
 
+    An engine with a mesh (``mesh=``, every rank of ``torchrun`` running
+    this loop) writes its logs and checkpoints from the mesh's first
+    rank only.
+
     With ``profile_dir`` and ``profile_epochs > 0`` a ``torch.profiler``
     trace of the first ``profile_epochs`` epochs is written to
     ``profile_dir/<name>.pt.trace.json`` (Chrome trace format): device
@@ -212,8 +216,12 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
         engine.load_networks(continue_from)
         if not quiet:
             print(f"resumed weights from checkpoint {continue_from!r}")
-    viz = Visualizer(cfg)
-    viz.dump_config(cfg)
+    # under a mesh every rank runs this loop on the same weights: the
+    # mesh's first rank alone writes the logs and checkpoints
+    lead = getattr(engine, "mesh", None) is None or engine.mesh.rank == 0
+    viz = Visualizer(cfg) if lead else None
+    if lead:
+        viz.dump_config(cfg)
     epochs = epochs if epochs is not None else cfg.n_epochs
     stages = list(cfg.freq_stages) or [None]
     stage_i = 0
@@ -234,7 +242,7 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
     guard_stage_i = 0
     guard_reverts = 0
     prof = None
-    if profile_dir and profile_epochs > 0:
+    if profile_dir and profile_epochs > 0 and lead:
         prof = _start_profile(engine)
     for epoch in range(start_epoch, epochs + 1):
         t0 = time.time()
@@ -314,15 +322,17 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
             best_h = agg["loss_H"]
             selected_epoch = epoch
             rec["selected_epoch"] = epoch
-            engine.save_networks("selected")
+            if lead:
+                engine.save_networks("selected")
         history.append(rec)
-        viz.log_epoch(rec, model_img=model_img)
+        if lead:
+            viz.log_epoch(rec, model_img=model_img)
         if prof is not None and epoch - start_epoch + 1 == profile_epochs:
             path = _stop_profile(prof, profile_dir, cfg.name)
             prof = None
             if not quiet:
                 print(f"profiler trace written to {path}")
-        if epoch % cfg.save_epoch_freq == 0 or epoch == epochs:
+        if lead and (epoch % cfg.save_epoch_freq == 0 or epoch == epochs):
             engine.save_networks(epoch)
             engine.save_networks("latest")
     if prof is not None:

@@ -3,8 +3,8 @@
 Li et al. (NIPS'18) adapted to FWI: filter-normalized random
 directions, 2D loss surfaces over the *physics* misfit, Hessian
 eigenvalue estimates from exact Hessian-vector products, trajectory PCA
-and ParaView export.  ``loss_surface_2d_sharded`` comes with
-``parallel/`` and raises until then.
+and ParaView export; ``loss_surface_2d_sharded`` sweeps a surface over the
+ranks of a mesh (``parallel/``).
 """
 
 from physicsbasedfwi2_tpu_torch.landscape.surface import (

@@ -5,7 +5,8 @@ The reference's ``net_plotter.py`` (filter-wise normalized random
 directions) and ``plot_surface2.py``'s ``crunch2`` (a grid of (x, y)
 points, each evaluating the full physics data misfit).  Here the grid is
 swept point by point on one device without autograd, the losses copied
-to the host every ``batch`` points.
+to the host every ``batch`` points, or (:func:`loss_surface_2d_sharded`)
+split over the ranks of a mesh.
 
 Parameters, directions and perturbed parameters are dicts of tensors by
 the port's parameter names (``dict(net.named_parameters())``); a loss
@@ -142,9 +143,42 @@ def loss_surface_2d(loss_fn, params, *, generator=None, d1=None, d2=None,
     return flat.reshape(len(ys), len(xs)), d1, d2
 
 
-def loss_surface_2d_sharded(loss_fn, params, mesh, **kw):
-    """The multi-device sweep (grid points sharded over a mesh).  Not
-    ported yet: it comes with ``parallel/``."""
-    raise NotImplementedError("not ported yet: loss_surface_2d_sharded "
-                              "(multi-device sweep): ROADMAP Queue A, "
-                              "item 13")
+def loss_surface_2d_sharded(loss_fn, params, mesh, *, generator=None,
+                            d1=None, d2=None, xs=None, ys=None,
+                            norm: str = "filter", axis: str = "shot",
+                            data=None, out_axes=None):
+    """:func:`loss_surface_2d` with the grid points sharded over ``axis``
+    of a rank mesh (``parallel.make_mesh``): the reference's mpi4py
+    rank-partitioned ``crunch2`` (plot_surface2.py:156-229).  The points,
+    padded with (0, 0) to a multiple of the axis, are split into
+    contiguous blocks; each rank evaluates its block without autograd,
+    and one all-gather gives every rank the whole surface.  Every rank
+    must hold the same ``params``, directions and data (the directions
+    drawn from ``generator``, default seed 0, are).  Returns (losses
+    [len(ys), len(xs)] as numpy, d1, d2)."""
+    from physicsbasedfwi2_tpu_torch.parallel import all_gather
+    from physicsbasedfwi2_tpu_torch.parallel.shard import shot_block
+    if xs is None:
+        xs = np.linspace(-1, 1, 21)
+    if ys is None:
+        ys = np.linspace(-1, 1, 21)
+    if d1 is None or d2 is None:
+        gen = generator if generator is not None else (
+            torch.Generator().manual_seed(0))
+        d1 = filter_normalized_direction(params, gen, norm=norm,
+                                         out_axes=out_axes)
+        d2 = filter_normalized_direction(params, gen, norm=norm,
+                                         out_axes=out_axes)
+    gx, gy = np.meshgrid(xs, ys)
+    coords = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float32)
+    n = coords.shape[0]
+    coords = np.pad(coords, ((0, (-n) % mesh.shape[axis]), (0, 0)))
+    params = {k: w.detach() for k, w in params.items()}
+    local = []
+    with torch.no_grad():
+        for x, y in coords[shot_block(mesh, axis, len(coords))]:
+            p = perturb_params(params, d1, d2, float(x), float(y))
+            local.append(loss_fn(p) if data is None else loss_fn(p, data))
+    flat = all_gather(torch.stack(local).to(torch.float32), mesh, axis)
+    flat = flat.cpu().numpy()[:n]
+    return flat.reshape(len(ys), len(xs)), d1, d2

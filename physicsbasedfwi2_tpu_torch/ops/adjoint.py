@@ -65,23 +65,20 @@ def _checkpoints_cuda(kap, damp, src_amp, sz, sx, rrow, a, route=None):
     route, plan = _route(kap, route)
     ckpt = torch.empty((ns, n_ck, 4, nz8, nx128), dtype=torch.float32,
                        device=dev)
-    lib = cuda_build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [t.data_ptr() for t in (src_amp, sz, sx, rrow)]
     if route == "resident":
-        err = lib.b6_checkpoints_resident(
-            kap.data_ptr(), *(t.data_ptr() for t in damp_profiles(damp)),
-            *ptr, ckpt.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT,
-            *plan.args(), a, stream)
-        cuda_build.check(err, "b6_checkpoints_resident")
+        cuda_build.call(
+            dev, "b6_checkpoints_resident", kap.data_ptr(), *(t.data_ptr() for
+            t in damp_profiles(damp)), *ptr, ckpt.data_ptr(), ns, nz8, nx128,
+            n_ck, K_CKPT, *plan.args(), a, stream)
     else:
         st = torch.empty((ns, 4, nz8, nx128), dtype=torch.float32,
                          device=dev)
-        err = lib.b6_checkpoints(
-            kap.data_ptr(), *(d.data_ptr() for d in damp), *ptr,
-            st.data_ptr(), ckpt.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT, a,
-            stream)
-        cuda_build.check(err, "b6_checkpoints")
+        cuda_build.call(
+            dev, "b6_checkpoints", kap.data_ptr(), *(d.data_ptr() for d in
+            damp), *ptr, st.data_ptr(), ckpt.data_ptr(), ns, nz8, nx128, n_ck,
+            K_CKPT, a, stream)
     return ckpt
 
 
@@ -102,25 +99,22 @@ def _adjoint_cuda(kap, damp, wav, src_amp, sz, sx, rrow, ybar, ckpt, a,
 
     dxv, dzv = buf(ns, K_CKPT), buf(ns, K_CKPT)
     gk_shots, gk = buf(ns), buf()
-    lib = cuda_build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [t.data_ptr() for t in (src_amp, dg, sz, sx, rrow, ybar, ckpt)]
     out = [t.data_ptr() for t in (dxv, dzv)]
     if route == "resident":
         stash = buf(ns, 4)
-        err = lib.b6_adjoint_resident(
-            kap.data_ptr(), *(t.data_ptr() for t in damp_profiles(damp)),
-            *ptr, *out, stash.data_ptr(), gk_shots.data_ptr(),
-            gk.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT, *plan.args(), a,
-            stream)
-        cuda_build.check(err, "b6_adjoint_resident")
+        cuda_build.call(
+            dev, "b6_adjoint_resident", kap.data_ptr(), *(t.data_ptr() for t in
+            damp_profiles(damp)), *ptr, *out, stash.data_ptr(),
+            gk_shots.data_ptr(), gk.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT,
+            *plan.args(), a, stream)
     else:
         st, ast = buf(ns, 4), buf(ns, 4)
-        err = lib.b6_adjoint(
-            kap.data_ptr(), *(d.data_ptr() for d in damp), *ptr,
-            st.data_ptr(), ast.data_ptr(), *out, gk_shots.data_ptr(),
+        cuda_build.call(
+            dev, "b6_adjoint", kap.data_ptr(), *(d.data_ptr() for d in damp),
+            *ptr, st.data_ptr(), ast.data_ptr(), *out, gk_shots.data_ptr(),
             gk.data_ptr(), ns, nz8, nx128, n_ck, K_CKPT, a, stream)
-        cuda_build.check(err, "b6_adjoint")
     return gk
 
 

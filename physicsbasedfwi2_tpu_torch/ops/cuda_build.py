@@ -153,6 +153,17 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+def call(device, name: str, *args) -> None:
+    """Call the C entry point ``name`` with ``device`` the current CUDA
+    device (the entry points launch on the current device and ask it
+    about occupancy; None keeps the current one), and raise on the error
+    code it returns."""
+    import torch
+    with torch.cuda.device(device):
+        err = getattr(load_library(), name)(*args)
+    check(err, name)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

@@ -435,9 +435,9 @@ def elastic_forward_max_active_clusters(plan: ResidentPlan, ns: int,
 
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     out = ctypes.c_int(0)
-    err = cuda_build.load_library().pbfwi_ring_max_clusters(
-        ns, nz8, nx128, *plan.args(), ctypes.byref(out))
-    cuda_build.check(err, "pbfwi_ring_max_clusters")
+    cuda_build.call(
+        None, "pbfwi_ring_max_clusters", ns, nz8, nx128, *plan.args(),
+        ctypes.byref(out))
     return out.value
 
 
@@ -450,9 +450,9 @@ def elastic_max_active_clusters(plan: ResidentPlan, ns: int, nz8: int,
 
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     out = ctypes.c_int(0)
-    err = cuda_build.load_library().pbfwi_b3_max_clusters(
-        int(reverse), ns, nz8, nx128, *plan.args(), ctypes.byref(out))
-    cuda_build.check(err, "pbfwi_b3_max_clusters")
+    cuda_build.call(
+        None, "pbfwi_b3_max_clusters", int(reverse), ns, nz8, nx128,
+        *plan.args(), ctypes.byref(out))
     return out.value
 
 
@@ -481,7 +481,6 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
         raise ValueError(f"fused_elastic_loss_grad_meds: misfit {misfit!r}")
     route, plan = pick_route("fused_elastic_loss_grad_meds", nz8, nx128,
                              route, elastic_resident_plan)
-    lib = cuda_build.load_library()
 
     def buf(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=f32, device=dev)
@@ -498,16 +497,16 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
                                   loss, gmed)]
     tnl1 = 1 if misfit == "tnl1" else 0
     if route == "resident":
-        err = lib.b3_fused_elastic_loss_grad_resident(
-            *ptrs, *out, ns, nz8, nx128, nt, n_ck, KC, fs_row, tnl1,
-            *plan.args(), dtx, dt_invdx2, inv_count, stream)
-        cuda_build.check(err, "b3_fused_elastic_loss_grad_resident")
+        cuda_build.call(
+            dev, "b3_fused_elastic_loss_grad_resident", *ptrs, *out, ns, nz8,
+            nx128, nt, n_ck, KC, fs_row, tnl1, *plan.args(), dtx, dt_invdx2,
+            inv_count, stream)
     else:
         state, cot = buf(ns, 5), buf(ns, 5)
-        err = lib.b3_fused_elastic_loss_grad(
-            *ptrs, state.data_ptr(), cot.data_ptr(), *out, ns, nz8, nx128, nt, n_ck, KC, fs_row, tnl1, dtx, dt_invdx2,
-            inv_count, stream)
-        cuda_build.check(err, "b3_fused_elastic_loss_grad")
+        cuda_build.call(
+            dev, "b3_fused_elastic_loss_grad", *ptrs, state.data_ptr(),
+            cot.data_ptr(), *out, ns, nz8, nx128, nt, n_ck, KC, fs_row, tnl1,
+            dtx, dt_invdx2, inv_count, stream)
     count_launch(fused_elastic_loss_grad_meds, route)
     return loss, tuple(gmed.unbind(0))
 
@@ -536,21 +535,18 @@ def forward_rows_cuda(fn, meds, damp, wav, sz, sx, rrow, gain, fs_row, nt,
     if wav.shape[1] < nt:
         raise ValueError(f"{what}: wavelet shorter than nt")
     route, plan = pick_route(what, nz8, nx128, route, elastic_forward_plan)
-    lib = cuda_build.load_library()
     hist = torch.empty((2, ns, nt, nx128), dtype=f32, device=dev)
     ptrs = [a.data_ptr() for a in (med, damp, wav, sz, sx, rrow, gain)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "resident":
-        err = lib.b3_elastic_ring_resident(
-            *ptrs, hist.data_ptr(), ns, nz8, nx128, nt, wav.shape[1], fs_row,
-            *plan.args(), dtx, stream)
-        cuda_build.check(err, "b3_elastic_ring_resident")
+        cuda_build.call(
+            dev, "b3_elastic_ring_resident", *ptrs, hist.data_ptr(), ns, nz8,
+            nx128, nt, wav.shape[1], fs_row, *plan.args(), dtx, stream)
     else:
         state = torch.empty((ns, 5, nz8, nx128), dtype=f32, device=dev)
-        err = lib.b3_elastic_ring(
-            *ptrs, state.data_ptr(), hist.data_ptr(), ns, nz8, nx128, nt,
-            wav.shape[1], fs_row, dtx, stream)
-        cuda_build.check(err, "b3_elastic_ring")
+        cuda_build.call(
+            dev, "b3_elastic_ring", *ptrs, state.data_ptr(), hist.data_ptr(),
+            ns, nz8, nx128, nt, wav.shape[1], fs_row, dtx, stream)
     count_launch(fn, route)
     return hist[0], hist[1]
 

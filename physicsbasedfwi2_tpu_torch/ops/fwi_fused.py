@@ -103,7 +103,6 @@ def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
         raise ValueError("fwi_l1_loss_grad: wavelet must be padded to "
                          "a multiple of KC >= nt")
     route, plan = pick_route("fwi_l1_loss_grad", nz8, nx128, route)
-    lib = cuda_build.load_library()
 
     def field(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=f32, device=dev)
@@ -121,18 +120,17 @@ def _loss_gk_cuda(K, dp, dm, wav, sz, sx, rrow, obs_rows, dir_rows, rmask,
     gk_shots, lapc, ckpt = field(ns), field(ns, KC), field(ns, n_ck, 2)
     if route == "resident":
         out = [gk_shots, lapc, hist, ckpt, loss_part, loss, gk]
-        err = lib.b2_fwi_l1_loss_grad_resident(
-            *ptrs, *(a.data_ptr() for a in out), gw_ptr, ns, nz8, nx128, nt,
-            n_ck, KC, *plan.args(), inv_count, stream)
-        cuda_build.check(err, "b2_fwi_l1_loss_grad_resident")
+        cuda_build.call(
+            dev, "b2_fwi_l1_loss_grad_resident", *ptrs, *(a.data_ptr() for a in
+            out), gw_ptr, ns, nz8, nx128, nt, n_ck, KC, *plan.args(),
+            inv_count, stream)
     else:
         u0, um1, pb0, pb1, qb = (field(ns) for _ in range(5))
         out = [u0, um1, pb0, pb1, qb, gk_shots, lapc, hist, ckpt, loss_part,
                loss, gk]
-        err = lib.b2_fwi_l1_loss_grad(
-            *ptrs, *(a.data_ptr() for a in out), gw_ptr, ns, nz8, nx128, nt,
-            n_ck, KC, inv_count, stream)
-        cuda_build.check(err, "b2_fwi_l1_loss_grad")
+        cuda_build.call(
+            dev, "b2_fwi_l1_loss_grad", *ptrs, *(a.data_ptr() for a in out),
+            gw_ptr, ns, nz8, nx128, nt, n_ck, KC, inv_count, stream)
     count_launch(fwi_l1_loss_grad, route)
     return loss, gk, gw
 

@@ -210,9 +210,9 @@ def acoustic_max_active_clusters(plan: ResidentPlan, ns: int, nz8: int,
 
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     out = ctypes.c_int(0)
-    err = cuda_build.load_library().pbfwi_b56_max_clusters(
-        int(reverse), ns, nz8, nx128, *plan.args(), ctypes.byref(out))
-    cuda_build.check(err, "pbfwi_b56_max_clusters")
+    cuda_build.call(
+        None, "pbfwi_b56_max_clusters", int(reverse), ns, nz8, nx128,
+        *plan.args(), ctypes.byref(out))
     return out.value
 
 
@@ -238,23 +238,21 @@ def _rows_cuda(kap, damp, src_amp, sz, sx, rrow, a: float, route=None):
                    rrow)
     route, plan = pick_route("acoustic_forward_pallas", nz8, nx128, route,
                              acoustic_resident_plan)
-    lib = cuda_build.load_library()
     hist = torch.empty((ns, nt, nx128), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [t.data_ptr() for t in (src_amp, sz, sx, rrow)]
     if route == "resident":
-        err = lib.b5_acoustic_forward_resident(
-            kap.data_ptr(), *(t.data_ptr() for t in damp_profiles(damp)),
-            *ptr, hist.data_ptr(), ns, nz8, nx128, nt, *plan.args(), a,
-            stream)
-        cuda_build.check(err, "b5_acoustic_forward_resident")
+        cuda_build.call(
+            dev, "b5_acoustic_forward_resident", kap.data_ptr(), *(t.data_ptr()
+            for t in damp_profiles(damp)), *ptr, hist.data_ptr(), ns, nz8,
+            nx128, nt, *plan.args(), a, stream)
     else:
         st = torch.empty((ns, 4, nz8, nx128), dtype=torch.float32,
                          device=dev)
-        err = lib.b5_acoustic_forward(
-            kap.data_ptr(), *(d.data_ptr() for d in damp), *ptr,
-            st.data_ptr(), hist.data_ptr(), ns, nz8, nx128, nt, a, stream)
-        cuda_build.check(err, "b5_acoustic_forward")
+        cuda_build.call(
+            dev, "b5_acoustic_forward", kap.data_ptr(), *(d.data_ptr() for d in
+            damp), *ptr, st.data_ptr(), hist.data_ptr(), ns, nz8, nx128, nt, a,
+            stream)
     count_launch(acoustic_forward_pallas, route)
     return hist
 

@@ -285,9 +285,9 @@ def max_active_clusters(plan: ResidentPlan, ns: int, nz8: int, nx128: int,
 
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     out = ctypes.c_int(0)
-    err = cuda_build.load_library().pbfwi_resident_max_clusters(
-        int(reverse), group, ns, nz8, nx128, *plan.args(), ctypes.byref(out))
-    cuda_build.check(err, "pbfwi_resident_max_clusters")
+    cuda_build.call(
+        None, "pbfwi_resident_max_clusters", int(reverse), group, ns, nz8,
+        nx128, *plan.args(), ctypes.byref(out))
     return out.value
 
 
@@ -300,20 +300,19 @@ def _rows_cuda(K, dp, dm, wav, sz, sx, rrow, nt, route=None):
     if wav.shape != (ns, nt):
         raise ValueError("forward2: wavelet must be [ns, nt]")
     route, plan = pick_route("forward2", nz8, nx128, route)
-    lib = cuda_build.load_library()
     hist = torch.zeros((ns, nt, nx128), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow)]
     if route == "resident":
-        err = lib.b1_forward2_resident(*ptrs, hist.data_ptr(), ns, nz8,
-                                       nx128, nt, *plan.args(), stream)
-        cuda_build.check(err, "b1_forward2_resident")
+        cuda_build.call(
+            dev, "b1_forward2_resident", *ptrs, hist.data_ptr(), ns, nz8,
+            nx128, nt, *plan.args(), stream)
     else:
         u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
         um1 = torch.empty_like(u0)
-        err = lib.b1_forward2(*ptrs, u0.data_ptr(), um1.data_ptr(),
-                              hist.data_ptr(), ns, nz8, nx128, nt, stream)
-        cuda_build.check(err, "b1_forward2")
+        cuda_build.call(
+            dev, "b1_forward2", *ptrs, u0.data_ptr(), um1.data_ptr(),
+            hist.data_ptr(), ns, nz8, nx128, nt, stream)
     count_launch(forward2, route)
     return hist
 
@@ -484,24 +483,23 @@ def _fwd_ckpt_cuda(K, dp, dm, wav, sz, sx, rrow, nt, KC, route=None):
         raise ValueError("forward2_ckpt: wavelet must be padded to a "
                          "multiple of KC >= nt")
     route, plan = pick_route("forward2_ckpt", nz8, nx128, route)
-    lib = cuda_build.load_library()
     hist = torch.empty((ns, nt, nx128), dtype=torch.float32, device=dev)
     ckpt = torch.empty((ns, n_ck, 2, nz8, nx128), dtype=torch.float32,
                        device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow)]
     if route == "resident":
-        err = lib.b4a_forward2_ckpt_resident(
-            *ptrs, hist.data_ptr(), ckpt.data_ptr(), ns, nz8, nx128, nt,
-            n_ck, KC, *plan.args(), stream)
-        cuda_build.check(err, "b4a_forward2_ckpt_resident")
+        cuda_build.call(
+            dev, "b4a_forward2_ckpt_resident", *ptrs, hist.data_ptr(),
+            ckpt.data_ptr(), ns, nz8, nx128, nt, n_ck, KC, *plan.args(),
+            stream)
     else:
         u0 = torch.empty((ns, nz8, nx128), dtype=torch.float32, device=dev)
         um1 = torch.empty_like(u0)
-        err = lib.b4a_forward2_ckpt(*ptrs, u0.data_ptr(), um1.data_ptr(),
-                                    hist.data_ptr(), ckpt.data_ptr(), ns,
-                                    nz8, nx128, nt, n_ck, KC, stream)
-        cuda_build.check(err, "b4a_forward2_ckpt")
+        cuda_build.call(
+            dev, "b4a_forward2_ckpt", *ptrs, u0.data_ptr(), um1.data_ptr(),
+            hist.data_ptr(), ckpt.data_ptr(), ns, nz8, nx128, nt, n_ck, KC,
+            stream)
     count_launch(forward2_ckpt, route)
     return hist, ckpt
 
@@ -521,7 +519,6 @@ def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid,
     if n_ck * KC != nt_pad or nt_valid != nt_pad:
         raise ValueError("backward2: checkpoints and rows disagree on KC")
     route, plan = pick_route("backward2", nz8, nx128, route)
-    lib = cuda_build.load_library()
 
     def field(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=torch.float32,
@@ -531,16 +528,16 @@ def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, nt_valid,
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt)]
     if route == "resident":
-        err = lib.b4b_backward2_resident(
-            *ptrs, gk_shots.data_ptr(), lapc.data_ptr(), gk.data_ptr(), ns,
-            nz8, nx128, n_ck, KC, *plan.args(), stream)
-        cuda_build.check(err, "b4b_backward2_resident")
+        cuda_build.call(
+            dev, "b4b_backward2_resident", *ptrs, gk_shots.data_ptr(),
+            lapc.data_ptr(), gk.data_ptr(), ns, nz8, nx128, n_ck, KC,
+            *plan.args(), stream)
     else:
         scratch = [field(ns) for _ in range(5)]  # u0, um1, pb0, pb1, qb
-        err = lib.b4b_backward2(
-            *ptrs, *(a.data_ptr() for a in scratch), gk_shots.data_ptr(),
-            lapc.data_ptr(), gk.data_ptr(), ns, nz8, nx128, n_ck, KC, stream)
-        cuda_build.check(err, "b4b_backward2")
+        cuda_build.call(
+            dev, "b4b_backward2", *ptrs, *(a.data_ptr() for a in scratch),
+            gk_shots.data_ptr(), lapc.data_ptr(), gk.data_ptr(), ns, nz8,
+            nx128, n_ck, KC, stream)
     count_launch(backward2, route)
     return gk
 

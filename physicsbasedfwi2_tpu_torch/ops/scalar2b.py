@@ -118,7 +118,6 @@ def _fwd_cuda(K, dp, dm, wav, sz, sx, rrow, nt, kc, route=None):
                          "wavelet to a multiple of KC >= nt")
     route, plan = pick_route("forward2b", nz8, nx128, route,
                              plan_fn=resident_plan)
-    lib = cuda_build.load_library()
     hist = torch.empty((ns_p, nt, nx128), dtype=torch.float32, device=dev)
     ckpt = torch.empty((ns_p // B, n_ck, 2, B, nz8, nx128),
                        dtype=torch.float32, device=dev)
@@ -126,17 +125,15 @@ def _fwd_cuda(K, dp, dm, wav, sz, sx, rrow, nt, kc, route=None):
     ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow)]
     sizes = (ns_p // B, nz8, nx128, nt, n_ck, kc)
     if route == "resident":
-        err = lib.b7a_forward2b_resident(*ptrs, hist.data_ptr(),
-                                         ckpt.data_ptr(), *sizes,
-                                         *plan.args(), stream)
-        cuda_build.check(err, "b7a_forward2b_resident")
+        cuda_build.call(
+            dev, "b7a_forward2b_resident", *ptrs, hist.data_ptr(),
+            ckpt.data_ptr(), *sizes, *plan.args(), stream)
     else:
         u0 = torch.empty((ns_p, nz8, nx128), dtype=torch.float32, device=dev)
         um1 = torch.empty_like(u0)
-        err = lib.b7a_forward2b(*ptrs, u0.data_ptr(), um1.data_ptr(),
-                                hist.data_ptr(), ckpt.data_ptr(), *sizes,
-                                stream)
-        cuda_build.check(err, "b7a_forward2b")
+        cuda_build.call(
+            dev, "b7a_forward2b", *ptrs, u0.data_ptr(), um1.data_ptr(),
+            hist.data_ptr(), ckpt.data_ptr(), *sizes, stream)
     count_launch(forward2b, route)
     return hist, ckpt
 
@@ -156,7 +153,6 @@ def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, route=None):
         raise ValueError("backward2b: checkpoints, rows and shots disagree")
     route, plan = pick_route("backward2b", nz8, nx128, route,
                              plan_fn=resident_plan)
-    lib = cuda_build.load_library()
 
     def field(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=torch.float32,
@@ -167,18 +163,17 @@ def _bwd_cuda(K, dp, dm, wav, sz, sx, rrow, ybar, ckpt, route=None):
     ptrs = [a.data_ptr() for a in (K, dp, dm, wav, sz, sx, rrow, ybar, ckpt)]
     if route == "resident":
         lapc = field(ns_p, kc)
-        err = lib.b7b_backward2b_resident(
-            *ptrs, gk_shots.data_ptr(), lapc.data_ptr(), gk.data_ptr(), npair,
-            nz8, nx128, n_ck, kc, *plan.args(), stream)
-        cuda_build.check(err, "b7b_backward2b_resident")
+        cuda_build.call(
+            dev, "b7b_backward2b_resident", *ptrs, gk_shots.data_ptr(),
+            lapc.data_ptr(), gk.data_ptr(), npair, nz8, nx128, n_ck, kc,
+            *plan.args(), stream)
     else:
         scratch = [field(ns_p) for _ in range(5)]  # u0, um1, pb0, pb1, qb
         lapc = field(kc, ns_p)
-        err = lib.b7b_backward2b(
-            *ptrs, *(a.data_ptr() for a in scratch), gk_shots.data_ptr(),
-            lapc.data_ptr(), gk.data_ptr(), npair, nz8, nx128, n_ck, kc,
-            stream)
-        cuda_build.check(err, "b7b_backward2b")
+        cuda_build.call(
+            dev, "b7b_backward2b", *ptrs, *(a.data_ptr() for a in scratch),
+            gk_shots.data_ptr(), lapc.data_ptr(), gk.data_ptr(), npair, nz8,
+            nx128, n_ck, kc, stream)
     count_launch(backward2b, route)
     return gk
 

@@ -37,7 +37,9 @@ from physicsbasedfwi2_tpu_torch.engine.train import train
 from physicsbasedfwi2_tpu_torch.models.convert import params_from_flax
 from physicsbasedfwi2_tpu_torch.optim import SGHMC, SGLD
 
-from torch_parity import n, port_elastic_workload, rel_l2, rel_max, t
+from torch_parity import (
+    n, one_rank_mesh, port_elastic_workload, rel_l2, rel_max, t,
+)
 
 torch.set_num_threads(1)
 
@@ -198,6 +200,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train(cfg, epochs=1, quiet=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert default_device() == torch.device("cuda:0")
 
 
@@ -212,7 +215,7 @@ def test_train_cli_without_a_card_fails(tmp_path):
     assert "no CUDA card" in proc.stderr
 
 
-def test_unported_elastic_options_raise(el_run):
+def test_unported_elastic_options_raise(el_run, tmp_path):
     pe, cfg = el_run["pe"], el_run["cfg"]
     wl = pe.wl
     # ported since: tnl2 and backend="xla" leave the fused path, and
@@ -241,8 +244,15 @@ def test_unported_elastic_options_raise(el_run):
                              workload=dataclasses.replace(wl), device="cpu")
         assert isinstance(e.opt, cls) and e.lr_policy is None
         assert e.opt.generator.device == e.device
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ElasticDIPEngine(cfg, workload=wl, mesh=object(), device="cpu")
+    # ported since: a mesh (one rank here), B3 on the rank's shots
+    with one_rank_mesh(tmp_path) as mesh:
+        e = ElasticDIPEngine(cfg, workload=dataclasses.replace(wl),
+                             mesh=mesh, device="cpu")
+        assert e.physics_path == "fused+mesh"
+        m = e._sample_model()
+        for a, b in zip(e.physics_value_and_grad(m),
+                        pe.physics_value_and_grad(m)):
+            assert torch.equal(a, b)
     assert t_engines._ENGINES["elastic_dip"] is ElasticDIPEngine
     assert isinstance(create_engine(cfg, workload=wl, device="cpu"),
                       ElasticDIPEngine)

@@ -356,6 +356,7 @@ NOT_PORTED = {
     "data": set(),
     "utils": set(),
     "landscape": set(),
+    "parallel": set(),
 }
 
 

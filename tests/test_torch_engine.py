@@ -41,7 +41,7 @@ from physicsbasedfwi2_tpu_torch.models import apply_velocity_output
 from physicsbasedfwi2_tpu_torch.models.convert import params_from_flax
 from physicsbasedfwi2_tpu_torch.optim import SGHMC, SGLD
 
-from torch_parity import n, port_workload, rel_l2, rel_max, t
+from torch_parity import n, one_rank_mesh, port_workload, rel_l2, rel_max, t
 
 torch.set_num_threads(1)
 
@@ -229,8 +229,15 @@ def test_unported_options_raise(slice_run, tmp_path):
     e = AcousticDIPEngine(cfg.replace(encoded_shots=2), workload=wl,
                           device="cpu")
     assert e.physics_path == "encoded" and not e._use_fused
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AcousticDIPEngine(cfg, workload=wl, mesh=object(), device="cpu")
+    # ported since: a mesh (one rank here): B2 on the rank's shots, the
+    # same bits as without one
+    with one_rank_mesh(tmp_path) as mesh:
+        e = AcousticDIPEngine(cfg, workload=wl, mesh=mesh, device="cpu")
+        assert e.physics_path == "fused+mesh"
+        vp = wl.vp_true * 0.97
+        for a, b in zip(e.physics_value_and_grad(vp),
+                        engine.physics_value_and_grad(vp)):
+            assert torch.equal(a, b)
     # SG-MCMC is ported since: no lr policy, as in the JAX engine
     for kind, cls in (("sghmc", SGHMC), ("sgld", SGLD)):
         e = AcousticDIPEngine(cfg.replace(optimizer=kind), workload=wl,

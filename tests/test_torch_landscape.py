@@ -330,9 +330,23 @@ def test_quadratic_hvp_and_lanczos_match_jax():
     np.testing.assert_allclose(np.sort(ritz), np.sort(jritz), rtol=1e-4)
 
 
-def test_sharded_surface_waits_for_parallel():
-    with pytest.raises(NotImplementedError, match="Queue A, item 13"):
-        landscape.loss_surface_2d_sharded(None, {}, None)
+def test_sharded_surface_waits_for_parallel(tmp_path):
+    """Ported with ``parallel/``: on a mesh of one rank the sharded sweep
+    (21 points, no pad) equals the one-device sweep to the bit."""
+    from torch_parity import one_rank_mesh
+    params = {"w": torch.arange(6.0).reshape(2, 3), "b": torch.ones(3)}
+
+    def loss_fn(p):
+        return torch.sum(torch.tanh(p["w"]) ** 2) + torch.sum(p["b"] ** 3)
+
+    xs, ys = np.linspace(-1, 1, 7), np.linspace(-1, 1, 3)
+    s1, d1, d2 = landscape.loss_surface_2d(loss_fn, params, xs=xs, ys=ys)
+    with one_rank_mesh(tmp_path) as mesh:
+        s2, e1, _ = landscape.loss_surface_2d_sharded(loss_fn, params, mesh,
+                                                      xs=xs, ys=ys)
+    assert s2.shape == (3, 7)
+    np.testing.assert_array_equal(s2, s1)
+    assert all(torch.equal(e1[k], d1[k]) for k in d1)
 
 
 def test_exports_match_jax():

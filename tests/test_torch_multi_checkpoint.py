@@ -32,7 +32,7 @@ from physicsbasedfwi2_tpu_torch.engine.train import train
 from physicsbasedfwi2_tpu_torch.models.convert import params_from_flax
 from physicsbasedfwi2_tpu_torch.optim.lbfgs import LbfgsOptState
 
-from torch_parity import port_workload, rel_max, t
+from torch_parity import one_rank_mesh, port_workload, rel_max, t
 
 torch.set_num_threads(1)
 
@@ -98,8 +98,10 @@ def test_multi_sample_direct_wave_toggle_changes_the_loss(tmp_path):
         losses[on] = e.optimize_parameters(1)["loss_D"]
     assert all(np.isfinite(v) for v in losses.values())
     assert abs(losses[True] - losses[False]) > 1e-9
-    with pytest.raises(NotImplementedError, match="item 13"):
-        MultiSampleAcousticDIPEngine(cfg, mesh=object(), device="cpu")
+    # ported since: a {sample, shot} mesh; a 1-D one is refused
+    with one_rank_mesh(tmp_path) as mesh:
+        with pytest.raises(ValueError, match="sample, shot"):
+            MultiSampleAcousticDIPEngine(cfg, mesh=mesh, device="cpu")
 
 
 # -- full-state checkpoints ---------------------------------------------

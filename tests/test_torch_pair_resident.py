@@ -4,6 +4,7 @@ records the C calls, so no card is needed), that CPU tensors reach no
 route, the shot-pair checkpoint address the resident kernels use, and
 the pair-order gradient sum."""
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -53,6 +54,10 @@ def recorder(monkeypatch):
     monkeypatch.setattr(cuda_build, "load_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: SimpleNamespace(cuda_stream=0))
+    # each entry point runs with its tensors' card current; these
+    # operands are on the CPU
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
     return lib
 
 

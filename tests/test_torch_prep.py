@@ -450,8 +450,10 @@ def test_elastic_engine_trains_from_su_tree_without_trainB(tmp_path):
 
 def test_engine_dataroot_is_ported_and_mesh_still_raises(ac_trees, tmp_path):
     cfg = _ac_cfg(config, tmp_path, ac_trees / "port")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        AcousticDIPEngine(cfg, mesh=object(), device="cpu")
+    # a mesh is ported since; without a process group it raises
+    from physicsbasedfwi2_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        AcousticDIPEngine(cfg, mesh=make_mesh(), device="cpu")
     wl = AcousticDIPEngine(cfg, device="cpu").wl
     eng = AcousticDIPEngine(cfg.replace(dataroot=None), device="cpu",
                             workload=dataclasses.replace(wl))

@@ -6,6 +6,7 @@ JAX function and to its port, and compares the outputs as numpy.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -35,6 +36,20 @@ def rel_max(got, ref) -> float:
 def rel_l2(got, ref) -> float:
     got, ref = n(got), n(ref)
     return float(np.linalg.norm(got - ref) / (np.linalg.norm(ref) + 1e-30))
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A mesh of this process alone: a gloo process group on a
+    ``file://`` store under ``tmp_path``, destroyed on exit."""
+    import torch.distributed as dist
+    from physicsbasedfwi2_tpu_torch.parallel import make_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def golden(name: str):

@@ -249,12 +249,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
     shots a rank, every rank's weights equal to the bit after each step,
     the first step's loss and its dJ/dvp at the initial model against
     run A's (``MESH_FIRST_RTOL``), the later epochs' (``MESH_DRIFT_RTOL``),
-    ``parallel/dryrun.py``'s four layouts at world 2, and
+    ``parallel/dryrun.py``'s four layouts at world 2, the halo
+    decomposition's value and gradient (``simulate_acoustic_dd`` at the
+    halo tests' 32 x 88, nt 160, 2 shots: every rank's dJ/dvp and
+    dJ/dwavelet equal, all held to one rank's ``simulate_acoustic`` under
+    autograd, ``HALO_TOL``, timed), and
     ``loss_surface_2d_sharded`` of the elastic landscape engine (3 x 3
     points, 5 a rank with the pad, the ring forward resident a point)
     against rank 0's ``loss_surface_2d``.  Each run prints its launches
     by kernel and route, its seconds and peak memory per rank, and the
     card's name and power limit.
+24. kernel B9 (``build_variant``: B2's forward sweep with the source,
+    the receiver rows and the checkpoints switched on at compile time) at
+    ``benchmarks/bench_kernel_breakdown.py``'s case (151 x 200, PML 20,
+    nt 4001 run for 126 x 32 steps, 18 shots on row 1, KC 32): the four
+    cumulative variants once on the path (4 resident launches, every
+    other count 0), each against its plain version, its time beside the
+    plain version's, the bound and the previous variant's, the eight B9
+    instances' registers and spills, and resident B2 on the same inputs
+    as the ``full`` row.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -302,6 +315,9 @@ FLOPS_B3_ADJ = 99
 # imaging 4, 4 cotangent updates, pb0 2, 2 sums)
 FLOPS_B5 = 33
 FLOPS_B6_ADJ = 36
+
+
+BUILD_LOG = []  # phase 1's nvcc report (empty where the library existed)
 
 
 class SmokeFailure(RuntimeError):
@@ -450,6 +466,10 @@ def _readable(name: str) -> str:
                   lambda m: f"el_fwd_resident<R {m[1]}, "
                   f"{'checkpoints' if m[2] == '1' else 'no checkpoints'}>",
                   name)
+    name = re.sub(r"b9_residentILi(\d+)EE", lambda m: "b9_resident<"
+                  + (" ".join(f for b, f in ((2, "+src"), (4, "+rcv"),
+                                             (8, "+ckpt"))
+                              if int(m[1]) & b) or "stencil") + ">", name)
     return re.sub(r"(fwd|rev)_residentILi(\d+)EE",
                   lambda m: f"{m[1]}_resident<P {m[2]}>", name)
 
@@ -501,6 +521,7 @@ def phase_card():
           "cuDNN must be deterministic, without autotuning")
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     path, secs, log = cuda_build.build()
+    BUILD_LOG.append(log)
     print(f"kernel build: {secs:.1f} s -> {path.relative_to(ROOT)}")
     for line in log.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill",
@@ -2984,8 +3005,8 @@ def _all_kernels() -> dict:
     """Every kernel wrapper with a launch counter, by the kernels line's
     names."""
     from physicsbasedfwi2_tpu_torch.ops import (
-        adjoint, elastic_fused, elastic_fwd, fwi_fused, kernels, scalar2,
-        scalar2b)
+        adjoint, elastic_fused, elastic_fwd, fwi_fused, kernel_breakdown,
+        kernels, scalar2, scalar2b)
     return {"forward2": scalar2.forward2,
             "fwi_l1_loss_grad": fwi_fused.fwi_l1_loss_grad,
             "fused_elastic_loss_grad":
@@ -2997,7 +3018,8 @@ def _all_kernels() -> dict:
             "acoustic_pallas_backward": adjoint.acoustic_pallas_backward,
             "forward2b": scalar2b.forward2b,
             "backward2b": scalar2b.backward2b,
-            "elastic_forward_pallas": elastic_fwd.elastic_forward_pallas}
+            "elastic_forward_pallas": elastic_fwd.elastic_forward_pallas,
+            "build_variant": kernel_breakdown.build_variant}
 
 
 def _train19(dev, what, cfg, epochs, build):
@@ -4530,6 +4552,59 @@ def _mesh_a(out: str) -> None:
         l0=l0.cpu().numpy(), g0=g0.cpu().numpy())
 
 
+HALO_TOL = 1e-4  # of max: float32 sums in another order (JAX's own 1.3e-5)
+
+
+def _mesh_halo(mesh) -> dict:
+    """``simulate_acoustic_dd``'s value and gradient on the ranks of
+    ``mesh`` at the halo tests' size (32 x 88, PML 16, nt 160, 2 shots;
+    the padded width 120 in 60-column slabs): the loss ``sum(rec * w)``
+    (w from numpy seed 4), its backward timed, every rank's dJ/dvp and
+    dJ/dwavelet equal to the bit, and all three held to one rank's
+    ``simulate_acoustic`` under autograd on the card."""
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D, ricker
+    from physicsbasedfwi2_tpu_torch.ops import (
+        AcousticConfig, simulate_acoustic)
+    from physicsbasedfwi2_tpu_torch.parallel import (
+        all_gather, simulate_acoustic_dd)
+    dev = mesh.device
+    cfg = AcousticConfig(grid=Grid2D(nz=32, nx=88, dx=10.0, nt=160,
+                                     dt=0.002, pml_width=16),
+                         chunk=20, vmax_pml=2500.0)
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    geom = (i32([4, 4]), i32([20, 60]), i32(np.full((2, 10), 3)),
+            i32(np.tile(np.arange(10) * 8 + 4, (2, 1))))
+    vp0 = torch.full((32, 88), 1800.0, device=dev)
+    vp0[16:] = 2200.0
+    wav0 = ricker(10.0, 160, 0.002, device=dev)
+    w = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (2, 160, 10)).astype(np.float32), device=dev)
+
+    def grads(fn):
+        vp, wav = (a.clone().requires_grad_() for a in (vp0, wav0))
+        rec = fn(vp, wav)
+        (rec * w).sum().backward()
+        return rec.detach(), vp.grad, wav.grad
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = grads(lambda v, a: simulate_acoustic_dd(v, a, *geom, cfg, mesh))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for g in got[1:]:
+        every = all_gather(g[None], mesh)
+        check(all(torch.equal(every[0], e) for e in every[1:]),
+              "run B halo: the ranks' gradients differ")
+    ref = grads(lambda v, a: simulate_acoustic(v, a, *geom, cfg))
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, ref)]
+    check(max(errs) <= HALO_TOL, f"run B halo: value and gradient against "
+          f"one rank's simulate_acoustic {errs}")
+    return {"secs": secs, "rel_errs": errs}
+
+
 def _mesh_b(out: str) -> None:
     """Run B on each of two ranks sharing the card (gloo): the acoustic
     engine at full width with 9 shots a rank, every rank's weights equal
@@ -4586,6 +4661,7 @@ def _mesh_b(out: str) -> None:
     torch.cuda.synchronize()
     rec.update(dryrun_s=time.perf_counter() - t0,
                dryrun_counts=_mesh_take("run B dry run"))
+    rec.update(halo=_mesh_halo(mesh), halo_counts=_mesh_take("run B halo"))
     # the elastic landscape engine's surface, 3 x 3 points over 2 ranks
     t0 = time.perf_counter()
     el = ElasticDIPEngine(get_workload("marmousi_elastic",
@@ -4681,7 +4757,13 @@ def phase_mesh(dev):
                   f"{b['acoustic']}, peak memory {b['peak_gib']:.2f} GiB; "
                   f"dry run (loss, 2-D loss, energy, elastic loss) "
                   f"{b['dryrun']} in {b['dryrun_s']:.2f} s, launches "
-                  f"{b['dryrun_counts']}; elastic setup "
+                  f"{b['dryrun_counts']}; the halo decomposition's value "
+                  f"and gradient (32 x 88, nt 160, 2 shots) "
+                  f"{b['halo']['secs']:.2f} s, rec, dJ/dvp, dJ/dwavelet "
+                  f"against one rank's simulate_acoustic "
+                  f"{', '.join(f'{e:.3e}' for e in b['halo']['rel_errs'])} "
+                  f"of max (tol {HALO_TOL:g}), launches "
+                  f"{b['halo_counts']}; elastic setup "
                   f"{b['el_setup_s']:.2f} s ({b['el_setup']}), sharded "
                   f"surface {b['surface_s']:.2f} s ({b['surface']}); "
                   f"{b['run_s']:.1f} s in the rank, peak memory "
@@ -4719,6 +4801,166 @@ def phase_mesh(dev):
     return launches
 
 
+# phase 24: kernel B9 at benchmarks/bench_kernel_breakdown.py's
+# measure_once case
+B9_KC = 32
+B9_TOL = 1e-4  # of max, as B1's: FMA contraction and sum order differ
+
+
+def b9_case(dev):
+    """measure_once's case: 151 x 200 (dx 10, PML 20), dt 0.001, nt 4001,
+    vp = 1500 + 2000 U(0, 1) from numpy seed 0, an 8 Hz Ricker, 18 shots
+    on row 1 at linspace(5, 194, 18), 200 receivers on row 1."""
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.geo import Grid2D, ricker
+    from physicsbasedfwi2_tpu_torch.ops import AcousticConfig
+    grid = Grid2D(nz=151, nx=200, dx=10.0, nt=NT, dt=0.001, pml_width=20)
+    cfg = AcousticConfig(grid=grid, chunk=64, vmax_pml=5000.0)
+    rng = np.random.default_rng(0)
+    vp = torch.as_tensor((1500.0 + 2000.0 * rng.random((151, 200))).astype(
+        np.float32), device=dev)
+    ns, nr = 18, 200
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    geom = (i32(np.ones(ns)), i32(np.linspace(5, 194, ns)),
+            i32(np.ones((ns, nr))), i32(np.tile(np.arange(nr), (ns, 1))))
+    return cfg, ricker(8.0, NT, 0.001, device=dev), vp, geom
+
+
+def phase_b9(dev):
+    """Kernel B9 (``ops/kernel_breakdown.py::build_variant``) at its
+    flagship shape: each cumulative variant (stencil, +src, +rcv, +ckpt)
+    once through ``build_variant`` with every count 0 before (the path:
+    4 resident launches, no other kernel); then each against its plain
+    version (chk, final fields, history, checkpoints; ``B9_TOL`` of max),
+    its kernel time (a warm-up call, the mean of 3 by CUDA events) beside
+    the plain version's (one call) and the bound, the delta to the
+    previous variant, the B9 instances' registers and spills (phase 1's
+    ptxas report), and resident B2 (``fwi_l1_loss_grad``) on the same vp
+    and wavelet as the ``full`` row.  Returns (launches, the kernels
+    line's fields)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
+    from physicsbasedfwi2_tpu_torch.ops import trace_normalize
+    from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
+        fwi_l1_loss_grad, scatter_rows)
+    from physicsbasedfwi2_tpu_torch.ops.kernel_breakdown import (
+        VARIANTS, build_variant, build_variant_plain)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    card = card_line()
+    t_phase = time.perf_counter()
+    cfg, wav, vp, geom = b9_case(dev)
+    g = cfg.grid
+    ns = len(geom[0])
+
+    def run(kw, fn=build_variant):
+        return fn(vp, wav, *geom[:3], cfg, KC=B9_KC, **kw)
+
+    ks = _all_kernels()
+    reset_launches(*ks.values())
+    path = {name: run(kw) for name, kw in VARIANTS}
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in ks.items()}
+    print(f"phase 24 path: the four variants through build_variant, "
+          f"launches {counts}")
+    check(counts["build_variant"] == len(VARIANTS)
+          and build_variant.resident_launches == len(VARIANTS)
+          and sum(counts.values()) == len(VARIANTS),
+          f"phase 24: B9 not resident once a variant, or another kernel "
+          f"ran: {counts}")
+    n_ck = -(-g.nt // B9_KC)
+    steps = n_ck * B9_KC
+    cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
+    flops = FLOPS_B1 * cells * steps
+    rows, prev = {}, None
+    for name, kw in VARIANTS:
+        got = path[name]
+        ref, ms_p = _plain_ms(lambda: run(kw, build_variant_plain))
+        ref64 = run(dict(kw, dtype=torch.float64), build_variant_plain)
+        _, ms_k = timed_ms(lambda: run(kw))
+        # the histories (rows, checkpoints) against the plain version at
+        # B9_TOL of their max, as B1's rows; the final fields and chk
+        # against the float64 run: they decay from the early wavefield
+        # (the seed, the source's unit amplitude), so their error against
+        # their own final max grows with the steps, in the plain float32
+        # version too (~1e-3 of max at stencil): no farther off float64
+        # than B9_TOL of its max or twice the plain float32 version
+        errs, acc = {}, []
+        for f in ("u0", "um1", "chk", "hist", "ckpt"):
+            a, b, c = getattr(got, f), getattr(ref, f), getattr(ref64, f)
+            if a is None:
+                continue
+            check(bool(torch.isfinite(a).all()), f"B9 {name}: {f} not finite")
+            errs[f] = float((a - b).abs().max())
+            if f in ("hist", "ckpt"):
+                check(errs[f] <= B9_TOL * float(b.abs().max()),
+                      f"B9 {name}: {f} disagrees with the plain version "
+                      f"({errs[f]:.3e} of max {float(b.abs().max()):.3e})")
+                continue
+            top = float(c.abs().max()) if f != "chk" else float(
+                ref64.u0[:, :8, :128].abs().sum())
+            e_k = float((a.double() - c).abs().max()) / top
+            e_p = float((b.double() - c).abs().max()) / top
+            acc.append(f"{f} {e_k:.3e} (plain {e_p:.3e})")
+            check(e_k <= max(2.0 * e_p, B9_TOL),
+                  f"B9 {name}: {f} off the float64 run by {e_k:.3e} of "
+                  f"max, the plain float32 version by {e_p:.3e}")
+        # K, d+, d- ([192, 256] each), the wavelet and geometry in; the
+        # final fields, chk and the variant's rows and checkpoints out
+        io = (3 * nbytes(got.u0) // ns + nbytes(wav, *geom[:3])
+              + nbytes(got.u0, got.um1, got.chk)
+              + (nbytes(got.hist) if got.hist is not None else 0)
+              + (nbytes(got.ckpt) if got.ckpt is not None else 0))
+        b = bound(flops, io)
+        rows[name] = {"ms": ms_k, "plain_ms": ms_p,
+                      "max_abs_err": max(errs.values()),
+                      "delta_ms": None if prev is None else ms_k - prev, **b}
+        prev = ms_k
+        print(f"B9 {name} [{ns} shots, {steps} steps, KC {B9_KC}; {card}]: "
+              f"kernel {ms_k:.3f} ms ({ms_k / steps * 1e3:.3f} us a step), "
+              f"plain {ms_p:.2f} ms, delta to the previous variant "
+              + ("-" if rows[name]["delta_ms"] is None
+                 else f"{rows[name]['delta_ms']:+.3f} ms")
+              + f"; bound {b['bound_ms']:.3f} ms ({b['bound_by']}: "
+              f"{flops:.3e} flop, {io / 1e9:.3f} GB); max|err| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" against the plain version (rows, checkpoints: tol "
+              f"{B9_TOL:g} of max); off the float64 run (of max; chk of its "
+              f"terms' magnitudes): {', '.join(acc)} (tol the larger of "
+              f"{B9_TOL:g} and twice the plain version's); chk "
+              f"{float(got.chk[0, 0]):.6g}")
+    log = BUILD_LOG[0] if BUILD_LOG else ""
+    lines = ptxas_summary(log, ("b9_resident",))
+    for line in lines or ["not in this run's build (the library existed)"]:
+        print(f"  ptxas, B9: {line}")
+    check(not log or len(lines) == 8, "phase 24: not every B9 instance in "
+          "the ptxas report")
+    # the full row: resident B2 on the same vp and wavelet (JAX's obs: the
+    # trace-normalized gathers of vp itself, no direct wave)
+    with torch.no_grad():
+        obs = trace_normalize(simulate_acoustic(vp, wav, *geom, cfg))
+    obs_rows = scatter_rows(obs, geom[3], nt=g.nt, nx=g.nx,
+                            pml_width=g.pml_width, KC=B9_KC)
+    dir_rows = torch.zeros_like(obs_rows)
+    (loss, gk), ms_full = timed_ms(lambda: fwi_l1_loss_grad(
+        vp, wav, *geom, cfg, obs_rows, dir_rows, KC=B9_KC,
+        route="resident"))
+    check(math.isfinite(float(loss)) and bool(torch.isfinite(gk).all()),
+          "phase 24: B2's full row not finite")
+    sweep = rows["stencil"]["ms"]
+    print(f"B9 full (resident B2, {ns} shots, KC {B9_KC}; {card}): "
+          f"{ms_full:.3f} ms; three stencil sweeps' projection "
+          f"{sweep * (2 + 29 / 25):.3f} ms (JAX's: stencil x (1 + 1 + "
+          f"29/25)); phase 24 {time.perf_counter() - t_phase:.1f} s")
+    top = rows["+ckpt"]
+    return len(VARIANTS), {
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "ms_variant": "+ckpt", "variants": rows,
+        "full_b2_ms": ms_full}
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -4753,7 +4995,7 @@ def main(argv: list[str]) -> int:
                   17: [phase_config5], 18: [phase_config2],
                   19: [phase_other_engines], 20: [phase_dataroot],
                   21: [phase_supervised], 22: [phase_landscape],
-                  23: [phase_mesh]}
+                  23: [phase_mesh], 24: [phase_b9]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -4790,6 +5032,8 @@ def main(argv: list[str]) -> int:
     launches.update(phase_supervised(dev))
     launches.update(phase_landscape(dev))
     launches.update(phase_mesh(dev))
+    n_b9, b9 = phase_b9(dev)
+    launches["build_variant"] += n_b9
     # phase 20's launches of each kernel it ran, by route
     for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
                          ("fused_elastic_loss_grad", b3),
@@ -4837,6 +5081,10 @@ def main(argv: list[str]) -> int:
          "source": EL_SOURCE,
          "replaces": "physicsbasedfwi2_tpu/ops/pallas_elastic.py:77",
          "launches": launches["elastic_forward_pallas"], **b8},
+        # B2's forward sweep, its mechanisms switched on at compile time
+        {"name": "build_variant", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "benchmarks/bench_kernel_breakdown.py:53",
+         "launches": launches["build_variant"], **b9},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

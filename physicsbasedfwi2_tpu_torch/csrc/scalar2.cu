@@ -23,6 +23,19 @@
 //                                   _fwd_kernel
 //   B7b b7b_backward2b_resident  <- pallas_scalar2b.py _backward2b /
 //                                   _bwd_kernel
+// And kernel B9, the forward sweep alone with its mechanisms switched on
+// at compile time:
+//   B9  b9_variant_resident      <- benchmarks/bench_kernel_breakdown.py
+//                                   build_variant / _variant_kernel
+// B9's instances b9_resident<flags> are the resident forward sweep
+// (fwd_sweep, which fwd_resident<P> runs with its B9 flags 0) from a
+// seeded field u0 = K 1e-3, with the raw amplitude added at the source,
+// and with the source, the receiver rows and the checkpoints each a
+// template flag, so that each variant's registers and time show what its
+// mechanism costs.  Like B1 it is bound by the step's stencil work and
+// its cluster barrier, not by its 5.7e10 flop (0.84 ms at the float32
+// peak) or its bytes (the checkpoints' 0.89 GB, 0.27 ms).
+//
 // B7 computes per cell and per shot what B4 computes (ops/scalar2b.py).
 // It differs in the checkpoint layout, shots in pairs [ns/2, n_ck, 2, 2,
 // nz, nx] (the sweeps' template parameter P = 2, see ckpt_offset), in the
@@ -495,7 +508,8 @@ __device__ __forceinline__ void lap_row(float (&out)[kVec],
 // kHold keeps the new rows in registers until all are computed (all
 // loads first); without it each row is stored at once, which saves
 // registers where pb, qb and dJ/dK hold them (the reverse sweep).
-template <bool kHold>
+// kRawSrc (kernel B9 only) adds the raw amplitude, amp, not amp K[src].
+template <bool kHold, bool kRawSrc = false>
 __device__ __forceinline__ void band_fwd_step(const Band& b, int n,
                                               float (&um1)[RPT][kVec],
                                               float amp, int sc, int sm,
@@ -519,7 +533,7 @@ __device__ __forceinline__ void band_fwd_step(const Band& b, int n,
 #pragma unroll
       for (int m = 0; m < kVec; ++m) {
         float u = dp[m] * (2.0f * v[c + 2][m] - dm[m] * um1[c][m] + kk[m] * lp[m]);
-        if (c == sc && m == sm) u += amp * kk[m];
+        if (c == sc && m == sm) u += kRawSrc ? amp : amp * kk[m];
         u1[c][m] = u;
       }
       if (lap_out) st4(lap_out + (b.row0 + lr) * b.nx + b.j0, lp);
@@ -590,19 +604,98 @@ struct FwdArgs {
   int KC, n_ck, nsteps, nz, nx, R;
 };
 
+// Kernel B9's variants (benchmarks/bench_kernel_breakdown.py
+// build_variant / _variant_kernel): flags of fwd_sweep's kB9.  kB9On
+// starts from the seeded field u0 = K * kB9Seed (u_-1 = 0) and adds the
+// raw amplitude at the source; kB9Src, kB9Rcv and kB9Ckpt switch the
+// source, the receiver rows and the checkpoints on at compile time, as
+// the TPU kernel switches them statically.
+constexpr int kB9On = 1, kB9Src = 2, kB9Rcv = 4, kB9Ckpt = 8;
+constexpr float kB9Seed = 1e-3f;
+
+// B9's extra outputs: the final (u0, u_-1) [ns, 2, nz, nx] (or null) and
+// each shot's sum of u0[:8, :128] at the end, corner [ns].
+struct B9Out {
+  float* fin;
+  float* corner;
+};
+
+// B9's start: buffer 0 holds K * kB9Seed on the band's rows and on the 2
+// halo rows each side that lie inside the array (the values the
+// neighbours would write there), zero elsewhere.  After band_init, whose
+// stores it follows behind a CTA barrier; the caller's cluster barrier
+// comes next.
+__device__ __forceinline__ void band_seed(const Band& b, const float* K) {
+  __syncthreads();
+  const int per_row = b.nx / kVec;
+  for (int q = threadIdx.x; q < (b.rows + 4) * per_row; q += blockDim.x) {
+    const int lr = q / per_row - 2;
+    const int j = (q % per_row) * kVec;
+    const int gi = b.row0 + lr;
+    if (gi < 0 || gi >= b.nz) continue;
+    float k[kVec];
+    ld4(k, K + (long long)gi * b.nx + j);
+#pragma unroll
+    for (int m = 0; m < kVec; ++m) k[m] = k[m] * kB9Seed;
+    st4(b.buf0 + (lr + 2) * b.P + j + kPadL, k);
+  }
+}
+
+// B9's end: the final fields of the thread's cells into out.fin, and in
+// the top band (rows 0-7 lie in it: R >= 8) warp 0's sum of u0[:8, :128]
+// into out.corner[s]: lane l sums the cells l, l + 32, ... of the 1024 in
+// row-major order, then a fixed butterfly; the same bits every run.
+__device__ __forceinline__ void b9_epilogue(const Band& b, const B9Out& out,
+                                            int s, int n,
+                                            const float (&um1)[RPT][kVec]) {
+  const float* cur = b.buf(n & 1);
+  if (out.fin) {
+    const long long F = (long long)b.nz * b.nx;
+    float* f0 = out.fin + 2 * s * F;
+#pragma unroll
+    for (int c = 0; c < RPT; ++c) {
+      const int lr = b.i0 + c;
+      if (lr < b.rows) {
+        const long long g = (long long)(b.row0 + lr) * b.nx + b.j0;
+        float u[kVec];
+        ld4(u, cur + b.at(lr));
+        st4(f0 + g, u);
+        st4(f0 + F + g, um1[c]);
+      }
+    }
+  }
+  if (b.r == 0 && threadIdx.x < 32) {
+    float acc = 0.0f;
+    for (int q = threadIdx.x; q < 8 * 128; q += 32)
+      acc += cur[(q / 128 + 2) * b.P + q % 128 + kPadL];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (threadIdx.x == 0) out.corner[s] = acc;
+  }
+}
+
 // Forward sweep of nsteps steps from zero fields: B1, B4a and B2's phase 1
-// (P = 1), B7a (P = 2: the checkpoints in shot pairs).
-template <int P>
-__global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
+// (P = 1), B7a (P = 2: the checkpoints in shot pairs); with kB9 != 0
+// kernel B9's variant kB9 (P = 1), from B9's seeded field.  The kB9 = 0
+// instances are the production sweep (every kB9 branch compiles away).
+template <int P, int kB9>
+__device__ __forceinline__ void fwd_sweep(FwdArgs a, B9Out o) {
+  constexpr bool b9 = kB9 & kB9On;
+  constexpr bool src_on = !b9 || (kB9 & kB9Src);
+  constexpr bool rcv_on = !b9 || (kB9 & kB9Rcv);
+  constexpr bool ckpt_on = !b9 || (kB9 & kB9Ckpt);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int s = blockIdx.y;
   const Band b = make_band(smem, a.R, a.nz, a.nx);
   band_init(b, a.K, a.dp, a.dm);
+  if constexpr (b9) band_seed(b, a.K);
   cg::this_cluster().sync();
   const long long F = (long long)a.nz * a.nx;
   int sc, sm;
   own_cell(b, RPT, a.geo.src_z[s], a.geo.src_x[s], sc, sm);
+  if constexpr (!src_on) sc = -1;
   const int lrr = a.geo.rcv_row[s] - b.row0;  // receiver row in the band
   const bool has_rcv = lrr >= 0 && lrr < b.rows && lrr >= b.i0 &&
                        lrr < b.i0 + RPT;
@@ -613,7 +706,7 @@ __global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
 #pragma unroll
     for (int m = 0; m < kVec; ++m) um1[c][m] = 0.0f;
   for (int t = 0; t < a.nsteps; ++t) {
-    if (a.ckpt && t % a.KC == 0) {
+    if (ckpt_on && a.ckpt && t % a.KC == 0) {
       float* ck = a.ckpt + ckpt_offset<P>(s, t / a.KC, a.n_ck, F);
       const float* cur = b.buf(t & 1);
 #pragma unroll
@@ -629,9 +722,9 @@ __global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
       }
     }
     const float amp = sc >= 0 ? wav[t] : 0.0f;
-    band_fwd_step<true>(b, t, um1, amp, sc, sm, nullptr);
+    band_fwd_step<true, b9>(b, t, um1, amp, sc, sm, nullptr);
     cluster_arrive();
-    if (a.hist && has_rcv && t < a.nt_valid) {
+    if (rcv_on && a.hist && has_rcv && t < a.nt_valid) {
       float u[kVec];
       ld4(u, b.buf((t + 1) & 1) + b.at(lrr));
       const long long q = ((long long)s * a.nt_rows + t) * a.nx + b.j0;
@@ -646,6 +739,34 @@ __global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
     cluster_wait();
   }
   cg::this_cluster().sync();
+  if constexpr (b9) b9_epilogue(b, o, s, a.nsteps, um1);
+}
+
+template <int P>
+__global__ void __launch_bounds__(kResThreads, 1) fwd_resident(FwdArgs a) {
+  fwd_sweep<P, 0>(a, B9Out{nullptr, nullptr});
+}
+
+struct B9Args {
+  FwdArgs f;
+  B9Out o;
+};
+
+// Kernel B9: variant kFlags (kB9Src | kB9Rcv | kB9Ckpt) of the sweep.
+template <int kFlags>
+__global__ void __launch_bounds__(kResThreads, 1) b9_resident(B9Args a) {
+  fwd_sweep<1, kB9On | kFlags>(a.f, a.o);
+}
+
+// chk[0] = the shots' corner sums added in shot order (the TPU kernel
+// adds each grid step's into chk_out[0, 0] in turn).
+__global__ void b9_chk(const float* __restrict__ corner, int ns,
+                       float* __restrict__ chk) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float acc = 0.0f;
+    for (int s = 0; s < ns; ++s) acc += corner[s];
+    chk[0] = acc;
+  }
 }
 
 struct RevArgs {
@@ -1146,6 +1267,52 @@ int b7b_backward2b_resident(const float* K, const float* dp, const float* dm,
   const long long F = (long long)nz * nx;
   sum_pairs<<<(unsigned)((F + 255) / 256), 256, 0, st>>>(gk_shots, ns, F,
                                                         gk_out);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// B9, resident: variant `flags` (bit 0 source, bit 1 receiver rows, bit 2
+// checkpoints) of B2's forward sweep from B9's seeded field, n_ck KC
+// steps.  wav [ns, n_ck*KC] (zero past nt); hist [ns, nt, nx] (bit 1);
+// ckpt [ns, n_ck, 2, nz, nx] (bit 2); fin [ns, 2, nz, nx] the final
+// (u0, u_-1), or null; corner [ns] each shot's sum of u0[:8, :128]; chk
+// [8, 128] zeros on entry, chk[0, 0] the corners' sum in shot order.
+int b9_variant_resident(const float* K, const float* dp, const float* dm,
+                        const float* wav, const int* src_z, const int* src_x,
+                        const int* rcv_row, float* hist, float* ckpt,
+                        float* fin, float* corner, float* chk, int flags,
+                        int ns, int nz, int nx, int nt, int n_ck, int KC,
+                        int C, int R, int rpt, int threads, int smem,
+                        void* stream) {
+  const Plan p{C, R, rpt, threads, smem};
+  RET_IF(check_plan(p, nz, nx));
+  if (flags < 0 || flags > 7 || nx < 128 || nz < 8 || KC < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt_pad = n_ck * KC;
+  const B9Args a{FwdArgs{K, dp, dm, Geom{src_z, src_x, rcv_row, wav, nt_pad},
+                         hist, nullptr, nt, nt, ckpt, KC, n_ck, nt_pad, nz,
+                         nx, R},
+                 B9Out{fin, corner}};
+  switch (flags) {
+    case 0: RET_IF(launch_resident(b9_resident<0>, a, p, ns, st)); break;
+    case 1: RET_IF(launch_resident(b9_resident<kB9Src>, a, p, ns, st)); break;
+    case 2: RET_IF(launch_resident(b9_resident<kB9Rcv>, a, p, ns, st)); break;
+    case 3:
+      RET_IF(launch_resident(b9_resident<kB9Src | kB9Rcv>, a, p, ns, st));
+      break;
+    case 4: RET_IF(launch_resident(b9_resident<kB9Ckpt>, a, p, ns, st)); break;
+    case 5:
+      RET_IF(launch_resident(b9_resident<kB9Src | kB9Ckpt>, a, p, ns, st));
+      break;
+    case 6:
+      RET_IF(launch_resident(b9_resident<kB9Rcv | kB9Ckpt>, a, p, ns, st));
+      break;
+    default:
+      RET_IF(launch_resident(b9_resident<kB9Src | kB9Rcv | kB9Ckpt>, a, p,
+                             ns, st));
+  }
+  b9_chk<<<1, 1, 0, st>>>(corner, ns, chk);
   LAUNCHED();
   return cudaSuccess;
 }

@@ -6,8 +6,9 @@ Kernel modules: :mod:`scalar2` (B1 forward, B4a/B4b and
 forward), :mod:`kernels` (B5, first-order forward) and :mod:`adjoint`
 (B6 and ``acoustic_pallas``), :mod:`scalar2b` (B7a/B7b and
 ``acoustic_pallas2b``) and :mod:`elastic_fwd` (B8,
-``elastic_forward_pallas``); each holds its CUDA wrapper and plain
-version.  Plain PyTorch under autograd: :mod:`acoustic`, :mod:`elastic`
+``elastic_forward_pallas``) and :mod:`kernel_breakdown` (B9,
+``build_variant``: B2's forward sweep with its mechanisms switched on at
+compile time); each holds its CUDA wrapper and plain version.  Plain PyTorch under autograd: :mod:`acoustic`, :mod:`elastic`
 (split PML) and :mod:`elastic_fast` (5 fields, sponge); :mod:`born`
 (linearized modeling, forward-mode AD through those propagators) and
 :mod:`ssim`.
@@ -25,6 +26,10 @@ from physicsbasedfwi2_tpu_torch.ops.elastic import (
     ElasticConfig,
     elastic_gradient,
     simulate_elastic,
+)
+from physicsbasedfwi2_tpu_torch.ops.kernel_breakdown import (
+    build_variant,
+    build_variant_plain,
 )
 from physicsbasedfwi2_tpu_torch.ops.gradproc import (
     depth_weighting,
@@ -60,6 +65,8 @@ __all__ = [
     "acoustic_gradient",
     "acoustic_pallas",
     "select_acoustic",
+    "build_variant",
+    "build_variant_plain",
     "simulate_elastic",
     "elastic_gradient",
     "ElasticConfig",

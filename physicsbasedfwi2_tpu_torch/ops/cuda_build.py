@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 ``nvcc`` compiles each source of ``csrc/`` (``scalar2.cu``: kernels B1,
-B2, B4a and B4b, and B7a's and B7b's resident route; ``elastic.cu``:
+B2, B4a and B4b, B7a's and B7b's resident route, and B9's variants of the
+resident forward sweep; ``elastic.cu``:
 kernel B3 and the ring forward, which B8 runs with no free-surface row;
 ``acoustic.cu``: kernels B5 and B6; ``scalar2b.cu``: B7a's and B7b's
 per-step route; ``cluster.cuh``: the helpers of the resident routes,
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "b7a_forward2b_resident": [_P] * 9 + [_I] * 11 + [_P],
     "b7b_backward2b_resident": [_P] * 12 + [_I] * 10 + [_P],
     "pbfwi_resident_max_clusters": [_I] * 10 + [ctypes.POINTER(_I)],
+    # B9: a variant of B2's forward sweep (resident only)
+    "b9_variant_resident": [_P] * 12 + [_I] * 12 + [_P],
     # csrc/elastic.cu
     "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
     "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],

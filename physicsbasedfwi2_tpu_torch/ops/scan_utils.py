@@ -198,7 +198,7 @@ class _DualChunk(torch.autograd.Function):
 
 
 def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
-                            params=None):
+                            params=None, cuda_graphs: bool = True):
     """``carry, ys = scan(step, carry, xs)`` with one checkpoint per
     chunk of steps.
 
@@ -220,8 +220,10 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
             which also follows tensors the step closes over).  On CUDA
             tensors both passes of a chunk are captured once as CUDA
             graphs and replayed (:class:`_ChunkGraphs`), so the step must
-            be capturable (no host sync).  With ``params`` a tensor the
-            step closes over gets no gradient.  Dual (forward-mode AD)
+            be capturable (no host sync); ``cuda_graphs=False`` runs
+            the chunks without graphs (for a step whose collectives go
+            through the host).  With ``params`` a tensor the step
+            closes over gets no gradient.  Dual (forward-mode AD)
             tensors in the carry or ``params`` run the chunks as a
             plain loop without autograd, and under autograd (forward
             over reverse) as :class:`_DualChunk`, whose memory is two
@@ -248,7 +250,7 @@ def chunked_checkpoint_scan(step, carry, xs, *, chunk: int = 32,
         raise ValueError("chunked_checkpoint_scan: forward over reverse "
                          "needs the step's tensors as params")
     graphs = (_ChunkGraphs() if params is not None and carry[0].is_cuda
-              and not dual else None)
+              and cuda_graphs and not dual else None)
     ys = []
     for t0 in range(0, nt + pad, chunk):
         xc = tuple(x[t0: t0 + chunk] for x in xs)

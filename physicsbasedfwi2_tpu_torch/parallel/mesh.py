@@ -8,7 +8,10 @@ the caller made (``torchrun``, :func:`parallel.dryrun.spawn`).  A
 lays out devices, with one process group per axis: the ranks that share
 this rank's coordinates on every other axis.
 
-The collectives below take a mesh and an axis and return new tensors.
+The collectives below take a mesh and an axis and return new tensors;
+:func:`exchange`, :func:`gather_replicated` and :func:`shard_replicated`
+are differentiable (the halo decomposition's gradient), the others
+detach.
 On the ``gloo`` backend a CUDA tensor goes through the host (a copy to
 the CPU, the collective, a copy back): gloo's point-to-point operations
 take CPU tensors only, and the same rule for every collective keeps the
@@ -194,11 +197,8 @@ def broadcast_module(module: torch.nn.Module, mesh: Mesh) -> None:
         broadcast_(t.data, mesh)
 
 
-def exchange(left: torch.Tensor, right: torch.Tensor, mesh: Mesh,
-             axis: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Send ``left`` to the previous rank along ``axis`` and ``right`` to
-    the next; return (what the previous rank sent, what the next rank
-    sent), zeros at the ends: JAX's two non-periodic ``ppermute``s."""
+def _exchange(left: torch.Tensor, right: torch.Tensor, mesh: Mesh,
+              axis: str) -> tuple[torch.Tensor, torch.Tensor]:
     i, n = mesh.coords[axis], mesh.shape[axis]
     ranks, group = mesh.ranks[axis], mesh.groups[axis]
     host = _via_host(left, group)
@@ -217,3 +217,94 @@ def exchange(left: torch.Tensor, right: torch.Tensor, mesh: Mesh,
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return from_prev.to(left.device), from_next.to(left.device)
+
+
+class _Exchange(torch.autograd.Function):
+    """The exchange, whose transpose is the same exchange of the
+    cotangents: what this rank received from the previous rank was that
+    rank's right strip, so the cotangent goes back to it as this rank's
+    "left", and the previous rank's cotangent of its ``from_next`` comes
+    back as the gradient of this rank's left strip (zeros at the ends:
+    JAX's ``ppermute`` transpose)."""
+
+    @staticmethod
+    def forward(ctx, left, right, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(left, right, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g_prev, g_next):
+        g_left, g_right = _exchange(g_prev, g_next, ctx.mesh, ctx.axis)
+        return g_left, g_right, None, None
+
+
+def exchange(left: torch.Tensor, right: torch.Tensor, mesh: Mesh,
+             axis: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Send ``left`` to the previous rank along ``axis`` and ``right`` to
+    the next; return (what the previous rank sent, what the next rank
+    sent), zeros at the ends: JAX's two non-periodic ``ppermute``s.
+    Differentiable: the backward runs the same exchange on the
+    cotangents, so every rank of the axis must take part in it too."""
+    return _Exchange.apply(left, right, mesh, axis)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """:func:`all_gather` whose backward takes this rank's block of the
+    cotangent: right where every rank computes the same loss from the
+    gathered tensor, so that the cotangent is replicated."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.block = (dim, mesh.coords[axis] * t.shape[dim], t.shape[dim])
+        return all_gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, lo, size = ctx.block
+        return g.narrow(dim, lo, size), None, None, None
+
+
+def gather_replicated(t: torch.Tensor, mesh: Mesh, axis: str,
+                      dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather` along ``axis`` (``dim`` of ``t``), differentiable
+    where every rank's loss of the result is the same: the gradient of
+    ``t`` is this rank's block of the (replicated) cotangent."""
+    return _GatherReplicated.apply(t, mesh, axis, dim)
+
+
+class _ShardReplicated(torch.autograd.Function):
+    """This rank's blocks of replicated tensors; the backward sums the
+    blocks' cotangents, each placed in a zero tensor of its input's
+    shape, over the axis in one all-reduce (JAX's transpose of an
+    unmapped input), so every rank ends with the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, blocks, *tensors):
+        ctx.mesh, ctx.axis, ctx.blocks = mesh, axis, blocks
+        ctx.shapes = [(t.shape, t.dtype, t.device) for t in tensors]
+        return tuple(t.clone() if b is None else t.narrow(*b).clone()
+                     for t, b in zip(tensors, blocks))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        full = []
+        for g, b, (shape, dtype, device) in zip(grads, ctx.blocks,
+                                                ctx.shapes):
+            z = torch.zeros(shape, dtype=dtype, device=device)
+            (z if b is None else z.narrow(*b)).copy_(g)
+            full.append(z)
+        flat = all_reduce(torch.cat([z.flatten() for z in full]), ctx.mesh,
+                          ctx.axis)
+        out = [part.view(z.shape) for part, z in
+               zip(flat.split([z.numel() for z in full]), full)]
+        return (None, None, None, *out)
+
+
+def shard_replicated(mesh: Mesh, axis: str, blocks, *tensors):
+    """Each of ``tensors`` (the same on every rank of ``axis``) cut to
+    its block: ``blocks[i]`` is ``(dim, start, length)``, or None for the
+    whole tensor.  Differentiable: every rank's gradient of each input
+    is the sum over the axis of the ranks' block gradients, in one
+    all-reduce in which every rank takes part (autograd hands an output
+    without a cotangent to the backward as zeros)."""
+    return _ShardReplicated.apply(mesh, axis, tuple(blocks), *tensors)

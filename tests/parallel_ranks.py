@@ -103,6 +103,24 @@ def _halo(z, device):
     return {"rec": rec}
 
 
+def _halo_grad(z, device):
+    """The halo decomposition's value and gradient: the loss ``sum(rec *
+    w)`` (every rank the same) and, after its backward, dJ/dvp and
+    dJ/dwavelet, which every rank must hold whole."""
+    from physicsbasedfwi2_tpu_torch.parallel import (
+        make_mesh, simulate_acoustic_dd)
+    mesh = make_mesh(device=device)
+    dev = mesh.device
+    vp = _t(z["vp"], dev).requires_grad_()
+    wav = _t(z["wav"], dev).requires_grad_()
+    rec = simulate_acoustic_dd(vp, wav, *_geom(z, dev), _acoustic_cfg(z),
+                               mesh)
+    loss = (rec * _t(z["w"], dev)).sum()
+    loss.backward()
+    return {"rec": rec, "loss": loss, "grad_vp": vp.grad,
+            "grad_wav": wav.grad}
+
+
 def _surface(z, device):
     """The misfit surface of a velocity model ``params = {"vp": ...}``
     along the given directions: the trace-normalized L2 of
@@ -187,6 +205,7 @@ def _train(z, device):
 
 _CHECKS = {"acoustic": _acoustic, "sample_shot": _sample_shot,
            "elastic": _elastic, "fused": _fused, "halo": _halo,
+           "halo_grad": _halo_grad,
            "surface": _surface, "engine": _engine, "train": _train}
 
 

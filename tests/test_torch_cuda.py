@@ -13,7 +13,7 @@ import torch
 
 from physicsbasedfwi2_tpu_torch.geo import ricker
 from physicsbasedfwi2_tpu_torch.ops import (
-    adjoint, elastic_fwd, kernels, scalar2, scalar2b,
+    adjoint, elastic_fwd, kernel_breakdown, kernels, scalar2, scalar2b,
 )
 from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
 from physicsbasedfwi2_tpu_torch.ops import trace_normalize
@@ -475,6 +475,66 @@ def test_grid_beyond_the_plan_takes_the_per_step_route(dev):
     assert rel_l2(gk, gp) <= 1e-4
     with pytest.raises(ValueError, match="no resident plan"):
         forward2(vp, wav, *geom, cfg, route="resident")
+
+
+# ---------------------------------------------------------------------------
+# Kernel B9 (ops/kernel_breakdown.py): the variants of the resident forward
+# sweep against their plain version, on the resident shapes above (the
+# seeded field crosses the band edges, the sources sit on them)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", [v for v, _ in kernel_breakdown.VARIANTS])
+def test_b9_variant_matches_plain(res_case, variant):
+    cfg, wav, vp, geom = res_case
+    kw = dict(kernel_breakdown.VARIANTS)[variant]
+    fn = kernel_breakdown.build_variant
+    before = _routes(fn)
+    got = fn(vp, wav, *geom[:3], cfg, KC=16, **kw)
+    again = fn(vp, wav, *geom[:3], cfg, KC=16, **kw)
+    torch.cuda.synchronize()
+    assert _routes(fn) == (before[0] + 2, before[1])
+    plain = kernel_breakdown.build_variant_plain
+    ref = plain(vp, wav, *geom[:3], cfg, KC=16, **kw)
+    ref64 = plain(vp, wav, *geom[:3], cfg, KC=16, dtype=torch.float64, **kw)
+    ns = len(geom[0])
+    flag = {"u0": True, "um1": True, "hist": kw.get("with_rcv", False),
+            "ckpt": kw.get("with_ckpt", False), "chk": True}
+
+    def err(x, y):
+        return float((x.double() - y).abs().max())
+
+    # against the float64 run of the same discrete problem: no farther off
+    # than twice the plain float32 version (plus 1e-6 of max), since FMA
+    # contraction and sum order differ, and the stencil-only sweep's
+    # decaying field keeps float32's error near 1e-4 of its final max
+    for name, present in flag.items():
+        a, b, c = getattr(got, name), getattr(ref, name), getattr(again, name)
+        if not present:
+            assert a is None and b is None
+            continue
+        b64 = getattr(ref64, name)
+        assert a.shape == b.shape and torch.equal(a, c)
+        assert err(a, b64) <= 2.0 * err(b, b64) + 1e-6 * float(
+            b64.abs().max()), name
+    assert got.hist is None or got.hist.shape == (ns, 180, 256)
+    assert got.ckpt is None or got.ckpt.shape == (ns, 12, 2, 88, 256)
+    assert float(got.chk.abs().sum()) == abs(float(got.chk[0, 0]))
+
+
+def test_b9_grid_beyond_the_plan_raises(dev):
+    """B9 has only the resident route: a grid no plan holds (72 x 1024
+    padded) raises before any launch, and no launch is counted."""
+    grid = dict(nz=48, nx=1000, dx=10.0, nt=40, dt=0.002, pml_width=12)
+    cfg = torch_acoustic(grid, dict(chunk=20, vmax_pml=2500.0))
+    vp = torch.full((48, 1000), 1800.0, device=dev)
+    geom = tuple(torch.as_tensor(a, device=dev) for a in (
+        np.array([3, 3], np.int32), np.array([100, 500], np.int32),
+        np.full((2, 8), 3, np.int32)))
+    before = _routes(kernel_breakdown.build_variant)
+    with pytest.raises(ValueError, match="no resident plan"):
+        kernel_breakdown.build_variant(vp, ricker(10.0, 40, 0.002, device=dev),
+                                       *geom, cfg, KC=8, with_src=True)
+    assert _routes(kernel_breakdown.build_variant) == before
 
 
 # ---------------------------------------------------------------------------

@@ -270,6 +270,50 @@ def test_simulate_acoustic_dd_world4(tmp_path):
     assert rel_max(out["rec"], ref) < 1e-4
 
 
+@pytest.mark.parametrize("nx", [88, 87])
+def test_simulate_acoustic_dd_gradient_world4(tmp_path, nx):
+    """dJ/dvp and dJ/dwavelet of ``sum(rec * w)`` through the halo
+    decomposition on 4 ranks: every rank holds the whole gradient, equal
+    to JAX's jitted ``jax.grad`` of its ``simulate_acoustic_dd`` on 4
+    devices and to the port's one-process autograd gradient, to 1e-4 of
+    max (JAX's own gap between the two is 1.3e-5: float32 sums in
+    another order).  At nx 87 the padded width 119 is edge-padded to 120,
+    so the pad column's gradient lands on the last real column."""
+    import jax
+    from physicsbasedfwi2_tpu.parallel.halo import (
+        simulate_acoustic_dd as j_dd)
+    from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
+    wav, geom, vp = _halo_case()
+    vp = np.ascontiguousarray(vp[:, :nx])
+    grid = dict(HALO_GRID, nx=nx)
+    w = np.random.default_rng(4).standard_normal((2, 160, 10)).astype(
+        np.float32)
+    jcfg = JAcoustic(grid=JGrid(**grid), **HALO_CFG)
+    jgeom = tuple(map(jnp.asarray, geom))
+    mesh = jpar.make_mesh(4)
+
+    def jloss(v, wv):
+        return jnp.sum(j_dd(v, wv, *jgeom, jcfg, mesh) * w)
+
+    jg_vp, jg_wav = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        jnp.asarray(vp), jnp.asarray(wav))
+    out = run_ranks(tmp_path, "halo_grad", 4, grid=_lit(grid),
+                    cfg=_lit(HALO_CFG), vp=vp, wav=wav, w=w,
+                    **_geom_kw(geom))
+    tv, tw = t(vp).requires_grad_(), t(wav).requires_grad_()
+    rec = simulate_acoustic(tv, tw, *map(t, geom),
+                            torch_acoustic(grid, HALO_CFG))
+    (rec * t(w)).sum().backward()
+    assert out["grad_vp"].shape == vp.shape and out["grad_wav"].shape == (160,)
+    assert rel_max(out["rec"], rec.detach()) < 1e-4
+    for got, jref, ref in ((out["grad_vp"], jg_vp, tv.grad),
+                           (out["grad_wav"], jg_wav, tw.grad)):
+        assert rel_max(got, np.asarray(jref)) < 1e-4
+        assert rel_max(got, ref) < 1e-4
+    if nx == 87:
+        assert np.abs(out["grad_vp"][:, -1]).max() > 0
+
+
 def test_simulate_acoustic_dd_rejects_varying_receiver_depth():
     wav, geom, vp = _halo_case()
     rz = geom[2].copy()

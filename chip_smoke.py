@@ -67,7 +67,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 3 through ``acoustic_pallas2`` (B4a + B4b), every launch on the
    resident route, with each propagator's peak memory;
 10. the acoustic engine's non-fused path: ``train(get_workload(
-    "marmousi_acoustic", backend="xla"), epochs=1)`` at full width
+    "marmousi_acoustic", backend="xla", nt=XLA_NT), epochs=1)`` at full
+    width (the time loop cut)
     (plain PyTorch autograd through ``simulate_acoustic``, no kernel);
 11. kernels B7a (``forward2b``) and B7b (``backward2b``) at the acoustic
     path's shapes: their resident route (B4's resident sweeps with the
@@ -113,13 +114,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     next epoch at ``lr / guard_lr_ramp``) and ``evaluate`` of the run's
     ``latest`` checkpoint;
 16. L-BFGS and the non-fused elastic paths at full width:
-    ``train(get_workload("marmousi_elastic_lbfgs"), epochs=lstart + 1)``
-    (35 shots a closure, the ``tnl2`` misfit on the "fast" path: plain
-    autograd through the 5-field sponge propagator, no kernel): the
-    misfit at the true model, the setup, the warmup epochs, each physics
-    epoch's seconds and value-and-gradient evaluations, the seconds of
-    each 35-shot value and gradient, the peak memory, every accepted
-    step's decrease; two L-BFGS epochs of ``marmousi_acoustic`` (B2 once an
+    ``marmousi_elastic_lbfgs``'s engine (35 shots a closure, the ``tnl2``
+    misfit on the "fast" path: plain autograd through the 5-field sponge
+    propagator, no kernel), its setup and its misfit at the true model
+    (its first physics epoch runs in phase 25, as ``adam_vs_lbfgs``'s
+    L-BFGS arm); two L-BFGS epochs of ``marmousi_acoustic`` (B2 once an
     evaluation, all on the resident route); one ``elastic_gradient``
     (split PML, autograd) on 5 shots at the elastic grid;
 17. BASELINE config 5 (SEAM elastic FWI with MC-dropout uncertainty):
@@ -158,17 +157,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
     warn_only=True)`` names on one pretraining epoch and on one forward +
     backward of Unet22, Auto22 (``marmousi_acoustic``'s [1, 4001, 200,
     18] input) and AutoElMar22 (``marmousi_elastic``'s), and each net's
-    weight gradients taken twice, held to ``torch.equal``; then
-    the VAE pretraining on ``make_model_bank(48)`` at 151 x 201 (30 of
-    the recipe's 300 epochs; the recon loss falls), run twice from one
-    seed with the recon-loss histories and weights held equal,
-    ``latent_inversion``
-    (10 shots x 150 receivers, nt 800) for 5 epochs through the frozen
-    decoder (``loss_D_MSE`` falls below epoch 1's), ``evaluate`` of its
-    ``latest`` checkpoint (``z`` restored), 3 GanFWI SGLD steps over the
-    decoder; ``classic_fwi_acoustic`` (151 x 200, nt 4001, 18 shots) 1
-    epoch; ``classic_fwi_elastic`` (100 x 300, nt 3334, 5 of 35 shots a
-    step, the "fast" path) 2 epochs, vs live; ``marmousi_impedance`` 3
+    weight gradients taken twice, held to ``torch.equal``; then config
+    4's two stages through ``experiments/run_latent_flagship.py``: the
+    VAE pretraining on ``make_model_bank(48)`` at 151 x 201
+    (``PRETRAIN_EPOCHS`` of the recipe's 300 epochs; the recon loss
+    falls), run once more from the same seed with the recon-loss
+    histories and weights held equal, ``latent_inversion`` (10 shots x
+    150 receivers, nt 800) for ``LATENT_EPOCHS`` epochs through the
+    frozen decoder (``loss_D_MSE`` falls below epoch 1's; the checkpoint
+    holds ``z`` alone), ``evaluate`` of its ``latest`` checkpoint (``z``
+    restored), ``GAN_STEPS`` GanFWI SGLD
+    steps over the decoder; ``classic_fwi_acoustic`` (151 x 200, nt cut
+    to ``CLASSIC_AC_NT``, 18 shots) 1 epoch; ``classic_fwi_elastic``
+    (100 x 300, nt 3334, 5 of 35 shots a step, the "fast" path)
+    ``CLASSIC_EL_EPOCHS`` epochs, vs live; ``marmousi_impedance`` 3
     epochs, then ``save_engine``/``restore_engine`` on the card;
     ``marmousi_acoustic_encoded`` (4 super-shots) 2 epochs on the
     "encoded" path; ``acoustic_dip_multi`` on ``marmousi_acoustic`` (nt
@@ -198,8 +200,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 21. the supervised/GAN family: a dataroot of 128 x 128 float32 patches
     from numpy seed 0 (``trainA`` .. ``trainE`` 64 each, ``testA`` ..
     ``testC`` 4 each, under a temporary directory removed at the end);
-    ``train(get_workload(w, dataroot=...), epochs=3)`` on the card by
-    default for ``pix2pix_baseline``, ``unet_ssim_baseline``,
+    ``train(get_workload(w, dataroot=...), epochs=SUP_EPOCHS)`` on the
+    card by default for ``pix2pix_baseline``, ``unet_ssim_baseline``,
     ``pix2pix_bd``, ``pix2pix_bde`` and ``fno_baseline`` at their
     registered configs (batch 1), every kernel counter 0, finite losses,
     ``loss_V_L1`` where the test twin has the letters, a checkpoint
@@ -213,7 +215,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (at [1, 4001, 200, 18]), ResnetGenerator and FNO2d (at 128 x 128)
     taken twice, held to ``torch.equal``; ``born_acoustic`` against a
     central difference of ``simulate_acoustic`` at 40 x 50 (nt 250) and
-    timed at the Marmousi grid (151 x 200, 2 shots, nt cut to 1000), and
+    timed at the Marmousi grid (151 x 200, 2 shots, nt cut to
+    ``BORN_MARMOUSI_NT``), and
     ``born_elastic`` once at 36 x 48 (nt 64);
 22. ``fwi-landscape`` (``landscape/cli.py::main`` on pre-built engines):
     ``marmousi_acoustic`` on phase 18's shared workload (B1 resident
@@ -268,6 +271,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
     plain version's, the bound and the previous variant's, the eight B9
     instances' registers and spills, and resident B2 on the same inputs
     as the ``full`` row.
+
+25. the experiment tools (``physicsbasedfwi2_tpu_torch/experiments/``,
+    the JAX package's ``benchmarks/`` tools that time nothing), under a
+    temporary directory removed at the end: ``make_realdata_su`` at
+    ``real_data``'s shape (150 x 300 at dx 30 m, 12 shots x 280
+    receivers, nt 2001; the split-PML scheme, no kernel), its SU headers
+    and gathers, then ``real_data`` for lstart + 1 epochs on the result
+    (B3 per-step once); the canonical Marmousi's known-density tree
+    (``prep --physics elastic --rho-start true``, 100 x 300, nt 3334,
+    the ring forward resident once), a two-epoch ``marmousi_elastic`` run
+    from it (lstart 1, B3 resident once) whose checkpoint defines path D,
+    and ``misfit_linescan`` on all 35 shots, paths T and D at 5 points
+    each (10 resident ring forwards and no other launch; the
+    trace-normalized L2 at the truth below the start's);
+    ``adam_vs_lbfgs``'s two elastic arms on the tool's synthetic
+    workload (no ``--dataroot``) at the registered nt 3334 and a budget
+    of ``AVL_BUDGET`` shot-gradients, each engine built through the
+    tool's ``engine=`` hook (Adam: 14 physics steps of 5 shots, B3
+    resident each; L-BFGS: ``marmousi_elastic_lbfgs``'s warmup and first
+    physics epoch on the "fast" path, each 35-shot value and gradient
+    timed, the budget the shots times the line search's probes, the
+    accepted step's decrease, the peak memory).  ``run_latent_flagship``
+    runs in phase 19.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.
@@ -561,8 +587,8 @@ def phase_b1(dev):
     turns = route_turns("B1 forward2", lambda r: forward2(
         vp, wav, *geom, cfg, return_rows=True, route=r), NT)
     rows_k, ms_k = turns["out"], turns["ms"]
-    rows_p, ms_p = timed_ms(lambda: forward2_plain(vp, wav, *geom, cfg,
-                                                   return_rows=True))
+    rows_p, ms_p = _plain_ms(lambda: forward2_plain(vp, wav, *geom, cfg,
+                                                    return_rows=True))
     scale = float(rows_p.abs().max())
     err = float((rows_k - rows_p).abs().max())
     print(f"B1 forward2 [18 shots, nt {NT}, rows "
@@ -630,7 +656,7 @@ def phase_b2(dev):
             check(n["fwd_resident"] == 1 and n["rev_resident"] == 1,
                   "resident B2 is not one launch a sweep")
     kc_turns(kernel, obs_rows, dir_pad, g.nt)
-    (lp, gp), ms_p = timed_ms(lambda: plain(off), repeats=1)
+    (lp, gp), ms_p = _plain_ms(lambda: plain(off))
     lr, gr = fwi_l1_loss_grad_plain(vp0, wav, *geom, cfg, off, dir_pad,
                                     dtype=torch.float64)
     lk, lp, lr = float(lk), float(lp), float(lr)
@@ -1310,10 +1336,11 @@ def phase_robust(dev):
 
 
 def phase_lbfgs(dev):
-    """Slice 6 at full width: ``marmousi_elastic_lbfgs`` (full-batch
-    L-BFGS, the ``tnl2`` misfit on the "fast" path) for lstart + 1
-    epochs, ``marmousi_acoustic`` with L-BFGS for 2 epochs, and one
-    split-PML ``elastic_gradient`` on 5 shots."""
+    """Slice 6 at full width: ``marmousi_elastic_lbfgs``'s engine (full-
+    batch L-BFGS, the ``tnl2`` misfit on the "fast" path) and its misfit
+    at the true model (its first physics epoch runs in phase 25, as
+    ``adam_vs_lbfgs``'s L-BFGS arm), ``marmousi_acoustic`` with L-BFGS
+    for 2 epochs, and one split-PML ``elastic_gradient`` on 5 shots."""
     import torch
     from physicsbasedfwi2_tpu_torch.engine.config import get_workload
     from physicsbasedfwi2_tpu_torch.engine.engines import (
@@ -1357,78 +1384,9 @@ def phase_lbfgs(dev):
           f"1e-9), a 35-shot forward and misfit {fwd_s:.3f} s")
     check(loss_true <= 1e-9, "tnl2 misfit at the true model")
 
-    # the training run; per epoch the value-and-gradient evaluations and
-    # the line search's outcome, and the seconds of every 35-shot value
-    # and gradient (autograd through the sponge propagator)
-    evals, steps, vg_s = {}, {}, []
-    step_fn = engine.optimize_parameters
-    value_and_grad = engine._autograd_value_and_grad
-
-    def timed_value_and_grad(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = value_and_grad(*args, **kw)
-        torch.cuda.synchronize()
-        vg_s.append(time.perf_counter() - t0)
-        return out
-
-    engine._autograd_value_and_grad = timed_value_and_grad
-
-    def logged(epoch, **kw):
-        out = step_fn(epoch, **kw)
-        st = engine.opt.state
-        evals[epoch] = engine.opt.evaluations
-        steps[epoch] = (out["loss_D_MSE"], float(st.value),
-                        float(st.learning_rate),
-                        float(st.info.decrease_error),
-                        float(st.info.curvature_error))
-        return out
-
-    engine.optimize_parameters = logged
-    epochs = cfg.lstart + 1
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    engine, history = train(cfg, epochs=epochs, quiet=True, engine=engine)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    engine.optimize_parameters = step_fn
-    engine._autograd_value_and_grad = value_and_grad
-    for rec in history[:1] + history[cfg.lstart - 1:]:
-        print("epoch", json.dumps(rec))
-    warm = [r["epoch_time"] for r in history[:cfg.lstart]]
-    phys = [r["epoch_time"] for r in history[cfg.lstart:]]
-    print(f"slice 6: {epochs} epochs in {total:.2f} s; warmup epochs: first "
-          f"{warm[0]:.4f} s, median of the rest {_median(warm[1:]):.4f} s "
-          f"(evaluations {[evals[e] for e in range(1, cfg.lstart + 1)]}); "
-          f"physics epochs {', '.join(f'{x:.3f}' for x in phys)} s with "
-          f"{[evals[e] for e in range(cfg.lstart + 1, epochs + 1)]} "
-          f"value-and-gradient evaluations; peak memory {peak:.2f} GiB; "
-          f"B3 and ring forward launches {b3.launches}, {ring.launches}")
-    print(f"slice 6: {len(vg_s)} 35-shot values and gradients: "
-          f"{', '.join(f'{x:.3f}' for x in vg_s)} s (median "
-          f"{_median(vg_s):.3f})")
-    check(len(vg_s) == sum(evals[e] for e in range(cfg.lstart + 1,
-                                                   epochs + 1)),
-          "not one autograd value and gradient an evaluation")
-    for e in range(cfg.lstart + 1, epochs + 1):
-        d0, d1, lr, dec, curv = steps[e]
-        print(f"slice 6 epoch {e}: loss_D {d0:.9g} -> accepted {d1:.9g} "
-              f"(step size {lr:.6g}; decrease error {dec:.3g}, curvature "
-              f"error {curv:.3g})")
-        # sufficient decrease: Armijo or the approximate (Hager-Zhang)
-        # test, which admits at most 1e-6 of the value
-        check(d1 <= d0 + 1e-6 * abs(d0) and lr > 0,
-              f"epoch {e}: the accepted step does not decrease the loss")
-    for rec in history:
-        for k, v in rec.items():
-            if isinstance(v, float):
-                check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
-    # the physics loss falls: the accepted step's full-batch loss (the
-    # next epoch's loss_D) below the physics epoch's
-    d0, d1 = steps[epochs][:2]
-    check(history[-1]["loss_D_MSE"] > 0 and d1 < d0,
-          f"loss_D does not fall over the physics epoch: {d0} -> {d1}")
+    # the first physics epoch of this engine at full width (the line
+    # search's value-and-gradient evaluations, each timed; every accepted
+    # step's decrease) runs in phase 25, as adam_vs_lbfgs's L-BFGS arm
     check(b3.launches == 0 and ring.launches == 0,
           "a fused elastic kernel ran on the fast path")
 
@@ -1790,12 +1748,18 @@ def phase_slice3(dev):
     return launches
 
 
+# phase 10's time steps (of marmousi_acoustic's 4001): a depth cut that
+# makes room for phase 25
+XLA_NT = 1000
+
+
 def phase_xla_engine(dev):
-    """The acoustic engine's non-fused ("xla") path at full width."""
+    """The acoustic engine's non-fused ("xla") path at full width, the
+    time loop cut to ``XLA_NT`` steps."""
     import torch
     from physicsbasedfwi2_tpu_torch.engine.config import get_workload
     from physicsbasedfwi2_tpu_torch.engine.train import train
-    cfg = get_workload("marmousi_acoustic", backend="xla",
+    cfg = get_workload("marmousi_acoustic", backend="xla", nt=XLA_NT,
                        save_dir=str(ROOT / "build" / "chip_smoke"))
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2663,17 +2627,19 @@ ACOUSTIC_BUILD = ("nz", "nx", "dx", "nt", "dt", "pml_width", "freq",
 SGHMC_LSTART = 2  # mcdip_uq's warmup epochs under SGHMC (the recipe: 30)
 # phase 19's depth: epochs of each engine (the registered recipes run
 # hundreds to thousands), the pretraining's (the recipe: 300), GanFWI's
-# sampler steps
+# sampler steps; the latent inversion and GanFWI cut further to make
+# room for phase 25
 PRETRAIN_EPOCHS = 30
-LATENT_EPOCHS = 5
+LATENT_EPOCHS = 3
 CLASSIC_AC_EPOCHS = 1
+CLASSIC_AC_NT = 1000  # classic_fwi_acoustic's time steps (of 4001)
 # the multi-sample engine's time steps (of marmousi_acoustic's 4001): a
-# depth cut that makes room for phases 22 and 23
-MULTI_NT = 1000
-CLASSIC_EL_EPOCHS = 2
+# depth cut that makes room for phases 22, 23 and 25
+MULTI_NT = 600
+CLASSIC_EL_EPOCHS = 1
 IMPEDANCE_EPOCHS = 3
 ENCODED_EPOCHS = 2
-GAN_STEPS = 3
+GAN_STEPS = 2
 
 
 def _vae_logvar(engine):
@@ -3144,12 +3110,15 @@ def _generator_determinism(dev) -> None:
 
 
 def _config4(dev, out_dir):
-    """BASELINE config 4 at its registered size, the recipe of
-    benchmarks/run_latent_flagship.py with the pretraining's epochs cut
-    from 300 to ``PRETRAIN_EPOCHS``: the VAE pretraining on a 48-model
-    bank, the latent inversion through the frozen decoder, ``evaluate`` of
-    its ``latest`` checkpoint, then GanFWI's SGLD over the same decoder
-    and workload."""
+    """BASELINE config 4 at its registered size through
+    ``experiments/run_latent_flagship.py`` (the recipe's two stages), its
+    pretraining's epochs cut from 300 to ``PRETRAIN_EPOCHS`` and its
+    inversion's from 400 to ``LATENT_EPOCHS``: the VAE pretraining on a
+    48-model bank, run once more from the same seed and held equal, the
+    latent inversion through the frozen decoder, its checkpoint (the
+    latent alone) and ``evaluate`` of it, then GanFWI's SGLD over the
+    same decoder and workload."""
+    import numpy as np
     import torch
     from physicsbasedfwi2_tpu_torch.engine.config import get_workload
     from physicsbasedfwi2_tpu_torch.engine.engines import (
@@ -3158,49 +3127,70 @@ def _config4(dev, out_dir):
     from physicsbasedfwi2_tpu_torch.engine.pretrain import (
         make_model_bank, pretrain_model_vae)
     from physicsbasedfwi2_tpu_torch.engine.test import evaluate
+    from physicsbasedfwi2_tpu_torch.experiments.run_latent_flagship import (
+        run_latent_flagship)
     from physicsbasedfwi2_tpu_torch.models import apply_velocity_output
     cfg = get_workload("latent_inversion", save_dir=str(out_dir))
-    bank = make_model_bank(48, cfg.nz, cfg.nx, water_rows=6, seed=3)
     torch.cuda.reset_peak_memory_stats(dev)
-    runs = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        runs.append(pretrain_model_vae(
-            bank, latent_dim=cfg.latent_dim, filters=cfg.filters,
-            epochs=PRETRAIN_EPOCHS, batch_size=8, lr=2e-3, device=dev))
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    (net, norm, hist), (net2, _, hist2) = runs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, engine, history = run_latent_flagship(
+        cfg, epochs=LATENT_EPOCHS, pretrain_epochs=PRETRAIN_EPOCHS,
+        device=dev)
+    torch.cuda.synchronize()
+    secs_tool = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    net, norm = engine.net, engine.decoder_norm
+    # the tool's pretraining again (its bank: 48 models from seed 3)
+    bank = make_model_bank(48, cfg.nz, cfg.nx, water_rows=6, seed=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net2, _, hist2 = pretrain_model_vae(
+        bank, latent_dim=cfg.latent_dim, filters=cfg.filters,
+        epochs=PRETRAIN_EPOCHS, batch_size=8, lr=2e-3, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
     sd, sd2 = net.state_dict(), net2.state_dict()
     weights = all(torch.equal(sd[k], sd2[k]) for k in sd)
-    print(f"phase 19 config 4 pretraining run twice from seed 0: recon-loss "
-          f"histories equal {hist == hist2}, weights torch.equal {weights}; "
-          f"first {[f'{h:.9g}' for h in hist[-3:]]}, second "
-          f"{[f'{h:.9g}' for h in hist2[-3:]]} (last 3 epochs)")
+    print(f"phase 19 config 4 pretraining, the tool's and once more from "
+          f"seed 0: recon-loss histories equal {hist == hist2}, weights "
+          f"torch.equal {weights}; first {[f'{h:.9g}' for h in hist[-3:]]}, "
+          f"second {[f'{h:.9g}' for h in hist2[-3:]]} (last 3 epochs)")
     check(hist == hist2 and weights,
           "two pretrainings from one seed differ")
     print(f"phase 19 config 4 pretraining: ModelVae {cfg.nz}x{cfg.nx}, "
           f"filters {cfg.filters}, latent {cfg.latent_dim}, 48 models, "
           f"batch 8, {PRETRAIN_EPOCHS} epochs in {secs:.2f} s "
           f"({secs / PRETRAIN_EPOCHS:.4f} s an epoch of 6 steps); recon "
-          f"loss {hist[0]:.6f} -> {hist[-1]:.6f}; norm {norm}; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+          f"loss {hist[0]:.6f} -> {hist[-1]:.6f}; norm {norm}")
     check(all(math.isfinite(h) for h in hist) and hist[-1] < hist[0],
           f"pretraining's recon loss does not fall: {hist[0]} -> {hist[-1]}")
 
-    def latent():
-        return LatentInversionEngine(cfg, decoder_net=net,
-                                     decoder_norm=norm, device=dev)
-
-    engine, history = _train19(dev, "latent_inversion", cfg,
-                               LATENT_EPOCHS, latent)
+    for rec in history:
+        print("epoch", json.dumps(rec))
+    epoch_s = ", ".join(f"{r['epoch_time']:.4f}" for r in history)
+    print(f"phase 19 run_latent_flagship (latent_inversion {cfg.nz}x"
+          f"{cfg.nx}, nt {cfg.nt}, {cfg.num_shots} shots x "
+          f"{cfg.num_receivers} receivers; physics path "
+          f"{engine.physics_path}): {PRETRAIN_EPOCHS} pretraining and "
+          f"{LATENT_EPOCHS} inversion epochs in {secs_tool:.2f} s; epochs "
+          f"{epoch_s} s; peak memory {peak:.2f} GiB")
+    check(engine.device == dev, f"latent_inversion: engine on "
+          f"{engine.device}")
+    for rec in history:
+        for k, v in rec.items():
+            if isinstance(v, float):
+                check(math.isfinite(v), f"latent_inversion epoch "
+                      f"{rec['epoch']}: {k}={v}")
     losses = [r["loss_D_MSE"] for r in history]
     check(min(losses[1:]) < losses[0],
           f"latent_inversion: loss_D_MSE does not fall below epoch 1's: "
           f"{losses}")
+    with np.load(out_dir / cfg.name / "latest_net_G.npz") as zf:
+        check(zf.files == ["['z']"], f"latent checkpoint keys {zf.files}")
     z = engine.params["z"].detach().clone()
-    fresh = latent()
+    fresh = LatentInversionEngine(cfg, decoder_net=net, decoder_norm=norm,
+                                  device=dev)
     res = evaluate(cfg, epoch="latest", results_dir=str(out_dir / "results"),
                    engine=fresh)
     same = torch.equal(fresh.params["z"], z)
@@ -3292,14 +3282,18 @@ def phase_other_engines(dev):
                                            device=dev)
     torch.cuda.synchronize()
     print(f"phase 19: marmousi_acoustic's workload and its twin built once "
-          f"in {time.perf_counter() - t0:.2f} s for classic_fwi_acoustic "
-          f"and marmousi_acoustic_encoded")
+          f"in {time.perf_counter() - t0:.2f} s for "
+          f"marmousi_acoustic_encoded")
 
-    cfg = get_workload("classic_fwi_acoustic", save_dir=str(out_dir))
-    check(all(getattr(cfg, f) == getattr(base, f) for f in ACOUSTIC_BUILD),
+    cfg = get_workload("classic_fwi_acoustic", save_dir=str(out_dir),
+                       nt=CLASSIC_AC_NT)
+    check(all(getattr(cfg, f) == getattr(base, f) for f in ACOUSTIC_BUILD
+              if f != "nt"),
           "classic_fwi_acoustic: not marmousi_acoustic's grid")
     _train19(dev, "classic_fwi_acoustic", cfg, CLASSIC_AC_EPOCHS,
-             lambda: ClassicFWIEngine(cfg, workload=dataclasses.replace(wl),
+             lambda: ClassicFWIEngine(cfg, workload=SyntheticAcousticWorkload
+                                      .build(**dict(kw, nt=CLASSIC_AC_NT),
+                                             seed=base.seed, device=dev),
                                       device=dev))
 
     cfg = get_workload("classic_fwi_elastic", save_dir=str(out_dir))
@@ -3353,21 +3347,6 @@ def phase_other_engines(dev):
           f"launches {launches}")
     check(not any(launches.values()),
           f"phase 19 launched kernels: {launches}")
-
-
-def _write_su(path, traces: "np.ndarray", dt_s: float) -> None:
-    """One Seismic-Unix shot file, little-endian: per trace [ns] of
-    ``traces`` [ntraces, ns] a 240-byte header (ns at byte 114, dt in
-    microseconds at byte 116) and the float32 samples."""
-    import numpy as np
-    ntr, ns = traces.shape
-    hdr = np.zeros((ntr, 240), np.uint8)
-    hdr[:, 114:116] = np.frombuffer(np.array([ns], "<u2").tobytes(), np.uint8)
-    hdr[:, 116:118] = np.frombuffer(
-        np.array([round(dt_s * 1e6)], "<u2").tobytes(), np.uint8)
-    body = np.ascontiguousarray(traces, "<f4").view(np.uint8)
-    with open(path, "wb") as f:
-        f.write(np.concatenate([hdr, body], axis=1).tobytes())
 
 
 def _train20(dev, what, cfg, epochs):
@@ -3526,6 +3505,8 @@ def phase_dataroot(dev):
     from physicsbasedfwi2_tpu_torch.data.marmousi import (
         canonical_marmousi_vp, write_segy_grid)
     from physicsbasedfwi2_tpu_torch.engine.race import main as race_main
+    from physicsbasedfwi2_tpu_torch.experiments.make_realdata_su import (
+        write_su_gather)
     from physicsbasedfwi2_tpu_torch.engine import test as t_test
     from physicsbasedfwi2_tpu_torch.engine.config import get_workload
     from physicsbasedfwi2_tpu_torch.geo import elastic_line, ricker
@@ -3656,7 +3637,8 @@ def phase_dataroot(dev):
                 ricker(rcfg.freq, rcfg.nt, rcfg.dt, device=dev), *geom, ecfg)
             for comp, gathers in (("x", vx), ("y", vz)):
                 for k, gth in enumerate(gathers.cpu().numpy(), 1):
-                    _write_su(su / f"seis_{comp}.su.shot{k}", gth.T, rcfg.dt)
+                    write_su_gather(su / f"seis_{comp}.su.shot{k}", gth.T,
+                                    round(rcfg.dt * 1e6))
 
         _, n = path(f"real_data SU gathers ({rcfg.num_shots} shots x "
                     f"{rcfg.num_receivers} receivers, nt {rcfg.nt}, absorbing "
@@ -3718,7 +3700,7 @@ def phase_dataroot(dev):
 # (the recipes run 100), CycleGAN's steps, the DIP runs of the new U-Nets
 SUP_WORKLOADS = ("pix2pix_baseline", "unet_ssim_baseline", "pix2pix_bd",
                  "pix2pix_bde", "fno_baseline")
-SUP_EPOCHS = 3
+SUP_EPOCHS = 2
 SUP_TRAIN, SUP_TEST = 64, 4   # patches a letter in trainA..E, testA..C
 PATCH = 128                   # unet_128: the pix2pix U-Net's 128 x 128
 CYCLE_STEPS = 10
@@ -3726,7 +3708,7 @@ DIP21_NETS = ("ASPP", "ResUNET", "UNet3Plus", "R2U", "R2AttU", "Multi")
 DIP21_EPOCHS = 2
 # the Marmousi Born run's time steps, cut from marmousi_acoustic's 4001:
 # forward-mode AD runs ~10 ms a time step on the card (PERF.md §6, PR 17)
-BORN_MARMOUSI_NT = 1000
+BORN_MARMOUSI_NT = 500
 
 
 def _write_patches(root: Path) -> None:
@@ -4061,7 +4043,7 @@ def phase_supervised(dev):
 # water), and the closure scan's steps in the graph-replay comparison
 HESS_NT_AC = 450
 HESS_NT2_AC = 900  # the second cut, for the memory a time step adds
-HESS_NT_EL = 150
+HESS_NT_EL = 100
 HVP_CD_EPS = 1e-7  # the central difference's step along a unit v, float64
 HVP_CD_EPS_M = 1e-3  # the same in model space (m/s along a unit v)
 HVP_CD_TOL = 1e-4  # its relative L2 error against the float64 HVP
@@ -4961,6 +4943,251 @@ def phase_b9(dev):
         "full_b2_ms": ms_full}
 
 
+# phase 25: the experiment tools of benchmarks/ on the port
+AVL_BUDGET = 70  # adam_vs_lbfgs's shot-gradients an arm (the tool's 7000)
+
+
+def lbfgs_probe(engine):
+    """Instrument an elastic L-BFGS engine (the "fast" path): each
+    ``optimize_parameters`` step's value-and-gradient evaluations and its
+    line search's outcome, and the seconds of every value and gradient
+    (autograd through the sponge propagator).  Returns (evaluations by
+    epoch, (loss_D, accepted value, step size, decrease error, curvature
+    error) by epoch, the seconds), filled as the engine trains."""
+    import torch
+    evals, steps, vg_s = {}, {}, []
+    step_fn = engine.optimize_parameters
+    value_and_grad = engine._autograd_value_and_grad
+
+    def timed_value_and_grad(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = value_and_grad(*args, **kw)
+        torch.cuda.synchronize()
+        vg_s.append(time.perf_counter() - t0)
+        return out
+
+    def logged(epoch, **kw):
+        out = step_fn(epoch, **kw)
+        st = engine.opt.state
+        evals[epoch] = engine.opt.evaluations
+        steps[epoch] = (out["loss_D_MSE"], float(st.value),
+                        float(st.learning_rate),
+                        float(st.info.decrease_error),
+                        float(st.info.curvature_error))
+        return out
+
+    engine._autograd_value_and_grad = timed_value_and_grad
+    engine.optimize_parameters = logged
+    return evals, steps, vg_s
+
+
+def phase_experiments(dev):
+    """The experiment tools at full width (see the module docstring,
+    phase 25).  Returns the launches by kernel."""
+    import collections
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from physicsbasedfwi2_tpu_torch.data import marmousi, prep
+    from physicsbasedfwi2_tpu_torch.engine.config import get_workload
+    from physicsbasedfwi2_tpu_torch.engine.train import train
+    from physicsbasedfwi2_tpu_torch.engine.engines import create_engine
+    from physicsbasedfwi2_tpu_torch.experiments import (
+        adam_vs_lbfgs, make_realdata_su, misfit_linescan)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    counters = _all_kernels()
+    launches = collections.Counter()
+
+    def path(what, fn):
+        """Run ``fn()`` with every count set to 0 just before it, add its
+        launches to the phase's, and return (its result, (all, resident,
+        per-step) launches by kernel)."""
+        reset_launches(*counters.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: (f.launches, f.resident_launches, f.per_step_launches)
+                  for k, f in counters.items()}
+        launches.update({k: c[0] for k, c in counts.items()})
+        ran = {k: c for k, c in counts.items() if c[0]}
+        print(f"phase 25 {what}: {secs:.2f} s; launches (all, resident, "
+              f"per-step) {ran}")
+        return out, collections.defaultdict(lambda: (0, 0, 0), ran)
+
+    def finite(what, recs):
+        for rec in recs:
+            for k, v in rec.items():
+                if isinstance(v, float):
+                    check(math.isfinite(v), f"{what}: {k}={v} in {rec}")
+
+    print(f"phase 25 on {card_line()}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_experiments_"))
+    out_dir = ROOT / "build" / "chip_smoke"
+    try:
+        # make_realdata_su at real_data's shape, then a physics epoch on it
+        rcfg = get_workload("real_data", save_dir=str(out_dir),
+                            name="experiments_real_data")
+        rd = tmp / "real_marine"
+        rec, n = path(
+            f"make_realdata_su ({rcfg.num_shots} shots x "
+            f"{rcfg.num_receivers} receivers, {rcfg.nz} x {rcfg.nx}, nt "
+            f"{rcfg.nt}: the split-PML scheme, plain PyTorch)",
+            lambda: make_realdata_su.make_realdata_su(rcfg, str(rd),
+                                                      device=dev))
+        check(not n, f"make_realdata_su launched a kernel: {dict(n)}")
+        shot1 = Path(rec["su_dir"]) / "seis_x.su.shot1"
+        raw = np.frombuffer(shot1.read_bytes(), np.uint8)
+        ntr = rcfg.num_receivers
+        ns_hdr = int(raw[114:116].view("<u2")[0])
+        dt_hdr = int(raw[116:118].view("<u2")[0])
+        gathers = np.load(rd / "trainA" / "0.npy")
+        print(f"phase 25 make_realdata_su: ingested {rec['shape']} at dt "
+              f"{rec['dt']} s; SU headers ns {ns_hdr}, dt {dt_hdr} us, "
+              f"{raw.size} bytes a shot file; |vx| max "
+              f"{np.abs(gathers).max():.3e}")
+        check(rec["shape"] == [rcfg.num_shots, rcfg.nt, ntr]
+              and ns_hdr == rcfg.nt and dt_hdr == round(rcfg.dt * 1e6)
+              and raw.size == ntr * (240 + 4 * rcfg.nt),
+              "make_realdata_su's SU files")
+        check(bool(np.isfinite(gathers).all()) and np.abs(gathers).max() > 0,
+              "make_realdata_su's gathers")
+        rcfg = rcfg.replace(dataroot=str(rd))
+        (engine, hist), n = path(
+            f"real_data from make_realdata_su's tree, lstart {rcfg.lstart} "
+            f"+ 1 epochs", lambda: train(rcfg, epochs=rcfg.lstart + 1,
+                                         quiet=True, device=dev))
+        print("epoch", json.dumps(hist[-1]))
+        check(engine.physics_path == "fused-cuda" and engine.wl.from_disk,
+              f"real_data: path {engine.physics_path}")
+        check(n["fused_elastic_loss_grad"] == (1, 0, 1),
+              f"real_data: B3 {n['fused_elastic_loss_grad']} (want one "
+              f"per-step launch: 192 x 384 fits no resident plan)")
+        finite("real_data", hist)
+
+        # misfit_linescan on the known-density Marmousi tree
+        segy = tmp / "marm751x2301.segy"
+        marmousi.main(["--out", str(segy)])
+        kd = tmp / "marm_elastic_kd"
+        _, n = path("prep --physics elastic --rho-start true (100 x 300, "
+                    "35 shots, nt 3334)",
+                    lambda: prep.main(["--grid", str(segy), "--physics",
+                                       "elastic", "--rho-start", "true",
+                                       "--nz", "100", "--nx", "300", "--out",
+                                       str(kd)]))
+        check(n["simulate_elastic_ring"] == (1, 1, 0),
+              f"kd prep: ring forward {n['simulate_elastic_ring']}")
+        runs = tmp / "runs"
+        dcfg = get_workload("marmousi_elastic", dataroot=str(kd), lstart=1,
+                            name="drift", save_dir=str(runs))
+        _, n = path("marmousi_elastic from the kd tree, 2 epochs (lstart "
+                    "1; path D's checkpoint)",
+                    lambda: train(dcfg, epochs=2, quiet=True, device=dev))
+        check(n["fused_elastic_loss_grad"] == (1, 1, 0),
+              f"drift run: B3 {n['fused_elastic_loss_grad']}")
+        lcfg = get_workload("marmousi_elastic", dataroot=str(kd))
+        recs, n = path(
+            f"misfit_linescan (35 shots, paths T and D, "
+            f"{len(misfit_linescan.ALPHAS)} alphas each)",
+            lambda: misfit_linescan.linescan(lcfg, drift_run=str(runs /
+                                                                 "drift"),
+                                             device=dev))
+        for r in recs:
+            print("phase 25 linescan", json.dumps(r))
+        n_pts = 2 * len(misfit_linescan.ALPHAS)
+        check(dict(n) == {"simulate_elastic_ring": (n_pts, n_pts, 0)},
+              f"linescan: launches {dict(n)} (want {n_pts} resident ring "
+              f"forwards and nothing else)")
+        finite("linescan", recs)
+        t_path = [r for r in recs if r.get("path") == "T(truth)"]
+        # the truth ranks below the start (tnl2: the records are rounded
+        # to 8 decimals, and the raw l2 of these gathers can round to 0;
+        # not 0 at the truth: the tool band-limits the observed gathers
+        # and the wavelet apart, which differs at the traces' ends)
+        check(t_path[-1]["tnl2"] < t_path[0]["tnl2"],
+              f"linescan: tnl2 {t_path[0]['tnl2']} at the start, "
+              f"{t_path[-1]['tnl2']} at the truth")
+
+        # adam_vs_lbfgs's elastic arms on the tool's synthetic workload
+        # (no --dataroot) at the registered nt; the L-BFGS arm's physics
+        # step is marmousi_elastic_lbfgs's first physics epoch
+
+        def arm(workload, cfg):
+            eng = create_engine(cfg, device=dev)
+            probe = lbfgs_probe(eng) if cfg.optimizer == "lbfgs" else None
+            return eng, probe, adam_vs_lbfgs.run_arm(workload, cfg,
+                                                     AVL_BUDGET, engine=eng)
+
+        results = []
+        for workload, cfg in adam_vs_lbfgs.arm_configs(save_dir=str(out_dir)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            (eng, probe, r), n = path(
+                f"adam_vs_lbfgs {cfg.name} ({cfg.nz} x {cfg.nx}, nt {cfg.nt}, "
+                f"{cfg.num_shots} shots; budget {AVL_BUDGET} shot-gradients; "
+                f"the engine's setup included)",
+                lambda: arm(workload, cfg))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            print(json.dumps(r))
+            print(f"phase 25 adam_vs_lbfgs {cfg.name}: physics path "
+                  f"{eng.physics_path}; peak memory {peak:.2f} GiB")
+            finite(cfg.name, [r])
+            if cfg.optimizer == "adam":
+                n_steps = -(-AVL_BUDGET // cfg.shots_per_iter)
+                check((r["iterations"], r["budget_spent"])
+                      == (n_steps, n_steps * cfg.shots_per_iter)
+                      and n["fused_elastic_loss_grad"] == (n_steps,
+                                                           n_steps, 0),
+                      f"Adam arm: {r['iterations']} steps, "
+                      f"{r['budget_spent']} spent, launches {dict(n)}")
+            else:
+                evals, steps, vg_s = probe
+                probes = [evals[e] - 1 for e in sorted(evals)
+                          if e > cfg.lstart]
+                print(f"phase 25 adam_vs_lbfgs elastic_lbfgs: warmup "
+                      f"evaluations "
+                      f"{[evals[e] for e in sorted(evals) if e <= cfg.lstart]}"
+                      f"; {len(vg_s)} 35-shot values and gradients "
+                      f"{', '.join(f'{x:.3f}' for x in vg_s)} s (median "
+                      f"{_median(vg_s):.3f}); line-search probes a step "
+                      f"{probes}")
+                check(eng.physics_path == "fast" and not n,
+                      f"L-BFGS arm: path {eng.physics_path}, launched "
+                      f"{dict(n)} (the fast path has no kernel)")
+                check(r["budget_spent"] == eng.n_shots * sum(probes)
+                      and len(probes) == r["iterations"],
+                      "L-BFGS arm: the budget is not the shots times "
+                      "the probes")
+                check(len(vg_s) == sum(evals[e] for e in evals
+                                       if e > cfg.lstart),
+                      "not one autograd value and gradient an evaluation")
+                for e in sorted(steps):
+                    if e <= cfg.lstart:
+                        continue
+                    d0, d1, lr, dec, curv = steps[e]
+                    print(f"phase 25 L-BFGS epoch {e}: loss_D {d0:.9g} -> "
+                          f"accepted {d1:.9g} (step size {lr:.6g}; decrease "
+                          f"error {dec:.3g}, curvature error {curv:.3g})")
+                    # Armijo or the approximate (Hager-Zhang) test, which
+                    # admits at most 1e-6 of the value
+                    check(d1 <= d0 + 1e-6 * abs(d0) and lr > 0,
+                          f"epoch {e}: the accepted step does not "
+                          f"decrease the loss")
+                d0, d1 = steps[max(steps)][:2]
+                check(d1 < d0, f"L-BFGS: the loss does not fall: {d0} -> "
+                      f"{d1}")
+            results.append(r)
+        print(json.dumps(adam_vs_lbfgs.summary(results, AVL_BUDGET)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{dict(launches)}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -4995,45 +5222,79 @@ def main(argv: list[str]) -> int:
                   17: [phase_config5], 18: [phase_config2],
                   19: [phase_other_engines], 20: [phase_dataroot],
                   21: [phase_supervised], 22: [phase_landscape],
-                  23: [phase_mesh], 24: [phase_b9]}
+                  23: [phase_mesh], 24: [phase_b9],
+                  25: [phase_experiments]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
         print(f"chip_smoke: partial run of phases {sorted(only)} passed")
         return 0
     import collections
+    t_lap = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Print the seconds a phase took (the whole run's breakdown)."""
+        now = time.perf_counter()
+        print(f"chip_smoke: phase {phase} took {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
+
     b1 = phase_b1(dev)
+    lap("2")
     b2 = phase_b2(dev)
+    lap("3")
     b3, ring = phase_b3(dev)
+    lap("4")
     # each path's launches, summed where two paths run a kernel
     launches = collections.Counter(phase_slice(dev))
+    lap("5")
     launches.update(phase_slice2(dev))
+    lap("6")
     b4a, b4b = phase_b4(dev)
+    lap("7")
     b5, b6 = phase_b56(dev)
+    lap("8")
     launches.update(phase_slice3(dev))
+    lap("9")
     phase_xla_engine(dev)
+    lap("10")
     b7a, b7b = phase_b7(dev)
     launches.update(phase_slice4_pairs(dev))
+    lap("11")
     n_b8, b8 = phase_b8(dev)
     launches["elastic_forward_pallas"] += n_b8
+    lap("12")
     b2["gwav_max_abs_err"] = phase_b2_wavelet(dev)
+    lap("13")
     phase_engine_paths(dev)
+    lap("14")
     launches.update(phase_robust(dev))
+    lap("15")
     launches.update(phase_lbfgs(dev))
+    lap("16")
     seam_launches, b3_seam, ring_seam = phase_config5(dev)
     launches.update(seam_launches)
     b3.update(b3_seam)
     ring.update(ring_seam)
+    lap("17")
     launches.update(phase_config2(dev))
+    lap("18")
     phase_other_engines(dev)
+    lap("19")
     dataroot_launches, dataroot_routes, b3_real = phase_dataroot(dev)
     launches.update(dataroot_launches)
     b3.update(b3_real)
+    lap("20")
     launches.update(phase_supervised(dev))
+    lap("21")
     launches.update(phase_landscape(dev))
+    lap("22")
     launches.update(phase_mesh(dev))
+    lap("23")
     n_b9, b9 = phase_b9(dev)
     launches["build_variant"] += n_b9
+    lap("24")
+    launches.update(phase_experiments(dev))
+    lap("25")
     # phase 20's launches of each kernel it ran, by route
     for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
                          ("fused_elastic_loss_grad", b3),

@@ -18,6 +18,7 @@ from physicsbasedfwi2_tpu_torch.models.autoencoders import (
     AutoEncoderNet,
     ElasticAutoEncoderNet,
     FlowAutoEncoderNet,
+    ModelParamNet,
     apply_elastic_output,
     apply_velocity_output,
 )
@@ -169,6 +170,7 @@ __all__ = [
     "AutoEncoderNet",
     "ElasticAutoEncoderNet",
     "FlowAutoEncoderNet",
+    "ModelParamNet",
     "UNet",
     "ASPPUNet",
     "ResUNetPlusPlus",

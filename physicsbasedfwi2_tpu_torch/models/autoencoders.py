@@ -1,8 +1,9 @@
 """Deep-image-prior autoencoder generators (port of
 ``physicsbasedfwi2_tpu/models/autoencoders.py``: ``AutoEncoderNet``, the
 Auto22 family with its CBAM variant, ``FlowAutoEncoderNet`` (AutoNF),
-``ElasticAutoEncoderNet``, the AutoElMar22 family, and the output
-transforms ``apply_velocity_output`` and ``apply_elastic_output``).
+``ElasticAutoEncoderNet``, the AutoElMar22 family, ``ModelParamNet``,
+and the output transforms ``apply_velocity_output`` and
+``apply_elastic_output``).
 
 Public interfaces are NHWC, as in the Flax nets: the encoder takes
 shot gathers [B, nt, nr, num_shots] and the net returns the field
@@ -237,6 +238,22 @@ class ElasticAutoEncoderNet(nn.Module):
         z = self.encode(shots_vx, shots_vz)
         return self.decode(z, deterministic=deterministic,
                            generator=generator), z
+
+
+class ModelParamNet(nn.Module):
+    """"Classic FWI" pseudo-net (ref AutoEl22N via define_G1,
+    networks.py:6477-6520): its one parameter ``model`` is the model
+    grids [nz, nx, n_fields], a copy of ``init_model``, and the forward
+    returns them as [1, nz, nx, n_fields], so a training loop over it is
+    plain adjoint FWI with no reparameterization."""
+
+    def __init__(self, init_model):
+        super().__init__()
+        self.model = nn.Parameter(
+            torch.as_tensor(init_model, dtype=torch.float32).clone())
+
+    def forward(self):
+        return self.model[None]
 
 
 class _ClipSTE(torch.autograd.Function):

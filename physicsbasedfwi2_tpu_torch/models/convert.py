@@ -30,7 +30,8 @@ Layouts: conv kernels HWIO <-> OIHW; Dense kernels [in, out] <-> Linear
 weights [out, in] (the port flattens and unflattens in NHWC order, so no
 permutation of rows is needed); GroupNorm and LayerNorm ``scale``/
 ``bias`` <-> ``weight``/``bias``; the planar flows' ``u``, ``w``, ``b`` and
-the spectral convs' ``w*_real``/``w*_imag`` as they are.
+the spectral convs' ``w*_real``/``w*_imag`` and ``ModelParamNet``'s
+``model`` as they are.
 
 A state dict alone does not say whether its net is a ``setup()`` VAE or
 which norm it uses, so the torch -> Flax direction takes the ``net``.
@@ -86,7 +87,7 @@ _SINGLE = {"block": "ConvBlock_0", "channel": "ChannelGate_0",
            "spectral": "SpectralConv2d_0"}
 _NAMED = re.compile(r"combine_v[xz]|decoder_field\d+|flows|flow\d+")
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-           "u": "u", "w": "w", "b": "b",
+           "u": "u", "w": "w", "b": "b", "model": "model",
            **{k: k for k in ("w_real", "w_imag", "w1_real", "w1_imag",
                              "w2_real", "w2_imag")}}
 # Flax modules whose Conv_j is the port's convs.j, and those whose one

@@ -29,6 +29,7 @@ from physicsbasedfwi2_tpu.data.synthetic import (
 from physicsbasedfwi2_tpu.engine import config as j_config
 from physicsbasedfwi2_tpu.engine.engines import ElasticDIPEngine as JEngine
 from physicsbasedfwi2_tpu.engine.test import evaluate as j_evaluate
+from physicsbasedfwi2_tpu.engine.train import train as j_train
 from physicsbasedfwi2_tpu_torch.data.synthetic import write_elastic_npy_tree
 from physicsbasedfwi2_tpu_torch.engine import config
 from physicsbasedfwi2_tpu_torch.engine import test as t_test
@@ -144,6 +145,64 @@ def test_four_epochs_match(robust_run):
     # more than the second round leaves (GroupNorm's nonlinearity)
     assert min(scales) < 1.0 and all(0.0 < s <= 1.0 for s in scales)
     assert all(mv <= 1.1 * CAP for mv in moves), moves
+
+
+def test_uncapped_final_stage_and_guard_match_jax(robust_run, tmp_path):
+    """Into the final stage, where ``step_cap_final=0`` releases the cap
+    on an Adam state that advanced unscaled, and the drift guard takes
+    its new stage's baseline after that step: both packages' ``train``
+    from the same weights, epoch by epoch, with the guard's reverts and
+    the snapshot each restores (the card's robust runs diverge there:
+    ROADMAP Queue C)."""
+    je, pe = _pair(tmp_path, robust_run["jwl"], robust_run["pwl"],
+                   step_cap_final=0.0, stage_max_epochs=2,
+                   guard_patience=1, guard_tol=1.0, guard_lr_ramp=3)
+    moves = {"jax": [], "port": []}
+    restored = {"jax": [], "port": []}
+
+    def spy(eng, key, decode):
+        step, revert = eng.optimize_parameters, eng.guard_revert
+
+        def optimize_parameters(epoch, **kw):
+            m0 = n(decode())
+            out = step(epoch, **kw)
+            moves[key].append(_rms(decode(), m0))
+            return out
+
+        def guard_revert(params, epoch):
+            revert(params, epoch)
+            restored[key].append(n(decode()))
+
+        eng.optimize_parameters = optimize_parameters
+        eng.guard_revert = guard_revert
+
+    spy(je, "jax", lambda: je._sample_model(je.params)[0])
+    spy(pe, "port", lambda: pe._sample_model()[0])
+    epochs = 7
+    _, jh = j_train(je.cfg, epochs=epochs, quiet=True, engine=je)
+    _, ph = train(pe.cfg, epochs=epochs, quiet=True, engine=pe)
+    # one capped epoch at 15 Hz after the warmup's, then 20 Hz uncapped
+    assert [r["freq_stage"] for r in ph] == [r["freq_stage"] for r in jh]
+    first = next(i for i, r in enumerate(ph) if r["freq_stage"] == 20.0) + 1
+    assert first == 3
+    for k in ("guard_revert", "selected_epoch"):
+        assert ([r.get(k) for r in ph] == [r.get(k) for r in jh]), k
+    for ep, (jrec, prec) in enumerate(zip(jh, ph), start=1):
+        for k in ("loss_D_MSE", "loss_M_MSE", "loss_V_MSE", "loss_H"):
+            if k in jrec:
+                np.testing.assert_allclose(prec[k], jrec[k], rtol=1e-4,
+                                           err_msg=f"epoch {ep} {k}")
+    np.testing.assert_allclose(moves["port"], moves["jax"], rtol=1e-3)
+    # the capped epochs keep to the cap; the first uncapped one moves
+    # past it in both
+    assert all(mv <= 1.1 * CAP for mv in moves["port"][1:first])
+    assert moves["port"][first] > CAP and moves["jax"][first] > CAP
+    # the guard fired in the final stage and restored the same snapshot
+    assert [r.get("guard_revert") for r in ph if "guard_revert" in r]
+    assert len(restored["port"]) == len(restored["jax"]) >= 1
+    # float32 sums in another order, carried through the Adam steps
+    for mp, mj in zip(restored["port"], restored["jax"]):
+        assert np.max(np.abs(mp - mj)) <= 1e-5 * np.max(np.abs(mj))
 
 
 def test_optimizer_is_fresh_at_the_first_physics_step(robust_run,
@@ -352,7 +411,7 @@ NOT_PORTED = {
     "geo": set(),
     "optim": set(),
     "engine": set(),
-    "models": {"ModelParamNet"},
+    "models": set(),
     "data": set(),
     "utils": set(),
     "landscape": set(),

@@ -337,7 +337,11 @@ def test_autowav_step_with_per_shot_wavelets_matches_jax(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, physicsbasedfwi2_tpu_torch, "
-            "physicsbasedfwi2_tpu_torch.engine.train; "
+            "physicsbasedfwi2_tpu_torch.engine.train, "
+            "physicsbasedfwi2_tpu_torch.experiments.make_realdata_su, "
+            "physicsbasedfwi2_tpu_torch.experiments.misfit_linescan, "
+            "physicsbasedfwi2_tpu_torch.experiments.adam_vs_lbfgs, "
+            "physicsbasedfwi2_tpu_torch.experiments.run_latent_flagship; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'physicsbasedfwi2_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

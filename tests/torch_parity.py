@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import signal
 
 import numpy as np
 import torch
@@ -50,6 +51,23 @@ def one_rank_mesh(tmp_path):
         yield make_mesh(device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def deadline(seconds: float):
+    """Raise ``TimeoutError`` in the main thread if the block runs past
+    ``seconds`` (SIGALRM: the on-card tests' own time limit, where no
+    timeout plugin is installed)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"past its {seconds:g} s limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
 
 
 def golden(name: str):

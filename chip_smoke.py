@@ -37,9 +37,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the real misfit, and the loss at the true model, all on the
    resident routes; B3's resident plan and how many of its clusters the
    card keeps resident, its two routes timed in turns on the same
-   inputs (``l2`` and ``tnl1``) and held to bit equality, and a device
+   inputs (``l2`` and ``tnl1``) and held to bit equality, a device
    trace of one call on each route (the forward sweep, the misfit, the
-   reverse sweep);
+   reverse sweep), and layout 1's instance for 8-row bands (the media
+   through L1, the gradients in shared memory; SEAM's and real_data's
+   layout) timed against the plan's layout 0 in turns, bit for bit;
 5. the acoustic path: ``train(get_workload("marmousi_acoustic"),
    epochs=3)`` at full width on ``cuda:0``, every epoch's B2 on the
    resident route;
@@ -126,12 +128,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     144 x 384 in kernel layout, nt 2568, 38 shots, sources on row 6,
     receivers on row 23), its two routes in turns held to bit equality,
     with the clusters resident and the waves, against the plain version
-    on 4 shots; B3 on those 4 shots on the per-step route (no B3 plan
-    holds 144 rows) against its plain version (residual signs fixed, the
-    real misfit, the loss at the true model), 3 calls timed beside the
+    on 4 shots; B3 on those 4 shots: its plan (16 bands of 9 rows in
+    layout 1) with the clusters resident and the ptxas line of each
+    instance, its two routes timed in turns and held to bit equality, a
+    device trace of one resident call (the media copy and one launch a
+    sweep), and the resident route against its plain version (residual signs
+    fixed, the real misfit, the loss at the true model) beside the
     bound; ``train(get_workload("seam_elastic_robust",
     holdout_every=3), epochs=lstart + 6)`` (EPRECOND: the illumination
-    once, at the first physics step; B3 per-step once a physics epoch;
+    once, at the first physics step; B3 resident once a physics epoch;
     ``loss_H``; the setup split, the peak memory, every gradient
     finite); ``train(get_workload("mcdip_uq"), epochs=lstart + 3)`` (B3
     resident once a physics epoch, dropout masks on every training
@@ -190,11 +195,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     from it (B3 resident once a physics epoch, the misfit at the true
     model <= 1e-9); ``real_data`` (150 x 300 at dx 30 m, nt 2001, 12
     shots x 280 receivers, absorbing top): a model inside its clip
-    bounds, its SU gathers from the ring forward (per-step: 192 x 384
-    fits no plan), ingested with ``prep --su-obs`` beside a starting
-    model (no trainB, as field data) through the native SU reader, B3's
-    per-step route against its plain version on 2 shots and timed on a
-    physics epoch's 4, then lstart + 3 epochs, every B3 launch per-step;
+    bounds, its SU gathers from the ring forward (resident: 16 bands of
+    12 rows in layout 1), ingested with ``prep --su-obs`` beside a
+    starting model (no trainB, as field data) through the native SU
+    reader; the ring forward's and B3's plans at 192 x 384 with the
+    clusters resident and the ptxas lines, each one's two routes timed
+    in turns and held to bit equality (the ring forward on the 12 shots,
+    B3 on a physics epoch's 4, with a device trace of one resident
+    call), each resident route against its plain version on 2 shots,
+    then lstart + 3 epochs, every B3 launch resident;
     ``fwi-test --dataroot`` of the acoustic run and ``fwi-race
     --dataroot`` (``marmousi_elastic_robust``, 2 seeds, 2-epoch probes);
 21. the supervised/GAN family: a dataroot of 128 x 128 float32 patches
@@ -278,7 +287,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``real_data``'s shape (150 x 300 at dx 30 m, 12 shots x 280
     receivers, nt 2001; the split-PML scheme, no kernel), its SU headers
     and gathers, then ``real_data`` for lstart + 1 epochs on the result
-    (B3 per-step once); the canonical Marmousi's known-density tree
+    (B3 resident once); the canonical Marmousi's known-density tree
     (``prep --physics elastic --rho-start true``, 100 x 300, nt 3334,
     the ring forward resident once), a two-epoch ``marmousi_elastic`` run
     from it (lstart 1, B3 resident once) whose checkpoint defines path D,
@@ -296,15 +305,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
     runs in phase 19.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
-kernel's launches in the kernels line are the sum over the paths.
+kernel's launches in the kernels line are the sum over the paths.  The
+comparisons against float64 runs of the plain versions in phases 4, 8
+and 17 run at a cut depth (``ACC_NT_EL``, ``ACC_NT_AC``,
+``ACC_NT_SEAM``); every other comparison, timing and path at its own.
 Device traces count only the records between two marker kernels around
 the call, with host waits inside the trace before and after them, so
 no trace's counts depend on the traces before it.
 The line before the last is a JSON object with each kernel's launches,
 error, times and bound (every kernel: ``ms`` on the resident route,
 ``per_step_ms`` on the per-step one; B3 and the ring forward also their
-``seam_*`` times and bounds at SEAM's grid, B3 its ``real_data_*`` ones
-at real_data's); the last line is
+``seam_*`` and ``real_data_*`` times, on both routes, and bounds at
+SEAM's and real_data's grids; B3 its layout 1 8-row band's
+``layout1_r8_ms`` beside ``layout0_r8_ms``); the last line is
 the result object.  The
 script never falls back to the CPU or to the plain versions.
 """
@@ -456,18 +469,38 @@ def ac_cluster_report(ns: int) -> None:
     check(min(fwd, rev) >= 1, "B5/B6's resident kernels cannot be resident")
 
 
-def el_cluster_report(ns: int) -> None:
-    """marmousi_elastic's grid (128 x 384 in kernel layout): B3's
-    resident plan and how many of its clusters the card keeps resident
+def el_cluster_report(ns: int, nz8: int = 128, nx128: int = 384,
+                      plan=None, what: str = "B3") -> None:
+    """B3's resident plan for an [nz8, nx128] grid (by default
+    marmousi_elastic's 128 x 384 in kernel layout; ``plan`` another one
+    for it) and how many of its clusters the card keeps resident
     (cudaOccupancyMaxActiveClusters)."""
     from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
-    plan = ef.elastic_resident_plan(128, 384)
-    fwd = ef.elastic_max_active_clusters(plan, ns, 128, 384)
-    rev = ef.elastic_max_active_clusters(plan, ns, 128, 384, reverse=True)
-    print(f"B3 resident plan for {ns} shots on 128 x 384: {plan}; clusters "
-          f"resident at once: forward {fwd}, reverse {rev} (of {ns}; "
-          f"{plan.cluster * min(ns, fwd)} of 132 SMs busy)")
-    check(min(fwd, rev) >= 1, "B3's resident kernels cannot be resident")
+    plan = plan or ef.elastic_resident_plan(nz8, nx128)
+    check(plan is not None, f"no B3 resident plan holds {nz8} x {nx128}")
+    fwd = ef.elastic_max_active_clusters(plan, ns, nz8, nx128)
+    rev = ef.elastic_max_active_clusters(plan, ns, nz8, nx128,
+                                         reverse=True)
+    print(f"{what} resident plan for {ns} shots on {nz8} x {nx128}: "
+          f"{plan}; clusters resident at once: forward {fwd}, reverse "
+          f"{rev} (of {ns}; {plan.cluster * min(ns, fwd)} of 132 SMs "
+          f"busy)")
+    check(min(fwd, rev) >= 1, f"{what}'s resident kernels cannot be "
+          f"resident")
+
+
+def el_ptxas(rows: int, layout: int) -> None:
+    """phase 1's ptxas line (registers, spills) of each resident
+    instance of csrc/elastic.cu for bands of ``rows`` rows in
+    ``layout`` (none where the library existed before the run)."""
+    import re
+    for log in BUILD_LOG:
+        for line in ptxas_summary(log, ("el_fwd_resident",
+                                        "el_rev_resident")):
+            m = re.search(r"(el_\w+_resident<R (\d+),[^>]*layout (\d)>)"
+                          r"\S*: (.*)", line)
+            if m and (int(m[2]), int(m[3])) == (rows, layout):
+                print(f"  ptxas: {m[1]}: {m[4]}")
 
 
 def fwd_cluster_report(ns: int, nz8: int, nx128: int, what: str) -> None:
@@ -485,13 +518,19 @@ def fwd_cluster_report(ns: int, nz8: int, nx128: int, what: str) -> None:
 
 
 def _readable(name: str) -> str:
-    """A mangled el_fwd_resident<R, CK> instance as R and checkpoints,
-    and fwd_resident<P> / rev_resident<P> as their checkpoint group."""
+    """A mangled el_fwd_resident<R, CK, L1> instance as R, checkpoints
+    and layout, el_rev_resident (layout 0's, 8 rows) and
+    el_rev_resident_l1<R> as R and layout, and fwd_resident<P> /
+    rev_resident<P> as their checkpoint group."""
     import re
-    name = re.sub(r"el_fwd_residentILi(\d+)ELb([01])E",
+    name = re.sub(r"el_fwd_residentILi(\d+)ELb([01])ELb([01])E",
                   lambda m: f"el_fwd_resident<R {m[1]}, "
-                  f"{'checkpoints' if m[2] == '1' else 'no checkpoints'}>",
+                  f"{'checkpoints' if m[2] == '1' else 'no checkpoints'}, "
+                  f"layout {m[3]}>", name)
+    name = re.sub(r"el_rev_residentENS", "el_rev_resident<R 8, layout 0>NS",
                   name)
+    name = re.sub(r"el_rev_resident_l1ILi(\d+)EE",
+                  lambda m: f"el_rev_resident<R {m[1]}, layout 1>", name)
     name = re.sub(r"b9_residentILi(\d+)EE", lambda m: "b9_resident<"
                   + (" ".join(f for b, f in ((2, "+src"), (4, "+rcv"),
                                              (8, "+ckpt"))
@@ -885,13 +924,16 @@ def phase_b3(dev):
     equality, a device trace of one resident call, and its plan with the
     clusters resident; then B3 on 5 of them (every 7th), as a
     physics epoch draws them: (2) the ``l2`` misfit
-    and (3) ``tnl1`` with residual signs fixed (observed rows + 3),
-    each held to the plain version's own float32 error against a
-    float64 run of the same algorithm; (4) ``tnl1`` on the real misfit,
+    and (3) ``tnl1`` with residual signs fixed (observed rows + 3), at
+    ACC_NT_EL of the 3334 steps, each held to the plain version's own
+    float32 error against a float64 run of the same algorithm; (4)
+    ``tnl1`` on the real misfit,
     held to the plain gradient's move under a 1e-7 relative change of
     its observed rows; (5) the loss at the true model.  (2)-(5) run on
     B3's resident route, the engine's at this shape; its two routes are
     timed in turns on the same inputs and held to bit equality."""
+    import dataclasses
+
     import torch
     from physicsbasedfwi2_tpu_torch.ops import trace_normalize
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
@@ -946,7 +988,7 @@ def phase_b3(dev):
             "tnl1": tuple(scatter_rows_el(trace_normalize(o), geom[3], cfg,
                                           KC=8) for o in (ovx, ovz))}
 
-    def kernel(misfit, obs, m=meds, route=None):
+    def kernel(misfit, obs, m=meds, route=None, wav=wav, cfg=cfg):
         return fused_elastic_loss_grad_meds(m, damp, wav, *geom, cfg, *obs,
                                             KC=8, misfit=misfit, route=route)
 
@@ -964,10 +1006,12 @@ def phase_b3(dev):
         if route == "resident":
             check(n["el_fwd_resident"] == 1 and n["el_rev_resident"] == 1,
                   "resident B3 is not one launch a sweep")
+    layouts = b3_layout_turns(dev, kernel_args=(
+        meds, damp, wav, *geom, cfg, *rows["tnl1"]), steps=steps)
     fn = fused_elastic_loss_grad_meds
     reset_launches(fn)
 
-    def plain(misfit, obs, dtype=torch.float32):
+    def plain(misfit, obs, dtype=torch.float32, wav=wav, cfg=cfg):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fused_elastic_loss_grad_meds_plain(
@@ -976,19 +1020,29 @@ def phase_b3(dev):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    # (2), (3): the kernel as accurate as the plain version
-    fixed = tuple((r + 3.0).contiguous() for r in rows["tnl1"])
+    # (2), (3): the kernel as accurate as the plain version, at ACC_NT_EL
+    # steps of the same traces
+    cut = dict(wav=wav[:ACC_NT_EL].contiguous(), cfg=dataclasses.replace(
+        cfg, grid=dataclasses.replace(g, nt=ACC_NT_EL)))
+    rows_c = {"l2": tuple(scatter_rows_el(o[:, :ACC_NT_EL], geom[3],
+                                          cut["cfg"], KC=8)
+                          for o in (ovx, ovz)),
+              "tnl1": tuple(scatter_rows_el(trace_normalize(
+                  o[:, :ACC_NT_EL]), geom[3], cut["cfg"], KC=8)
+                  for o in (ovx, ovz))}
+    fixed = tuple((r + 3.0).contiguous() for r in rows_c["tnl1"])
     err = 0.0
-    for name, misfit, obs in (("l2", "l2", rows["l2"]),
+    for name, misfit, obs in (("l2", "l2", rows_c["l2"]),
                               ("tnl1, residual signs fixed", "tnl1", fixed)):
-        lk, gk = kernel(misfit, obs)
-        (lp, gp), ms_p = plain(misfit, obs)
-        (lr, gr), _ = plain(misfit, obs, torch.float64)
+        lk, gk = kernel(misfit, obs, **cut)
+        (lp, gp), ms_p = plain(misfit, obs, **cut)
+        (lr, gr), _ = plain(misfit, obs, torch.float64, **cut)
         lk, lp, lr = float(lk), float(lp), float(lr)
         rel_loss = abs(lk - lp) / abs(lp)
         err_k, err_p = _rel_meds(gk, gr), _rel_meds(gp, gr)
         err = max(err, max(float((a - b).abs().max()) for a, b in zip(gk, gp)))
-        print(f"B3 {name} {shape}: loss {lk:.9g} vs plain {lp:.9g} (rel "
+        print(f"B3 {name} [{ns} shots x {nr} receivers, nt {ACC_NT_EL} of "
+              f"{g.nt}]: loss {lk:.9g} vs plain {lp:.9g} (rel "
               f"{rel_loss:.2e}, tol 1e-5); largest gradient rel L2 vs plain "
               f"{_rel_meds(gk, gp):.2e}; against the plain version in "
               f"float64: kernel {err_k:.2e}, plain float32 {err_p:.2e} (tol "
@@ -1045,12 +1099,52 @@ def phase_b3(dev):
              + ns * damp.shape[1] * 4 + 4)
     return (
         {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
-         "per_step_ms": turns["per_step_ms"],
+         "per_step_ms": turns["per_step_ms"], **layouts,
          **bound((FLOPS_B3 + FLOPS_B3_ADJ) * cells * g.nt, b3_io),
          "library_ms": None},
         {"max_abs_err": err_r, "ms": ms_rk, "plain_ms": ms_rp,
          "per_step_ms": ring_turns["per_step_ms"],
          **bound(FLOPS_B3 * ring_cells * g.nt, ring_io), "library_ms": None})
+
+
+def b3_layout_turns(dev, kernel_args, steps: int) -> dict:
+    """Layout 1's instance for 8-row bands (the media read through L1,
+    the gradients in shared memory: SEAM's and real_data's layout, which
+    no planner picks at 128 x 384) against the plan's layout 0 on the
+    same ``tnl1`` inputs, on the resident route in turns (0, 1, 1, 0),
+    bit for bit, with layout 1's clusters resident and ptxas lines.
+    Returns both layouts' mean ms (comparison launches, not counted)."""
+    import dataclasses
+    from functools import partial
+
+    import torch
+    from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
+    nz8, nx128 = kernel_args[1].shape
+    plans = {0: ef.elastic_resident_plan(nz8, nx128)}
+    check(plans[0].layout == 0 and plans[0].band_rows == 8,
+          "the 128 x 384 plan is not layout 0's 8-row bands")
+    plans[1] = dataclasses.replace(plans[0], layout=1, smem_bytes=ef.el_smem(
+        8, nx128, 1, reverse=True))
+    ns = kernel_args[3].shape[0]
+    el_cluster_report(ns, nz8, nx128, plans[1], "B3 layout 1, 8-row bands,")
+    el_ptxas(8, 1)
+    outs, times = {}, {0: [], 1: []}
+    for layout in (0, 1, 1, 0):
+        outs[layout], ms = timed_ms(lambda: ef._loss_grad_meds(
+            partial(ef._loss_gmeds_cuda, route="resident",
+                    plan=plans[layout]), *kernel_args, 8, "tnl1"),
+            repeats=2)
+        times[layout].append(ms)
+    same = all(torch.equal(a, b) for a, b in zip(_flat(outs[0]),
+                                                 _flat(outs[1])))
+    ms0, ms1 = (sum(times[k]) / 2 for k in (0, 1))
+    print(f"B3 tnl1 at {nz8} x {nx128}, 8-row bands, layouts in turns (0, "
+          f"1, 1, 0): layout 0 {times[0][0]:.2f}, {times[0][1]:.2f} ms, "
+          f"layout 1 {times[1][0]:.2f}, {times[1][1]:.2f} ms ("
+          f"{ms1 / steps * 1e3:.3f} against {ms0 / steps * 1e3:.3f} us a "
+          f"step of {steps}); outputs bit-equal: {same}")
+    check(same, "B3's layouts 0 and 1 are not bit-equal")
+    return {"layout0_r8_ms": ms0, "layout1_r8_ms": ms1}
 
 
 def phase_slice(dev):
@@ -1181,6 +1275,15 @@ def phase_slice2(dev):
 
 
 ACC_SHOTS = 4  # shots of the float64 comparisons of phases 7 and 8
+# the depth of the comparisons against float64 plain references in
+# phases 4, 8 and 17 (of 3334, 4001 and 2568 steps; multiples of the
+# kernels' checkpoint intervals): the plain sweeps are host-bound, ~5-8
+# ms a time step whatever the shots, and these comparisons took ~250 s
+# of the script at the full depth.  The kernels' timings, the real
+# misfit's comparisons and the trained paths keep the full depth.
+ACC_NT_EL = 1112
+ACC_NT_AC = 1344
+ACC_NT_SEAM = 856
 PHYSICS_EPOCH_S = {}  # physics epoch seconds by workload, this run
 
 
@@ -1459,20 +1562,21 @@ def phase_lbfgs(dev):
     return launches
 
 
-def _grad_accuracy(name, shape, gk, gp, ms_k, ms_p, grads4):
+def _grad_accuracy(name, shape, gk, gp, ms_k, ms_p, grads4,
+                   at: str = f"{ACC_SHOTS} shots"):
     """Print and check a kernel gradient at the path's shape against the
     plain float32 version (1e-4 rel L2: float32 rounding in another
-    order) and, at ACC_SHOTS shots, against the plain version in float64:
-    the kernel's relative L2 error at most 2x the plain float32
-    version's own.  ``grads4``: the kernel's, the plain float32 and the
-    plain float64 gradients at ACC_SHOTS shots."""
+    order) and, at ACC_SHOTS shots (``at``: and a cut depth), against
+    the plain version in float64: the kernel's relative L2 error at most
+    2x the plain float32 version's own.  ``grads4``: the kernel's, the
+    plain float32 and the plain float64 gradients there."""
     import torch
     k4, p4, r4 = grads4
     rel = _rel_l2(gk, gp)
     err_k, err_p = _rel_l2(k4.double(), r4), _rel_l2(p4.double(), r4)
     print(f"{name} gradient {shape}: rel L2 vs plain {rel:.2e} (tol 1e-4); "
           f"kernel {ms_k:.2f} ms, plain {ms_p:.2f} ms; against the plain "
-          f"version in float64 at {ACC_SHOTS} shots (float64 sweeps over 18 "
+          f"version in float64 at {at} (float64 sweeps over 18 "
           f"shots would add ~30 s): kernel {err_k:.2e}, plain float32 "
           f"{err_p:.2e} (tol 2x plain)")
     check(bool(torch.isfinite(gk).all()), f"{name} gradient not finite")
@@ -1573,6 +1677,8 @@ def phase_b56(dev):
     the true model, at the smooth starting model; each kernel's two
     routes in turns, bit-equal (B6's checkpoints too), B6's peak memory
     and a device trace of one B6 call on each route."""
+    import dataclasses
+
     import torch
     from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
     from physicsbasedfwi2_tpu_torch.ops.adjoint import (
@@ -1630,10 +1736,19 @@ def phase_b56(dev):
         return scatter_rows(ybar, geom[3][:len(pred)], nt=g.nt, nx=g.nx,
                             pml_width=g.pml_width, KC=K_CKPT)
 
+    # the float64 comparison at ACC_SHOTS shots and ACC_NT_AC steps, its
+    # obs from B5 at that depth
+    cfg4 = dataclasses.replace(cfg, grid=dataclasses.replace(g, nt=ACC_NT_AC))
+    wav4 = wav[:ACC_NT_AC].contiguous()
+    g4 = tuple(a[:ACC_SHOTS] for a in geom)
+    obs4 = acoustic_forward_pallas(vp, wav4, *g4, cfg4)
+
     def grad4(fwd, bwd, **kw):
-        g4 = tuple(a[:ACC_SHOTS] for a in geom)
-        rows4 = rows_of(fwd(vp0, wav, *g4, cfg, **kw))
-        return bwd(vp0, wav, *g4, cfg, rows4, **kw)
+        pred = fwd(vp0, wav4, *g4, cfg4, **kw)
+        ybar = 2.0 * (pred - obs4.to(pred.dtype)) / pred.numel()
+        rows4 = scatter_rows(ybar, g4[3], nt=ACC_NT_AC, nx=g.nx,
+                             pml_width=g.pml_width, KC=K_CKPT)
+        return bwd(vp0, wav4, *g4, cfg4, rows4, **kw)
 
     rows_k = rows_of(recs)
 
@@ -1664,7 +1779,8 @@ def phase_b56(dev):
               grad4(acoustic_forward_pallas_plain,
                     acoustic_pallas_backward_plain, dtype=torch.float64))
     err_b = _grad_accuracy("B6 acoustic_pallas_backward (acoustic_pallas)",
-                           shape, gk, gp, ms_bk, ms_bp, grads4)
+                           shape, gk, gp, ms_bk, ms_bp, grads4,
+                           at=f"{ACC_SHOTS} shots, nt {ACC_NT_AC}")
     ns = len(geom[0])
     cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
     planes = 5 * 192 * 256 * 4
@@ -2204,11 +2320,16 @@ def _seam_kernels(dev):
     6, receivers on row 23): the ring forward of all 38 shots on its two
     routes in turns, held to bit equality, with its plan and the clusters
     resident; then B3 on 4 of the shots (every 10th), as a physics epoch
-    draws them, on the per-step route (no B3 plan holds 144 rows):
-    ``tnl1`` with residual signs fixed against the plain version's own
-    float32 error, the real misfit against the plain version's move
-    under a 1e-7 change, the loss at the true model, and 3 timed calls
-    beside the bound."""
+    draws them: its plan (16 bands of 9 rows, layout 1) with the clusters
+    resident and each instance's ptxas line, its two routes timed in
+    turns and held to bit equality, a device trace of one resident call,
+    and on the resident route ``tnl1``
+    with residual signs fixed (at ACC_NT_SEAM of the 2568 steps) against
+    the plain version's own float32 error, the real misfit against the
+    plain version's move under a 1e-7 change, and the loss at the true
+    model, beside the bound."""
+    import dataclasses
+
     import torch
     from physicsbasedfwi2_tpu_torch.ops import trace_normalize
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
@@ -2231,8 +2352,9 @@ def _seam_kernels(dev):
           f"{elastic_forward_plan(nz8, nx128)}")
     check((nz8, nx128) == (144, 384) and g.free_surface
           and (src_row, rcv_row) == (6, 23), "SEAM's grid and rows")
-    check(elastic_resident_plan(nz8, nx128) is None,
-          "a B3 resident plan holds SEAM's grid")
+    plan = elastic_resident_plan(nz8, nx128)
+    check(plan is not None and (plan.band_rows, plan.layout) == (9, 1),
+          "B3's plan at SEAM's grid is not 9-row bands of layout 1")
     check(elastic_forward_plan(nz8, nx128).band_rows == 9,
           "the ring forward's plan at SEAM's grid is not 9-row bands")
 
@@ -2263,12 +2385,25 @@ def _seam_kernels(dev):
     rows = tuple(scatter_rows_el(trace_normalize(o), geom[3], cfg, KC=8)
                  for o in (ovx, ovz))
     fn = fused_elastic_loss_grad_meds
+
+    def kernel(obs, m=meds, route=None, wav=wav, cfg=cfg):
+        return fn(m, damp, wav, *geom, cfg, *obs, KC=8, misfit="tnl1",
+                  route=route)
+
+    # B3's plan, its clusters resident, its instances; both routes in
+    # turns on the real misfit, bit for bit (comparison launches)
+    el_cluster_report(ns, nz8, nx128, what="SEAM B3")
+    el_ptxas(9, 1)
+    steps = 3 * rows[0].shape[1]  # forward, recompute, adjoint
+    turns = route_turns("SEAM B3 tnl1", lambda r: kernel(rows, route=r),
+                        steps, exact=True)
+    n = phase_trace("SEAM B3 tnl1 (resident route)", lambda: kernel(rows))
+    check(n["el_fwd_resident"] == 1 and n["el_rev_resident_l1"] == 1
+          and n["el_band_media"] == 1,
+          "resident SEAM B3 is not layout 1's one launch a sweep")
     reset_launches(fn)
 
-    def kernel(obs, m=meds):
-        return fn(m, damp, wav, *geom, cfg, *obs, KC=8, misfit="tnl1")
-
-    def plain(obs, dtype=torch.float32):
+    def plain(obs, dtype=torch.float32, wav=wav, cfg=cfg):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fused_elastic_loss_grad_meds_plain(
@@ -2277,24 +2412,22 @@ def _seam_kernels(dev):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    shape = f"[{ns} shots x {nr} receivers, nt {g.nt}, per-step route]"
+    shape = f"[{ns} shots x {nr} receivers, nt {g.nt}, resident route]"
     names = ("lam", "l2m", "muxz", "bx", "bz")
 
     def fields(got, ref):
         return ", ".join(f"{k} {_rel_l2(a.double(), b.double()):.2e}"
                          for k, a, b in zip(names, got, ref))
 
-    def accuracy(what, obs, timed=False):
+    def accuracy(what, obs, **cut):
         """The kernel against the plain version in float32 and float64
-        on the observed rows ``obs``: the kernel as accurate as the plain
-        version (its gradients' relative L2 error against float64 at
-        most max(1e-4, 2x the plain float32's)), the loss to 1e-5."""
-        if timed:
-            (lk, gk), ms_k = timed_ms(lambda: kernel(obs), repeats=3)
-        else:
-            (lk, gk), ms_k = kernel(obs), None
-        (lp, gp), ms_p = plain(obs)
-        (lr, gr), _ = plain(obs, torch.float64)
+        on the observed rows ``obs`` (``cut``: a cut depth's wavelet and
+        config): the kernel as accurate as the plain version (its
+        gradients' relative L2 error against float64 at most max(1e-4,
+        2x the plain float32's)), the loss to 1e-5."""
+        lk, gk = kernel(obs, **cut)
+        (lp, gp), ms_p = plain(obs, **cut)
+        (lr, gr), _ = plain(obs, torch.float64, **cut)
         lk, lp, lr = float(lk), float(lp), float(lr)
         err_k, err_p = _rel_meds(gk, gr), _rel_meds(gp, gr)
         print(f"SEAM B3 tnl1, {what} {shape}: loss {lk:.9g} vs plain "
@@ -2312,14 +2445,21 @@ def _seam_kernels(dev):
         check(err_k <= max(1e-4, 2.0 * err_p),
               f"SEAM B3 {what}: gradient less accurate than the plain "
               f"version")
-        return gk, gp, ms_k, ms_p
+        return gk, gp, ms_p
 
-    # residual signs fixed (observed rows + 3), then the real misfit, the
-    # main path's (3 timed calls)
-    gf, gpf, _, _ = accuracy("residual signs fixed",
-                             tuple((r + 3.0).contiguous() for r in rows))
+    # residual signs fixed (observed rows + 3) at ACC_NT_SEAM steps of the
+    # same traces, then the real misfit, the main path's (timed in turns
+    # above)
+    cut = dict(wav=wav[:ACC_NT_SEAM].contiguous(), cfg=dataclasses.replace(
+        cfg, grid=dataclasses.replace(g, nt=ACC_NT_SEAM)))
+    gf, gpf, _ = accuracy(
+        f"residual signs fixed, nt {ACC_NT_SEAM} of {g.nt},",
+        tuple((scatter_rows_el(trace_normalize(o[:, :ACC_NT_SEAM]), geom[3],
+                               cut["cfg"], KC=8) + 3.0).contiguous()
+              for o in (ovx, ovz)), **cut)
     err = max(float((a - b).abs().max()) for a, b in zip(gf, gpf))
-    gk, gp, ms_k, ms_p = accuracy("on the real misfit", rows, timed=True)
+    gk, gp, ms_p = accuracy("on the real misfit", rows)
+    ms_k = turns["ms"]
     # how far the plain gradient moves under a 1e-7 change of the
     # observed rows: the misfit's own sensitivity (L1 signs that follow
     # rounding would show here)
@@ -2338,8 +2478,8 @@ def _seam_kernels(dev):
     check(float(l_true) <= 1e-9, "SEAM B3 loss at the true model")
     print(f"SEAM B3: {fn.launches} launches, resident "
           f"{fn.resident_launches}, per-step {fn.per_step_launches}")
-    check(fn.launches > 0 and fn.per_step_launches == fn.launches,
-          "SEAM B3 did not run on the per-step route")
+    check(fn.launches > 0 and fn.resident_launches == fn.launches,
+          "SEAM B3 did not run on the resident route")
 
     # free surface: 2 ring rows on top
     cells = (g.nz + 2 + g.pml_width) * (g.nx + 2 * g.pml_width)
@@ -2349,17 +2489,17 @@ def _seam_kernels(dev):
     ring_io = 6 * damp.numel() * 4 + nbytes(wav, *geom_all) + 2 * (
         ns_all * g.nt * geom_all[3].shape[1] * 4)
     ring_bound = bound(FLOPS_B3 * ns_all * cells * g.nt, ring_io)
-    steps = 3 * rows[0].shape[1]  # forward, recompute, adjoint
     print(f"SEAM B3 {shape}: {ms_k:.2f} ms a call ({ms_k / steps * 1e3:.3f} "
-          f"us a step of {steps}), plain {ms_p:.2f} "
+          f"us a step of {steps}; per-step route {turns['per_step_ms']:.2f} "
+          f"ms), plain {ms_p:.2f} "
           f"ms; bound {b3_bound['bound_ms']:.3f} ms ({b3_bound['bound_by']}: "
           f"{ns} x {cells} cells x {g.nt} steps x "
           f"{FLOPS_B3 + FLOPS_B3_ADJ} flop); ring forward, {ns_all} shots: "
           f"resident {ms_ring:.2f} ms, per-step "
           f"{ring_turns['per_step_ms']:.2f} ms, bound "
           f"{ring_bound['bound_ms']:.3f} ms ({ring_bound['bound_by']})")
-    return ({"seam_per_step_ms": ms_k, "seam_bound_ms": b3_bound["bound_ms"],
-             "seam_max_abs_err": err},
+    return ({"seam_ms": ms_k, "seam_per_step_ms": turns["per_step_ms"],
+             "seam_bound_ms": b3_bound["bound_ms"], "seam_max_abs_err": err},
             {"seam_ms": ms_ring, "seam_per_step_ms": ring_turns["per_step_ms"],
              "seam_bound_ms": ring_bound["bound_ms"]})
 
@@ -2369,7 +2509,7 @@ def _seam_train(dev):
     ``loss_H`` every 3rd epoch: the setup split into the workload build,
     the engine (the ring forward of the observed data) and the EPRECOND
     illumination (once, at the first physics step), each physics epoch's
-    seconds and B3 launches (one, per-step), every gradient finite, the
+    seconds and B3 launches (one, resident), every gradient finite, the
     peak memory, and the misfit at the true model."""
     import torch
     from physicsbasedfwi2_tpu_torch.engine import engines as t_engines
@@ -2415,9 +2555,9 @@ def _seam_train(dev):
     processed = engine._processed_value_and_grad
 
     def logged(epoch, **kw):
-        before = b3.per_step_launches
+        before = b3.resident_launches
         out = step_fn(epoch, **kw)
-        b3_by_epoch[epoch] = b3.per_step_launches - before
+        b3_by_epoch[epoch] = b3.resident_launches - before
         return out
 
     def checked(*args, **kw):
@@ -2458,7 +2598,7 @@ def _seam_train(dev):
           f"warmup epochs: first {warm[0]:.4f} s, median of the rest "
           f"{_median(warm[1:]):.4f} s; physics epochs "
           f"{', '.join(f'{x:.4f}' for x in phys)} s (median "
-          f"{_median(phys):.4f}) with B3 per-step launches "
+          f"{_median(phys):.4f}) with B3 resident launches "
           f"{[b3_by_epoch[e] for e in range(cfg.lstart + 1, epochs + 1)]}; "
           f"loss_H {hs}; guard reverts at {reverts}; held-out shots "
           f"{engine._holdout_idx.tolist()}, pool of "
@@ -2473,8 +2613,9 @@ def _seam_train(dev):
           and all(b3_by_epoch[e] == 1
                   for e in range(cfg.lstart + 1, epochs + 1)),
           "B3 not launched once a physics epoch")
-    check(b3.launches == b3.per_step_launches == 6,
-          "SEAM's B3 did not take the per-step route on every epoch")
+    check(b3.launches == b3.resident_launches == 6
+          and b3.per_step_launches == 0,
+          "SEAM's B3 did not take the resident route on every epoch")
     check(len(finite) == 6 and all(finite), f"gradients finite: {finite}")
     check(ring.per_step_launches == 0
           and ring.launches == 2 + len(hs),
@@ -2487,7 +2628,7 @@ def _seam_train(dev):
             if isinstance(v, float):
                 check(math.isfinite(v), f"epoch {rec['epoch']}: {k}={v}")
     # the engine's own data fit at the true model, true density
-    # included, on the training pool (B3, per-step)
+    # included, on the training pool (B3, resident)
     loss_true, grad = engine.physics_value_and_grad(
         engine.true_m, fc=0.0, rho=engine.wl.true["rho"])
     print(f"phase 17 seam_elastic_robust: misfit at the true model "
@@ -3404,27 +3545,75 @@ def _real_data_model(cfg):
 
 
 def _real_data_b3(dev, engine, true):
-    """B3 at real_data's grid (150 x 300 at dx 30 m, absorbing top, 192 x
-    384 in kernel layout, nt 2001), on its per-step route (no B3 plan
-    holds 192 rows), against its plain version on 2 of the shots from the
-    prepped tree, before training: the loss and gradient on the real
-    misfit at the starting model against the plain version in float32
-    and float64, and the loss at the true model.  Then 3 timed calls on
-    the engine's 4 shots a physics epoch.  Returns the kernels line's
-    ``real_data_*`` fields (comparison launches, not counted)."""
+    """The ring forward and B3 at real_data's grid (150 x 300 at dx 30 m,
+    absorbing top, 192 x 384 in kernel layout, nt 2001: 16 bands of 12
+    rows in layout 1), before training: each plan with its clusters
+    resident and each instance's ptxas line; the ring forward of the
+    true model on the 12 shots, its two routes timed in turns and held
+    to bit equality, the resident route against the plain version on 2
+    shots; B3 on those 2 shots of the prepped tree on its resident
+    route: the loss and gradient on the real misfit at the starting
+    model against the plain version in float32 and float64, and the
+    loss at the true model; then B3's two routes timed in turns on the
+    engine's 4 shots a physics epoch and held to bit equality, and a
+    device trace of one resident call.  Returns
+    the kernels line's ``real_data_*`` fields of B3 and of the ring
+    forward (comparison launches, not counted)."""
     import torch
     from physicsbasedfwi2_tpu_torch.ops import trace_normalize
     from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-        _layout, elastic_resident_plan, fused_elastic_loss_grad_meds,
-        fused_elastic_loss_grad_meds_plain, prep_damp, prep_medium,
-        scatter_rows_el)
+        _layout, elastic_forward_plan, elastic_resident_plan,
+        fused_elastic_loss_grad_meds, fused_elastic_loss_grad_meds_plain,
+        prep_damp, prep_medium, scatter_rows_el, simulate_elastic_ring,
+        simulate_elastic_ring_plain)
     wl, cfg = engine.wl, engine.wl.cfg
     g = cfg.grid
     nz8, nx128 = _layout(cfg)[4:]
     check((nz8, nx128) == (192, 384) and not g.free_surface,
           "real_data's kernel layout")
-    check(elastic_resident_plan(nz8, nx128) is None,
-          "a B3 resident plan holds real_data's grid")
+    plan = elastic_resident_plan(nz8, nx128)
+    fplan = elastic_forward_plan(nz8, nx128)
+    check(plan is not None and (plan.band_rows, plan.layout) == (12, 1)
+          and fplan is not None and (fplan.band_rows, fplan.layout)
+          == (12, 1), "real_data's plans are not 12-row bands of layout 1")
+    el_ptxas(12, 1)
+    true_t = tuple(torch.as_tensor(a, device=dev) for a in true)
+
+    # the ring forward: the true model's 12 shots, both routes in turns
+    ns_all = wl.geom[0].shape[0]
+    fwd_cluster_report(ns_all, nz8, nx128, "real_data ring forward")
+    ring_turns = route_turns(
+        "real_data ring forward", lambda r: simulate_elastic_ring(
+            *true_t, wl.wavelet, *wl.geom, cfg, route=r), g.nt, exact=True)
+    two = torch.tensor([0, 6], device=dev)
+    geom2 = tuple(a[two].contiguous() for a in wl.geom)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pvx, pvz = simulate_elastic_ring_plain(*true_t, wl.wavelet, *geom2,
+                                               cfg)
+    torch.cuda.synchronize()
+    ms_rp = (time.perf_counter() - t0) * 1e3
+    ovx, ovz = (o[two] for o in ring_turns["out"])
+    scale = max(float(pvx.abs().max()), float(pvz.abs().max()))
+    err_r = max(float((ovx - pvx).abs().max()), float((ovz - pvz).abs().max()))
+    check(all(bool(torch.isfinite(o).all()) for o in ring_turns["out"]),
+          "real_data ring forward not finite")
+    check(err_r <= 1e-4 * scale, "real_data ring forward disagrees with its "
+          "plain version")
+    cells = (g.nz + 2 * g.pml_width) * (g.nx + 2 * g.pml_width)
+    nr = wl.geom[3].shape[1]
+    ring_io = 6 * nz8 * nx128 * 4 + nbytes(wl.wavelet, *wl.geom) + 2 * (
+        ns_all * g.nt * nr * 4)
+    ring_b = bound(FLOPS_B3 * ns_all * cells * g.nt, ring_io)
+    print(f"phase 20 real_data ring forward [{ns_all} shots x {nr} "
+          f"receivers, nt {g.nt}]: resident {ring_turns['ms']:.2f} ms, "
+          f"per-step {ring_turns['per_step_ms']:.2f} ms, bound "
+          f"{ring_b['bound_ms']:.3f} ms ({ring_b['bound_by']}: {ns_all} x "
+          f"{cells} cells x {g.nt} steps x {FLOPS_B3} flop); against plain "
+          f"on shots [0, 6]: max|err| {err_r:.3e} of max {scale:.3e} (tol "
+          f"1e-4 of max); plain {ms_rp:.2f} ms")
+
     damp = prep_damp(cfg, dev)
     start = prep_medium(*(wl.start[k] for k in ("vp", "vs", "rho")), cfg)
     fn = fused_elastic_loss_grad_meds
@@ -3435,11 +3624,11 @@ def _real_data_b3(dev, engine, true):
                                      KC=8) for o in (wl.obs_vx, wl.obs_vz))
         return geom, rows
 
-    geom, rows = case(torch.tensor([0, 6], device=dev))
+    geom, rows = case(two)
 
-    def kernel(m, geom=geom, rows=rows):
+    def kernel(m, geom=geom, rows=rows, route=None):
         return fn(m, damp, wl.wavelet, *geom, cfg, *rows, KC=8,
-                  misfit=engine.cfg.misfit)
+                  misfit=engine.cfg.misfit, route=route)
 
     def plain(dtype):
         torch.cuda.synchronize()
@@ -3450,16 +3639,16 @@ def _real_data_b3(dev, engine, true):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
+    before = (fn.launches, fn.resident_launches)
     lk, gk = kernel(start)
     (lp, gp), ms_p = plain(torch.float32)
     (lr, gr), _ = plain(torch.float64)
     lk, lp, lr = float(lk), float(lp), float(lr)
     err_k, err_p = _rel_meds(gk, gr), _rel_meds(gp, gr)
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
-    l_true, _ = kernel(prep_medium(*(torch.as_tensor(a, device=dev)
-                                     for a in true), cfg))
+    l_true, _ = kernel(prep_medium(*true_t, cfg))
     print(f"phase 20 real_data B3 {engine.cfg.misfit}, 2 shots x "
-          f"{geom[3].shape[1]} receivers, nt {g.nt}, per-step route: loss "
+          f"{geom[3].shape[1]} receivers, nt {g.nt}, resident route: loss "
           f"{lk:.9g} vs plain {lp:.9g} (rel {abs(lk - lp) / abs(lp):.2e}, "
           f"tol 1e-5), float64 {lr:.9g}; gradient rel L2 against float64: "
           f"kernel {err_k:.2e}, plain float32 {err_p:.2e} (tol max(1e-4, 2x "
@@ -3472,30 +3661,45 @@ def _real_data_b3(dev, engine, true):
     check(err_k <= max(1e-4, 2.0 * err_p), "real_data B3: gradient less "
           "accurate than the plain version")
     check(float(l_true) <= 1e-9, "real_data B3: loss at the true model")
-    check(fn.resident_launches == 0, "real_data B3 took a resident route")
+    check((fn.launches - before[0], fn.resident_launches - before[1])
+          == (2, 2), "real_data B3 did not take the resident route")
 
-    # the engine's call: shots_per_iter shots of the pool
+    # the engine's call: shots_per_iter shots of the pool, both routes
     geom4, rows4 = case(torch.arange(engine.cfg.shots_per_iter, device=dev))
-    _, ms_k = timed_ms(lambda: kernel(start, geom4, rows4), repeats=3)
     ns = geom4[0].shape[0]
-    cells = (g.nz + 2 * g.pml_width) * (g.nx + 2 * g.pml_width)
+    el_cluster_report(ns, nz8, nx128, what="real_data B3")
+    steps = 3 * rows4[0].shape[1]  # forward, recompute, adjoint
+    turns = route_turns("real_data B3", lambda r: kernel(
+        start, geom4, rows4, route=r), steps, exact=True)
+    n = phase_trace("real_data B3 (resident route)",
+                    lambda: kernel(start, geom4, rows4))
+    check(n["el_fwd_resident"] == 1 and n["el_rev_resident_l1"] == 1
+          and n["el_band_media"] == 1,
+          "resident real_data B3 is not layout 1's one launch a sweep")
     io = (11 * damp.numel() * 4 + nbytes(wl.wavelet, *geom4)
           + 2 * nbytes(rows4[0]) + ns * nx128 * 4 + 4)
     b = bound((FLOPS_B3 + FLOPS_B3_ADJ) * ns * cells * g.nt, io)
-    print(f"phase 20 real_data B3 per-step, {ns} shots (a physics epoch's "
-          f"call): {ms_k:.2f} ms a call; bound {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']}: {ns} x {cells} cells x {g.nt} steps x "
-          f"{FLOPS_B3 + FLOPS_B3_ADJ} flop)")
-    return {"real_data_per_step_ms": ms_k,
-            "real_data_bound_ms": b["bound_ms"],
-            "real_data_plain_ms_2_shots": ms_p,
-            "real_data_max_abs_err": err}
+    print(f"phase 20 real_data B3, {ns} shots (a physics epoch's call): "
+          f"resident {turns['ms']:.2f} ms ({turns['ms'] / steps * 1e3:.3f} "
+          f"us a step of {steps}), per-step {turns['per_step_ms']:.2f} ms; "
+          f"bound {b['bound_ms']:.3f} ms ({b['bound_by']}: {ns} x {cells} "
+          f"cells x {g.nt} steps x {FLOPS_B3 + FLOPS_B3_ADJ} flop)")
+    return ({"real_data_ms": turns["ms"],
+             "real_data_per_step_ms": turns["per_step_ms"],
+             "real_data_bound_ms": b["bound_ms"],
+             "real_data_plain_ms_2_shots": ms_p,
+             "real_data_max_abs_err": err},
+            {"real_data_ms": ring_turns["ms"],
+             "real_data_per_step_ms": ring_turns["per_step_ms"],
+             "real_data_bound_ms": ring_b["bound_ms"],
+             "real_data_plain_ms_2_shots": ms_rp,
+             "real_data_max_abs_err": err_r})
 
 
 def phase_dataroot(dev):
     """Training from a dataroot at full width (see the module docstring,
     phase 20).  Returns (launches by kernel, each launched kernel's
-    launches by route, B3's real_data fields)."""
+    launches by route, B3's and the ring forward's real_data fields)."""
     import collections
     import shutil
     import tempfile
@@ -3643,9 +3847,9 @@ def phase_dataroot(dev):
         _, n = path(f"real_data SU gathers ({rcfg.num_shots} shots x "
                     f"{rcfg.num_receivers} receivers, nt {rcfg.nt}, absorbing "
                     f"top) from the ring forward", write_gathers)
-        check(n["simulate_elastic_ring"] == (1, 0, 1),
+        check(n["simulate_elastic_ring"] == (1, 1, 0),
               f"real_data gathers: ring forward {n['simulate_elastic_ring']}"
-              f" (192 x 384 fits no resident plan)")
+              f" (want one resident launch)")
         rd = tmp / "real_data"
         (rd / "trainC").mkdir(parents=True)
         np.save(rd / "trainC" / "0.npy", np.stack(start) / 100.0)
@@ -3660,13 +3864,14 @@ def phase_dataroot(dev):
               "taken")
         rcfg = rcfg.replace(dataroot=str(rd), name="dataroot_real_data")
         from physicsbasedfwi2_tpu_torch.engine.engines import create_engine
-        b3_real = _real_data_b3(dev, create_engine(rcfg, device=dev), true)
+        b3_real, ring_real = _real_data_b3(
+            dev, create_engine(rcfg, device=dev), true)
         (engine, hist), n = path(
             f"real_data, lstart {rcfg.lstart} + 3 epochs from the SU tree",
             lambda: _train20(dev, "real_data", rcfg, rcfg.lstart + 3))
-        check(n["fused_elastic_loss_grad"] == (3, 0, 3),
+        check(n["fused_elastic_loss_grad"] == (3, 3, 0),
               f"real_data: B3 {n['fused_elastic_loss_grad']} (want every "
-              f"launch per-step)")
+              f"launch resident)")
         check(all(math.isfinite(r["loss_D_MSE"]) for r in hist),
               "real_data: a loss is not finite")
 
@@ -3693,7 +3898,7 @@ def phase_dataroot(dev):
     routes = {k: dict(routes[k]) for k in launches if launches[k]}
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s; kernel launches "
           f"{dict(launches)}, by route {routes}")
-    return launches, routes, b3_real
+    return launches, routes, b3_real, ring_real
 
 
 # phase 21: the supervised baselines' registered configs, their epochs
@@ -5064,9 +5269,9 @@ def phase_experiments(dev):
         print("epoch", json.dumps(hist[-1]))
         check(engine.physics_path == "fused-cuda" and engine.wl.from_disk,
               f"real_data: path {engine.physics_path}")
-        check(n["fused_elastic_loss_grad"] == (1, 0, 1),
+        check(n["fused_elastic_loss_grad"] == (1, 1, 0),
               f"real_data: B3 {n['fused_elastic_loss_grad']} (want one "
-              f"per-step launch: 192 x 384 fits no resident plan)")
+              f"resident launch)")
         finite("real_data", hist)
 
         # misfit_linescan on the known-density Marmousi tree
@@ -5280,9 +5485,11 @@ def main(argv: list[str]) -> int:
     lap("18")
     phase_other_engines(dev)
     lap("19")
-    dataroot_launches, dataroot_routes, b3_real = phase_dataroot(dev)
+    dataroot_launches, dataroot_routes, b3_real, ring_real = phase_dataroot(
+        dev)
     launches.update(dataroot_launches)
     b3.update(b3_real)
+    ring.update(ring_real)
     lap("20")
     launches.update(phase_supervised(dev))
     lap("21")

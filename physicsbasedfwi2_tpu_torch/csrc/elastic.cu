@@ -50,7 +50,8 @@
 //
 // Two routes; ops/elastic_fused.py picks one by shape before any launch
 // (elastic_resident_plan for B3, elastic_forward_plan for the ring
-// forward) and counts each route's launches.
+// forward) and counts each route's launches.  The resident route has two
+// shared-memory layouts (the plan's layout): see below.
 //
 // Resident route (el_fwd_resident, el_rev_resident; the default where
 // the plan holds the grid).  The Pallas kernel keeps one shot's state,
@@ -77,17 +78,58 @@
 // size that the launch allows explicitly), nx128 threads (at most 384,
 // so 168 registers a thread), 4 (5 (8 + 4)(nx128 + 8) + 6 8 nx128) bytes
 // of shared memory: at 128 x 384 (the marmousi_elastic family) 16 CTAs
-// of 384 threads and 167,808 B.  Grids the plan does not hold (seam_
-// elastic's 144 x 384, real_data's 192 x 384) take the per-step route.
+// of 384 threads and 167,808 B.  Taller grids take layout 1 (below);
+// grids no plan holds take the per-step route.
+//
+// Layout 1 (el_fwd_resident<R, CK, true>, el_rev_resident_l1<R>): bands
+// of R = 9 (seam_elastic's 144 x 384) or 12 rows (real_data's 192 x 384)
+// on 16-CTA clusters, which layout 0 cannot hold: at 12 rows its shared
+// memory would be 236,032 B (the limit is 232,448), and its reverse
+// sweep already spills at 8 (80 live floats of cotangent and gradients a
+// thread).  The field buffers, the halo exchange and the two barriers a
+// step are as above.  The six media move out of shared memory into a
+// copy laid out band by band with rows of kMaxCols floats
+// (el_band_media, one launch a call), read with plain loads through L1
+// (the grid is 1.3-1.8 MB and sits in the 50 MB L2 for every shot); the
+// reverse sweep's 5 gradient accumulators move into shared memory at the
+// thread's own cells (no neighbour reads them, so no barrier), and the
+// cotangent stays in registers (45 floats at 9 rows, 60 at 12).  Shared
+// memory: 4 (5 (R + 4)(nx + 8) + 5 R nx) bytes, 171,040 at R 9 and
+// 217,600 at R 12; the forward sweep takes the field buffers alone
+// (101,920 and 125,440).  The cache of the derivative terms is laid out
+// band by band as well (l1_cache_slot), so that every offset a thread
+// reads or writes is known at compile time: runtime offsets of 6 R media
+// and 5 R cache cells are hoisted out of the step loop into registers and
+// spilled.  Each cell's forward update is written as soon as it is
+// computed (a phase reads only its neighbours' fields of the other kind).
+// Prediction before the first timed run (H100, 700 W): B3's measured
+// steps scaled by rows a thread, ~22 us a time step at R 9 and ~29 at
+// R 12, so 55-75 ms a call at SEAM's grid (4 shots, nt 2568; from 92-113
+// per-step) and 55-70 at real_data's (4 shots, nt 2001; from 83-85).
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phases 4,
+// 17, 20, routes in turns; PERF.md): SEAM 63.42-63.55 ms against per-step
+// 90.81-91.42, real_data 63.36-63.89 against 83.71-84.20, each bit-equal
+// to the per-step route; ptxas: the reverse kernels 168 registers with
+// 52 B (R 9) and 32 B (R 12) of spill stores, the forward ones none.
+// Layout 1 at 8-row bands runs 76.84-76.86 ms against layout 0's
+// 70.98-71.10 at 128 x 384, bit-equal: reading the media through L1
+// costs ~8 %.  The first
+// build (media by __ldg at runtime offsets from the grid's [5, nz, nx],
+// the cache in layout 0's order, the gradients behind a reference-
+// returning accessor) spilled 944 B at R 12 and ran real_data's call in
+// 91 ms, no faster than per-step.  The ring forward at 192 x 384 (12
+// shots, 7 clusters resident, 2 waves) 29.91-30.29 ms against per-step
+// 42.15-42.76.
 //
 // The ring forward's resident route (b3_elastic_ring_resident) is the
 // same forward sweep without checkpoints, a template on the band height
-// R (el_fwd_resident<R, CK>): R 8 at 128 x 384 (B3's instance with CK,
-// the ring forward's without), R 9 at 144 x 384 (B8 at marmousi_elastic's
-// shape with an absorbing top, seam_elastic's ring forward), 16 CTAs and
-// 4 (5 (R + 4)(nx + 8) + 6 R nx) bytes: 184,864 at R 9.  One launch over
-// all shots; the clusters the card cannot hold at once wait, so 35 shots
-// run in waves.  The reverse sweep keeps R 8 (its 168 registers spill).
+// R and the layout (el_fwd_resident<R, CK, L1>): R 8 at 128 x 384 (B3's
+// instance with CK, the ring forward's without), R 9 at 144 x 384 (B8 at
+// marmousi_elastic's shape with an absorbing top, seam_elastic's ring
+// forward), 16 CTAs and 4 (5 (R + 4)(nx + 8) + 6 R nx) bytes: 184,864 at
+// R 9, all in layout 0; R 12 at 192 x 384 in layout 1 (real_data's prep
+// and SU gathers).  One launch over all shots; the clusters the card
+// cannot hold at once wait, so 35 shots run in waves.
 // Prediction before the first timed run (H100, 700 W): one CTA an SM at
 // either height, so 7 clusters resident as for B3, 35 shots in 5 waves of
 // ~15 ms (B3's forward sweep, 4.5 us a step): the ring forward ~70-80 ms
@@ -593,37 +635,67 @@ __global__ void sum_shots5(const float* __restrict__ per_shot, int ns,
 // ---------------------------------------------------------------------------
 // Resident route: one thread-block cluster per shot (see the note above).
 // Grid (C, ns), cluster (C, 1, 1): CTA r = blockIdx.x of shot blockIdx.y,
-// thread x owns column x of rows [8 r, 8 r + 8).  Every thread reaches
-// every cluster barrier.
+// thread x owns column x of rows [R r, R r + R).  Every thread reaches
+// every cluster barrier.  Two shared-memory layouts (the plan's
+// `layout`, template parameter L1):
+//   0  the band's six media in shared memory; B3's reverse sweep keeps its
+//      gradient accumulators in registers.  Bands of 8 rows (B3), 8 or 9
+//      (the forward sweep alone).
+//   1  the media read from global memory (L1, and the L2 that holds
+//      every shot's grid), from a copy laid out band by band with rows of
+//      kMaxCols floats (el_band_media), so that a thread's reads sit at
+//      offsets known at compile time from one pointer; the reverse sweep
+//      keeps its gradient accumulators in shared memory at the thread's
+//      own cells.  Bands of 9 or 12 rows (B3; 8 too, timed against layout
+//      0), 12 (the forward sweep alone).
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 8;        // band rows: the rows a thread owns
-constexpr int kRowsTall = 9;    // the forward sweep's other band height
+constexpr int kRowsTall = 9;    // layout 0 forward alone; layout 1 B3
+constexpr int kRowsL1 = 12;     // layout 1's tallest band
 constexpr int kMaxCols = 384;   // threads (columns) at most: 168 registers
 constexpr int kMaxCluster = 16;
 constexpr int kPad = 4;         // zero columns each side (2 are read)
 
-int el_plan_smem(int R, int nx) {
-  return (int)sizeof(float) * (5 * (R + 4) * (nx + 2 * kPad) + 6 * R * nx);
+// 5 field buffers of (R + 4) x (nx + 8) floats
+int el_fields_smem(int R, int nx) {
+  return (int)sizeof(float) * 5 * (R + 4) * (nx + 2 * kPad);
+}
+
+// A kernel's shared memory: the field buffers and, in layout 0, the
+// band's 6 media, in layout 1 the reverse sweep's 5 gradient accumulators
+// (the forward sweep alone needs none).
+int el_plan_smem(int R, int nx, int layout, bool reverse) {
+  const int band = (int)sizeof(float) * R * nx;
+  return el_fields_smem(R, nx) +
+         (layout == 0 ? 6 * band : (reverse ? 5 * band : 0));
 }
 
 // A CTA's band of R rows in shared memory: 5 field buffers of (R + 4) x P
 // floats (P = nx + 8; buffer row lr + 2 holds band row lr, column j + 4
-// column j), then the band's 6 media ([R, nx] each).  Buffer f sits at
-// offset f fsz, here and in the neighbours.  B3's reverse sweep has bands
-// of kRows; the forward sweep has an instance for kRows and kRowsTall.
-template <int R>
+// column j), then (layout 0) the band's 6 media ([R, nx] each).  Buffer f
+// sits at offset f fsz, here and in the neighbours.
+template <int R, bool L1>
 struct BandR {
   int row0, nx, P, fsz;
   float* sm;
   float* up;  // the upper neighbour's buffers (null for the top band)
   float* dn;  // the lower neighbour's (null for the bottom band)
+  // layout 0: the band's [6, R, nx] in shared memory; layout 1: the
+  // thread's column of the band's [6, R, kMaxCols] in el_band_media's copy
   const float* med;
   __device__ int at(int f, int lr) const {
     return f * fsz + (lr + 2) * P + (int)threadIdx.x + kPad;
   }
+  // medium k at the thread's cell of band row lr.  Layout 1 reads with a
+  // plain load: one that the compiler may treat as invariant (__ldg)
+  // would be hoisted out of the time loop into 6 R registers.
   __device__ float m(int k, int lr) const {
-    return med[(k * R + lr) * nx + threadIdx.x];
+    if constexpr (L1) {
+      return med[(k * R + lr) * kMaxCols];
+    } else {
+      return med[(k * R + lr) * nx + threadIdx.x];
+    }
   }
   // write v at the thread's cell of band row lr of buffer f and, for the
   // band's 2 edge rows, into the neighbours' halo rows
@@ -634,7 +706,8 @@ struct BandR {
     if (lr >= R - 2 && dn) dn[c + (lr - R + 2) * P] = v;
   }
 };
-using Band = BandR<kRows>;
+
+using Band = BandR<kRows, false>;
 
 // The band's buffers as an accessor of global rows i
 struct SharedRd {
@@ -648,43 +721,50 @@ struct SharedRd {
 struct ElArgs {
   const float* med;   // [5, nz, nx]
   const float* damp;  // [nz, nx]
+  float* medb;        // layout 1: [C, 6, R, kMaxCols] (el_band_media)
   Src src;
   float* ckpt;        // [n_ck, ns, 5, nz, nx]
   float* hist;        // forward: [2, ns, nt_rows, nx] receiver rows;
                       // reverse: their cotangents
-  float* cache;       // [KC, ns, 5, nz, nx] scratch (reverse)
+  float* cache;       // scratch (reverse): layout 0 [KC, ns, 5, nz, nx],
+                      // layout 1 l1_cache_slot's
   float* gmed;        // [ns, 5, nz, nx] per-shot gradients (reverse)
   int ns, nz, nx, nt_rows, nt_valid, n_ck, KC, fs_row;
   float dtx, dt_invdx2;
 };
 
 // Zero the buffers (halos and pad columns stay zero unless a neighbour
-// writes them) and load the band's media.  The caller passes a cluster
-// barrier before any neighbour writes into the halos.
-template <int R = kRows>
-__device__ __forceinline__ BandR<R> band_init(float* smem, const ElArgs& a) {
-  BandR<R> b;
+// writes them) and, in layout 0, load the band's media.  The caller
+// passes a cluster barrier before any neighbour writes into the halos.
+template <int R, bool L1>
+__device__ __forceinline__ BandR<R, L1> band_init(float* smem,
+                                                  const ElArgs& a) {
+  BandR<R, L1> b;
   const int r = blockIdx.x, C = gridDim.x;
   b.row0 = r * R;
   b.nx = a.nx;
   b.P = a.nx + 2 * kPad;
   b.fsz = (R + 4) * b.P;
   b.sm = smem;
-  float* med = smem + 5 * b.fsz;
-  b.med = med;
   cg::cluster_group cl = cg::this_cluster();
   b.up = r > 0 ? cl.map_shared_rank(smem, r - 1) : nullptr;
   b.dn = r + 1 < C ? cl.map_shared_rank(smem, r + 1) : nullptr;
   for (int q = threadIdx.x; q < 5 * b.fsz; q += blockDim.x) smem[q] = 0.0f;
-  const long long F = (long long)a.nz * a.nx;
-  const int j = threadIdx.x;
+  if constexpr (L1) {
+    b.med = a.medb + (long long)r * 6 * R * kMaxCols + threadIdx.x;
+  } else {
+    float* med = smem + 5 * b.fsz;
+    b.med = med;
+    const long long F = (long long)a.nz * a.nx;
+    const int j = threadIdx.x;
 #pragma unroll
-  for (int lr = 0; lr < R; ++lr) {
-    const long long g = (long long)(b.row0 + lr) * a.nx + j;
+    for (int lr = 0; lr < R; ++lr) {
+      const long long g = (long long)(b.row0 + lr) * a.nx + j;
 #pragma unroll
-    for (int k = 0; k < 5; ++k)
-      med[(k * R + lr) * a.nx + j] = a.med[k * F + g];
-    med[(DAMP * R + lr) * a.nx + j] = a.damp[g];
+      for (int k = 0; k < 5; ++k)
+        med[(k * R + lr) * a.nx + j] = a.med[k * F + g];
+      med[(DAMP * R + lr) * a.nx + j] = a.damp[g];
+    }
   }
   return b;
 }
@@ -692,9 +772,9 @@ __device__ __forceinline__ BandR<R> band_init(float* smem, const ElArgs& a) {
 // One forward step of the band at time t (the state in the buffers),
 // each phase ending at a cluster barrier.  cache (optional): this shot's
 // [5, F] slot of the step's derivative terms; hist (optional): the
-// receiver rows.
+// receiver rows.  Layout 0's; layout 1's is the overload below.
 template <int R>
-__device__ __forceinline__ void band_fwd_step(const BandR<R>& b,
+__device__ __forceinline__ void band_fwd_step(const BandR<R, false>& b,
                                               const ElArgs& a, int s, int t,
                                               float* cache, float* hist) {
   const int j = threadIdx.x;
@@ -757,10 +837,11 @@ __device__ __forceinline__ void band_fwd_step(const BandR<R>& b,
 // the receiver rows to hist.  CK: B3's phase 1, the state written to
 // ckpt before every KC-th step; without CK the ring forward (and B8),
 // n_ck = 1 chunk of nt steps and no checkpoint.
-template <int R, bool CK>
+template <int R, bool CK, bool L1>
 __global__ void __launch_bounds__(kMaxCols, 1) el_fwd_resident(ElArgs a) {
   extern __shared__ float4 smem4[];
-  const BandR<R> b = band_init<R>(reinterpret_cast<float*>(smem4), a);
+  const BandR<R, L1> b =
+      band_init<R, L1>(reinterpret_cast<float*>(smem4), a);
   cluster_barrier();
   const int s = blockIdx.y, j = threadIdx.x;
   const long long F = (long long)a.nz * a.nx;
@@ -783,7 +864,8 @@ __global__ void __launch_bounds__(kMaxCols, 1) el_fwd_resident(ElArgs a) {
 
 // The products of the thread's stress cotangents (cot: Sxx, Szz, Sxz of
 // band row lr) into PC, PA, PB.
-__device__ __forceinline__ void put_stress_products(const Band& b,
+template <int R, bool L1>
+__device__ __forceinline__ void put_stress_products(const BandR<R, L1>& b,
                                                     const ElArgs& a, int lr,
                                                     float sxx, float szz,
                                                     float sxz) {
@@ -796,11 +878,15 @@ __device__ __forceinline__ void put_stress_products(const Band& b,
 }
 
 // Reverse sweep, chunk by chunk from the checkpoints (last first): B3's
-// phase 3.  The cotangent and the gradients stay in registers.
+// phase 3.  Layout 0: the cotangent and the gradients stay in registers.
+// The reverse sweeps of the two layouts are separate kernels (and so are
+// their forward steps): layout 0's takes the 168 registers it may and
+// spills, so its code is kept as it was measured (the same arithmetic in
+// one template with layout 1's spilled 428 B against 320).
 __global__ void __launch_bounds__(kMaxCols, 1) el_rev_resident(ElArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Band b = band_init(smem, a);
+  const Band b = band_init<kRows, false>(smem, a);
   const int s = blockIdx.y, j = threadIdx.x;
   const long long F = (long long)a.nz * a.nx;
   const SharedRd r{b.sm, b.fsz, b.P, b.row0};
@@ -883,28 +969,253 @@ __global__ void __launch_bounds__(kMaxCols, 1) el_rev_resident(ElArgs a) {
       gs[f * F + (long long)(b.row0 + lr) * a.nx + j] = g[f][lr];
 }
 
+// ---- layout 1 ------------------------------------------------------------
+// B3's cache of the derivative terms (ElArgs::cache) in layout 1:
+// [KC, ns, C, 5, R, kMaxCols].  The slot of step kk of the chunk for shot
+// s points at the thread's column of its band, and term f of band row lr
+// sits at an offset known at compile time (runtime offsets are hoisted out
+// of the step loop into registers).
+template <int R>
+__device__ __forceinline__ float* l1_cache_slot(const ElArgs& a, int kk,
+                                                int s) {
+  return a.cache +
+         (((long long)kk * a.ns + s) * gridDim.x + blockIdx.x) * 5 * R *
+             kMaxCols +
+         threadIdx.x;
+}
+template <int R>
+__device__ __forceinline__ int l1_co(int f, int lr) {
+  return (f * R + lr) * kMaxCols;
+}
+
+// Layout 1's forward step: as layout 0's, but a phase reads its
+// neighbours' fields of the other kind (V the stresses, S the velocities)
+// and its own cells of the kind it writes, so each cell is written as soon
+// as it is computed (fewer live registers beside the reverse sweep's
+// cotangent).  cache (optional): l1_cache_slot.
+template <int R>
+__device__ __forceinline__ void band_fwd_step(const BandR<R, true>& b,
+                                              const ElArgs& a, int s, int t,
+                                              float* cache, float* hist) {
+  const int j = threadIdx.x;
+  const SharedRd r{b.sm, b.fsz, b.P, b.row0};
+  const int rr = a.src.rcv_row[s], sz = a.src.src_z[s], sx = a.src.src_x[s];
+#pragma unroll
+  for (int lr = 0; lr < R; ++lr) {
+    const int i = b.row0 + lr;
+    float t1, t2;
+    float u = b.sm[b.at(VX, lr)], w = b.sm[b.at(VZ, lr)];
+    fwd_v_cell(r, i, j, b.m(DAMP, lr), b.m(BXX, lr), b.m(BZZ, lr), a.dtx, u,
+               w, t1, t2);
+    if (cache) {
+      cache[l1_co<R>(T1, lr)] = t1;
+      cache[l1_co<R>(T2, lr)] = t2;
+    }
+    b.put(VX, lr, u);
+    b.put(VZ, lr, w);
+    if (hist && i == rr && t < a.nt_valid) {
+      const long long q = ((long long)s * a.nt_rows + t) * a.nx + j;
+      hist[q] = u;
+      hist[(long long)a.ns * a.nt_rows * a.nx + q] = w;
+    }
+  }
+  cluster_barrier();
+#pragma unroll
+  for (int lr = 0; lr < R; ++lr) {
+    const int i = b.row0 + lr;
+    float ca, cb, cc;
+    float u = b.sm[b.at(SXX, lr)], w = b.sm[b.at(SZZ, lr)],
+          v = b.sm[b.at(SXZ, lr)];
+    fwd_s_cell(r, i, j, b.m(LAM, lr), b.m(L2M, lr), b.m(MUXZ, lr),
+               b.m(DAMP, lr), a.dtx, i == sz && j == sx, a.src, s, t,
+               i == a.fs_row, u, w, v, ca, cb, cc);
+    if (cache) {
+      cache[l1_co<R>(CA, lr)] = ca;
+      cache[l1_co<R>(CB, lr)] = cb;
+      cache[l1_co<R>(CC, lr)] = cc;
+    }
+    b.put(SXX, lr, u);
+    b.put(SZZ, lr, w);
+    b.put(SXZ, lr, v);
+  }
+  cluster_barrier();
+}
+
+// Layout 1's reverse sweep: layout 0's with the 5 gradient accumulators in
+// shared memory ([5, R, nx] after the field buffers, each thread its own
+// cells, so no barrier guards them) and the cotangent in registers.
+template <int R>
+__global__ void __launch_bounds__(kMaxCols, 1) el_rev_resident_l1(ElArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const BandR<R, true> b = band_init<R, true>(smem, a);
+  const int s = blockIdx.y, j = threadIdx.x;
+  const long long F = (long long)a.nz * a.nx;
+  const SharedRd r{b.sm, b.fsz, b.P, b.row0};
+  const int rr = a.src.rcv_row[s], sz = a.src.src_z[s], sx = a.src.src_x[s];
+  const long long yz = (long long)a.ns * a.nt_rows * a.nx;
+  float* g = smem + 5 * b.fsz + j;  // g[(f R + lr) nx]: gradient f, row lr
+  float cot[5][R];
+#pragma unroll
+  for (int f = 0; f < 5; ++f)
+#pragma unroll
+    for (int lr = 0; lr < R; ++lr) {
+      cot[f][lr] = 0.0f;
+      g[(f * R + lr) * a.nx] = 0.0f;
+    }
+  for (int ck = a.n_ck - 1; ck >= 0; --ck) {
+    cluster_barrier();  // every CTA is done with the buffers
+    // restore the state with its halo rows from the checkpoint
+    const float* src = a.ckpt + ((long long)ck * a.ns + s) * 5 * F;
+#pragma unroll
+    for (int f = 0; f < 5; ++f)
+      for (int lr = -2; lr < R + 2; ++lr) {
+        const int gi = b.row0 + lr;
+        b.sm[f * b.fsz + (lr + 2) * b.P + j + kPad] =
+            gi >= 0 && gi < a.nz ? src[f * F + (long long)gi * a.nx + j]
+                                 : 0.0f;
+      }
+    cluster_barrier();  // no neighbour writes a halo row being restored
+    for (int kk = 0; kk < a.KC; ++kk)
+      band_fwd_step(b, a, s, ck * a.KC + kk, l1_cache_slot<R>(a, kk, s),
+                    nullptr);
+#pragma unroll
+    for (int lr = 0; lr < R; ++lr)
+      put_stress_products(b, a, lr, cot[SXX][lr], cot[SZZ][lr],
+                          cot[SXZ][lr]);
+    cluster_barrier();
+    for (int kk = a.KC - 1; kk >= 0; --kk) {
+      const int t = ck * a.KC + kk;
+      const float* c = l1_cache_slot<R>(a, kk, s);
+      // phase A
+#pragma unroll
+      for (int lr = 0; lr < R; ++lr) {
+        const int i = b.row0 + lr;
+        float vx = cot[VX][lr], vz = cot[VZ][lr];
+        if (i == rr) {
+          const long long y = ((long long)s * a.nt_rows + t) * a.nx + j;
+          vx += a.hist[y];
+          vz += a.hist[yz + y];
+        }
+        adj_v_cell(r, i, j, b.m(DAMP, lr), a.dtx, c[l1_co<R>(T1, lr)],
+                   c[l1_co<R>(T2, lr)], vx, vz, g[(BXX * R + lr) * a.nx],
+                   g[(BZZ * R + lr) * a.nx]);
+        cot[VX][lr] = vx;
+        cot[VZ][lr] = vz;
+      }
+#pragma unroll
+      for (int lr = 0; lr < R; ++lr) {
+        b.put(PTX, lr, tbar_val(a.dtx, b.m(BXX, lr), cot[VX][lr]));
+        b.put(PTZ, lr, tbar_val(a.dtx, b.m(BZZ, lr), cot[VZ][lr]));
+      }
+      cluster_barrier();
+      // phase B, then the products of the new stress cotangents for the
+      // next step's phase A
+#pragma unroll
+      for (int lr = 0; lr < R; ++lr) {
+        const int i = b.row0 + lr;
+        adj_s_cell(r, i, j, b.m(DAMP, lr), a.dtx, a.dt_invdx2,
+                   c[l1_co<R>(CA, lr)], c[l1_co<R>(CB, lr)],
+                   c[l1_co<R>(CC, lr)], i == sz && j == sx, a.src, s, t,
+                   i == a.fs_row, cot[SXX][lr], cot[SZZ][lr], cot[SXZ][lr],
+                   g[(LAM * R + lr) * a.nx], g[(L2M * R + lr) * a.nx],
+                   g[(MUXZ * R + lr) * a.nx]);
+      }
+#pragma unroll
+      for (int lr = 0; lr < R; ++lr)
+        put_stress_products(b, a, lr, cot[SXX][lr], cot[SZZ][lr],
+                            cot[SXZ][lr]);
+      cluster_barrier();
+    }
+  }
+  float* gs = a.gmed + (long long)s * 5 * F;
+#pragma unroll
+  for (int f = 0; f < 5; ++f)
+#pragma unroll
+    for (int lr = 0; lr < R; ++lr)
+      gs[f * F + (long long)(b.row0 + lr) * a.nx + j] = g[(f * R + lr) * a.nx];
+}
+
 inline dim3 cell_grid(const Dims& d) {
   return dim3((d.nx + BX - 1) / BX, (d.nz + BY - 1) / BY, d.ns);
 }
 
-// The resident plan (Plan, csrc/cluster.cuh), made by
-// ops/elastic_fused.py::elastic_resident_plan (B3: C bands of 8 rows)
-// or elastic_forward_plan (the forward sweep alone, fwd_only: 8 or 9
-// rows) cover the grid, one thread a column.
-cudaError_t el_check_plan(const Plan& p, int nz, int nx,
+// Layout 1's copy of the media: medb[((r * 6 + k) * R + lr) * kMaxCols + j]
+// = medium k (lam, l2m, muxz, bx, bz, damp) at row r R + lr, column j;
+// one thread a cell.
+__global__ void el_band_media(const float* __restrict__ med,
+                              const float* __restrict__ damp, int nz, int nx,
+                              int R, float* __restrict__ medb) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y, k = blockIdx.z;
+  if (j >= nx || i >= nz) return;
+  const long long g = (long long)i * nx + j;
+  medb[((long long)(i / R * 6 + k) * R + i % R) * kMaxCols + j] =
+      k == DAMP ? damp[g] : med[k * (long long)nz * nx + g];
+}
+
+cudaError_t el_prepare_media(const ElArgs& a, int R, int layout,
+                             cudaStream_t st) {
+  if (layout != 1) return cudaSuccess;
+  if (!a.medb) return cudaErrorInvalidValue;
+  el_band_media<<<dim3((a.nx + 127) / 128, a.nz, 6), 128, 0, st>>>(
+      a.med, a.damp, a.nz, a.nx, R, a.medb);
+  LAUNCHED();
+  return cudaSuccess;
+}
+
+// The band heights each layout has instances for: B3 (both sweeps) or
+// the forward sweep alone (fwd_only).
+bool el_rows(int R, int layout, bool fwd_only) {
+  if (layout == 0) return R == kRows || (fwd_only && R == kRowsTall);
+  if (layout == 1)
+    return R == kRowsL1 || (!fwd_only && (R == kRows || R == kRowsTall));
+  return false;
+}
+
+// The resident plan (Plan, csrc/cluster.cuh) and layout, made by
+// ops/elastic_fused.py::elastic_resident_plan (B3) or
+// elastic_forward_plan (the forward sweep alone, fwd_only), cover the
+// grid, one thread a column, with the shared memory the layout needs.
+cudaError_t el_check_plan(const Plan& p, int layout, int nz, int nx,
                           bool fwd_only = false) {
-  const bool rows = p.R == kRows || (fwd_only && p.R == kRowsTall);
-  const bool ok = rows && p.rpt == p.R && p.C >= 1 && p.C <= kMaxCluster &&
-                  p.C * p.R == nz && nx % 32 == 0 && p.threads == nx &&
-                  nx <= kMaxCols && p.smem >= el_plan_smem(p.R, nx) &&
+  const bool ok = el_rows(p.R, layout, fwd_only) && p.rpt == p.R &&
+                  p.C >= 1 && p.C <= kMaxCluster && p.C * p.R == nz &&
+                  nx % 32 == 0 && p.threads == nx && nx <= kMaxCols &&
+                  p.smem >= el_plan_smem(p.R, nx, layout, !fwd_only) &&
                   p.smem <= 232448;
   return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The forward sweep without checkpoints for a checked plan's rows.
-ResKernel<ElArgs> el_ring_kernel(const Plan& p) {
-  if (p.R == kRowsTall) return el_fwd_resident<kRowsTall, false>;
-  return el_fwd_resident<kRows, false>;
+// B3's two sweeps for a checked plan and layout, and the forward sweep's
+// plan: in layout 1 it takes only the field buffers.
+struct ElSweeps {
+  ResKernel<ElArgs> fwd, rev;
+  Plan fwd_plan;
+};
+
+template <int R, bool L1>
+ElSweeps el_sweeps_for(const Plan& p) {
+  Plan pf = p;
+  if constexpr (L1) pf.smem = el_fields_smem(R, p.threads);
+  if constexpr (L1)
+    return {el_fwd_resident<R, true, true>, el_rev_resident_l1<R>, pf};
+  else
+    return {el_fwd_resident<R, true, false>, el_rev_resident, pf};
+}
+
+ElSweeps el_sweeps(const Plan& p, int layout) {
+  if (layout == 0) return el_sweeps_for<kRows, false>(p);
+  if (p.R == kRowsTall) return el_sweeps_for<kRowsTall, true>(p);
+  if (p.R == kRowsL1) return el_sweeps_for<kRowsL1, true>(p);
+  return el_sweeps_for<kRows, true>(p);
+}
+
+// The forward sweep without checkpoints for a checked plan and layout.
+ResKernel<ElArgs> el_ring_kernel(const Plan& p, int layout) {
+  if (layout == 1) return el_fwd_resident<kRowsL1, false, true>;
+  if (p.R == kRowsTall) return el_fwd_resident<kRowsTall, false, false>;
+  return el_fwd_resident<kRows, false, false>;
 }
 
 // Misfit, loss partials and the cotangent rows over hist (both routes).
@@ -1036,78 +1347,85 @@ int b3_fused_elastic_loss_grad(
 
 // B3, resident route: as b3_fused_elastic_loss_grad, without the
 // per-step scratch (state, cot), then the plan (C, R, rpt, threads,
-// smem; cudaErrorInvalidValue for a plan that does not hold the grid).
+// smem) and its layout (0 or 1, see above; cudaErrorInvalidValue for a
+// plan that does not hold the grid).
 int b3_fused_elastic_loss_grad_resident(
     const float* med, const float* damp, const float* wav, const int* src_z,
     const int* src_x, const int* rcv_row, const float* gain,
     const float* obs_x, const float* obs_z, const float* rmask, float* ckpt,
     float* cache, float* hist, float* gmed_shots, double* loss_part,
-    float* loss_out, float* gmed_out, int ns, int nz, int nx, int nt,
-    int n_ck, int KC, int fs_row, int tnl1, int C, int R, int rpt,
-    int threads, int smem, float dtx, float dt_invdx2, float inv_count,
-    void* stream) {
+    float* loss_out, float* gmed_out, float* medb, int ns, int nz, int nx,
+    int nt, int n_ck, int KC, int fs_row, int tnl1, int C, int R, int rpt,
+    int threads, int smem, int layout, float dtx, float dt_invdx2,
+    float inv_count, void* stream) {
   const Plan p{C, R, rpt, threads, smem};
-  RET_IF(el_check_plan(p, nz, nx));
+  RET_IF(el_check_plan(p, layout, nz, nx));
+  const ElSweeps k = el_sweeps(p, layout);
   cudaStream_t st = (cudaStream_t)stream;
   const int nt_pad = n_ck * KC;
   RET_IF(cudaMemsetAsync(hist, 0,
                          sizeof(float) * 2 * (size_t)ns * nt_pad * nx, st));
-  const ElArgs a{med,  damp, Src{src_z, src_x, rcv_row, gain, wav, nt_pad},
-                 ckpt, hist, cache, gmed_shots, ns, nz, nx, nt_pad, nt, n_ck,
-                 KC,   fs_row, dtx, dt_invdx2};
-  RET_IF(launch_resident(el_fwd_resident<kRows, true>, a, p, ns, st));
+  const ElArgs a{med,  damp, medb, Src{src_z, src_x, rcv_row, gain, wav,
+                 nt_pad}, ckpt, hist, cache, gmed_shots, ns, nz, nx, nt_pad,
+                 nt,   n_ck, KC, fs_row, dtx, dt_invdx2};
+  RET_IF(el_prepare_media(a, R, layout, st));
+  RET_IF(launch_resident(k.fwd, a, k.fwd_plan, ns, st));
   RET_IF(el_misfit(hist, obs_x, obs_z, rmask, ns, nt_pad, nt, nx, inv_count,
                    tnl1, loss_part, st));
-  RET_IF(launch_resident(el_rev_resident, a, p, ns, st));
+  RET_IF(launch_resident(k.rev, a, p, ns, st));
   return el_sums(gmed_shots, loss_part, ns, nx, (long long)nz * nx,
                  inv_count, gmed_out, loss_out, st);
 }
 
-// How many clusters of a plan the card keeps resident at once
+// How many clusters of a plan and layout the card keeps resident at once
 // (cudaOccupancyMaxActiveClusters) for the forward (reverse = 0) or the
 // reverse kernel of B3's resident route, into *out.
 int pbfwi_b3_max_clusters(int reverse, int ns, int nz, int nx, int C, int R,
-                          int rpt, int threads, int smem, int* out) {
+                          int rpt, int threads, int smem, int layout,
+                          int* out) {
   const Plan p{C, R, rpt, threads, smem};
-  RET_IF(el_check_plan(p, nz, nx));
-  return max_active_clusters<ElArgs>(
-      reverse ? el_rev_resident : el_fwd_resident<kRows, true>, p, ns, out);
+  RET_IF(el_check_plan(p, layout, nz, nx));
+  const ElSweeps k = el_sweeps(p, layout);
+  return reverse ? max_active_clusters<ElArgs>(k.rev, p, ns, out)
+                 : max_active_clusters<ElArgs>(k.fwd, k.fwd_plan, ns, out);
 }
 
 // The ring forward, resident route: one launch of the forward sweep
-// without checkpoints (el_fwd_resident<R, false>) over a grid of
+// without checkpoints (el_fwd_resident<R, false, L1>) over a grid of
 // (C, ns), one cluster per shot; the clusters beyond those the card keeps
 // resident wait for a free slot, so the shots run in waves.  hist
 // [2, ns, nt, nx] receives the receiver rows of vx and vz every step; no
 // state scratch.  B8 (elastic_forward_pallas) calls it with fs_row -1.
-// Then the plan (C, R, rpt, threads, smem; cudaErrorInvalidValue for a
-// plan that does not hold the grid).
+// Then the plan (C, R, rpt, threads, smem) and its layout
+// (cudaErrorInvalidValue for a plan that does not hold the grid).
 int b3_elastic_ring_resident(const float* med, const float* damp,
                              const float* wav, const int* src_z,
                              const int* src_x, const int* rcv_row,
-                             const float* gain, float* hist, int ns, int nz,
-                             int nx, int nt, int nt_wav, int fs_row, int C,
-                             int R, int rpt, int threads, int smem,
-                             float dtx, void* stream) {
+                             const float* gain, float* hist, float* medb,
+                             int ns, int nz, int nx, int nt, int nt_wav,
+                             int fs_row, int C, int R, int rpt, int threads,
+                             int smem, int layout, float dtx, void* stream) {
   const Plan p{C, R, rpt, threads, smem};
-  RET_IF(el_check_plan(p, nz, nx, true));
+  RET_IF(el_check_plan(p, layout, nz, nx, true));
   cudaStream_t st = (cudaStream_t)stream;
   RET_IF(cudaMemsetAsync(hist, 0, sizeof(float) * 2 * (size_t)ns * nt * nx,
                          st));
   // one chunk of nt steps; no checkpoints, cache or gradients
-  const ElArgs a{med, damp, Src{src_z, src_x, rcv_row, gain, wav, nt_wav},
-                 nullptr, hist, nullptr, nullptr, ns, nz, nx, nt, nt, 1, nt,
-                 fs_row, dtx, 0.0f};
-  return launch_resident(el_ring_kernel(p), a, p, ns, st);
+  const ElArgs a{med, damp, medb, Src{src_z, src_x, rcv_row, gain, wav,
+                 nt_wav}, nullptr, hist, nullptr, nullptr, ns, nz, nx, nt, nt,
+                 1, nt, fs_row, dtx, 0.0f};
+  RET_IF(el_prepare_media(a, R, layout, st));
+  return launch_resident(el_ring_kernel(p, layout), a, p, ns, st);
 }
 
-// How many clusters of a plan the card keeps resident at once for the
-// ring forward's instance (el_fwd_resident<R, false>), into *out.
+// How many clusters of a plan and layout the card keeps resident at once
+// for the ring forward's instance (el_fwd_resident<R, false, L1>), into
+// *out.
 int pbfwi_ring_max_clusters(int ns, int nz, int nx, int C, int R, int rpt,
-                            int threads, int smem, int* out) {
+                            int threads, int smem, int layout, int* out) {
   const Plan p{C, R, rpt, threads, smem};
-  RET_IF(el_check_plan(p, nz, nx, true));
-  return max_active_clusters<ElArgs>(el_ring_kernel(p), p, ns, out);
+  RET_IF(el_check_plan(p, layout, nz, nx, true));
+  return max_active_clusters<ElArgs>(el_ring_kernel(p, layout), p, ns, out);
 }
 
 }  // extern "C"

@@ -55,13 +55,13 @@ _SIGNATURES = {
     # csrc/elastic.cu
     "b3_elastic_ring": [_P] * 9 + [_I] * 6 + [_F, _P],
     "b3_fused_elastic_loss_grad": [_P] * 19 + [_I] * 8 + [_F] * 3 + [_P],
-    # its resident route (sizes, then the plan)
-    "b3_fused_elastic_loss_grad_resident": [_P] * 17 + [_I] * 13
+    # its resident route (sizes, then the plan and its layout)
+    "b3_fused_elastic_loss_grad_resident": [_P] * 18 + [_I] * 14
     + [_F] * 3 + [_P],
-    "pbfwi_b3_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
+    "pbfwi_b3_max_clusters": [_I] * 10 + [ctypes.POINTER(_I)],
     # the ring forward's (and B8's) resident route
-    "b3_elastic_ring_resident": [_P] * 8 + [_I] * 11 + [_F, _P],
-    "pbfwi_ring_max_clusters": [_I] * 8 + [ctypes.POINTER(_I)],
+    "b3_elastic_ring_resident": [_P] * 9 + [_I] * 12 + [_F, _P],
+    "pbfwi_ring_max_clusters": [_I] * 9 + [ctypes.POINTER(_I)],
     # csrc/acoustic.cu
     "b5_acoustic_forward": [_P] * 11 + [_I] * 4 + [_F, _P],
     "b6_checkpoints": [_P] * 11 + [_I] * 5 + [_F, _P],

@@ -39,14 +39,19 @@ with the same arithmetic (bit-equal results): the resident one
 (``csrc/elastic.cu::b3_fused_elastic_loss_grad_resident``, one
 thread-block cluster per shot holding the wavefields in shared memory
 through both sweeps, one launch per sweep) wherever
-:func:`elastic_resident_plan` holds the grid, and the per-step one
-(``b3_fused_elastic_loss_grad``, launches per time step) elsewhere; the
-choice is made by shape before any launch (``scalar2.pick_route``).
-:func:`simulate_elastic_ring` runs B3's forward sweep alone on the same
-two routes: the resident one (``b3_elastic_ring_resident``, one launch
-of the sweep without checkpoints, shots in waves of the clusters the
-card keeps resident) wherever :func:`elastic_forward_plan` (bands of 8
-or 9 rows) holds the grid, the per-step one (``b3_elastic_ring``)
+:func:`elastic_resident_plan` holds the grid (the marmousi_elastic
+family's 128 x 384 in 8-row bands with the media in shared memory,
+layout 0; seam_elastic's 144 x 384 and real_data's 192 x 384 in 9- and
+12-row bands with the media read through L1 and the gradient
+accumulators in shared memory, layout 1: :func:`el_smem`), and the
+per-step one (``b3_fused_elastic_loss_grad``, launches per time step)
+elsewhere; the choice is made by shape before any launch
+(``scalar2.pick_route``).  :func:`simulate_elastic_ring` runs B3's
+forward sweep alone on the same two routes: the resident one
+(``b3_elastic_ring_resident``, one launch of the sweep without
+checkpoints, shots in waves of the clusters the card keeps resident)
+wherever :func:`elastic_forward_plan` (bands of 8 or 9 rows in layout 0,
+12 in layout 1) holds the grid, the per-step one (``b3_elastic_ring``)
 elsewhere.  Gradients w.r.t. (vp, vs, rho) come from ``torch.autograd``
 through :func:`prep_medium`.
 """
@@ -72,12 +77,17 @@ from physicsbasedfwi2_tpu_torch.ops.stencil import _shift
 RING = 2  # zero ring width (stands in for circular rolls)
 EPS = 1e-10
 _C1, _C2 = 9.0 / 8.0, -1.0 / 24.0
-# B3's resident route (csrc/elastic.cu): bands of EL_ROWS rows, one
-# thread a column, at most EL_MAX_COLS threads (168 registers each) and
-# EL_MAX_CLUSTER CTAs (a non-portable cluster size); the forward sweep
-# alone (the ring forward, B8) also has bands of 9 rows
+# B3's resident route (csrc/elastic.cu): bands of R rows, one thread a
+# column, at most EL_MAX_COLS threads (168 registers each) and
+# EL_MAX_CLUSTER CTAs (a non-portable cluster size), in one of two
+# shared-memory layouts (el_smem): 0 holds the band's media, 1 reads them
+# through L1 and holds B3's gradient accumulators.  The (R, layout) pairs
+# each planner tries, in order: B3 has bands of EL_ROWS in layout 0 and
+# of 9 or 12 rows in layout 1; the forward sweep alone (the ring forward,
+# B8) of 8 or 9 rows in layout 0 and of 12 in layout 1.
 EL_ROWS = 8
-EL_FWD_ROWS = (EL_ROWS, 9)
+EL_B3_BANDS = ((EL_ROWS, 0), (9, 1), (12, 1))
+EL_FWD_BANDS = ((EL_ROWS, 0), (9, 0), (12, 1))
 EL_MAX_COLS = 384
 EL_MAX_CLUSTER = 16
 
@@ -391,38 +401,56 @@ def _rows_plain(meds, damp, wav, sz, sx, rrow, gain, fs_row, nt, dtx,
 # CUDA kernels (csrc/elastic.cu)
 # ---------------------------------------------------------------------------
 
-def _band_plan(nz8: int, nx128: int, heights) -> ResidentPlan | None:
-    """Bands of the first height R of ``heights`` that divides nz8 into
-    at most EL_MAX_CLUSTER CTAs, one thread a column (nx128 <=
-    EL_MAX_COLS), and shared memory for 5 field buffers with 2 halo rows
-    and 4 zero columns each side plus the band's 6 media within
-    SMEM_LIMIT; None where no height fits."""
+def el_smem(R: int, nx128: int, layout: int, reverse: bool) -> int:
+    """Bytes of shared memory a CTA of R rows takes: 5 field buffers of
+    (R + 4) x (nx128 + 8) floats (2 halo rows and 4 zero columns each
+    side) and, in layout 0, the band's 6 media (both sweeps), in layout 1
+    B3's 5 gradient accumulators at the band's cells (the reverse sweep
+    only; the media are read through L1)."""
+    fields = 5 * (R + 4) * (nx128 + 8)
+    if layout == 0:
+        return 4 * (fields + 6 * R * nx128)
+    return 4 * (fields + (5 * R * nx128 if reverse else 0))
+
+
+def _band_plan(nz8: int, nx128: int, bands,
+               reverse: bool) -> ResidentPlan | None:
+    """Bands of the first (R, layout) of ``bands`` whose R divides nz8
+    into at most EL_MAX_CLUSTER CTAs and whose shared memory
+    (:func:`el_smem`, of the reverse sweep where ``reverse``) is within
+    SMEM_LIMIT, one thread a column (nx128 <= EL_MAX_COLS); None where
+    no band fits."""
     if nx128 % 32 or nx128 > EL_MAX_COLS:
         return None
-    for R in heights:
+    for R, layout in bands:
         C = nz8 // R
-        smem = 4 * (5 * (R + 4) * (nx128 + 8) + 6 * R * nx128)
+        smem = el_smem(R, nx128, layout, reverse)
         if nz8 % R == 0 and 1 <= C <= EL_MAX_CLUSTER and smem <= SMEM_LIMIT:
-            return ResidentPlan(C, R, nx128, smem, rows_per_thread=R)
+            return ResidentPlan(C, R, nx128, smem, rows_per_thread=R,
+                                layout=layout)
     return None
 
 
 def elastic_resident_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     """The resident plan of kernel B3 for an [nz8, nx128] grid, or None
-    where it cannot hold the grid (the per-step route runs): nz8 / 8
-    CTAs of EL_ROWS rows (:func:`_band_plan`).  At 128 x 384 (the
-    marmousi_elastic family) that is 16 CTAs of 384 threads and 167,808
-    B."""
-    return _band_plan(nz8, nx128, (EL_ROWS,))
+    where it cannot hold the grid (the per-step route runs): the first
+    band of EL_B3_BANDS that fits (:func:`_band_plan`).  At 128 x 384
+    (the marmousi_elastic family) 16 CTAs of 8 rows in layout 0 and
+    167,808 B; at 144 x 384 (seam_elastic) 16 of 9 rows in layout 1 and
+    171,040 B; at 192 x 384 (real_data) 16 of 12 rows in layout 1 and
+    217,600 B, of which the forward sweep takes the field buffers
+    (101,920 and 125,440 B)."""
+    return _band_plan(nz8, nx128, EL_B3_BANDS, reverse=True)
 
 
 def elastic_forward_plan(nz8: int, nx128: int) -> ResidentPlan | None:
     """The resident plan of the forward sweep alone (the ring forward
     and B8) for an [nz8, nx128] grid, or None (the per-step route runs):
-    the smallest band height of EL_FWD_ROWS that holds the grid (:func:`_band_plan`).  At 128 x 384 B3's plan; at
-    144 x 384 (B8 at marmousi_elastic's shape, seam_elastic) 16 CTAs of
-    9 rows and 184,864 B."""
-    return _band_plan(nz8, nx128, EL_FWD_ROWS)
+    the first band of EL_FWD_BANDS that fits (:func:`_band_plan`).  At
+    128 x 384 B3's plan; at 144 x 384 (B8 at marmousi_elastic's shape,
+    seam_elastic) 16 CTAs of 9 rows in layout 0 and 184,864 B; at 192 x
+    384 (real_data) 16 of 12 rows in layout 1 and 125,440 B."""
+    return _band_plan(nz8, nx128, EL_FWD_BANDS, reverse=False)
 
 
 def elastic_forward_max_active_clusters(plan: ResidentPlan, ns: int,
@@ -437,7 +465,7 @@ def elastic_forward_max_active_clusters(plan: ResidentPlan, ns: int,
     out = ctypes.c_int(0)
     cuda_build.call(
         None, "pbfwi_ring_max_clusters", ns, nz8, nx128, *plan.args(),
-        ctypes.byref(out))
+        plan.layout, ctypes.byref(out))
     return out.value
 
 
@@ -452,13 +480,28 @@ def elastic_max_active_clusters(plan: ResidentPlan, ns: int, nz8: int,
     out = ctypes.c_int(0)
     cuda_build.call(
         None, "pbfwi_b3_max_clusters", int(reverse), ns, nz8, nx128,
-        *plan.args(), ctypes.byref(out))
+        *plan.args(), plan.layout, ctypes.byref(out))
     return out.value
+
+
+def _band_media(plan: ResidentPlan, nz8: int, dev):
+    """Layout 1's scratch for its copy of the six media, band by band
+    with rows of EL_MAX_COLS floats (csrc/elastic.cu::el_band_media), and
+    its pointer; (None, None) for layout 0, which holds them in shared
+    memory."""
+    if plan.layout != 1:
+        return None, None
+    medb = torch.empty((6 * nz8 * EL_MAX_COLS,), dtype=torch.float32,
+                       device=dev)
+    return medb, medb.data_ptr()
 
 
 def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
                      rmask, fs_row, nt, KC, dtx, dt_invdx2, inv_count,
-                     misfit, route=None):
+                     misfit, route=None, plan=None):
+    """B3's launch; ``plan`` (a resident plan that holds the grid, with
+    ``route="resident"``) replaces the planner's, as chip_smoke.py does
+    to time layout 1's 8-row band against layout 0's."""
     from physicsbasedfwi2_tpu_torch.ops import cuda_build
     ns, nt_pad = wav.shape
     n_ck = nt_pad // KC
@@ -479,13 +522,23 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
                          "padded to a multiple of KC >= nt")
     if misfit not in ("l2", "tnl1"):
         raise ValueError(f"fused_elastic_loss_grad_meds: misfit {misfit!r}")
-    route, plan = pick_route("fused_elastic_loss_grad_meds", nz8, nx128,
-                             route, elastic_resident_plan)
+    route, planned = pick_route("fused_elastic_loss_grad_meds", nz8, nx128,
+                                route, elastic_resident_plan)
+    if plan is None:
+        plan = planned
+    elif route != "resident":
+        raise ValueError("fused_elastic_loss_grad_meds: a plan needs "
+                         "route='resident'")
 
     def buf(*lead):
         return torch.empty(lead + (nz8, nx128), dtype=f32, device=dev)
 
     gmed_shots, ckpt, cache = buf(ns, 5), buf(n_ck, ns, 5), buf(KC, ns, 5)
+    if route == "resident" and plan.layout == 1:
+        # the cache band by band with rows of EL_MAX_COLS floats
+        # (csrc/elastic.cu, BandR::cache_slot)
+        cache = torch.empty((KC, ns, 5, nz8, EL_MAX_COLS), dtype=f32,
+                            device=dev)
     hist = torch.empty((2, ns, nt_pad, nx128), dtype=f32, device=dev)
     loss_part = torch.empty((2, ns, nx128), dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=f32, device=dev)
@@ -497,10 +550,11 @@ def _loss_gmeds_cuda(meds, damp, wav, sz, sx, rrow, gain, obs_x, obs_z,
                                   loss, gmed)]
     tnl1 = 1 if misfit == "tnl1" else 0
     if route == "resident":
+        media, media_ptr = _band_media(plan, nz8, dev)
         cuda_build.call(
-            dev, "b3_fused_elastic_loss_grad_resident", *ptrs, *out, ns, nz8,
-            nx128, nt, n_ck, KC, fs_row, tnl1, *plan.args(), dtx, dt_invdx2,
-            inv_count, stream)
+            dev, "b3_fused_elastic_loss_grad_resident", *ptrs, *out,
+            media_ptr, ns, nz8, nx128, nt, n_ck, KC, fs_row, tnl1,
+            *plan.args(), plan.layout, dtx, dt_invdx2, inv_count, stream)
     else:
         state, cot = buf(ns, 5), buf(ns, 5)
         cuda_build.call(
@@ -539,9 +593,11 @@ def forward_rows_cuda(fn, meds, damp, wav, sz, sx, rrow, gain, fs_row, nt,
     ptrs = [a.data_ptr() for a in (med, damp, wav, sz, sx, rrow, gain)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "resident":
+        media, media_ptr = _band_media(plan, nz8, dev)
         cuda_build.call(
-            dev, "b3_elastic_ring_resident", *ptrs, hist.data_ptr(), ns, nz8,
-            nx128, nt, wav.shape[1], fs_row, *plan.args(), dtx, stream)
+            dev, "b3_elastic_ring_resident", *ptrs, hist.data_ptr(), media_ptr,
+            ns, nz8, nx128, nt, wav.shape[1], fs_row, *plan.args(),
+            plan.layout, dtx, stream)
     else:
         state = torch.empty((ns, 5, nz8, nx128), dtype=f32, device=dev)
         cuda_build.call(

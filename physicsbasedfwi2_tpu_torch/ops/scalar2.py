@@ -191,13 +191,17 @@ class ResidentPlan:
     columns, and the shared memory holds two field buffers with 2 halo
     rows and 4 zero columns each side and the band's K, d+ and d-; B3's
     plan is :func:`elastic_fused.elastic_resident_plan`'s, B5's and
-    B6's :func:`kernels.acoustic_resident_plan`'s."""
+    B6's :func:`kernels.acoustic_resident_plan`'s.  ``layout`` names the
+    kernel family's shared-memory layout where it has more than one
+    (B3 and the ring forward: :func:`elastic_fused.el_smem`); the C
+    entry points of those take it after :meth:`args`."""
 
     cluster: int
     band_rows: int
     threads: int
     smem_bytes: int
     rows_per_thread: int = ROWS_PER_THREAD
+    layout: int = 0
 
     def args(self) -> tuple[int, ...]:
         """The plan as the C entry points take it."""

@@ -7,6 +7,9 @@ JAX, run them without the JAX-side conftest:
 ``python -m pytest tests/test_torch_cuda.py --noconftest -q``.
 """
 
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -678,34 +681,54 @@ def test_b7_grid_beyond_the_plan_takes_the_per_step_route(dev):
 # B3's resident route (one thread-block cluster per shot)
 # ---------------------------------------------------------------------------
 
-def _el_edge_geom(dev, ns, top):
-    """``ns`` shots on the elastic case's grid (top pad ``top``), each
-    with its source on one band's edge row and its receivers on the
-    neighbouring band's (padded rows 15/16, 23/24, 31/32)."""
-    src = np.array([15, 16, 23, 24, 31][:ns], np.int32) - top
-    rcv = np.array([16, 15, 24, 23, 32][:ns], np.int32) - top
+def _el_edge_geom(dev, ns, top, rows=8):
+    """``ns`` shots on an elastic grid (top pad ``top``) cut into bands
+    of ``rows`` rows, each with its source on one band's edge row and its
+    receivers on the neighbouring band's (padded rows 15/16, 23/24, 31/32
+    for bands of 8)."""
+    e = [k * rows - 1 for k in (2, 3, 4)]
+    src = np.array([e[0], e[0] + 1, e[1], e[1] + 1, e[2]][:ns],
+                   np.int32) - top
+    rcv = np.array([e[0] + 1, e[0], e[1] + 1, e[1], e[2] + 1][:ns],
+                   np.int32) - top
     src_x = np.linspace(3, 44, ns).astype(np.int32)
     return tuple(torch.as_tensor(a, device=dev) for a in (
         src, src_x, np.repeat(rcv[:, None], 8, axis=1),
         np.tile(np.arange(8, dtype=np.int32) * 6 + 2, (ns, 1))))
 
 
-@pytest.fixture(scope="module", params=[(True, 1), (True, 5), (False, 1),
-                                        (False, 5)],
-                ids=["free_surface-1_shot", "free_surface-5_shots",
-                     "absorbing_top-1_shot", "absorbing_top-5_shots"])
+# (free surface, shots, rows of the physical grid, bands, band rows,
+# layout): the elastic case's grid in 6 or 7 bands of 8 rows (layout 0),
+# and taller ones of 144 and 192 rows in kernel layout, in 16 bands of 9
+# and of 12 rows (layout 1, seam_elastic's and real_data's bands)
+EL_RES_CASES = [(True, 1, 36, 6, 8, 0), (True, 5, 36, 6, 8, 0),
+                (False, 1, 36, 7, 8, 0), (False, 5, 36, 7, 8, 0),
+                (True, 5, 134, 16, 9, 1), (False, 5, 176, 16, 12, 1)]
+EL_RES_IDS = ["free_surface-1_shot", "free_surface-5_shots",
+              "absorbing_top-1_shot", "absorbing_top-5_shots",
+              "free_surface-16x9", "absorbing_top-16x12"]
+
+
+@pytest.fixture(scope="module", params=EL_RES_CASES, ids=EL_RES_IDS)
 def el_res_case(dev, request):
-    free_surface, ns = request.param
+    from physicsbasedfwi2_tpu_torch.data.synthetic import (
+        make_elastic_model, make_marmousi_like)
+    free_surface, ns, nz, cluster, rows, layout = request.param
     grid, cfg, wargs, med, _ = elastic_case(free_surface=free_surface)
-    grid = dict(grid, nt=60)   # KC 8 and 16 both pad to 64 steps
-    cfg = torch_elastic(grid, cfg)
+    # KC 8 and 16 both pad to 64 steps
+    cfg = torch_elastic(dict(grid, nz=nz, nt=60), cfg)
+    if nz != grid["nz"]:
+        med = make_elastic_model(make_marmousi_like(nz, 48, seed=0,
+                                                    water_rows=4),
+                                 water_rows=4)
     top = 2 if free_surface else 8
     nz8, nx128 = ef._layout(cfg)[4:]
     plan = ef.elastic_resident_plan(nz8, nx128)
-    assert plan.cluster == (6 if free_surface else 7)
+    assert (plan.cluster, plan.band_rows, plan.layout) == (cluster, rows,
+                                                           layout)
     med = tuple(torch.as_tensor(a, device=dev) for a in med)
     return (cfg, ricker(wargs[0], 60, wargs[2], device=dev), med,
-            _el_edge_geom(dev, ns, top))
+            _el_edge_geom(dev, ns, top, rows))
 
 
 @pytest.mark.parametrize("KC", [8, 16])
@@ -735,6 +758,40 @@ def test_resident_b3_matches_per_step_and_plain(el_res_case, misfit, KC):
     np.testing.assert_allclose(float(lr), float(lp), rtol=1e-5)
     for a, b in zip(gr, gp):
         assert rel_l2(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("misfit", ["l2", "tnl1"])
+def test_b3_layout_1_band_of_8_matches_layout_0(el_res_case, misfit):
+    """Layout 1's instance for bands of 8 rows (the media through L1, the
+    gradients in shared memory), which no planner picks, against layout
+    0's on the same grid: the same bits."""
+    cfg, wav, med, geom = el_res_case
+    nz8, nx128 = ef._layout(cfg)[4:]
+    plan = ef.elastic_resident_plan(nz8, nx128)
+    if plan.layout != 0:
+        pytest.skip("layout 1 is this grid's own plan")
+    tall = dataclasses.replace(plan, layout=1, smem_bytes=ef.el_smem(
+        8, nx128, 1, reverse=True))
+    obs = ef.simulate_elastic_ring_plain(*med, wav, *geom, cfg)
+    if misfit == "tnl1":
+        obs = tuple(trace_normalize(o) for o in obs)
+    rows = [ef.scatter_rows_el(o, geom[3], cfg, KC=8) for o in obs]
+    meds = ef.prep_medium(med[0] * 0.9, med[1], med[2], cfg)
+    damp = ef.prep_damp(cfg, wav.device)
+    args = (meds, damp, wav, *geom, cfg, *rows, 8, misfit)
+    fn = ef.fused_elastic_loss_grad_meds
+    before = _routes(fn)
+    l0, g0 = ef._loss_grad_meds(functools.partial(
+        ef._loss_gmeds_cuda, route="resident"), *args)
+    l1, g1 = ef._loss_grad_meds(functools.partial(
+        ef._loss_gmeds_cuda, route="resident", plan=tall), *args)
+    torch.cuda.synchronize()
+    assert _routes(fn) == (before[0] + 2, before[1])
+    assert torch.equal(l0, l1) and float(l0) > 0
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    with pytest.raises(ValueError, match="route='resident'"):
+        ef._loss_grad_meds(functools.partial(
+            ef._loss_gmeds_cuda, route="per_step", plan=tall), *args)
 
 
 def test_b3_grid_beyond_the_plan_takes_the_per_step_route(dev):
@@ -862,10 +919,11 @@ def test_b5_b6_grid_beyond_the_plan_takes_the_per_step_route(dev):
 
 # (free surface, rows of the physical grid): 6 x 8 and 7 x 8 bands on the
 # elastic case's grid, 16 x 9 on a taller one (144 x 128 in kernel layout)
+# and 16 x 12 on one taller still (192 x 128, layout 1)
 FWD_CASES = [(True, 36, 6, 8), (False, 36, 7, 8), (True, 134, 16, 9),
-             (False, 128, 16, 9)]
+             (False, 128, 16, 9), (True, 182, 16, 12), (False, 176, 16, 12)]
 FWD_IDS = ["free_surface-6x8", "absorbing_top-7x8", "free_surface-16x9",
-           "absorbing_top-16x9"]
+           "absorbing_top-16x9", "free_surface-16x12", "absorbing_top-16x12"]
 
 
 def _fwd_case(dev, free_surface, nz, cluster, rows):
@@ -915,8 +973,9 @@ def test_resident_ring_forward_matches_per_step_and_plain(
         assert rel_max(a, b) <= 1e-5
 
 
-@pytest.mark.parametrize("nz,cluster,rows", [(36, 7, 8), (128, 16, 9)],
-                         ids=["7x8", "16x9"])
+@pytest.mark.parametrize("nz,cluster,rows", [(36, 7, 8), (128, 16, 9),
+                                             (176, 16, 12)],
+                         ids=["7x8", "16x9", "16x12"])
 def test_resident_b8_matches_per_step_ring_and_plain(dev, nz, cluster,
                                                      rows):
     cfg, wav, med, geom = _fwd_case(dev, False, nz, cluster, rows)
@@ -939,16 +998,17 @@ def test_resident_b8_matches_per_step_ring_and_plain(dev, nz, cluster,
 @pytest.mark.parametrize("misfit", ["l2", "tnl1"])
 def test_seam_rows_b3_per_step_and_ring_forward(dev, misfit):
     """seam_elastic's layout at a small width: a free surface and 144
-    rows in kernel layout (134 + 2 ring rows + PML 8), which no B3 plan
-    holds (the per-step route) and the forward plan cuts into 9-row
-    bands; sources on row 6 (in band 0), receivers on row 23 (band 2)."""
+    rows in kernel layout (134 + 2 ring rows + PML 8), which B3's plan
+    cuts into 9-row bands of layout 1 and the forward plan into 9-row
+    bands of layout 0; sources on row 6 (in band 0), receivers on row 23
+    (band 2).  B3 on both routes, the same bits."""
     from physicsbasedfwi2_tpu_torch.data.synthetic import (
         make_elastic_model, make_marmousi_like)
     grid, cfg, wargs, _, _ = elastic_case(free_surface=True)
     cfg = torch_elastic(dict(grid, nz=134, nt=60), cfg)
     nz8, nx128 = ef._layout(cfg)[4:]
     assert (nz8, nx128) == (144, 128)
-    assert ef.elastic_resident_plan(nz8, nx128) is None
+    assert ef.elastic_resident_plan(nz8, nx128).layout == 1
     assert ef.elastic_forward_plan(nz8, nx128).band_rows == 9
     med = tuple(torch.as_tensor(a, device=dev) for a in make_elastic_model(
         make_marmousi_like(134, 48, seed=0, water_rows=4), water_rows=4))
@@ -980,8 +1040,11 @@ def test_seam_rows_b3_per_step_and_ring_forward(dev, misfit):
     args = (ef.prep_medium(med[0] * 0.95, med[1], med[2], cfg), damp, wav,
             *geom, cfg, *rows)
     lk, gk = fn(*args, KC=8, misfit=misfit)
+    ls, gs = fn(*args, KC=8, misfit=misfit, route="per_step")
     torch.cuda.synchronize()
-    assert _routes(fn) == (before[0], before[1] + 2)
+    assert _routes(fn) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(lk, ls)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gs))
     # the ring forward's traces are B3's forward: zero misfit at the truth
     assert float(l_true) <= 1e-9
     lp, gp = ef.fused_elastic_loss_grad_meds_plain(*args, KC=8,

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from physicsbasedfwi2_tpu_torch.engine.config import get_workload
 from physicsbasedfwi2_tpu_torch.geo import Grid2D, ricker
 from physicsbasedfwi2_tpu_torch.ops import adjoint, kernels, scalar2, scalar2b
 from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
@@ -239,3 +240,79 @@ def test_b3_gradient_matches_central_difference(dev, route):
               grad, d)
     torch.cuda.synchronize()
     _check_launches([fn], before, (3,), route)
+
+
+# seam_elastic's and real_data's grids (144 x 384 in kernel layout with a
+# free surface, 192 x 384 with an absorbing top), whose B3 plans cut them
+# into 16 bands of 9 and of 12 rows (layout 1); nt cut to TALL_NT
+TALL = {"seam_elastic": ((144, 384), 9), "real_data": ((192, 384), 12)}
+TALL_NT = 400
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("workload", sorted(TALL))
+def test_b3_tall_grid_gradient_matches_central_difference(dev, workload,
+                                                          route):
+    """B3 at the workload's grid, dx, dt, wavelet and acquisition rows
+    (2 shots, 30 receivers), nt cut to 400, on both routes: the same
+    directional check as above, on a model of 2500 m/s with a +200 m/s
+    block 4-16 rows below the receivers (its reflection reaches them
+    within the cut record); then both routes' loss and gradient to the
+    bit."""
+    c = get_workload(workload)
+    grid = Grid2D(nz=c.nz, nx=c.nx, dx=c.dx, nt=TALL_NT, dt=c.dt,
+                  pml_width=c.pml_width, free_surface=c.free_surface)
+    cfg = ElasticConfig(grid=grid, chunk=c.chunk, vmax_pml=5000.0)
+    shape, rows = TALL[workload]
+    plan = ef.elastic_resident_plan(*ef._layout(cfg)[4:])
+    assert ef._layout(cfg)[4:] == shape
+    assert (plan.cluster, plan.band_rows, plan.layout) == (16, rows, 1)
+    wav = ricker(c.freq, TALL_NT, c.dt, device=dev)
+    nz, nx, rcv_row = c.nz, c.nx, c.extras["rcv_depth_row"]
+    geom = (torch.full((2,), c.extras["src_depth_row"], dtype=torch.int32,
+                       device=dev),
+            torch.tensor([nx // 3, 2 * nx // 3], dtype=torch.int32,
+                         device=dev),
+            torch.full((2, 30), rcv_row, dtype=torch.int32, device=dev),
+            torch.arange(5, nx - 5, (nx - 10) // 30, dtype=torch.int32,
+                         device=dev)[None, :30].expand(2, 30).contiguous())
+    vp = torch.full((nz, nx), 2500.0, device=dev)
+    vpt = vp.clone()
+    vpt[rcv_row + 4:rcv_row + 16, nx // 3:2 * nx // 3] += 200.0
+    vs = torch.full_like(vp, 1200.0)
+    rho = torch.full_like(vp, 2000.0)
+    d = np.random.default_rng(0).standard_normal((nz, nx))
+    for ax in (0, 1):
+        d = 0.25 * (np.roll(d, 1, ax) + np.roll(d, -1, ax)) + 0.5 * d
+    d = torch.as_tensor(d / np.abs(d).max(), dtype=torch.float32,
+                        device=dev)
+    ovx, ovz = ef.simulate_elastic_ring(vpt, vs, rho, wav, *geom, cfg)
+    orx, orz = (ef.scatter_rows_el(o, geom[3], cfg, KC=8)
+                for o in (ovx, ovz))
+    damp = ef.prep_damp(cfg, dev)
+    fn = ef.fused_elastic_loss_grad_meds
+
+    def loss_grad(v, want_grad, route=route):
+        v = v.detach().requires_grad_(want_grad)
+        with torch.enable_grad():
+            meds = ef.prep_medium(v, vs, rho, cfg)
+        loss, gmeds = fn(meds, damp, wav, *geom, cfg, orx, orz, KC=8,
+                         misfit="l2", route=route)
+        if not want_grad:
+            return loss, gmeds
+        outs, cots = zip(*[(m, gm) for m, gm in zip(meds, gmeds)
+                           if m.requires_grad])
+        return float(loss), torch.autograd.grad(outs, v, cots)[0]
+
+    torch.cuda.synchronize()
+    before = _counts([fn])
+    _, grad = loss_grad(vp, True)
+    _fd_check(f"B3 l2 at {workload}'s grid ({route})",
+              lambda v: float(loss_grad(v, False)[0]), vp, grad, d)
+    torch.cuda.synchronize()
+    _check_launches([fn], before, (3,), route)
+    other = "per_step" if route == "resident" else "resident"
+    la, ga = loss_grad(vp, False)
+    lb, gb = loss_grad(vp, False, other)
+    assert torch.equal(la, lb) and float(la) > 0
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))

@@ -1,9 +1,9 @@
 """The launch planners of kernel B3's resident route
 (``ops/elastic_fused.py::elastic_resident_plan``) and of the forward
 sweep alone, the ring forward's and B8's
-(``elastic_forward_plan``): what they map each grid to, which
-workloads' grids they hold, and that CPU tensors never reach a CUDA
-route."""
+(``elastic_forward_plan``): what they map each grid to, in which
+shared-memory layout, which workloads' grids they hold, and that CPU
+tensors never reach a CUDA route."""
 
 import numpy as np
 import pytest
@@ -15,8 +15,8 @@ from physicsbasedfwi2_tpu_torch.ops import elastic_fused as ef
 from physicsbasedfwi2_tpu_torch.ops import elastic_fwd
 from physicsbasedfwi2_tpu_torch.ops.elastic import ElasticConfig
 from physicsbasedfwi2_tpu_torch.ops.elastic_fused import (
-    EL_FWD_ROWS, EL_MAX_CLUSTER, EL_MAX_COLS, EL_ROWS, elastic_forward_plan,
-    elastic_resident_plan,
+    EL_B3_BANDS, EL_FWD_BANDS, EL_MAX_CLUSTER, EL_MAX_COLS, EL_ROWS, el_smem,
+    elastic_forward_plan, elastic_resident_plan,
 )
 from physicsbasedfwi2_tpu_torch.ops.scalar2 import (
     SMEM_LIMIT, ResidentPlan, pick_route, reset_launches,
@@ -66,8 +66,8 @@ def test_bands_cover_every_row_once(nz8, nx128):
 
 
 @pytest.mark.parametrize("nz8,nx128", [
-    (144, 384),    # seam_elastic: 18 CTAs, more than a cluster can have
-    (192, 384),    # real_data
+    (208, 384),    # 26 bands of 8, no whole number of 9 or 12
+    (160, 384),    # 20 bands of 8; no instance has bands of 10
     (136, 128),    # 17 CTAs
     (64, 512),     # wider than 384 threads
     (64, 2048),
@@ -84,9 +84,11 @@ def test_grids_beyond_the_plan_take_the_per_step_route(nz8, nx128):
 @pytest.mark.parametrize("name,held", [
     ("marmousi_elastic", True), ("marmousi_elastic_real", True),
     ("marmousi_elastic_parity", True), ("marmousi_elastic_rho", True),
-    ("seam_elastic", False), ("real_data", False)])
+    ("seam_elastic", True), ("seam_elastic_robust", True),
+    ("real_data", True)])
 def test_workload_grids(name, held):
-    # the marmousi_elastic family trains on 128 x 384 in kernel layout
+    # the marmousi_elastic family trains on 128 x 384 in kernel layout,
+    # SEAM on 144 x 384, real_data on 192 x 384
     c = get_workload(name)
     cfg = ElasticConfig(grid=Grid2D(nz=c.nz, nx=c.nx, dx=c.dx, nt=c.nt,
                                     dt=c.dt, pml_width=c.pml_width,
@@ -94,8 +96,44 @@ def test_workload_grids(name, held):
                         chunk=c.chunk)
     nz8, nx128 = ef._layout(cfg)[4:]
     assert (elastic_resident_plan(nz8, nx128) is not None) == held
-    if name.startswith("marmousi"):
-        assert (nz8, nx128) == (128, 384)
+    want = {"seam": (144, 384), "real": (192, 384)}.get(name[:4],
+                                                         (128, 384))
+    assert (nz8, nx128) == want
+    assert _planned(nz8, nx128)[0] == "resident"
+
+
+@pytest.mark.parametrize("nz8,nx128,rows,smem", [
+    (144, 384, 9, 171_040),    # seam_elastic
+    (192, 384, 12, 217_600),   # real_data
+    (144, 128, 9, 58_400),     # the CUDA tests' cases
+    (192, 128, 12, 74_240),
+])
+def test_tall_plans_fit_shared_memory(nz8, nx128, rows, smem):
+    plan = elastic_resident_plan(nz8, nx128)
+    assert plan == ResidentPlan(cluster=16, band_rows=rows, threads=nx128,
+                                smem_bytes=smem, rows_per_thread=rows,
+                                layout=1)
+    assert plan.args() == (16, rows, rows, nx128, smem)
+    # 5 field buffers with 2 halo rows and 4 zero columns each side, and
+    # the 5 gradient accumulators of the band's cells; the media are read
+    # through L1
+    assert smem == 4 * (5 * (rows + 4) * (nx128 + 8) + 5 * rows * nx128)
+    assert smem == el_smem(rows, nx128, 1, reverse=True) <= SMEM_LIMIT
+    # the forward sweep of the same plan takes the field buffers alone
+    assert el_smem(rows, nx128, 1, reverse=False) == 4 * 5 * (rows + 4) * (
+        nx128 + 8)
+    bands = plan.bands(nz8)
+    assert bands == [(rows * r, rows * r + rows) for r in range(16)]
+    assert _planned(nz8, nx128) == ("resident", plan)
+
+
+def test_layout_0_cannot_hold_the_tall_bands():
+    # with the band's 6 media in shared memory the reverse sweep of 12
+    # rows would not fit, nor would layout 1's gradients beside them
+    assert el_smem(12, 384, 0, reverse=True) == 236_032 > SMEM_LIMIT
+    assert (el_smem(9, 384, 1, reverse=True) + 4 * 6 * 9 * 384
+            > SMEM_LIMIT)
+    assert EL_B3_BANDS == ((EL_ROWS, 0), (9, 1), (12, 1))
 
 
 def test_pick_route_checks_the_route_name():
@@ -147,30 +185,37 @@ def _fwd_planned(nz8, nx128, what="simulate_elastic_ring"):
 @pytest.mark.parametrize("nz8,nx128,rows,smem", [
     (128, 384, 8, 167_808),   # marmousi_elastic's ring forward: B3's plan
     (144, 384, 9, 184_864),   # B8 at marmousi_elastic's shape, seam_elastic
+    (192, 384, 12, 125_440),  # real_data (layout 1)
 ])
 def test_forward_plan_fits_shared_memory(nz8, nx128, rows, smem):
     plan = elastic_forward_plan(nz8, nx128)
+    layout = 1 if rows == 12 else 0
     assert plan == ResidentPlan(cluster=16, band_rows=rows, threads=384,
-                                smem_bytes=smem, rows_per_thread=rows)
+                                smem_bytes=smem, rows_per_thread=rows,
+                                layout=layout)
     assert plan.args() == (16, rows, rows, 384, smem)
     # 5 field buffers with 2 halo rows and 4 zero columns each side, and
-    # the band's 6 media
-    assert smem == 4 * (5 * (rows + 4) * 392 + 6 * rows * 384) <= SMEM_LIMIT
+    # in layout 0 the band's 6 media
+    media = 6 * rows * 384 if layout == 0 else 0
+    assert smem == 4 * (5 * (rows + 4) * 392 + media) <= SMEM_LIMIT
+    assert smem == el_smem(rows, 384, layout, reverse=False)
     assert _fwd_planned(nz8, nx128) == ("resident", plan)
 
 
 def test_forward_plan_takes_b3s_plan_where_it_holds():
-    assert EL_FWD_ROWS == (EL_ROWS, 9)
+    assert EL_FWD_BANDS == ((EL_ROWS, 0), (9, 0), (12, 1))
     for nz8, nx128 in GRIDS:
         assert elastic_forward_plan(nz8, nx128) == elastic_resident_plan(
             nz8, nx128)
-    # B3's own plan is unchanged where only 9-row bands hold the grid
-    assert elastic_resident_plan(144, 384) is None
+    # where 9-row bands hold the grid, the forward sweep alone keeps its
+    # layout-0 instance and B3 takes layout 1
+    assert elastic_resident_plan(144, 384).layout == 1
     assert elastic_forward_plan(144, 384).band_rows == 9
+    assert elastic_forward_plan(144, 384).layout == 0
 
 
 @pytest.mark.parametrize("nz8,nx128", GRIDS + [(144, 384), (144, 128),
-                                               (72, 256)])
+                                               (72, 256), (192, 384)])
 def test_forward_bands_cover_every_row_once(nz8, nx128):
     plan = elastic_forward_plan(nz8, nx128)
     bands = plan.bands(nz8)
@@ -179,16 +224,16 @@ def test_forward_bands_cover_every_row_once(nz8, nx128):
     assert len(bands) == plan.cluster <= EL_MAX_CLUSTER
     assert all(b - a == plan.band_rows for a, b in bands)
     # the smallest height that holds the grid, one thread a column
-    assert plan.band_rows == min(R for R in EL_FWD_ROWS
-                                 if nz8 % R == 0
-                                 and nz8 // R <= EL_MAX_CLUSTER)
+    assert (plan.band_rows, plan.layout) == min(
+        (R, layout) for R, layout in EL_FWD_BANDS
+        if nz8 % R == 0 and nz8 // R <= EL_MAX_CLUSTER)
     assert plan.threads == nx128 <= EL_MAX_COLS
     assert plan.rows_per_thread == plan.band_rows
     assert plan.smem_bytes <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("nz8,nx128", [
-    (192, 384),    # real_data: 24 bands of 8, no whole number of 9
+    (208, 384),    # 26 bands of 8, no whole number of 9 or 12
     (136, 128),    # 17 bands of 8
     (64, 512),     # wider than 384 threads
     (44, 128),     # neither 8- nor 9-row bands
@@ -207,6 +252,7 @@ def test_forward_grids_beyond_the_plan_take_the_other_routes(nz8, nx128):
     ("marmousi_elastic", None, (128, 384)),   # the engine's ring forward
     ("marmousi_elastic", False, (144, 384)),  # B8's case at that shape
     ("seam_elastic", None, (144, 384)),
+    ("real_data", None, (192, 384)),          # its ring forward (prep)
 ])
 def test_forward_plan_holds_the_workload_grids(name, free_surface, shape):
     c = get_workload(name)

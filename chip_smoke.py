@@ -276,10 +276,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``benchmarks/bench_kernel_breakdown.py``'s case (151 x 200, PML 20,
     nt 4001 run for 126 x 32 steps, 18 shots on row 1, KC 32): the four
     cumulative variants once on the path (4 resident launches, every
-    other count 0), each against its plain version, its time beside the
-    plain version's, the bound and the previous variant's, the eight B9
-    instances' registers and spills, and resident B2 on the same inputs
-    as the ``full`` row.
+    other count 0), each against its plain version, its time (the ported
+    harness's ``measure_once``: ``time_fn``'s chained calls, which also
+    time resident B2 on the same inputs as the ``full`` row) beside the
+    plain version's, the bound and the previous variant's, and the eight
+    B9 instances' registers and spills.
 
 25. the experiment tools (``physicsbasedfwi2_tpu_torch/experiments/``,
     the JAX package's ``benchmarks/`` tools that time nothing), under a
@@ -303,6 +304,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
     timed, the budget the shots times the line search's probes, the
     accepted step's decrease, the peak memory).  ``run_latent_flagship``
     runs in phase 19.
+26. the timing harnesses (``physicsbasedfwi2_tpu_torch/experiments/``:
+    ``bench``, ``bench_configs``, ``bench_elastic``,
+    ``bench_kernel_breakdown``), each through its ``main`` at cut counts:
+    ``bench`` with 1 timed iteration a line on the kernels (``pallas``,
+    ``fused``) and its two end-to-end lines at 1 iteration;
+    ``bench_configs --only marmousi_acoustic`` and ``--only mcdip_uq`` at
+    1 iteration; ``bench_elastic`` at nt ``HARNESS_EL_NT``; the breakdown
+    harness at phase 24's case.  Every JSON line is parsed: no error
+    row, the card's ``nvidia-smi`` line as ``device``, every number
+    finite, every kernel path resident (``fused-resident``, or the
+    engine's ``fused-cuda`` with only resident launches), and each
+    harness's kernels launched (none for ``bench_elastic``'s split-PML
+    scheme).  Then the host syncs one ``pallas`` and one ``fused`` value
+    and gradient make (``torch.cuda.set_sync_debug_mode``), reported.
 
 Each path reads its kernels' launch counts, set to 0 just before it; a
 kernel's launches in the kernels line are the sum over the paths.  The
@@ -326,7 +341,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -560,11 +574,11 @@ def ptxas_summary(log: str, keys) -> list[str]:
 
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (the
+    harnesses' ``device``)."""
+    import torch
+    from physicsbasedfwi2_tpu_torch.experiments.timing import card
+    return card(torch.device("cuda", 0))
 
 
 def phase_card():
@@ -1279,11 +1293,13 @@ ACC_SHOTS = 4  # shots of the float64 comparisons of phases 7 and 8
 # phases 4, 8 and 17 (of 3334, 4001 and 2568 steps; multiples of the
 # kernels' checkpoint intervals): the plain sweeps are host-bound, ~5-8
 # ms a time step whatever the shots, and these comparisons took ~250 s
-# of the script at the full depth.  The kernels' timings, the real
-# misfit's comparisons and the trained paths keep the full depth.
-ACC_NT_EL = 1112
-ACC_NT_AC = 1344
-ACC_NT_SEAM = 856
+# of the script at the full depth, ~83 s at a third; a quarter keeps the
+# whole script under 1150 s on the slower machines.  The kernels'
+# timings, the real misfit's comparisons and the trained paths keep the
+# full depth.
+ACC_NT_EL = 832
+ACC_NT_AC = 1024
+ACC_NT_SEAM = 640
 PHYSICS_EPOCH_S = {}  # physics epoch seconds by workload, this run
 
 
@@ -3111,22 +3127,8 @@ def phase_config2(dev):
 def _all_kernels() -> dict:
     """Every kernel wrapper with a launch counter, by the kernels line's
     names."""
-    from physicsbasedfwi2_tpu_torch.ops import (
-        adjoint, elastic_fused, elastic_fwd, fwi_fused, kernel_breakdown,
-        kernels, scalar2, scalar2b)
-    return {"forward2": scalar2.forward2,
-            "fwi_l1_loss_grad": fwi_fused.fwi_l1_loss_grad,
-            "fused_elastic_loss_grad":
-                elastic_fused.fused_elastic_loss_grad_meds,
-            "simulate_elastic_ring": elastic_fused.simulate_elastic_ring,
-            "forward2_ckpt": scalar2.forward2_ckpt,
-            "backward2": scalar2.backward2,
-            "acoustic_forward_pallas": kernels.acoustic_forward_pallas,
-            "acoustic_pallas_backward": adjoint.acoustic_pallas_backward,
-            "forward2b": scalar2b.forward2b,
-            "backward2b": scalar2b.backward2b,
-            "elastic_forward_pallas": elastic_fwd.elastic_forward_pallas,
-            "build_variant": kernel_breakdown.build_variant}
+    from physicsbasedfwi2_tpu_torch.ops import kernel_wrappers
+    return kernel_wrappers()
 
 
 def _train19(dev, what, cfg, epochs, build):
@@ -4247,7 +4249,7 @@ def phase_supervised(dev):
 # are pinned, moves no recorded sample; the elastic line lies below the
 # water), and the closure scan's steps in the graph-replay comparison
 HESS_NT_AC = 450
-HESS_NT2_AC = 900  # the second cut, for the memory a time step adds
+HESS_NT2_AC = 675  # the second cut, for the memory a time step adds
 HESS_NT_EL = 100
 HVP_CD_EPS = 1e-7  # the central difference's step along a unit v, float64
 HVP_CD_EPS_M = 1e-3  # the same in model space (m/s along a unit v)
@@ -4991,27 +4993,8 @@ def phase_mesh(dev):
 # phase 24: kernel B9 at benchmarks/bench_kernel_breakdown.py's
 # measure_once case
 B9_KC = 32
+B9_REPS = 8  # the harness's --reps
 B9_TOL = 1e-4  # of max, as B1's: FMA contraction and sum order differ
-
-
-def b9_case(dev):
-    """measure_once's case: 151 x 200 (dx 10, PML 20), dt 0.001, nt 4001,
-    vp = 1500 + 2000 U(0, 1) from numpy seed 0, an 8 Hz Ricker, 18 shots
-    on row 1 at linspace(5, 194, 18), 200 receivers on row 1."""
-    import numpy as np
-    import torch
-    from physicsbasedfwi2_tpu_torch.geo import Grid2D, ricker
-    from physicsbasedfwi2_tpu_torch.ops import AcousticConfig
-    grid = Grid2D(nz=151, nx=200, dx=10.0, nt=NT, dt=0.001, pml_width=20)
-    cfg = AcousticConfig(grid=grid, chunk=64, vmax_pml=5000.0)
-    rng = np.random.default_rng(0)
-    vp = torch.as_tensor((1500.0 + 2000.0 * rng.random((151, 200))).astype(
-        np.float32), device=dev)
-    ns, nr = 18, 200
-    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
-    geom = (i32(np.ones(ns)), i32(np.linspace(5, 194, ns)),
-            i32(np.ones((ns, nr))), i32(np.tile(np.arange(nr), (ns, 1))))
-    return cfg, ricker(8.0, NT, 0.001, device=dev), vp, geom
 
 
 def phase_b9(dev):
@@ -5020,23 +5003,26 @@ def phase_b9(dev):
     once through ``build_variant`` with every count 0 before (the path:
     4 resident launches, no other kernel); then each against its plain
     version (chk, final fields, history, checkpoints; ``B9_TOL`` of max),
-    its kernel time (a warm-up call, the mean of 3 by CUDA events) beside
-    the plain version's (one call) and the bound, the delta to the
-    previous variant, the B9 instances' registers and spills (phase 1's
-    ptxas report), and resident B2 (``fwi_l1_loss_grad``) on the same vp
-    and wavelet as the ``full`` row.  Returns (launches, the kernels
-    line's fields)."""
+    its kernel time (the ported harness's ``measure_once``: a first call,
+    then ``B9_REPS`` chained ones; it times B2 (``fwi_l1_loss_grad``) on
+    the same vp and wavelet as the ``full`` row, and raises where a
+    result, B2's loss or any element of its gradient, is not finite;
+    every call there resident) beside the plain version's (one call) and the
+    bound, the delta to the previous variant, and the B9 instances'
+    registers and spills (phase 1's ptxas report).  Returns (launches,
+    the kernels line's fields)."""
+    import argparse
     import torch
-    from physicsbasedfwi2_tpu_torch.ops import simulate_acoustic
-    from physicsbasedfwi2_tpu_torch.ops import trace_normalize
-    from physicsbasedfwi2_tpu_torch.ops.fwi_fused import (
-        fwi_l1_loss_grad, scatter_rows)
+    from physicsbasedfwi2_tpu_torch.experiments.bench_kernel_breakdown \
+        import case, measure_once
+    from physicsbasedfwi2_tpu_torch.experiments.timing import (
+        launch_counts, launches_since)
     from physicsbasedfwi2_tpu_torch.ops.kernel_breakdown import (
         VARIANTS, build_variant, build_variant_plain)
     from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
     card = card_line()
     t_phase = time.perf_counter()
-    cfg, wav, vp, geom = b9_case(dev)
+    cfg, wav, vp, geom = case(NT, dev)
     g = cfg.grid
     ns = len(geom[0])
 
@@ -5059,12 +5045,26 @@ def phase_b9(dev):
     steps = n_ck * B9_KC
     cells = ns * (g.nz + g.top_pad + g.pml_width) * (g.nx + 2 * g.pml_width)
     flops = FLOPS_B1 * cells * steps
+    # the kernel times: the ported harness's pass (time_fn's chained
+    # calls, B2 as the full row), its rows printed as it prints them;
+    # every call on the resident route
+    before = launch_counts()
+    secs = measure_once(argparse.Namespace(kc=B9_KC, reps=B9_REPS,
+                                           device=dev, card=card), g.nt)
+    torch.cuda.synchronize()
+    timed = launches_since(before)
+    print(f"phase 24 measure_once: launches (all, resident, per-step) "
+          f"{timed}")
+    check(set(timed) == {"build_variant", "fwi_l1_loss_grad"}
+          and all(c[0] == c[1] > 0 for c in timed.values()),
+          f"phase 24: measure_once's B9 and B2 calls not all resident, or "
+          f"another kernel ran: {timed}")
     rows, prev = {}, None
     for name, kw in VARIANTS:
         got = path[name]
         ref, ms_p = _plain_ms(lambda: run(kw, build_variant_plain))
         ref64 = run(dict(kw, dtype=torch.float64), build_variant_plain)
-        _, ms_k = timed_ms(lambda: run(kw))
+        ms_k = secs[name] * 1e3
         # the histories (rows, checkpoints) against the plain version at
         # B9_TOL of their max, as B1's rows; the final fields and chk
         # against the float64 run: they decay from the early wavefield
@@ -5122,18 +5122,7 @@ def phase_b9(dev):
         print(f"  ptxas, B9: {line}")
     check(not log or len(lines) == 8, "phase 24: not every B9 instance in "
           "the ptxas report")
-    # the full row: resident B2 on the same vp and wavelet (JAX's obs: the
-    # trace-normalized gathers of vp itself, no direct wave)
-    with torch.no_grad():
-        obs = trace_normalize(simulate_acoustic(vp, wav, *geom, cfg))
-    obs_rows = scatter_rows(obs, geom[3], nt=g.nt, nx=g.nx,
-                            pml_width=g.pml_width, KC=B9_KC)
-    dir_rows = torch.zeros_like(obs_rows)
-    (loss, gk), ms_full = timed_ms(lambda: fwi_l1_loss_grad(
-        vp, wav, *geom, cfg, obs_rows, dir_rows, KC=B9_KC,
-        route="resident"))
-    check(math.isfinite(float(loss)) and bool(torch.isfinite(gk).all()),
-          "phase 24: B2's full row not finite")
+    ms_full = secs["full_fused"] * 1e3
     sweep = rows["stencil"]["ms"]
     print(f"B9 full (resident B2, {ns} shots, KC {B9_KC}; {card}): "
           f"{ms_full:.3f} ms; three stencil sweeps' projection "
@@ -5393,6 +5382,134 @@ def phase_experiments(dev):
     return launches
 
 
+# phase 26: the timing harnesses on the card at cut counts
+HARNESS_EL_NT = 67  # bench_elastic's nt (its 3334 cut)
+
+
+def _numbers(value):
+    """Every number in a (nested) JSON value."""
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _numbers(v)
+    elif isinstance(value, list):
+        for v in value:
+            yield from _numbers(v)
+
+
+def host_syncs(fn) -> list[str]:
+    """The host syncs one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (the first
+    line of each warning; the mode's own notice that it is a prototype,
+    which does not see every sync, left out)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [m for m in (str(w.message).splitlines()[0] for w in caught)
+            if not m.startswith("Synchronization debug mode is a prototype")]
+
+
+def phase_harnesses(dev):
+    """The timing harnesses through their ``main`` (see the module
+    docstring, phase 26).  Returns the launches by kernel."""
+    import collections
+    import contextlib
+    import io
+    import torch
+    from physicsbasedfwi2_tpu_torch.experiments import (
+        bench, bench_configs, bench_elastic, bench_kernel_breakdown)
+    from physicsbasedfwi2_tpu_torch.experiments.timing import (
+        launch_counts, launches_since)
+    from physicsbasedfwi2_tpu_torch.ops.scalar2 import reset_launches
+    counters = _all_kernels()
+    launches = collections.Counter()
+    card = card_line()
+    print(f"phase 26 on {card}")
+    t_phase = time.perf_counter()
+
+    def harness(what, main, argv, want):
+        """Run ``main(argv)`` with every count 0 just before it; check its
+        lines and that the kernels in ``want`` (and no other) launched,
+        all resident.  Returns its JSON lines."""
+        reset_launches(*counters.values())
+        before = launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(out.getvalue(), end="")
+        lines = [json.loads(s) for s in out.getvalue().splitlines()
+                 if s.startswith("{")]
+        ran = launches_since(before)
+        launches.update({k: c[0] for k, c in ran.items()})
+        print(f"phase 26 {what} {' '.join(argv)}: {secs:.1f} s, exit {rc}; "
+              f"launches (all, resident, per-step) {ran}")
+        check(rc == 0 and lines, f"{what}: exit {rc}, {len(lines)} lines")
+        for ln in lines:
+            check("error" not in ln, f"{what}: an error row: {ln}")
+            check(ln.get("device") == card,
+                  f"{what}: device {ln.get('device')!r}, not {card!r}")
+            check(all(math.isfinite(v) for v in _numbers(ln)),
+                  f"{what}: a number not finite: {ln}")
+        check(set(ran) == set(want)
+              and all(c[0] == c[1] for c in ran.values()),
+              f"{what}: launches {ran}, want {sorted(want)} all resident")
+        return lines
+
+    lines = harness("bench", bench.main,
+                    ["--iters", "1", "--engine-iters", "1"],
+                    {"forward2", "fwi_l1_loss_grad", "simulate_elastic_ring",
+                     "fused_elastic_loss_grad"})
+    check([ln["path"] for ln in lines] == ["fused-resident"] * 4
+          and all(ln["launches"] for ln in lines),
+          f"bench: paths {[ln['path'] for ln in lines]}")
+    for workload, want in (("marmousi_acoustic",
+                            {"forward2", "fwi_l1_loss_grad"}),
+                           ("mcdip_uq", {"simulate_elastic_ring",
+                                         "fused_elastic_loss_grad"})):
+        lines = harness("bench_configs", bench_configs.main,
+                        ["--only", workload, "--iters", "1"], want)
+        check(lines[0]["path"] == "fused-cuda",
+              f"bench_configs {workload}: path {lines[0]['path']}")
+    lines = harness("bench_elastic", bench_elastic.main,
+                    ["--nt", str(HARNESS_EL_NT)], set())
+    check(lines[0]["path"] == "pml", "bench_elastic: path")
+    lines = harness("bench_kernel_breakdown", bench_kernel_breakdown.main,
+                    [], {"build_variant", "fwi_l1_loss_grad"})
+    check([ln.get("variant") for ln in lines[1:]] == [
+        "stencil", "+src", "+rcv", "+ckpt", "full_fused"],
+        "bench_kernel_breakdown: rows")
+
+    # the host syncs inside one value and gradient of each kernel path
+    # (a sync in the chain makes the host wait between iterations)
+    ac = bench.build(device=dev)
+    el = bench.build_elastic(device=dev)
+    for what, vg, params in (
+            ("pallas (B2)", bench.acoustic_value_and_grad("pallas", ac),
+             (ac[4],)),
+            ("fused (B3)", bench.elastic_value_and_grad("fused", el),
+             (el[3], el[4]))):
+        vg(*params)
+        syncs = host_syncs(lambda: vg(*params))
+        print(f"phase 26 host syncs in one {what} value and gradient "
+              f"(as the sync debug mode sees them): {len(syncs)}"
+              + "".join(f"\n  {m}" for m in syncs[:8]))
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+          f"{dict(launches)}")
+    return launches
+
+
 def main(argv: list[str]) -> int:
     import torch
     only = set()
@@ -5428,7 +5545,7 @@ def main(argv: list[str]) -> int:
                   19: [phase_other_engines], 20: [phase_dataroot],
                   21: [phase_supervised], 22: [phase_landscape],
                   23: [phase_mesh], 24: [phase_b9],
-                  25: [phase_experiments]}
+                  25: [phase_experiments], 26: [phase_harnesses]}
         for k in sorted(only):
             for phase in phases[k]:
                 phase(dev)
@@ -5502,6 +5619,8 @@ def main(argv: list[str]) -> int:
     lap("24")
     launches.update(phase_experiments(dev))
     lap("25")
+    launches.update(phase_harnesses(dev))
+    lap("26")
     # phase 20's launches of each kernel it ran, by route
     for name, fields in (("forward2", b1), ("fwi_l1_loss_grad", b2),
                          ("fused_elastic_loss_grad", b3),

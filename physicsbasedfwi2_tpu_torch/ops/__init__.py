@@ -59,12 +59,34 @@ def select_acoustic(backend: str = "auto"):
     return acoustic_pallas if torch.cuda.is_available() else simulate_acoustic
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper with a launch counter (``launches``,
+    ``resident_launches``, ``per_step_launches``), by kernel name."""
+    from physicsbasedfwi2_tpu_torch.ops import (
+        adjoint, elastic_fused, elastic_fwd, fwi_fused, kernel_breakdown,
+        kernels, scalar2, scalar2b)
+    return {"forward2": scalar2.forward2,
+            "fwi_l1_loss_grad": fwi_fused.fwi_l1_loss_grad,
+            "fused_elastic_loss_grad":
+                elastic_fused.fused_elastic_loss_grad_meds,
+            "simulate_elastic_ring": elastic_fused.simulate_elastic_ring,
+            "forward2_ckpt": scalar2.forward2_ckpt,
+            "backward2": scalar2.backward2,
+            "acoustic_forward_pallas": kernels.acoustic_forward_pallas,
+            "acoustic_pallas_backward": adjoint.acoustic_pallas_backward,
+            "forward2b": scalar2b.forward2b,
+            "backward2b": scalar2b.backward2b,
+            "elastic_forward_pallas": elastic_fwd.elastic_forward_pallas,
+            "build_variant": kernel_breakdown.build_variant}
+
+
 __all__ = [
     "AcousticConfig",
     "simulate_acoustic",
     "acoustic_gradient",
     "acoustic_pallas",
     "select_acoustic",
+    "kernel_wrappers",
     "build_variant",
     "build_variant_plain",
     "simulate_elastic",
